@@ -1,15 +1,17 @@
 """Device resolution for the PyTorch/CUDA port.
 
-Every entry point of the port takes a ``device`` argument whose default
-is ``"cuda"``.  It runs on the card unless the caller asks for the CPU;
-when no card is present and the caller did not ask for ``"cpu"``, it
-raises — it never carries on silently on the host.
+Every entry point of the port takes a ``device`` (or, in the Gluon API,
+``ctx``) argument whose default is the card.  It runs on the card unless
+the caller asks for the CPU; when no card is present and the caller did
+not ask for ``"cpu"``, it raises — it never carries on silently on the
+host.  ``cpu()``/``gpu(i)``/``current_context()`` are the JAX package's
+context names; a context here is a ``torch.device``.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "cpu", "gpu", "current_context"]
 
 
 def resolve_device(device="cuda"):
@@ -37,3 +39,18 @@ def resolve_device(device="cuda"):
     torch.backends.cudnn.allow_tf32 = False
     return dev
 
+
+
+def cpu(device_id=0):
+    """The host (``device_id`` is accepted for API parity)."""
+    return torch.device("cpu")
+
+
+def gpu(device_id=0):
+    """CUDA card ``device_id``; raises when there is none."""
+    return resolve_device(f"cuda:{int(device_id)}")
+
+
+def current_context():
+    """The default context: the current CUDA card (raises without one)."""
+    return resolve_device("cuda")

@@ -33,6 +33,14 @@ KERNELS = {
         "paged_decode_attention_f32":
             (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
     },
+    "fused_conv": {
+        # dtype, 6 pointers, 11 geometry ints + relu, stream
+        "fused_conv_fwd": (_I,) + (_P,) * 6 + (_I,) * 12 + (_P,),
+        # dtype, 12 pointers, 11 geometry ints + relu, stream
+        "fused_conv_dx": (_I,) + (_P,) * 12 + (_I,) * 12 + (_P,),
+        # dtype, 7 pointers, 11 geometry ints + relu, splits, chunk, stream
+        "fused_conv_dw": (_I,) + (_P,) * 7 + (_I,) * 14 + (_P,),
+    },
 }
 
 _lock = threading.Lock()

@@ -25,12 +25,11 @@ leave the in-flight batch at every decode step.
 
 Sampling is greedy (``temperature == 0``) or temperature/top-k.  The
 noise for a token is a pure function of (sequence seed, absolute
-position, vocabulary index) — never of slot or step — drawn from a
-counter-based hash on the device in Gumbel-max form (``_sample_tokens``).
-That keeps the JAX package's contract (its key is
-``fold_in(PRNGKey(seed), position)``), so preemption and resume repeat
-the same tokens; the port does not reproduce threefry's bits, so its
-seeded samples differ from the JAX package's (greedy tokens agree).
+position, vocabulary index) — never of slot or step — in Gumbel-max
+form (``_sample_tokens``): a plain-PyTorch port of the JAX server's
+draw, ``categorical(fold_in(PRNGKey(seed), position), logits)`` with
+threefry-2x32 bits computed in int64 tensors, so seeded samples are the
+JAX server's tokens and preemption and resume repeat them.
 
 Left for later slices (constructor arguments absent here): tensor
 parallelism, disaggregated prefill, speculative decoding, prefix sharing
@@ -194,36 +193,70 @@ _M32 = 0xFFFFFFFF
 _NEG = -1e30
 
 
-def _mul32(x, c):
-    """``(x * c) mod 2**32`` for int64 tensors holding uint32 values,
-    without int64 overflow: the constant is split in 16-bit halves."""
-    lo = x * (c & 0xFFFF)
-    hi = ((x * (c >> 16)) & 0xFFFF) << 16
-    return (lo + hi) & _M32
+_THREEFRY_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_THREEFRY_PARITY = 0x1BD11BDA
+_F32_TINY = float(np.finfo(np.float32).tiny)
 
 
-def _fmix32(x):
-    """MurmurHash3's 32-bit finalizer (a bijection with full avalanche)
-    on int64 tensors holding uint32 values."""
-    x = x ^ (x >> 16)
-    x = _mul32(x, 0x85EBCA6B)
-    x = x ^ (x >> 13)
-    x = _mul32(x, 0xC2B2AE35)
-    return x ^ (x >> 16)
+def _threefry2x32(k0, k1, x0, x1):
+    """The Threefry-2x32 block cipher (20 rounds, Salmon et al. 2011) as
+    JAX computes it (``jax._src.prng._threefry2x32_lowering``): key
+    ``(k0, k1)``, counter ``(x0, x1)`` -> two words.  Operands are int64
+    tensors (or ints) holding uint32 values; every sum is masked back to
+    32 bits, so the arithmetic is exact on any device."""
+    ks = (k0, k1, k0 ^ k1 ^ _THREEFRY_PARITY)
+    x0 = (x0 + ks[0]) & _M32
+    x1 = (x1 + ks[1]) & _M32
+    for i in range(5):
+        for r in _THREEFRY_ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _M32
+            x1 = ((x1 << r) | (x1 >> (32 - r))) & _M32
+            x1 = x0 ^ x1
+        x0 = (x0 + ks[(i + 1) % 3]) & _M32
+        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & _M32
+    return x0, x1
+
+
+def _position_keys(seeds, positions):
+    """Row ``i``'s key ``fold_in(PRNGKey(seeds[i]), positions[i])`` as
+    the JAX server derives it, as two int64 tensors of uint32 words.
+    ``PRNGKey`` of a 32-bit seed is the word pair ``(0, seed)``;
+    ``fold_in(key, p)`` hashes the counter ``(0, p)`` under ``key``."""
+    seeds = seeds.to(torch.int64) & _M32
+    positions = positions.to(torch.int64) & _M32
+    return _threefry2x32(torch.zeros_like(seeds), seeds,
+                         torch.zeros_like(positions), positions)
+
+
+def _random_bits(keys, vocab):
+    """``jax.random.bits(key, (vocab,))`` per row, uint32 values in int64
+    ``[rows, vocab]``: with ``jax_threefry_partitionable`` (JAX's default)
+    element ``j`` hashes the counter ``(0, j)`` and xors the two words."""
+    k0, k1 = keys
+    idx = torch.arange(vocab, dtype=torch.int64, device=k0.device)
+    y0, y1 = _threefry2x32(k0[:, None], k1[:, None],
+                           torch.zeros_like(idx)[None, :], idx[None, :])
+    return y0 ^ y1
+
+
+def _uniform(bits):
+    """``jax.random.uniform(minval=tiny, maxval=1)`` in float32 from
+    uint32 bits: the top 23 bits become the mantissa of a float in
+    ``[1, 2)``, minus one, scaled by ``1 - tiny`` (exactly 1.0 in
+    float32, so left out), plus ``tiny``, and floored at ``tiny``."""
+    mant = ((bits >> 9) | 0x3F800000).to(torch.int32)
+    floats = mant.view(torch.float32) - 1.0
+    return torch.clamp_min(floats + _F32_TINY, _F32_TINY)
 
 
 def _gumbel_noise(seeds, positions, vocab):
-    """Gumbel(0, 1) noise ``[rows, vocab]``: entry ``(i, j)`` is a pure
-    function of ``(seeds[i], positions[i], j)`` through a counter-based
-    hash, computed on the tensors' device (integer arithmetic, so the
-    same on every device)."""
-    seeds = seeds.to(torch.int64) & _M32
-    positions = positions.to(torch.int64) & _M32
-    row = _fmix32(_fmix32(seeds) ^ positions)                     # [S]
-    idx = torch.arange(vocab, dtype=torch.int64, device=seeds.device)
-    h = _fmix32((row[:, None] + idx[None, :] * 0x9E3779B9) & _M32)
-    # 24 high bits -> uniform in (0, 1), never 0 or 1
-    u = ((h >> 8).to(torch.float32) + 0.5) * (1.0 / (1 << 24))
+    """Gumbel(0, 1) noise ``[rows, vocab]`` equal to what the JAX
+    server's ``jax.random.categorical`` adds to the logits of row ``i``:
+    ``gumbel(fold_in(PRNGKey(seeds[i]), positions[i]), (vocab,))`` in its
+    default "low" mode, ``-log(-log(u))``.  The bits are JAX's bit for
+    bit; the two ``log``s are the device's, which may differ from XLA's
+    in the last place."""
+    u = _uniform(_random_bits(_position_keys(seeds, positions), vocab))
     return -torch.log(-torch.log(u))
 
 
@@ -243,10 +276,14 @@ def _scaled_masked(logits, temps, topks):
 def _sample_tokens(logits, seeds, positions, temps, topks):
     """Per-slot next token: greedy where ``temps == 0``, else a draw
     from ``softmax(_scaled_masked(...))`` by Gumbel-max with the
-    position-keyed noise of ``_gumbel_noise``.  Both arms always
-    compute, so a mixed greedy/sampling batch is one fixed-shape step.
+    position-keyed noise of ``_gumbel_noise``, as
+    ``jax.random.categorical`` draws.  An all-greedy batch skips the
+    noise; otherwise both arms compute, so a mixed greedy/sampling batch
+    is one fixed-shape step.
     ``argmax`` takes the first maximum, as ``jnp.argmax`` does."""
     greedy = logits.argmax(dim=-1)
+    if not bool((temps > 0.0).any()):      # one host sync: an all-greedy
+        return greedy.to(torch.int32)      # batch draws no noise
     masked = _scaled_masked(logits, temps, topks)
     noise = _gumbel_noise(seeds, positions, logits.shape[-1])
     drawn = (masked + noise).argmax(dim=-1)
