@@ -30,15 +30,19 @@ Phases, each of which fails the run:
    version at the eight ResNet-50 shapes (N = 8) and the other cases
    the op takes, in f32 and bf16;
 5. full-width ResNet-50 (f32, batch 8): forward and backward through
-   the kernels against the same through the plain versions, from the
-   same parameters — loss, every gradient, running statistics;
+   the kernels against the same through the plain versions on the
+   card, from the same parameters — loss, every gradient, running
+   statistics — leaf by leaf, within a multiple of the noise floor that
+   the plain versions on the card show against the same net on the
+   host CPU;
 6. the training run: warm-up and timed steps at batch 256 (loss finite
    and falling over the run, params finite, 32 launches of each kernel
    per step), then the same with ``fused=False`` (cuDNN convs) from the
    same parameters as the yardstick (the two first losses agree);
-7. each fused-conv kernel timed at the eight shapes at N = 256 (CUDA
-   events, L2 flushed) beside its bound, its plain version and the cuDNN
-   call for the conv alone; summed over a step's 32 launches;
+7. each fused-conv kernel at the eight shapes at N = 256, bf16: held
+   against its plain version, then timed (CUDA events, L2 flushed)
+   beside its bound, its plain version and the cuDNN call for the conv
+   alone; summed over a step's 32 launches;
 8. one training step under ``torch.profiler``.
 
 Prints one JSON ``kernels`` line, then the card line, then as the last
@@ -47,7 +51,6 @@ package beside it, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
-import contextlib
 import json
 import os
 import subprocess
@@ -86,11 +89,16 @@ FUSED = ("fwd", "dx", "dw")
 # per stage: (bottleneck blocks, spatial size of the fused convs, C/4, C)
 RESNET50_STAGES = ((3, 56, 64, 256), (4, 28, 128, 512), (6, 14, 256, 1024),
                    (3, 7, 512, 2048))
+FUSED_PER_STEP = sum(2 * blocks for blocks, *_ in RESNET50_STAGES)  # 32
 # kernel vs plain: both sum the same f32 products in another order, so
 # f32 results agree to ~1e-5 of their scale; a result stored in bf16
 # can then round to the neighbouring bf16 value (2**-8 relative), so
 # bf16 outputs get 2**-6
 F32_RTOL, BF16_RTOL = 1e-4, 2 ** -6
+# model check: kernel route vs plain route, per leaf, in units of the
+# plain-on-card vs plain-on-host noise floor (floors under a few f32
+# ulps are raised to MODEL_MIN_FLOOR)
+MODEL_FLOOR_FACTOR, MODEL_MIN_FLOOR = 3.0, 1e-6
 
 
 def log(msg):
@@ -466,11 +474,33 @@ def fused_bodies(fc, plain, x, sc, sh, w, r, do, k, relu, stride):
             "dw": [dw(x, sc, sh, r, do, k, relu, stride)]}
 
 
+def check_outputs(torch, what, kern, got, want):
+    """Hold a kernel's outputs against its plain version's: same shapes
+    and types, finite, each element within F32_RTOL / BF16_RTOL of the
+    output's largest magnitude plus its own.  Returns the max abs err."""
+    worst = 0.0
+    for a, b in zip(got, want):
+        if b is None:
+            expect(a is None, f"{what}: {kern} gave a dres")
+            continue
+        expect(a.shape == b.shape and a.dtype == b.dtype,
+               f"{what}: {kern} output {tuple(a.shape)} {a.dtype} vs "
+               f"{tuple(b.shape)} {b.dtype}")
+        rtol = BF16_RTOL if b.dtype == torch.bfloat16 else F32_RTOL
+        af, bf = a.float(), b.float()
+        err = (af - bf).abs()
+        ok = bool((err <= rtol * (bf.abs().max() + bf.abs())).all())
+        expect(bool(torch.isfinite(af).all()) and ok,
+               f"{what}: {kern} kernel disagrees with its plain version "
+               f"(max abs err {float(err.max()):.3e})")
+        worst = max(worst, float(err.max()))
+    return worst
+
+
 def fused_vs_plain(torch):
     """Every fused-conv kernel against its plain version: the eight
     ResNet-50 shapes at N = 8, then stride 2 at H = 8 and 9, the
-    residual without relu, Co = 192; f32 and bf16.  Returns the worst
-    absolute error per kernel over the bf16 path shapes."""
+    residual without relu, Co = 192; f32 and bf16."""
     from mxnet_tpu_torch.context import resolve_device
     from mxnet_tpu_torch.ops import fused_conv as fc
 
@@ -485,7 +515,6 @@ def fused_vs_plain(torch):
               ("1x1 residual @7", 2, 7, 24, 40, 1, 1, True, True),
               ("3x3 Co=192 @4", 2, 4, 8, 192, 3, 1, False, True)]
     before = dict(fc.norm_relu_conv.launches)
-    worst = dict.fromkeys(FUSED, 0.0)
     for dtype in (torch.float32, torch.bfloat16):
         for label, n, h, ci, co, k, stride, res, relu in cases:
             x, sc, sh, w, r, do = fused_inputs(torch, gen, n, h, ci, co, k,
@@ -495,50 +524,27 @@ def fused_vs_plain(torch):
             want = fused_bodies(fc, True, x, sc, sh, w, r, do, k, relu,
                                 stride)
             torch.cuda.synchronize()
-            errs = []
-            for kern in FUSED:
-                for a, b in zip(got[kern], want[kern]):
-                    if b is None:
-                        expect(a is None, f"{label}: {kern} gave a dres")
-                        continue
-                    expect(a.shape == b.shape and a.dtype == b.dtype,
-                           f"{label}: {kern} output {tuple(a.shape)} "
-                           f"{a.dtype} vs {tuple(b.shape)} {b.dtype}")
-                    rtol = BF16_RTOL if b.dtype == torch.bfloat16 \
-                        else F32_RTOL
-                    af, bf = a.float(), b.float()
-                    err = (af - bf).abs()
-                    ok = bool((err <= rtol * (bf.abs().max() + bf.abs()))
-                              .all())
-                    expect(bool(torch.isfinite(af).all()) and ok,
-                           f"{label} {dtype}: {kern} kernel disagrees with "
-                           f"its plain version (max abs err "
-                           f"{float(err.max()):.3e})")
-                    errs.append(float(err.max()))
-                    if dtype == torch.bfloat16 and label.startswith("s"):
-                        worst[kern] = max(worst[kern], float(err.max()))
-            log(f"fused conv vs plain [{label}, N={n}, "
-                f"{str(dtype).split('.')[1]}]: max abs err "
-                f"{max(errs):.3e}")
+            what = f"{label}, N={n}, {str(dtype).split('.')[1]}"
+            err = max(check_outputs(torch, what, kern, got[kern], want[kern])
+                      for kern in FUSED)
+            log(f"fused conv vs plain [{what}]: max abs err {err:.3e}")
     fc.norm_relu_conv.launches = before       # comparisons are not the path
     log(f"fused conv kernels agree with their plain versions (rtol f32 "
-        f"{F32_RTOL}, bf16 {BF16_RTOL} of each output's scale); worst on "
-        f"the bf16 path shapes: {worst}")
-    return worst
+        f"{F32_RTOL}, bf16 {BF16_RTOL} of each output's scale)")
 
 
-def build_resnet50(torch, fused, dtype=None):
-    """resnet50_v1(layout="NHWC") on the card, seeded, its deferred
+def build_resnet50(torch, fused, dtype=None, device=DEVICE):
+    """resnet50_v1(layout="NHWC") on ``device``, seeded, its deferred
     shapes sized by a batch-1 forward."""
     from mxnet_tpu_torch import autograd, initializer
     from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
 
     initializer.seed(0)
     net = resnet50_v1(layout="NHWC", fused=fused)
-    net.initialize(ctx=DEVICE)
+    net.initialize(ctx=device)
     if dtype is not None:
         net.cast(dtype)
-    x = torch.zeros((1, 224, 224, 3), device=DEVICE,
+    x = torch.zeros((1, 224, 224, 3), device=device,
                     dtype=getattr(torch, dtype or "float32"))
     with autograd.pause():
         net(x)
@@ -578,92 +584,108 @@ def fused_pairs(fused, plain):
 
 
 def forward_backward(torch, net, x, y):
-    """Loss, gradients and running statistics (after) of one training
-    forward and backward, by parameter name."""
+    """One training forward and backward: the loss, then per parameter in
+    ``collect_params`` order its gradient (trainable) or its value after
+    the step (running statistics), all on the host in f64."""
     from mxnet_tpu_torch import autograd, gluon
 
-    params = net.collect_params()
-    train = [n for n in sorted(params) if params[n].grad_req != "null"]
+    params = list(net.collect_params().values())
+    train = [p for p in params if p.grad_req != "null"]
     with autograd.record():
         loss = gluon.loss.SoftmaxCrossEntropyLoss()(net(x), y).mean()
-    grads = torch.autograd.grad(loss, [params[n].data() for n in train])
-    stats = {n: p.data().detach().clone() for n, p in params.items()
-             if p.grad_req == "null"}
-    return float(loss.detach()), dict(zip(train, grads)), stats
+    grads = dict(zip(map(id, train), torch.autograd.grad(
+        loss, [p.data() for p in train])))
+    leaves = [loss.detach()] + [grads.get(id(p), p.data().detach())
+                                for p in params]
+    return [t.double().cpu() for t in leaves]
 
 
 def model_check(torch):
     """Full-width fused ResNet-50 in f32: one training forward and
-    backward through the kernels and the same through their plain
-    versions, from the same parameters, each held against the unfused
-    net run in f64 from the same parameters.  The gradients of this
-    randomly initialised net are ill-conditioned in f32 (the unfused net
-    in f32 is off its own f64 run by a few percent at the median), so
-    the kernels must be as close to f64 as the plain versions are:
-    median and worst relative L2 error within twice the plain route's;
-    loss and running statistics within 1e-4 of f64."""
+    backward through the kernels, held leaf by leaf against the same
+    through their plain versions on the card, from the same parameters
+    and batch — the loss, every gradient, every running statistic.
+
+    The gradients of this randomly initialised net carry f32 rounding
+    noise of a few percent (relative L2) whatever computes them, so each
+    leaf's limit comes from a noise floor: the plain versions on the
+    card against the same net on the host CPU (plain versions again,
+    other conv libraries and summation orders).  A leaf's relative L2
+    error, kernels against plain, may be at most MODEL_FLOOR_FACTOR
+    times the larger of its own floor, the median floor of its kind and
+    MODEL_MIN_FLOOR.  The max-abs error over the leaf's largest
+    magnitude is printed beside it."""
     from mxnet_tpu_torch.ops import fused_conv as fc
 
     fused = build_resnet50(torch, fused=True)
-    ref = build_resnet50(torch, fused=False)
-    pairs = fused_pairs(fused, ref)
-    ref.cast("float64")
-    for f, u, perm in pairs:
-        u.set_data(f.data() if perm is None else f.data().permute(3, 0, 1, 2))
+    host = build_resnet50(torch, fused=True, device="cpu")
+    params = list(fused.collect_params().items())
+    for (_, p), q in zip(params, host.collect_params().values()):
+        q.set_data(p.data().detach().cpu())
+    start = {n: p.data().detach().clone() for n, p in params
+             if p.grad_req == "null"}
     rng = np.random.RandomState(1)
     x = torch.from_numpy(rng.randn(CHECK_BATCH, 224, 224, 3)
-                         .astype(np.float32)).to(DEVICE)
-    y = torch.from_numpy(rng.randint(0, 1000, CHECK_BATCH)).to(DEVICE)
-    start = {p.name: p.data().clone() for p, _, _ in pairs
-             if p.grad_req == "null"}
+                         .astype(np.float32))
+    y = torch.from_numpy(rng.randint(0, 1000, CHECK_BATCH))
+    xd, yd = x.to(DEVICE), y.to(DEVICE)
     before = dict(fc.norm_relu_conv.launches)
-    runs = {}
-    for label in ("kernel", "plain"):
-        for p, _, _ in pairs:
-            if p.grad_req == "null":
-                p._data = start[p.name].clone()
-        scope = fc.plain_versions() if label == "plain" \
-            else contextlib.nullcontext()
-        with scope:
-            runs[label] = forward_backward(torch, fused, x, y)
+    kernel = forward_backward(torch, fused, xd, yd)
+    launched = {k: fc.norm_relu_conv.launches[k] - before[k] for k in FUSED}
+    expect(launched == dict.fromkeys(FUSED, FUSED_PER_STEP),
+           f"model check: kernel launches {launched}, expected "
+           f"{FUSED_PER_STEP} each")
+    for n, p in params:                 # the kernel run updated them
+        if p.grad_req == "null":
+            p.set_data(start[n])
+    cuda_bodies = fc._BODIES[False]
+    fc._BODIES[False] = fc._BODIES[True]  # CUDA tensors: plain versions
+    try:
+        plain = forward_backward(torch, fused, xd, yd)
+    finally:
+        fc._BODIES[False] = cuda_bodies
+    on_host = forward_backward(torch, host, x, y)
     launched = {k: fc.norm_relu_conv.launches[k] - before[k] for k in FUSED}
     fc.norm_relu_conv.launches = before
-    expect(launched == dict.fromkeys(FUSED, 32),
-           f"model check: kernel launches {launched}, expected 32 each")
-    lr, gr, sr = forward_backward(torch, ref, x.double(), y)
-    errs = {"kernel": [], "plain": []}
-    stat_errs = {"kernel": 0.0, "plain": 0.0}
-    for f, u, perm in pairs:
-        truth = (gr if f.grad_req != "null" else sr)[u.name]
-        truth = truth if perm is None else truth.permute(*perm)
-        for label, (_, g, st) in runs.items():
-            got = (g if f.grad_req != "null" else st)[f.name].double()
-            expect(bool(torch.isfinite(got).all()),
-                   f"model check: {label} {f.name} not finite")
-            e = float((got - truth).norm() / truth.norm().clamp_min(1e-30))
-            if f.grad_req != "null":
-                errs[label].append((e, f.name))
-            else:
-                stat_errs[label] = max(stat_errs[label], e)
-    summary = {}
-    for label in ("kernel", "plain"):
-        e = sorted(errs[label], reverse=True)
-        summary[label] = (e[len(e) // 2][0], e[0][0], e[0][1])
-        log(f"model check [{label} route vs the unfused net in f64, "
-            f"resnet50_v1, batch {CHECK_BATCH}]: loss {runs[label][0]:.7f} vs "
-            f"{lr:.7f}; {len(e)} gradients, relative L2 error median "
-            f"{summary[label][0]:.3e}, worst {summary[label][1]:.3e} "
-            f"({summary[label][2]}); running statistics worst "
-            f"{stat_errs[label]:.3e}")
-    (km, kw, _), (pm, pw, _) = summary["kernel"], summary["plain"]
-    expect(abs(runs["kernel"][0] - lr) <= 1e-4 * abs(lr),
-           "model check: the loss differs from f64")
-    expect(stat_errs["kernel"] <= 1e-4,
-           "model check: running statistics differ from f64")
-    expect(km <= 2 * pm + 1e-7 and kw <= 2 * pw + 1e-7,
-           f"model check: the kernels' gradients are further from f64 "
-           f"than the plain versions' (median {km:.3e} vs {pm:.3e}, "
-           f"worst {kw:.3e} vs {pw:.3e})")
+    expect(launched == dict.fromkeys(FUSED, FUSED_PER_STEP),
+           f"model check: the plain routes launched kernels ({launched})")
+
+    def errs(a, b):
+        """relative L2 error of a against b, and max abs error over b's
+        largest magnitude"""
+        d = a - b
+        return (float(d.norm() / b.norm().clamp_min(1e-300)),
+                float(d.abs().max() / b.abs().max().clamp_min(1e-300)))
+
+    rows = {"loss": [], "gradient": [], "running statistic": []}
+    names = [("loss", "loss")] + [
+        (n, "gradient" if p.grad_req != "null" else "running statistic")
+        for n, p in params]
+    for (n, kind), k, pl, h in zip(names, kernel, plain, on_host):
+        expect(bool(torch.isfinite(k).all()),
+               f"model check: the kernel route's {n} is not finite")
+        rows[kind].append((n,) + errs(k, pl) + errs(pl, h))
+    log(f"model check: loss kernel {float(kernel[0]):.7f}, plain "
+        f"{float(plain[0]):.7f}, host {float(on_host[0]):.7f}")
+    bad = []
+    for kind, rs in rows.items():
+        floor = float(np.median([r[3] for r in rs]))
+        ratio = [(r[1] / max(r[3], floor, MODEL_MIN_FLOOR), r[0]) for r in rs]
+        worst = max(rs, key=lambda r: r[1])
+        worst_max = max(rs, key=lambda r: r[2])
+        log(f"model check [{kind}: {len(rs)}, resnet50_v1 f32, batch "
+            f"{CHECK_BATCH}]: relative L2 error kernel vs plain median "
+            f"{np.median([r[1] for r in rs]):.3e}, worst {worst[1]:.3e} "
+            f"({worst[0]}); floor plain vs host median {floor:.3e}, worst "
+            f"{max(r[3] for r in rs):.3e}; worst error/floor "
+            f"{max(ratio)[0]:.3f} ({max(ratio)[1]}); max abs error over "
+            f"scale, kernel vs plain worst {worst_max[2]:.3e} "
+            f"({worst_max[0]}), plain vs host worst "
+            f"{max(r[4] for r in rs):.3e}")
+        bad += [f"{name} {r:.2f}" for r, name in ratio
+                if r > MODEL_FLOOR_FACTOR]
+    expect(not bad, f"model check: kernel route beyond {MODEL_FLOOR_FACTOR}x "
+           f"the noise floor: {bad[:8]}")
 
 
 def training_nets(torch):
@@ -713,7 +735,7 @@ def train_run(torch, net, fused, steps):
            f"{name}: loss did not fall over the run {losses}")
     expect(all(bool(torch.isfinite(t).all()) for t in step._train),
            f"{name}: a parameter is not finite")
-    want = 32 * (WARMUP_STEPS + steps) if fused else 0
+    want = FUSED_PER_STEP * (WARMUP_STEPS + steps) if fused else 0
     expect(launches == dict.fromkeys(FUSED, want),
            f"{name}: kernel launches {launches}, expected {want} each")
     img_s = TRAIN_BATCH * steps / dt
@@ -756,10 +778,13 @@ def conv_bound(n, hw, ci, co, k, kernel):
 
 def time_fused(torch):
     """Each fused-conv kernel at the eight ResNet-50 shapes at N = 256,
-    bf16: kernel, plain version, cuDNN on the already normalised input
-    (``library``: the conv alone, without the prologue, the mask or the
-    dscale/dshift epilogue — less work than the kernel), and the bound.
-    Per-step sums weight each shape by its blocks (32 launches)."""
+    bf16, as the training run calls it: its outputs held against its
+    plain version's (``check_outputs``), then timed beside the plain
+    version, cuDNN on the already normalised input (``library``: the
+    conv alone, without the prologue, the mask or the dscale/dshift
+    epilogue — less work than the kernel), and the bound.  Per-step sums
+    weight each shape by its blocks (32 launches); ``max_abs_err`` is
+    the worst over the eight shapes."""
     import torch.nn.functional as F
 
     from mxnet_tpu_torch.ops import fused_conv as fc
@@ -768,7 +793,8 @@ def time_fused(torch):
     flush = torch.empty(1024 * 2**20, dtype=torch.uint8, device=DEVICE)
     before = dict(fc.norm_relu_conv.launches)
     sums = {k: dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms",
-                              "operations", "bytes"), 0.0) for k in FUSED}
+                              "operations", "bytes", "max_abs_err"), 0.0)
+            for k in FUSED}
     for label, blocks, hw, ci, co, k in path_shapes():
         x, sc, sh, w, _, do = fused_inputs(torch, gen, TRAIN_BATCH, hw, ci,
                                            co, k, torch.bfloat16)
@@ -778,21 +804,41 @@ def time_fused(torch):
             memory_format=torch.channels_last)
         do4 = do.permute(0, 3, 1, 2)
         pad = k // 2
+        f64 = torch.float64
         calls = {
             "fwd": (lambda: fc._fwd_cuda(x, sc, sh, w, None, True, 1),
-                    lambda: fc._fwd_plain(x, sc, sh, w, None, True, 1),
+                    lambda acc=torch.float32: fc._fwd_plain(
+                        x, sc, sh, w, None, True, 1, acc),
                     lambda: F.conv2d(xn, w4, padding=pad)),
             "dx": (lambda: fc._dx_cuda(x, sc, sh, w, None, do, True, 1),
-                   lambda: fc._dx_plain(x, sc, sh, w, None, do, True, 1),
+                   lambda acc=torch.float32: fc._dx_plain(
+                       x, sc, sh, w, None, do, True, 1, acc),
                    lambda: torch.nn.grad.conv2d_input(xn.shape, w4, do4,
                                                       padding=pad)),
             "dw": (lambda: fc._dw_cuda(x, sc, sh, None, do, k, True, 1),
-                   lambda: fc._dw_plain(x, sc, sh, None, do, k, True, 1),
+                   lambda acc=torch.float32: fc._dw_plain(
+                       x, sc, sh, None, do, k, True, 1, acc),
                    lambda: torch.nn.grad.conv2d_weight(xn, w4.shape, do4,
                                                        padding=pad))}
         parts = []
         for kern in FUSED:
             kfn, pfn, lfn = calls[kern]
+            # against the plain version summed in f64 (its f64 outputs
+            # rounded to f32): dW sums N*H*W = 802816 positions here, and
+            # the plain version in f32 (cuDNN's f32 wgrad) strays further
+            # from f64 at the 3x3 shapes than F32_RTOL allows; its own
+            # distance from f64 is printed beside the kernel's
+            got, want = (list(r) if isinstance(r, tuple) else [r]
+                         for r in (kfn(), pfn(f64)))
+            want = [t if t is None or t.dtype != f64 else t.float()
+                    for t in want]
+            err = check_outputs(torch, f"{label}, N={TRAIN_BATCH}, bf16",
+                                kern, got, want)
+            plain = pfn()
+            plain = list(plain) if isinstance(plain, tuple) else [plain]
+            plain_err = max(float((a.float() - b.float()).abs().max())
+                            for a, b in zip(plain, want) if b is not None)
+            del got, want, plain
             ms = time_ms(torch, kfn, 10, flush)
             plain_ms = time_ms(torch, pfn, 5, flush)
             lib_ms = time_ms(torch, lfn, 10, flush)
@@ -800,12 +846,15 @@ def time_fused(torch):
             bound_ms = max(ops_ms, bytes_ms)
             bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
             t = sums[kern]
+            t["max_abs_err"] = max(t["max_abs_err"], err)
             t["ms"] += blocks * ms
             t["plain_ms"] += blocks * plain_ms
             t["library_ms"] += blocks * lib_ms
             t["bound_ms"] += blocks * bound_ms
             t[bound_by] += blocks * bound_ms     # what sets the sum
-            parts.append(f"{kern} {ms:.3f} ms (plain {plain_ms:.3f}, cuDNN "
+            parts.append(f"{kern} {ms:.3f} ms, max abs err vs plain "
+                         f"in f64 {err:.3e} (plain in f32: {plain_err:.3e})"
+                         f" (plain {plain_ms:.3f}, cuDNN "
                          f"conv alone {lib_ms:.3f}, bound {bound_ms:.4f} by "
                          f"{bound_by}, {100 * bound_ms / ms:.1f}% of bound)")
         log(f"time [{label}, N={TRAIN_BATCH}, bf16, x{blocks} per step]: "
@@ -815,7 +864,8 @@ def time_fused(torch):
         t = sums[kern]
         t["bound_by"] = "operations" if t.pop("operations") >= t.pop("bytes") \
             else "bytes"
-        log(f"time per step [fused_conv_{kern}, 32 launches]: kernel "
+        log(f"time per step [fused_conv_{kern}, 32 launches, max abs err "
+            f"vs plain in f64 {t['max_abs_err']:.3e}]: kernel "
             f"{t['ms']:.2f} ms, plain {t['plain_ms']:.2f} ms, cuDNN conv "
             f"alone {t['library_ms']:.2f} ms, bound {t['bound_ms']:.3f} ms "
             f"({t['bound_by']}), kernel at "
@@ -872,7 +922,7 @@ def main():
         timing = time_kernel(torch, rng)
         profile_serving(torch, params, cfg)
         del params
-        fused_err = fused_vs_plain(torch)
+        fused_vs_plain(torch)
         model_check(torch)
         fused_net, plain_net = training_nets(torch)
         trained, step, batch = train_run(torch, fused_net, True, TIMED_STEPS)
@@ -905,7 +955,7 @@ def main():
             "name": kname, "route": "cuda", "source": SOURCES[kname],
             "replaces": REPLACES[kname],
             "launches": trained["launches"][kern],
-            "max_abs_err": fused_err[kern], "ms": t["ms"],
+            "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     print(json.dumps(kernels), flush=True)

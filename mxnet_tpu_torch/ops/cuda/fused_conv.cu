@@ -67,12 +67,20 @@ __device__ __forceinline__ void st(__nv_bfloat16* p, long long i, float v) {
   p[i] = __float2bfloat16(v);  // round to nearest even, as torch casts
 }
 
+// x*scale + shift [+ res] at one element, rounded after each operation as
+// PyTorch's separate elementwise ops round it (no contraction into an
+// fma), so the relu mask equals the plain version's bit for bit.
+__device__ __forceinline__ float pre_act(float xv, float rv, bool has_res,
+                                         float sc, float sh) {
+  const float p = __fadd_rn(__fmul_rn(xv, sc), sh);
+  return has_res ? __fadd_rn(p, rv) : p;
+}
+
 // X = relu(x*scale + shift [+ res]) at one element (the TPU `_prologue`),
 // from raw values already in registers.
 __device__ __forceinline__ float prologue(float xv, float rv, bool has_res,
                                           float sc, float sh, int relu) {
-  float p = xv * sc + sh;
-  if (has_res) p += rv;
+  const float p = pre_act(xv, rv, has_res, sc, sh);
   return relu ? fmaxf(p, 0.f) : p;
 }
 
@@ -272,11 +280,9 @@ dx_kernel(const T* __restrict__ x, const float* __restrict__ scale,
       const long long off = static_cast<long long>(m) * g.ci + col;
       const float xv = ld(x, off);
       float gm = acc[i][j];
-      if (relu) {
-        float pre = xv * sc + sh;
-        if (res != nullptr) pre += ld(res, off);
-        if (!(pre > 0.f)) gm = 0.f;
-      }
+      if (relu && !(pre_act(xv, res != nullptr ? ld(res, off) : 0.f,
+                            res != nullptr, sc, sh) > 0.f))
+        gm = 0.f;
       st(dx, off, gm * sc);
       if (dres != nullptr) st(dres, off, gm);
       csc[j] += gm * xv;

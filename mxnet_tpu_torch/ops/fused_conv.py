@@ -22,12 +22,14 @@ Three kernels, each with its plain PyTorch version beside it:
 - ``_dw`` (``_dw_plain``): ``dW = sum over positions of X_tap^T dO``
   (f32; the autograd wrapper casts it to ``w.dtype``).
 
+A plain version sums in f32 as its kernel does; given
+``acc=torch.float64`` it sums in f64 (the prologue and the relu mask
+stay f32), a reference for the kernels' f32 sums over many positions.
+
 Which body runs is decided by where the tensors lie, never by a
 fallback: CPU tensors run the plain versions; CUDA tensors launch the
 hand-written kernels of ``ops/cuda/fused_conv.cu`` (float32 or bfloat16
-``x``/``w``/``res``/``dO``, f32 ``scale``/``shift``) or raise.  Inside
-``with plain_versions():`` CUDA tensors run the plain versions too; that
-is how a run holds the kernels against them on the card.
+``x``/``w``/``res``/``dO``, f32 ``scale``/``shift``) or raise.
 ``norm_relu_conv.launches`` counts kernel launches per kernel
 (``"fwd"``, ``"dx"``, ``"dw"``).
 
@@ -38,20 +40,15 @@ against the plain versions they differ only by f32 summation order.
 """
 from __future__ import annotations
 
-import contextlib
-import threading
-
 import torch
 import torch.nn.functional as F
 
-__all__ = ["supports", "norm_relu_conv", "norm_relu_conv_reference",
-           "plain_versions"]
+__all__ = ["supports", "norm_relu_conv", "norm_relu_conv_reference"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _TILE = 64                  # rows/cols of a kernel's result tile
 _DEPTH = 16                 # depth of one staged step in the kernels
 _TARGET_BLOCKS = 4 * 132    # dW: enough blocks for four waves on 132 SMs
-_local = threading.local()
 
 
 def supports(kh, kw, stride, groups=1):
@@ -78,19 +75,6 @@ def _prologue(x, scale, shift, res, relu):
     return torch.relu(pre) if relu else pre
 
 
-@contextlib.contextmanager
-def plain_versions():
-    """Run the plain PyTorch versions for CUDA tensors too, for the
-    calls made inside this block in this thread (and their backward) —
-    to hold the kernels against them."""
-    prev = getattr(_local, "plain", False)
-    _local.plain = True
-    try:
-        yield
-    finally:
-        _local.plain = prev
-
-
 # ------------------------------------------------------- plain versions ----
 def _padded_nchw(X, k, stride):
     """NHWC -> its SAME zero padding as an NCHW view."""
@@ -100,45 +84,46 @@ def _padded_nchw(X, k, stride):
     return F.pad(X, (0, 0, px, px2, py, py2)).permute(0, 3, 1, 2)
 
 
-def _fwd_plain(x, scale, shift, w, res, relu, stride):
-    """The forward kernel's function: f32 prologue, f32 conv, out in
+def _fwd_plain(x, scale, shift, w, res, relu, stride, acc=torch.float32):
+    """The forward kernel's function: f32 prologue, conv summed in
+    ``acc`` (f32 as the kernel sums; f64 gives a reference), out in
     ``x.dtype``."""
-    X = _prologue(x, scale, shift, res, relu)
+    X = _prologue(x, scale, shift, res, relu).to(acc)
     Xp = _padded_nchw(X, w.shape[0], stride)
-    out = F.conv2d(Xp, w.float().permute(3, 2, 0, 1), stride=stride)
+    out = F.conv2d(Xp, w.to(acc).permute(3, 2, 0, 1), stride=stride)
     return out.permute(0, 2, 3, 1).to(x.dtype).contiguous()
 
 
-def _dx_plain(x, scale, shift, w, res, do, relu, stride):
+def _dx_plain(x, scale, shift, w, res, do, relu, stride, acc=torch.float32):
     """The dX kernel's function: ``(dx, dres, dscale, dshift)`` with
-    ``dres`` None without a residual and the channel sums in f32."""
+    ``dres`` None without a residual; the relu mask from the f32
+    pre-activation, the conv and the channel sums in ``acc``."""
     n, h, wd, ci = x.shape
     k = w.shape[0]
     py, py2 = _same_pads(h, k, stride)
     px, px2 = _same_pads(wd, k, stride)
     size = (n, ci, h + py + py2, wd + px + px2)
-    Gp = torch.nn.grad.conv2d_input(size, w.float().permute(3, 2, 0, 1),
-                                    do.float().permute(0, 3, 1, 2),
+    Gp = torch.nn.grad.conv2d_input(size, w.to(acc).permute(3, 2, 0, 1),
+                                    do.to(acc).permute(0, 3, 1, 2),
                                     stride=stride)
     G = Gp[:, :, py:py + h, px:px + wd].permute(0, 2, 3, 1)
-    xf = x.float()
     if relu:
-        pre = xf * scale + shift
+        pre = x.float() * scale + shift
         if res is not None:
             pre = pre + res.float()
         G = torch.where(pre > 0.0, G, torch.zeros_like(G))
     dx = (G * scale).to(x.dtype).contiguous()
     dres = None if res is None else G.to(res.dtype).contiguous()
-    return dx, dres, (G * xf).sum(dim=(0, 1, 2)), G.sum(dim=(0, 1, 2))
+    return dx, dres, (G * x.to(acc)).sum(dim=(0, 1, 2)), G.sum(dim=(0, 1, 2))
 
 
-def _dw_plain(x, scale, shift, res, do, k, relu, stride):
-    """The dW kernel's function: ``(k, k, Ci, Co)`` in f32."""
-    X = _prologue(x, scale, shift, res, relu)
+def _dw_plain(x, scale, shift, res, do, k, relu, stride, acc=torch.float32):
+    """The dW kernel's function: ``(k, k, Ci, Co)``, summed in ``acc``."""
+    X = _prologue(x, scale, shift, res, relu).to(acc)
     Xp = _padded_nchw(X, k, stride)
     co = do.shape[3]
     dw = torch.nn.grad.conv2d_weight(Xp, (co, X.shape[3], k, k),
-                                     do.float().permute(0, 3, 1, 2),
+                                     do.to(acc).permute(0, 3, 1, 2),
                                      stride=stride)
     return dw.permute(2, 3, 1, 0).contiguous()
 
@@ -262,13 +247,10 @@ def _dw_cuda(x, scale, shift, res, do, k, relu, stride):
 
 
 def _use_plain(tensors):
-    """True for CPU tensors (or CUDA ones inside ``plain_versions()``),
-    False for CUDA tensors; raises on a mix."""
+    """True for CPU tensors, False for CUDA tensors; raises on a mix."""
     kinds = {t.device.type for t in tensors if t is not None}
-    if kinds == {"cpu"}:
-        return True
-    if kinds == {"cuda"}:
-        return getattr(_local, "plain", False)
+    if kinds in ({"cpu"}, {"cuda"}):
+        return kinds == {"cpu"}
     raise ValueError(f"fused_conv: inputs must all lie on the CPU or all "
                      f"on one CUDA device, got {sorted(kinds)}")
 
@@ -295,8 +277,7 @@ class _NormReluConv(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, scale, shift, w, residual, relu, stride):
-        # the bodies are chosen here, in the caller's thread, and kept
-        # for the backward, which autograd may run on another thread
+        # the bodies chosen by the inputs' device serve the backward too
         ctx.bodies = _BODIES[_use_plain((x, scale, shift, w, residual))]
         ctx.relu, ctx.stride = relu, stride
         ctx.save_for_backward(x, scale, shift, w, residual)

@@ -133,6 +133,25 @@ def test_plain_versions_match_autograd_of_reference(k, stride, h, ci, co,
         assert dres is None
 
 
+def test_plain_versions_sum_in_f64_on_request():
+    """``acc=torch.float64`` (the card run's reference at batch 256):
+    the same function, with the conv and channel sums in f64."""
+    arrays = _inputs(3, 9, 8, 16, True, seed=4)
+    x, sc, sh, w, res = [torch.from_numpy(a) for a in arrays]
+    do = torch.from_numpy(np.random.RandomState(5)
+                          .randn(2, 5, 5, 16).astype(np.float32))
+    f64 = torch.float64
+    pairs = [(tfc._fwd_plain(x, sc, sh, w, res, True, 2),
+              tfc._fwd_plain(x, sc, sh, w, res, True, 2, f64))]
+    pairs += zip(tfc._dx_plain(x, sc, sh, w, res, do, True, 2),
+                 tfc._dx_plain(x, sc, sh, w, res, do, True, 2, f64))
+    pairs.append((tfc._dw_plain(x, sc, sh, res, do, 3, True, 2),
+                  tfc._dw_plain(x, sc, sh, res, do, 3, True, 2, f64)))
+    assert [b.dtype for _, b in pairs] == [torch.float32] * 3 + [f64] * 3
+    for a, b in pairs:
+        np.testing.assert_allclose(a.numpy(), b.numpy(), **GRAD_TOL)
+
+
 def test_rejects_unsupported_shapes():
     x = torch.zeros(1, 4, 4, 4)
     with pytest.raises(ValueError, match="1x1/3x3"):
@@ -156,8 +175,7 @@ def test_cpu_runs_no_kernel_and_a_mix_of_devices_raises():
     with pytest.raises(ValueError, match="all lie on the CPU"):
         tfc._use_plain((meta, torch.ones(8), torch.zeros(8),
                         torch.zeros(3, 3, 8, 16), None))
-    with tfc.plain_versions():
-        assert tfc._use_plain((torch.zeros(1),))
+    assert tfc._use_plain((torch.zeros(1), None))
 
 
 def test_dw_splits_cover_the_positions():
