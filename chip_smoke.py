@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths end to end on the first CUDA device, with
+Drives the port's three paths end to end on the first CUDA device, with
 random weights from a seed:
 
 - LLM serving at the width of ``bench.py llm`` on an accelerator (vocab
@@ -13,9 +13,16 @@ random weights from a seed:
 - the ResNet-50 v1 training step as ``bench.py``'s ``bench_resnet`` runs
   it (NHWC, ``fused=True``, bf16 cast with f32 master weights, SGD 0.1 /
   0.9 / 1e-4, batch 256 of 224x224x3, 1000 classes), full width and
-  depth.
+  depth;
+- the BERT-base pretraining step as ``bench_bert`` runs it (vocab 30522,
+  12 layers, 768 units, 12 heads, hidden 3072, dropout 0.1, masked-LM +
+  NSP loss, bf16 cast with f32 master weights, LAMB 1e-3 / wd 0.01,
+  batch 64 x 128 with 20 masked positions of ``RandomState(0)`` data),
+  full width and depth, with ``attention_impl="flash"``.  Every row is
+  full length, so ``valid_length`` is None (the same function as
+  bench_bert's ``valid_length = 128``; the flash path takes no mask).
 
-Phases, each of which fails the run:
+Phases, each of which fails the run (each prints its wall time):
 
 1. card report (name, count, ``nvidia-smi`` name and power limit);
 2. build every CUDA kernel from the sources in the checkout (one
@@ -26,24 +33,40 @@ Phases, each of which fails the run:
    against a teacher-forced full forward, launches against decode steps
    x layers); the kernel timed beside its bound; a shorter serve under
    ``torch.profiler``;
-4. training: each fused-conv kernel (forward, dX, dW) against its plain
-   version at the eight ResNet-50 shapes (N = 8) and the other cases
-   the op takes, in f32 and bf16;
+4. each fused-conv kernel (forward, dX, dW) against its plain version at
+   the eight ResNet-50 shapes (N = 8) and the other cases the op takes,
+   in f32 and bf16;
 5. full-width ResNet-50 (f32, batch 8): forward and backward through
    the kernels against the same through the plain versions on the
    card, from the same parameters — loss, every gradient, running
    statistics — leaf by leaf, within a multiple of the noise floor that
    the plain versions on the card show against the same net on the
    host CPU;
-6. the training run: warm-up and timed steps at batch 256 (loss finite
-   and falling over the run, params finite, 32 launches of each kernel
-   per step), then the same with ``fused=False`` (cuDNN convs) from the
-   same parameters as the yardstick (the two first losses agree);
+6. the ResNet training run: warm-up and timed steps at batch 256 (loss
+   finite and falling over the run, params finite, 32 launches of each
+   kernel per step) and one step under ``torch.profiler``, then the
+   same with ``fused=False`` (cuDNN convs) from the same parameters as
+   the yardstick (the two first losses agree);
 7. each fused-conv kernel at the eight shapes at N = 256, bf16: held
    against its plain version, then timed (CUDA events, L2 flushed)
    beside its bound, its plain version and the cuDNN call for the conv
    alone; summed over a step's 32 launches;
-8. one training step under ``torch.profiler``.
+8. each flash-attention kernel (forward, dQ, dK/dV) against its plain
+   version summed in f64: BERT-base's shape at dropout 0 and 0.1,
+   causal, S = 512, S = 200, D = 128, f32;
+9. full-width BERT-base (f32, batch 8, dropout 0): forward and backward
+   through the kernels against the plain versions on the card — loss,
+   the four outputs, every gradient — leaf by leaf, as in 5;
+10. the BERT training run: 2 warm-up and 10 timed steps (loss finite and
+    falling, params finite, 12 launches of each flash kernel per step)
+    and one step under ``torch.profiler``, then the same with
+    ``attention_impl="dense"`` from the same parameters as the
+    yardstick (the first losses agree within 2%); tokens/s and peak
+    memory of both;
+11. each flash kernel at BERT-base's shape, bf16, dropout 0.1, timed
+    beside its bound, its plain version and
+    ``scaled_dot_product_attention`` (forward; backward for dQ + dK/dV
+    together); summed over a step's 12 launches.
 
 Prints one JSON ``kernels`` line, then the card line, then as the last
 line ``{"ok": true, "device": {...}}``.  Without a card, or without the
@@ -69,17 +92,27 @@ SLOTS, N_PAGES, PAGE_SIZE, MAX_NEW = 64, 512, 64, 64
 BATCH_BUCKETS, LENGTH_BUCKETS = (1, 2, 4), (32, 64)
 N_REQUESTS = 256
 ATOL, RTOL = 1e-5, 1e-4          # kernel vs plain, f32
+HOST_SLACK_CYCLES = 4_000_000    # device sleep before a timed span (~2 ms)
 LOGIT_ATOL, LOGIT_RTOL = 1e-4, 1e-4
 REPLACES = {"paged_decode_attention":
             "mxnet_tpu/ops/pallas/paged_attention.py:31",
             "fused_conv_fwd": "mxnet_tpu/ops/pallas/fused_conv.py:100",
             "fused_conv_dx": "mxnet_tpu/ops/pallas/fused_conv.py:164",
-            "fused_conv_dw": "mxnet_tpu/ops/pallas/fused_conv.py:281"}
+            "fused_conv_dw": "mxnet_tpu/ops/pallas/fused_conv.py:281",
+            "flash_attention_fwd":
+            "mxnet_tpu/ops/pallas/flash_attention.py:57",
+            "flash_attention_dq":
+            "mxnet_tpu/ops/pallas/flash_attention.py:158",
+            "flash_attention_dkv":
+            "mxnet_tpu/ops/pallas/flash_attention.py:191"}
 SOURCES = {"paged_decode_attention":
            "mxnet_tpu_torch/ops/cuda/paged_attention.cu",
            "fused_conv_fwd": "mxnet_tpu_torch/ops/cuda/fused_conv.cu",
            "fused_conv_dx": "mxnet_tpu_torch/ops/cuda/fused_conv.cu",
-           "fused_conv_dw": "mxnet_tpu_torch/ops/cuda/fused_conv.cu"}
+           "fused_conv_dw": "mxnet_tpu_torch/ops/cuda/fused_conv.cu",
+           **dict.fromkeys(("flash_attention_fwd", "flash_attention_dq",
+                            "flash_attention_dkv"),
+                           "mxnet_tpu_torch/ops/cuda/flash_attention.cu")}
 
 # ResNet-50 v1 training (bench.py bench_resnet's settings), on the card
 DEVICE = "cuda"
@@ -95,6 +128,16 @@ FUSED_PER_STEP = sum(2 * blocks for blocks, *_ in RESNET50_STAGES)  # 32
 # can then round to the neighbouring bf16 value (2**-8 relative), so
 # bf16 outputs get 2**-6
 F32_RTOL, BF16_RTOL = 1e-4, 2 ** -6
+# BERT-base pretraining (bench.py bench_bert's settings), on the card
+BERT_VOCAB, BERT_UNITS, BERT_HIDDEN = 30522, 768, 3072
+BERT_LAYERS, BERT_HEADS = 12, 12
+BERT_HEAD_DIM = BERT_UNITS // BERT_HEADS
+BERT_BATCH, BERT_SEQ, BERT_PRED, BERT_DROPOUT = 64, 128, 20, 0.1
+BERT_BH = BERT_BATCH * BERT_HEADS
+BERT_CHECK_BATCH = 8
+BERT_WARMUP_STEPS, BERT_TIMED_STEPS = 2, 10
+FLASH = ("fwd", "dq", "dkv")
+FLASH_SEED = 1234567
 # model check: kernel route vs plain route, per leaf, in units of the
 # plain-on-card vs plain-on-host noise floor (floors under a few f32
 # ulps are raised to MODEL_MIN_FLOOR)
@@ -155,15 +198,19 @@ def attention_bound(lengths, slots, pages_per_seq):
 def time_ms(torch, fn, iters, flush):
     """Mean device time of ``fn()`` by CUDA events, the L2 cache
     overwritten before every launch (the decode path finds its pages
-    cold: four layers of pages exceed the 50 MB L2).  The overwrite is
-    large enough to keep the card busy while the host enqueues the
-    launch, so host launch overhead stays out of the measured span."""
+    cold: four layers of pages exceed the 50 MB L2).  After the
+    overwrite the card sleeps HOST_SLACK_CYCLES (~2 ms) before the start
+    event, so the host has enqueued all of ``fn``'s work by the time the
+    measured span opens: host latency (an autograd backward hands its
+    launches to another thread, ~0.2 ms on a slow host) stays out of
+    it."""
     for _ in range(3):
         fn()
     starts = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
     for i in range(iters):
         flush.zero_()
+        torch.cuda._sleep(HOST_SLACK_CYCLES)
         starts[i].record()
         fn()
         ends[i].record()
@@ -421,8 +468,9 @@ def profile_serving(torch, params, cfg, n_requests=64):
 def print_profile(prof, wall_us, what):
     """The device's busy and idle share of ``wall_us`` (the time of the
     device's own events — kernels and copies — summed; the host ops that
-    launched them are left out, or their device time would count twice)
-    and the 12 that take the most device time."""
+    launched them are left out, or their device time would count twice),
+    how many device events ran, and the 12 that take the most device
+    time."""
     from torch.autograd import DeviceType
 
     def dev_us(e):
@@ -435,7 +483,8 @@ def print_profile(prof, wall_us, what):
     expect(busy_us > 0, "the profiler saw no device time")
     log(f"profile [{what}]: wall {wall_us / 1e3:.3f} ms, device busy "
         f"{busy_us / 1e3:.3f} ms = {100 * busy_us / wall_us:.1f}% of wall, "
-        f"idle {100 - 100 * busy_us / wall_us:.1f}%")
+        f"idle {100 - 100 * busy_us / wall_us:.1f}%; "
+        f"{sum(e.count for e in rows)} device events")
     for e in sorted(rows, key=dev_us, reverse=True)[:12]:
         log(f"profile:   {dev_us(e) / 1e3:9.3f} ms  "
             f"{100 * dev_us(e) / busy_us:5.1f}%  x{e.count:<6d} "
@@ -650,6 +699,22 @@ def model_check(torch):
     expect(launched == dict.fromkeys(FUSED, FUSED_PER_STEP),
            f"model check: the plain routes launched kernels ({launched})")
 
+    kinds = [("loss", "loss")] + [
+        (n, "gradient" if p.grad_req != "null" else "running statistic")
+        for n, p in params]
+    log(f"model check: loss kernel {float(kernel[0]):.7f}, plain "
+        f"{float(plain[0]):.7f}, host {float(on_host[0]):.7f}")
+    hold_leaves(torch, kinds, kernel, plain, on_host,
+                f"resnet50_v1 f32, batch {CHECK_BATCH}")
+
+
+def hold_leaves(torch, kinds, kernel, plain, on_host, what):
+    """Hold the kernel route's leaves against the plain route's, leaf by
+    leaf: ``kinds`` lists ``(name, kind)`` per leaf.  A leaf's relative
+    L2 error may be at most MODEL_FLOOR_FACTOR times the larger of its
+    own noise floor (plain on the card against the host), the median
+    floor of its kind and MODEL_MIN_FLOOR; the max abs error over the
+    leaf's largest magnitude is printed beside it."""
     def errs(a, b):
         """relative L2 error of a against b, and max abs error over b's
         largest magnitude"""
@@ -657,24 +722,19 @@ def model_check(torch):
         return (float(d.norm() / b.norm().clamp_min(1e-300)),
                 float(d.abs().max() / b.abs().max().clamp_min(1e-300)))
 
-    rows = {"loss": [], "gradient": [], "running statistic": []}
-    names = [("loss", "loss")] + [
-        (n, "gradient" if p.grad_req != "null" else "running statistic")
-        for n, p in params]
-    for (n, kind), k, pl, h in zip(names, kernel, plain, on_host):
+    rows = {}
+    for (n, kind), k, pl, h in zip(kinds, kernel, plain, on_host):
         expect(bool(torch.isfinite(k).all()),
                f"model check: the kernel route's {n} is not finite")
-        rows[kind].append((n,) + errs(k, pl) + errs(pl, h))
-    log(f"model check: loss kernel {float(kernel[0]):.7f}, plain "
-        f"{float(plain[0]):.7f}, host {float(on_host[0]):.7f}")
+        rows.setdefault(kind, []).append((n,) + errs(k, pl) + errs(pl, h))
     bad = []
     for kind, rs in rows.items():
         floor = float(np.median([r[3] for r in rs]))
         ratio = [(r[1] / max(r[3], floor, MODEL_MIN_FLOOR), r[0]) for r in rs]
         worst = max(rs, key=lambda r: r[1])
         worst_max = max(rs, key=lambda r: r[2])
-        log(f"model check [{kind}: {len(rs)}, resnet50_v1 f32, batch "
-            f"{CHECK_BATCH}]: relative L2 error kernel vs plain median "
+        log(f"model check [{kind}: {len(rs)}, {what}]: relative L2 error "
+            f"kernel vs plain median "
             f"{np.median([r[1] for r in rs]):.3e}, worst {worst[1]:.3e} "
             f"({worst[0]}); floor plain vs host median {floor:.3e}, worst "
             f"{max(r[3] for r in rs):.3e}; worst error/floor "
@@ -748,17 +808,19 @@ def train_run(torch, net, fused, steps):
             "launches": launches, "peak": peak}, step, (x, y)
 
 
-def track_losses(fused, unfused):
-    """The fused run's first loss equals the unfused run's from the same
+def track_losses(kernels, yardstick, what):
+    """The kernel route's first loss equals the yardstick's from the same
     parameters and batch within 2% (the loss is a bf16 value, ~0.4%
-    apart at 9, and bf16 activations round at other places on the two
-    routes); the later steps are printed, not held: SGD at lr 0.1 with
-    momentum grows any difference from step to step."""
-    gaps = [abs(a - b) / max(abs(b), 1e-6) for a, b in zip(fused, unfused)]
-    log(f"train: fused vs unfused losses from the same parameters: "
-        f"relative gap per step {[round(g, 4) for g in gaps]}")
-    expect(gaps[0] <= 0.02, "the fused run's first loss differs from the "
-           "unfused run's")
+    apart at 9, bf16 activations round at other places on the two
+    routes, and BERT's dropout masks come from other generators); the
+    later steps are printed, not held: the updates grow any difference
+    from step to step."""
+    gaps = [abs(a - b) / max(abs(b), 1e-6)
+            for a, b in zip(kernels, yardstick)]
+    log(f"train: {what} losses from the same parameters: relative gap "
+        f"per step {[round(g, 4) for g in gaps]}")
+    expect(gaps[0] <= 0.02, f"{what}: the first losses differ by more "
+           f"than 2%")
 
 
 def conv_bound(n, hw, ci, co, k, kernel):
@@ -873,9 +935,9 @@ def time_fused(torch):
     return sums
 
 
-def profile_step(torch, step, batch):
-    """One more fused training step under ``torch.profiler``: the
-    device's busy share of the step's wall time and the top kernels."""
+def profile_step(torch, step, batch, what):
+    """One more training step under ``torch.profiler``: the device's
+    busy share of the step's wall time and the top kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -885,7 +947,346 @@ def profile_step(torch, step, batch):
         step(*batch)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    print_profile(prof, wall_us, "train step (fused, batch 256)")
+    print_profile(prof, wall_us, what)
+
+
+# -------------------------------------------------------------------- BERT --
+def flash_args(torch, gen, bh, s, d, dtype):
+    """q, k, v, dO of shape (bh, s, d) on the card."""
+    return [torch.randn(bh, s, d, generator=gen, device=DEVICE).to(dtype)
+            for _ in range(4)]
+
+
+def flash_kernels(fa, q, k, v, do, args):
+    """{kernel: [outputs]} of the three flash kernels on the card, and
+    the ``(lse, delta)`` the backward kernels were given."""
+    o, lse = fa._fwd_cuda(q, k, v, *args)
+    delta = (o.float() * do.float()).sum(-1)
+    return {"fwd": [o, lse],
+            "dq": [fa._dq_cuda(q, k, v, do, lse, delta, *args)],
+            "dkv": list(fa._dkv_cuda(q, k, v, do, lse, delta, *args))}, \
+        (lse, delta)
+
+
+def flash_plain(fa, q, k, v, do, lse, delta, args, acc):
+    """The same through the plain versions summed in ``acc``, each
+    output rounded to the kernel's type (lse to f32)."""
+    o, plse = fa._fwd_plain(q, k, v, *args, acc=acc)
+    return {"fwd": [o, plse.float()],
+            "dq": [fa._dq_plain(q, k, v, do, lse, delta, *args, acc=acc)],
+            "dkv": list(fa._dkv_plain(q, k, v, do, lse, delta, *args,
+                                      acc=acc))}
+
+
+def flash_vs_plain(torch):
+    """Every flash kernel (forward O and lse, dQ, dK/dV) against its plain
+    version summed in f64 on the card: BERT-base's own shape (B*H 768,
+    S 128, D 64, bf16) at dropout 0 and 0.1 with a fixed seed, causal,
+    S = 512 (eight tiles), S = 200 (a tail), D = 128, f32.  Within
+    F32_RTOL of each output's scale for f32 outputs (lse among them) and
+    BF16_RTOL for bf16 ones; a wrong dropout mask shows as an O(1) error
+    in the rows it hits.  Returns the worst abs error per kernel at
+    BERT-base's shape with dropout on."""
+    fa = flash_module()
+    gen = torch.Generator(device=DEVICE).manual_seed(4)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [("bert-base", BERT_BH, BERT_SEQ, BERT_HEAD_DIM, bf16, False, 0.0),
+             ("bert-base, dropout", BERT_BH, BERT_SEQ, BERT_HEAD_DIM, bf16,
+              False, BERT_DROPOUT),
+             ("causal", 96, BERT_SEQ, BERT_HEAD_DIM, bf16, True, BERT_DROPOUT),
+             ("S=512", 48, 512, BERT_HEAD_DIM, bf16, False, BERT_DROPOUT),
+             ("S=200 tail, causal", 48, 200, BERT_HEAD_DIM, f32, True,
+              BERT_DROPOUT),
+             ("D=128", 48, 256, 128, bf16, False, BERT_DROPOUT),
+             ("f32", BERT_BH, BERT_SEQ, BERT_HEAD_DIM, f32, False,
+              BERT_DROPOUT)]
+    before = dict(fa.flash_attention.launches)
+    path_err = {}
+    for label, bh, s, d, dtype, causal, dropout in cases:
+        q, k, v, do = flash_args(torch, gen, bh, s, d, dtype)
+        args = (d ** -0.5, causal, dropout, FLASH_SEED)
+        got, (lse, delta) = flash_kernels(fa, q, k, v, do, args)
+        want = flash_plain(fa, q, k, v, do, lse, delta, args,
+                           torch.float64)
+        torch.cuda.synchronize()
+        what = (f"{label}: B*H {bh}, S {s}, D {d}, "
+                f"{str(dtype).split('.')[1]}, dropout {dropout}")
+        errs = {kern: check_outputs(torch, what, kern, got[kern], want[kern])
+                for kern in FLASH}
+        if label == "bert-base, dropout":
+            path_err = errs
+        log(f"flash vs plain [{what}]: max abs err "
+            + ", ".join(f"{kern} {e:.3e}" for kern, e in errs.items()))
+    fa.flash_attention.launches = before      # comparisons are not the path
+    log(f"flash kernels agree with their plain versions summed in f64 (rtol "
+        f"f32 {F32_RTOL}, bf16 {BF16_RTOL} of each output's scale)")
+    return path_err
+
+
+def flash_module():
+    import importlib
+
+    return importlib.import_module("mxnet_tpu_torch.ops.flash_attention")
+
+
+def build_bert(torch, impl, dropout, device=None):
+    """BERT-base (bench_bert's width and depth) on ``device`` (None: the
+    card), seeded."""
+    from mxnet_tpu_torch import random as mxrandom
+    from mxnet_tpu_torch.gluon.model_zoo.bert import BERTModel
+
+    mxrandom.seed(0)
+    net = BERTModel(vocab_size=BERT_VOCAB, units=BERT_UNITS,
+                    hidden_size=BERT_HIDDEN, num_layers=BERT_LAYERS,
+                    num_heads=BERT_HEADS, max_length=512, dropout=dropout,
+                    attention_impl=impl)
+    net.initialize(ctx=device or DEVICE)
+    return net
+
+
+def copy_params(src, dst):
+    """``dst``'s parameters set to ``src``'s, by name without prefix."""
+    from mxnet_tpu_torch.gluon.model_zoo.bert import params_from_jax
+
+    params_from_jax(dst, {k: p.data().detach().cpu().float().numpy()
+                          for k, p in src.collect_params().items()})
+
+
+def bert_batch(torch, batch, device=None):
+    """bench_bert's batch (``bench.py:378-385``, RandomState(0)) as
+    ``(data, labels)`` on ``device``.  ``valid_length`` is None: every row
+    is full length (bench_bert passes ``valid_length = seq`` for each),
+    so it is the same function, and the flash path takes no mask."""
+    rng = np.random.RandomState(0)
+    tok = rng.randint(0, BERT_VOCAB, (batch, BERT_SEQ)).astype(np.int32)
+    tt = rng.randint(0, 2, (batch, BERT_SEQ)).astype(np.int32)
+    mpos = rng.randint(0, BERT_SEQ, (batch, BERT_PRED)).astype(np.int32)
+    mlab = rng.randint(0, BERT_VOCAB, (batch, BERT_PRED)).astype(np.int32)
+    mw = np.ones((batch, BERT_PRED), np.float32)
+    nsp = rng.randint(0, 2, (batch,)).astype(np.int32)
+
+    def dev(x):
+        return torch.from_numpy(x).to(device or DEVICE)
+    return (dev(tok), dev(tt), None, dev(mpos)), \
+        (dev(mlab), dev(mw), dev(nsp))
+
+
+def bert_loss_fn():
+    """bench_bert's loss: BERTPretrainLoss of the NSP and MLM scores."""
+    from mxnet_tpu_torch.gluon.model_zoo.bert import BERTPretrainLoss
+
+    blk = BERTPretrainLoss()
+
+    def loss_fn(out, labels):
+        return blk(out[3], out[2], *labels)
+    return loss_fn
+
+
+def bert_leaves(torch, net, data, labels):
+    """One training forward and backward: the loss, the four outputs and
+    every parameter's gradient, on the host in f64."""
+    from mxnet_tpu_torch import autograd
+
+    params = list(net.collect_params().values())
+    with autograd.record():
+        out = net(*data)
+        loss = bert_loss_fn()(out, labels)
+    grads = torch.autograd.grad(loss, [p.data() for p in params])
+    return [t.detach().double().cpu() for t in (loss, *out, *grads)]
+
+
+def bert_model_check(torch):
+    """Full-width BERT-base in f32, batch BERT_CHECK_BATCH, seq 128,
+    dropout 0, attention_impl="flash": one training forward and backward
+    through the kernels, held leaf by leaf (loss, the four outputs, every
+    gradient) against the same through their plain versions on the card,
+    within MODEL_FLOOR_FACTOR of the noise floor the plain route on the
+    card shows against the same net on the host CPU (``hold_leaves``)."""
+    fa = flash_module()
+    net = build_bert(torch, "flash", 0.0)
+    host = build_bert(torch, "flash", 0.0, device="cpu")
+    copy_params(net, host)
+    data, labels = bert_batch(torch, BERT_CHECK_BATCH)
+    hdata, hlabels = bert_batch(torch, BERT_CHECK_BATCH, device="cpu")
+    before = dict(fa.flash_attention.launches)
+    kernel = bert_leaves(torch, net, data, labels)
+    launched = {k: fa.flash_attention.launches[k] - before[k] for k in FLASH}
+    expect(launched == dict.fromkeys(FLASH, BERT_LAYERS),
+           f"BERT model check: kernel launches {launched}, expected "
+           f"{BERT_LAYERS} each")
+    cuda_bodies = fa._BODIES[False]
+    fa._BODIES[False] = fa._BODIES[True]  # CUDA tensors: plain versions
+    try:
+        plain = bert_leaves(torch, net, data, labels)
+    finally:
+        fa._BODIES[False] = cuda_bodies
+    on_host = bert_leaves(torch, host, hdata, hlabels)
+    launched = {k: fa.flash_attention.launches[k] - before[k] for k in FLASH}
+    fa.flash_attention.launches = before
+    expect(launched == dict.fromkeys(FLASH, BERT_LAYERS),
+           f"BERT model check: the plain routes launched kernels "
+           f"({launched})")
+    names = list(net.collect_params().keys())
+    kinds = ([("loss", "loss")]
+             + [(n, "output") for n in ("sequence", "pooled", "nsp", "mlm")]
+             + [(n, "gradient") for n in names])
+    log(f"BERT model check: loss kernel {float(kernel[0]):.7f}, plain "
+        f"{float(plain[0]):.7f}, host {float(on_host[0]):.7f}")
+    hold_leaves(torch, kinds, kernel, plain, on_host,
+                f"bert_12_768_12 f32 flash, batch {BERT_CHECK_BATCH}")
+
+
+def bert_nets(torch):
+    """The flash and the dense BERT-base from the same parameters (the
+    flash net's, seeded), both cast to bf16 as ``bench_bert`` casts them
+    (the step keeps f32 master weights)."""
+    flash = build_bert(torch, "flash", BERT_DROPOUT)
+    dense = build_bert(torch, "dense", BERT_DROPOUT)
+    copy_params(flash, dense)
+    return flash.cast("bfloat16"), dense.cast("bfloat16")
+
+
+def bert_train_run(torch, net, impl, steps):
+    """bench_bert's loop on the card: batch BERT_BATCH x 128, 20 masked
+    positions, bf16, LAMB (lr 1e-3, wd 0.01), BERT_WARMUP_STEPS then
+    ``steps`` timed steps on the same batch.  Returns the numbers and the
+    step."""
+    from mxnet_tpu_torch import optimizer, parallel
+
+    fa = flash_module()
+    opt = optimizer.create("lamb", learning_rate=1e-3, wd=0.01)
+    step = parallel.TrainStep(net, bert_loss_fn(), opt)
+    data, labels = bert_batch(torch, BERT_BATCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.flash_attention.launches = dict.fromkeys(FLASH, 0)  # main path starts
+    losses = [float(step(data, labels)) for _ in range(BERT_WARMUP_STEPS)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timed = [step(data, labels) for _ in range(steps)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(fa.flash_attention.launches)         # ... and ends here
+    losses += [float(v) for v in timed]
+    peak = torch.cuda.max_memory_allocated()
+    expect(all(np.isfinite(losses)), f"{impl}: loss not finite {losses}")
+    expect(losses[-1] < losses[0] and min(losses) < losses[0],
+           f"{impl}: loss did not fall over the run {losses}")
+    expect(all(bool(torch.isfinite(t).all()) for t in step._train),
+           f"{impl}: a parameter is not finite")
+    want = BERT_LAYERS * (BERT_WARMUP_STEPS + steps) if impl == "flash" \
+        else 0
+    expect(launches == dict.fromkeys(FLASH, want),
+           f"{impl}: flash kernel launches {launches}, expected {want} each")
+    tok_s = BERT_BATCH * BERT_SEQ * steps / dt
+    log(f"train [{impl} bert_12_768_12, bf16, batch {BERT_BATCH} x "
+        f"{BERT_SEQ}]: losses {[round(v, 4) for v in losses]}; {steps} "
+        f"timed steps in {dt:.3f} s = {1e3 * dt / steps:.1f} ms/step = "
+        f"{tok_s:.1f} tokens/s; peak device memory {peak / 2**30:.2f} GiB; "
+        f"kernel launches {launches}")
+    return {"tok_s": tok_s, "ms_step": 1e3 * dt / steps, "losses": losses,
+            "launches": launches, "peak": peak}, step, (data, labels)
+
+
+def flash_bound(bh, s, d, kernel, elem=2):
+    """Least time (ms) of one launch: the larger of its flops (2 per
+    multiply-add; fwd QK^T and PV, dQ S/dP/dQ, dK/dV S/dP/dV/dK) at the
+    bf16 dense peak and its bytes (q, k, v, dO read once in ``elem``-byte
+    elements, lse/delta f32, each output written once) at the HBM rate.
+    Returns ``(ops_ms, bytes_ms)``."""
+    mat, row = bh * s * d * elem, bh * s * 4
+    products = {"fwd": 2, "dq": 3, "dkv": 4}[kernel]
+    nbytes = {"fwd": 3 * mat + mat + row,
+              "dq": 4 * mat + 2 * row + mat,
+              "dkv": 4 * mat + 2 * row + 2 * mat}[kernel]
+    flops = products * 2.0 * bh * s * s * d
+    return flops / BF16_FLOP_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def time_flash(torch, path_err):
+    """Each flash kernel at BERT-base's shape (B*H 768, S 128, D 64),
+    bf16, dropout 0.1, as the training run calls it: timed (CUDA events,
+    L2 flushed) beside its bound, its plain version and the library call
+    for the same function — ``scaled_dot_product_attention``'s forward
+    for the forward kernel, and that call's backward (dQ, dK and dV in
+    one) for the two backward kernels together — at dropout 0 and 0.1
+    (its RNG is not the kernels': a time yardstick, never on the path).
+    Per step: 12 launches of each."""
+    import torch.nn.functional as F
+
+    fa = flash_module()
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    flush = torch.empty(1024 * 2**20, dtype=torch.uint8, device=DEVICE)
+    q, k, v, do = flash_args(torch, gen, BERT_BH, BERT_SEQ, BERT_HEAD_DIM,
+                             torch.bfloat16)
+    args = (BERT_HEAD_DIM ** -0.5, False, BERT_DROPOUT, FLASH_SEED)
+    before = dict(fa.flash_attention.launches)
+    o, lse = fa._fwd_cuda(q, k, v, *args)
+    delta = (o.float() * do.float()).sum(-1)
+    calls = {"fwd": (lambda: fa._fwd_cuda(q, k, v, *args),
+                     lambda: fa._fwd_plain(q, k, v, *args)),
+             "dq": (lambda: fa._dq_cuda(q, k, v, do, lse, delta, *args),
+                    lambda: fa._dq_plain(q, k, v, do, lse, delta, *args)),
+             "dkv": (lambda: fa._dkv_cuda(q, k, v, do, lse, delta, *args),
+                     lambda: fa._dkv_plain(q, k, v, do, lse, delta, *args))}
+    shape4 = (BERT_BATCH, BERT_HEADS, BERT_SEQ, BERT_HEAD_DIM)
+    q4, k4, v4 = (x.view(shape4).detach().requires_grad_(True)
+                  for x in (q, k, v))
+    do4 = do.view(shape4)
+    library = {}
+    for p in (0.0, BERT_DROPOUT):
+        out4 = F.scaled_dot_product_attention(q4, k4, v4, dropout_p=p)
+        library[p] = (
+            time_ms(torch, lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, dropout_p=p), 20, flush),
+            time_ms(torch, lambda: torch.autograd.grad(
+                out4, (q4, k4, v4), do4, retain_graph=True), 20, flush))
+    log(f"library: scaled_dot_product_attention at B {BERT_BATCH}, H "
+        f"{BERT_HEADS}, S {BERT_SEQ}, D {BERT_HEAD_DIM}, bf16: forward "
+        f"{library[0.0][0]:.4f} ms (dropout 0), "
+        f"{library[BERT_DROPOUT][0]:.4f} ms (dropout {BERT_DROPOUT}); "
+        f"backward (dQ, dK, dV in one call) {library[0.0][1]:.4f} ms / "
+        f"{library[BERT_DROPOUT][1]:.4f} ms")
+    res = {}
+    for kern in FLASH:
+        kfn, pfn = calls[kern]
+        ms = time_ms(torch, kfn, 50, flush)
+        plain_ms = time_ms(torch, pfn, 10, flush)
+        ops_ms, bytes_ms = flash_bound(BERT_BH, BERT_SEQ, BERT_HEAD_DIM, kern)
+        bound_ms = max(ops_ms, bytes_ms)
+        lib_ms = library[BERT_DROPOUT][0 if kern == "fwd" else 1]
+        res[kern] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": "operations" if ops_ms >= bytes_ms
+                     else "bytes", "library_ms": lib_ms,
+                     "max_abs_err": path_err[kern]}
+        log(f"time [flash_attention_{kern}, B*H {BERT_BH}, S {BERT_SEQ}, D "
+            f"{BERT_HEAD_DIM}, bf16, dropout {BERT_DROPOUT}]: kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, "
+            f"bound {bound_ms:.4f} ms ({res[kern]['bound_by']}; operations "
+            f"{ops_ms:.4f}, bytes {bytes_ms:.4f}), kernel at "
+            f"{100 * bound_ms / ms:.1f}% of bound; per step (x{BERT_LAYERS})"
+            f" kernel {BERT_LAYERS * ms:.3f} ms, bound "
+            f"{BERT_LAYERS * bound_ms:.4f} ms")
+    fa.flash_attention.launches = before       # timing is not the path
+    bwd = res["dq"]["ms"] + res["dkv"]["ms"]
+    log(f"time: backward kernels together {bwd:.4f} ms vs the library's "
+        f"backward {library[BERT_DROPOUT][1]:.4f} ms = "
+        f"{bwd / library[BERT_DROPOUT][1]:.2f}x; forward kernel "
+        f"{res['fwd']['ms'] / library[BERT_DROPOUT][0]:.2f}x the library's")
+    return res
+
+
+class phase:
+    """Print a phase's wall time on its own line when it ends."""
+
+    def __init__(self, name):
+        self.name = name
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+
+    def __exit__(self, *exc):
+        log(f"phase {self.name}: {time.perf_counter() - self.t0:.1f} s")
 
 
 def main():
@@ -910,34 +1311,72 @@ def main():
 
     try:
         name, count, smi_line = card_report(torch)
-        build_kernels()
-        rng = np.random.default_rng(0)
-        max_err = kernel_vs_plain(torch, rng)
-        cfg = CausalLMConfig(vocab_size=VOCAB, n_layers=LAYERS,
-                             n_heads=HEADS, head_dim=HEAD_DIM, d_ff=D_FF)
-        params = init_causal_lm(cfg, torch.Generator().manual_seed(0),
-                                device="cuda")
-        decode_parity(torch, rng, params, cfg)
-        served = serve(torch, params, cfg)
-        timing = time_kernel(torch, rng)
-        profile_serving(torch, params, cfg)
-        del params
-        fused_vs_plain(torch)
-        model_check(torch)
-        fused_net, plain_net = training_nets(torch)
-        trained, step, batch = train_run(torch, fused_net, True, TIMED_STEPS)
-        profile_step(torch, step, batch)
-        del step, batch, fused_net
-        torch.cuda.empty_cache()
-        unfused = train_run(torch, plain_net, False, TIMED_STEPS)[0]
-        del plain_net
-        track_losses(trained["losses"], unfused["losses"])
-        log(f"train: fused {trained['img_s']:.1f} img/s "
-            f"({trained['ms_step']:.1f} ms/step) vs unfused (cuDNN convs) "
-            f"{unfused['img_s']:.1f} img/s ({unfused['ms_step']:.1f} "
-            f"ms/step) = {trained['img_s'] / unfused['img_s']:.3f}x")
-        torch.cuda.empty_cache()
-        fused_times = time_fused(torch)
+        with phase("build"):
+            build_kernels()
+        with phase("serving"):
+            rng = np.random.default_rng(0)
+            max_err = kernel_vs_plain(torch, rng)
+            cfg = CausalLMConfig(vocab_size=VOCAB, n_layers=LAYERS,
+                                 n_heads=HEADS, head_dim=HEAD_DIM, d_ff=D_FF)
+            params = init_causal_lm(cfg, torch.Generator().manual_seed(0),
+                                    device="cuda")
+            decode_parity(torch, rng, params, cfg)
+            served = serve(torch, params, cfg)
+            timing = time_kernel(torch, rng)
+            profile_serving(torch, params, cfg)
+            del params
+        with phase("fused conv vs plain"):
+            fused_vs_plain(torch)
+        with phase("ResNet model check"):
+            model_check(torch)
+        with phase("ResNet training"):
+            fused_net, plain_net = training_nets(torch)
+            trained, step, batch = train_run(torch, fused_net, True,
+                                             TIMED_STEPS)
+            profile_step(torch, step, batch, "train step (fused ResNet-50, "
+                         f"batch {TRAIN_BATCH})")
+            del step, batch, fused_net
+            torch.cuda.empty_cache()
+            unfused = train_run(torch, plain_net, False, TIMED_STEPS)[0]
+            del plain_net
+            track_losses(trained["losses"], unfused["losses"],
+                         "fused vs unfused ResNet-50")
+            log(f"train: fused {trained['img_s']:.1f} img/s "
+                f"({trained['ms_step']:.1f} ms/step) vs unfused (cuDNN convs) "
+                f"{unfused['img_s']:.1f} img/s ({unfused['ms_step']:.1f} "
+                f"ms/step) = {trained['img_s'] / unfused['img_s']:.3f}x")
+            torch.cuda.empty_cache()
+        with phase("fused conv timing"):
+            fused_times = time_fused(torch)
+            torch.cuda.empty_cache()
+        with phase("flash vs plain"):
+            flash_err = flash_vs_plain(torch)
+            torch.cuda.empty_cache()
+        with phase("BERT model check"):
+            bert_model_check(torch)
+            torch.cuda.empty_cache()
+        with phase("BERT training"):
+            flash_net, dense_net = bert_nets(torch)
+            bert, bstep, bbatch = bert_train_run(torch, flash_net, "flash",
+                                                 BERT_TIMED_STEPS)
+            profile_step(torch, bstep, bbatch, "train step (flash BERT-base, "
+                         f"batch {BERT_BATCH} x {BERT_SEQ})")
+            del bstep, bbatch, flash_net
+            torch.cuda.empty_cache()
+            dense = bert_train_run(torch, dense_net, "dense",
+                                   BERT_TIMED_STEPS)[0]
+            del dense_net
+            track_losses(bert["losses"], dense["losses"],
+                         "flash vs dense BERT-base")
+            log(f"train: flash BERT-base {bert['tok_s']:.1f} tokens/s "
+                f"({bert['ms_step']:.1f} ms/step, peak "
+                f"{bert['peak'] / 2**30:.2f} GiB) vs dense "
+                f"{dense['tok_s']:.1f} tokens/s ({dense['ms_step']:.1f} "
+                f"ms/step, peak {dense['peak'] / 2**30:.2f} GiB) = "
+                f"{bert['tok_s'] / dense['tok_s']:.3f}x")
+            torch.cuda.empty_cache()
+        with phase("flash timing"):
+            flash_times = time_flash(torch, flash_err)
     except SmokeError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -955,6 +1394,14 @@ def main():
             "name": kname, "route": "cuda", "source": SOURCES[kname],
             "replaces": REPLACES[kname],
             "launches": trained["launches"][kern],
+            "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    for kern in FLASH:
+        kname, t = f"flash_attention_{kern}", flash_times[kern]
+        kernels["kernels"].append({
+            "name": kname, "route": "cuda", "source": SOURCES[kname],
+            "replaces": REPLACES[kname], "launches": bert["launches"][kern],
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})

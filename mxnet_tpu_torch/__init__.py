@@ -20,10 +20,16 @@ Ported so far:
 - ResNet v1 training — ``gluon.model_zoo.vision.resnet50_v1`` (and the
   other v1 depths) through ``parallel.TrainStep`` with SGD, with the
   fused norm -> relu -> conv forward, dX and dW kernels
-  (``ops.norm_relu_conv``) when built with ``fused=True``.
+  (``ops.norm_relu_conv``) when built with ``fused=True``;
+- BERT pretraining — ``gluon.model_zoo.bert.BERTModel`` with
+  ``BERTPretrainLoss`` through ``parallel.TrainStep`` with LAMB, with the
+  flash-attention forward, dQ and dK/dV kernels
+  (``ops.flash_attention``) when built with ``attention_impl="flash"``.
 """
-from . import autograd, context, gluon, initializer, optimizer, parallel
+from . import (autograd, context, gluon, initializer, optimizer, parallel,
+               random)
 from .context import cpu, current_context, gpu, resolve_device
 
 __all__ = ["autograd", "context", "gluon", "initializer", "optimizer",
-           "parallel", "cpu", "gpu", "current_context", "resolve_device"]
+           "parallel", "random", "cpu", "gpu", "current_context",
+           "resolve_device"]

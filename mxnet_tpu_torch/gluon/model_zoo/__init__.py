@@ -1,4 +1,4 @@
 """Model zoo of the port."""
-from . import causal_lm, vision
+from . import bert, causal_lm, vision
 
-__all__ = ["causal_lm", "vision"]
+__all__ = ["bert", "causal_lm", "vision"]

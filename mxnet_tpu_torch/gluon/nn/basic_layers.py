@@ -1,5 +1,6 @@
 """Basic layers (the port of ``mxnet_tpu/gluon/nn/basic_layers.py``'s
-``HybridSequential``, ``Dense`` and ``BatchNorm``)."""
+``HybridSequential``, ``Dense``, ``Dropout``, ``BatchNorm``, ``LayerNorm``
+and ``Embedding``)."""
 from __future__ import annotations
 
 import math
@@ -7,7 +8,8 @@ import math
 from ... import autograd as _autograd
 from ..block import HybridBlock
 
-__all__ = ["HybridSequential", "Dense", "BatchNorm"]
+__all__ = ["HybridSequential", "Dense", "Dropout", "BatchNorm", "LayerNorm",
+           "Embedding"]
 
 
 class HybridSequential(HybridBlock):
@@ -63,6 +65,23 @@ class Dense(HybridBlock):
         return out
 
 
+class Dropout(HybridBlock):
+    """``Dropout`` op (inverted, training mode only)."""
+
+    def __init__(self, rate, axes=(), prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._rate = rate
+        self._axes = tuple(axes)
+
+    def infer_shape(self, *args):
+        pass
+
+    def hybrid_forward(self, F, x):
+        if self._rate == 0:
+            return x
+        return F.Dropout(x, p=self._rate, axes=self._axes)
+
+
 class BatchNorm(HybridBlock):
     """``BatchNorm`` op; in training mode the new running statistics are
     written back to the ``running_mean``/``running_var`` parameters."""
@@ -111,3 +130,53 @@ class BatchNorm(HybridBlock):
             self.running_mean._data = new_mm.detach()
             self.running_var._data = new_mv.detach()
         return out
+
+
+class LayerNorm(HybridBlock):
+    """``LayerNorm`` op over ``axis``; ``gamma`` and ``beta``."""
+
+    def __init__(self, axis=-1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._axis = axis
+        self._eps = epsilon
+        self.gamma = self.params.get("gamma", shape=(in_channels,),
+                                     init=gamma_initializer,
+                                     allow_deferred_init=True,
+                                     differentiable=scale)
+        self.beta = self.params.get("beta", shape=(in_channels,),
+                                    init=beta_initializer,
+                                    allow_deferred_init=True,
+                                    differentiable=center)
+
+    def infer_shape(self, x, *args):
+        c = x.shape[self._axis]
+        self.gamma.shape = (c,)
+        self.beta.shape = (c,)
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.LayerNorm(x, gamma, beta, axis=self._axis, eps=self._eps)
+
+
+class Embedding(HybridBlock):
+    """``Embedding`` op; weight ``(input_dim, output_dim)``."""
+
+    def __init__(self, input_dim, output_dim, dtype="float32",
+                 weight_initializer=None, sparse_grad=False, prefix=None,
+                 params=None):
+        super().__init__(prefix=prefix, params=params)
+        if sparse_grad:
+            raise NotImplementedError("the port's Embedding has dense "
+                                      "gradients only")
+        self._input_dim = input_dim
+        self._output_dim = output_dim
+        self.weight = self.params.get("weight", shape=(input_dim, output_dim),
+                                      init=weight_initializer, dtype=dtype)
+
+    def infer_shape(self, *args):
+        pass
+
+    def hybrid_forward(self, F, x, weight):
+        return F.Embedding(x, weight, input_dim=self._input_dim,
+                           output_dim=self._output_dim)

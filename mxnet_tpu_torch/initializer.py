@@ -17,8 +17,8 @@ import torch
 
 from .base import dtype_torch
 
-__all__ = ["Initializer", "Zero", "One", "Uniform", "Xavier", "register",
-           "create", "seed"]
+__all__ = ["Initializer", "Zero", "One", "Uniform", "Xavier", "TruncNorm",
+           "register", "create", "seed"]
 
 _REGISTRY = {}
 _GEN = torch.Generator().manual_seed(0)
@@ -131,3 +131,23 @@ class Xavier(Initializer):
         else:
             raise ValueError("rnd_type must be uniform/gaussian")
         return a.to(dtype_torch(dtype))
+
+
+@register
+class TruncNorm(Initializer):
+    """Normal(mean, stdev) truncated at +-2 stdev (BERT's init), drawn by
+    inverting the normal CDF on a uniform between the two cut points,
+    as ``jax.random.truncated_normal`` draws it."""
+
+    def __init__(self, mean=0.0, stdev=0.01):
+        super().__init__(mean=mean, stdev=stdev)
+        self.mean = mean
+        self.stdev = stdev
+
+    def init_array(self, shape, dtype="float32"):
+        lo, hi = (0.5 * (1.0 + math.erf(c / math.sqrt(2.0)))
+                  for c in (-2.0, 2.0))
+        u = lo + torch.rand(shape, generator=_GEN, dtype=torch.float64) \
+            * (hi - lo)
+        x = (math.sqrt(2.0) * torch.erfinv(2.0 * u - 1.0)).clamp(-2.0, 2.0)
+        return (x.float() * self.stdev + self.mean).to(dtype_torch(dtype))

@@ -41,6 +41,16 @@ KERNELS = {
         # dtype, 7 pointers, 11 geometry ints + relu, splits, chunk, stream
         "fused_conv_dw": (_I,) + (_P,) * 7 + (_I,) * 14 + (_P,),
     },
+    "flash_attention": {
+        # dtype, pointers, bh, S, D, scale, causal, dropout, 1/(1-dropout),
+        # seed, stream
+        "flash_attention_fwd":
+            (_I,) + (_P,) * 5 + (_I,) * 3 + (_F, _I, _F, _F, _I, _P),
+        "flash_attention_dq":
+            (_I,) + (_P,) * 7 + (_I,) * 3 + (_F, _I, _F, _F, _I, _P),
+        "flash_attention_dkv":
+            (_I,) + (_P,) * 8 + (_I,) * 3 + (_F, _I, _F, _F, _I, _P),
+    },
 }
 
 _lock = threading.Lock()
@@ -138,3 +148,4 @@ def check(status, what):
     """Raise when a C entry point returned a CUDA error code."""
     if status != 0:
         raise RuntimeError(f"{what}: CUDA error {status} at launch")
+

@@ -1,5 +1,5 @@
 """Neural-network ops on tensors (the port of ``mxnet_tpu/ops/nn.py``,
-the ones the ResNet training step runs).
+the ones the ResNet and BERT training steps run).
 
 Convolutions take the JAX package's layouts — ``NHWC`` activations with
 ``OHWI`` weights, or ``NCHW`` with ``OIHW`` — and run ``F.conv2d`` on
@@ -16,10 +16,12 @@ import torch
 import torch.nn.functional as F
 
 from .. import autograd as _autograd
+from .. import random as _random
 from .fused_conv import norm_relu_conv
 
 __all__ = ["FullyConnected", "Convolution", "Pooling", "BatchNorm",
-           "FusedNormReluConv", "Activation", "log_softmax", "moments"]
+           "FusedNormReluConv", "LayerNorm", "Activation", "Dropout",
+           "log_softmax", "moments"]
 
 
 def _tup(v, n):
@@ -171,6 +173,20 @@ def BatchNorm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
     return out, new_mm, new_mv
 
 
+def LayerNorm(data, gamma, beta, axis=-1, eps=1e-5):
+    """Layer normalisation over ``axis``: the statistics from ``moments``
+    (f32 for half-precision data), then, in the JAX op's order and in
+    the data's dtype, ``(x - mean) * rsqrt(var + eps) * gamma + beta``."""
+    axis = axis % data.dim()
+    mean, var = moments(data, (axis,))
+    mean, var = mean.unsqueeze(axis), var.unsqueeze(axis)
+    inv = torch.rsqrt(var + eps)
+    shape = [1] * data.dim()
+    shape[axis] = data.shape[axis]
+    return ((data - mean.to(data.dtype)) * inv.to(data.dtype)
+            * gamma.reshape(shape) + beta.reshape(shape))
+
+
 def FusedNormReluConv(data, weight, gamma, beta, moving_mean, moving_var,
                       residual=None, eps=1e-5, momentum=0.9, relu=True,
                       stride=1, training=None):
@@ -201,6 +217,8 @@ def FusedNormReluConv(data, weight, gamma, beta, moving_mean, moving_var,
 
 # ------------------------------------------------------------ activation ----
 def Activation(data, act_type="relu"):
+    """``gelu`` is the exact erf form (``jax.nn.gelu(approximate=False)``,
+    the JAX op's choice), ``tanh`` the plain ``tanh``."""
     if act_type == "relu":
         return torch.relu(data)
     if act_type == "sigmoid":
@@ -216,6 +234,26 @@ def Activation(data, act_type="relu"):
     if act_type in ("silu", "swish"):
         return F.silu(data)
     raise ValueError(f"unknown act_type {act_type}")
+
+
+def Dropout(data, p=0.5, mode="training", axes=(), training=None,
+            **_unused):
+    """Inverted dropout in training mode (or ``mode="always"``): keep
+    with probability ``1 - p`` (the mask broadcast over ``axes``), drawn
+    from the data's device stream (``random.generator``), and divide by
+    ``1 - p`` in the data's dtype."""
+    if training is None:
+        training = _autograd.is_training()
+    if (not training and mode != "always") or p == 0:
+        return data
+    shape = list(data.shape)
+    for a in axes:
+        shape[a] = 1
+    u = torch.rand(shape, generator=_random.generator(data.device),
+                   device=data.device)
+    div = torch.tensor(1.0 - p, dtype=data.dtype, device=data.device)
+    return torch.where(u < 1.0 - p, data / div,
+                       torch.zeros((), dtype=data.dtype, device=data.device))
 
 
 def log_softmax(data, axis=-1):

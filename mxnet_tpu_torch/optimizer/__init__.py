@@ -1,4 +1,4 @@
-"""Optimizers of the port (``Optimizer``, ``SGD``, ``create``)."""
-from .optimizer import SGD, Optimizer, create, register
+"""Optimizers of the port (``Optimizer``, ``SGD``, ``LAMB``, ``create``)."""
+from .optimizer import LAMB, SGD, Optimizer, create, register
 
-__all__ = ["Optimizer", "SGD", "create", "register"]
+__all__ = ["Optimizer", "SGD", "LAMB", "create", "register"]

@@ -1,5 +1,5 @@
 """Optimizers (the port of ``mxnet_tpu/optimizer/optimizer.py``'s
-``Optimizer``, ``SGD`` and ``create``).
+``Optimizer``, ``SGD``, ``LAMB`` and ``create``).
 
 An optimizer here holds the hyperparameters and the multi-precision
 rule; ``parallel.TrainStep`` applies the update
@@ -13,7 +13,7 @@ import torch
 
 from ..base import dtype_torch
 
-__all__ = ["Optimizer", "SGD", "create", "register"]
+__all__ = ["Optimizer", "SGD", "LAMB", "create", "register"]
 
 _REGISTRY = {}
 
@@ -72,3 +72,20 @@ class SGD(Optimizer):
     def __init__(self, momentum=0.0, **kwargs):
         super().__init__(**kwargs)
         self.momentum = momentum
+
+
+@register
+class LAMB(Optimizer):
+    """LAMB, the BERT optimizer: Adam moments with bias correction at the
+    step count, the update ``m_hat / (sqrt(v_hat) + eps) + wd * w``
+    scaled by the trust ratio ``||w|| / ||update||`` (1 where either
+    norm is 0), ``||w||`` optionally clipped to
+    ``[lower_bound, upper_bound]``."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-6, lower_bound=None, upper_bound=None,
+                 bias_correction=True, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
+        self.lower_bound, self.upper_bound = lower_bound, upper_bound
+        self.bias_correction = bias_correction

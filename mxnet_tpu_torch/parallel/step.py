@@ -9,11 +9,19 @@ Usage, as with the JAX package::
     loss = step(x, y)          # forward, loss, backward, SGD update
     step.sync_params_to_net()  # the step's parameters into the net
 
+``data`` and ``label`` may each be one tensor or a tuple/list of them
+(``None`` leaves pass through): the net is called as ``net(*data)`` and
+the loss as ``loss_fn(out, label)``, a one-element label tuple unwrapped
+— e.g. BERT pretraining with ``data = (tokens, token_types, None,
+masked_positions)`` and ``label = (mlm_labels, mlm_weights,
+nsp_labels)``.
+
 The step owns copies of the net's parameters (made at the first call).
 Each call runs the forward in training mode, the loss averaged over the
-batch (in f32), the backward, the optimizer update from
-f32 master weights for half-precision parameters (with each parameter's
-``lr_mult``/``wd_mult``), and the write-back of the BatchNorm running
+batch (in f32), the backward, the optimizer update at step count
+``t = num_update + 1`` from f32 master weights for half-precision
+parameters (with each parameter's ``lr_mult``/``wd_mult``), and the
+write-back of the BatchNorm running
 statistics — what the JAX step's one compiled program does.  Here the
 ops run eagerly on the net's device, and the update and the write-back
 are **in place** on the step's tensors, under ``torch.no_grad()``.
@@ -72,6 +80,12 @@ class TrainStep:
                            "parameters; call net.initialize() first")
 
     def _coerce(self, value):
+        """A tensor (or numpy array) on the net's device; tuples and
+        lists leaf by leaf, ``None`` as it is."""
+        if value is None:
+            return None
+        if isinstance(value, (tuple, list)):
+            return tuple(self._coerce(v) for v in value)
         if isinstance(value, np.ndarray):
             value = torch.from_numpy(np.ascontiguousarray(value))
         if not isinstance(value, torch.Tensor):
@@ -79,13 +93,14 @@ class TrainStep:
                             f"arrays, got {type(value).__name__}")
         return value.to(self._device())
 
-    def _build(self, data):
+    def _build(self, data_args):
         net = self.net
         if any(p._deferred_init is not None
                for p in net.collect_params().values()):
             # deferred shapes need only the feature dims: a batch-1 slice
+            # of every tensor leaf
             with _autograd.pause():
-                net(data[:1])
+                net(*(a if a is None else a[:1] for a in data_args))
         names, plist, tensors = param_names_and_values(net)
         self._names, self._plist = names, plist
         self._train_idx, self._aux_idx = trainable_split(plist)
@@ -112,8 +127,11 @@ class TrainStep:
 
     def step(self, data, label):
         data, label = self._coerce(data), self._coerce(label)
+        data_args = data if isinstance(data, tuple) else (data,)
+        if isinstance(label, tuple) and len(label) == 1:
+            label = label[0]
         if not self._built:
-            self._build(data)
+            self._build(data_args)
         tensors = [None] * len(self._plist)
         for i, t in zip(self._train_idx, self._train):
             tensors[i] = t
@@ -121,17 +139,18 @@ class TrainStep:
             tensors[i] = t
         with _autograd.record(train_mode=True):
             out, mutated = functional_call(self.net, self._plist, tensors,
-                                           (data,), training=True)
+                                           data_args, training=True)
             loss = self.loss_fn(out, label).mean().float()
         grads = torch.autograd.grad(loss, self._train)
         if self._skip_nonfinite and not self._all_finite(loss, grads):
             self._skip(loss)
             return loss.detach()
         lr, opt = self._base_lr(), self.optimizer
+        t = self._num_update + 1
         with torch.no_grad():
             for k, (w, g, s) in enumerate(zip(self._train, grads,
                                               self._states)):
-                pure_update(opt, w, g, s, lr * self._lr_mults[k],
+                pure_update(opt, w, g, s, t, lr * self._lr_mults[k],
                             opt.wd * self._wd_mults[k])
             for i, new in mutated:
                 if i in self._aux_pos:
