@@ -50,7 +50,9 @@ Phases, each of which fails the run (each prints its wall time):
 7. each fused-conv kernel at the eight shapes at N = 256, bf16: held
    against its plain version, then timed (CUDA events, L2 flushed)
    beside its bound, its plain version and the cuDNN call for the conv
-   alone; summed over a step's 32 launches;
+   alone, with its achieved TFLOP/s; summed over a step's 32 launches;
+   before it, ``nvcc -Xptxas -v``'s registers and spills of the
+   tensor-core forward and dW kernels beside their shared memory;
 8. each flash-attention kernel (forward, dQ, dK/dV) against its plain
    version summed in f64: BERT-base's shape at dropout 0 and 0.1,
    causal, S = 512, S = 200, D = 128, f32;
@@ -838,6 +840,81 @@ def conv_bound(n, hw, ci, co, k, kernel):
     return flops / BF16_FLOP_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
 
 
+def tc_smem_bytes(dtype_bytes, wg, np_, dw, res):
+    """Dynamic shared memory of one tensor-core fused-conv block, as
+    ``Tile::smem_bytes`` in fused_conv.cu computes it (4 stages, or 3
+    where 4 do not fit in 232448 bytes)."""
+    rows = 64 if dw else 64 * wg
+    panels = np_ * wg if dw else np_
+    pieces_x, pieces_b = (3, 3) if dtype_bytes == 4 else (2, 1)
+    b = pieces_b * panels * 8192
+    raw = rows * 64 * dtype_bytes * (2 if res else 1)
+    for stages in (4, 3):
+        total = (1024 + stages * (b + raw) + 2 * pieces_x * rows * 128
+                 + stages * rows + 40)
+        if total <= 232448 or stages == 3:
+            return stages, total
+
+
+def ptxas_report():
+    """``nvcc -Xptxas -v`` of fused_conv.cu: registers and spills of each
+    tensor-core kernel (``fwd_halo_kernel<panels>``, ``dw_halo_kernel``,
+    ``tc_kernel<type, warpgroups, panels, dW>``) beside its dynamic
+    shared memory, and ptxas's wgmma serialisation warnings (C7515)."""
+    import re
+
+    from mxnet_tpu_torch.ops import cuda as kcuda
+
+    kcuda.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = kcuda.BUILD_DIR / f"ptxas-{os.getpid()}.so"
+    r = subprocess.run([kcuda.nvcc_path(), *kcuda.NVCC_FLAGS, "-Xptxas",
+                        "-v", "-o", str(out),
+                        str(kcuda.SRC_DIR / "fused_conv.cu")],
+                       capture_output=True, text=True, timeout=600)
+    out.unlink(missing_ok=True)
+    expect(r.returncode == 0, f"nvcc -Xptxas -v failed:\n{r.stderr}")
+    pat = re.compile(r"tc_kernelI(13__nv_bfloat16|f)Li(\d)ELi(\d)ELb(\d)E"
+                     r"|fwd_halo_kernelILi(\d)E|dw_halo_kernelE")
+    lines = (r.stdout + r.stderr).splitlines()
+    serial = {pat.search(line).group(0) for line in lines
+              if "C7515" in line and pat.search(line)}
+    name = None
+    for line in lines:
+        m = pat.search(line)
+        if "Compiling entry function" in line:
+            name = m
+        elif name is not None and "spill" in line:
+            spills = line.strip()
+        elif name is not None and "Used" in line:
+            if name.group(0) == "dw_halo_kernelE":
+                what = "dw_halo_kernel"
+                smem = (1024 + 4 * 8192 + 6 * 256 * 128 + 128 + 48,
+                        "4 dO stages, 2 raw halos, 2 X halos of hi and lo")
+            elif name.group(5):
+                np_ = int(name.group(5))
+                what = f"fwd_halo_kernel<{np_} panels>"
+                stages = 2 if np_ == 4 else 4
+                smem = (1024 + stages * np_ * 8192 + 4 * 256 * 128 + 128
+                        + 8 * (stages + 2), f"{stages} B stages, 2 raw "
+                        "halos, X halo of hi and lo")
+            else:
+                bf16 = name.group(1) != "f"
+                wg, np_, dw = (int(name.group(i)) for i in (2, 3, 4))
+                what = (f"tc_kernel<{'bf16' if bf16 else 'f32'}, {wg} "
+                        f"warpgroups, {np_} panels, {'dW' if dw else 'fwd'}>")
+                st = [tc_smem_bytes(2 if bf16 else 4, wg, np_, dw, res)
+                      for res in (False, True)]
+                smem = (st[0][1], f"{st[0][0]} stages; {st[1][1]} in "
+                        f"{st[1][0]} with a residual")
+            log(f"ptxas [{what}]: {line.split(':', 1)[1].strip()}; "
+                f"{spills}; dynamic shared memory {smem[0]} bytes "
+                f"({smem[1]})"
+                + ("; wgmmas serialised (C7515)" if name.group(0) in serial
+                   else ""))
+            name = None
+    return serial
+
+
 def time_fused(torch):
     """Each fused-conv kernel at the eight ResNet-50 shapes at N = 256,
     bf16, as the training run calls it: its outputs held against its
@@ -851,11 +928,13 @@ def time_fused(torch):
 
     from mxnet_tpu_torch.ops import fused_conv as fc
 
+    ptxas_report()
     gen = torch.Generator(device=DEVICE).manual_seed(3)
     flush = torch.empty(1024 * 2**20, dtype=torch.uint8, device=DEVICE)
     before = dict(fc.norm_relu_conv.launches)
     sums = {k: dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms",
-                              "operations", "bytes", "max_abs_err"), 0.0)
+                              "operations", "bytes", "max_abs_err",
+                              "flops"), 0.0)
             for k in FUSED}
     for label, blocks, hw, ci, co, k in path_shapes():
         x, sc, sh, w, _, do = fused_inputs(torch, gen, TRAIN_BATCH, hw, ci,
@@ -914,7 +993,10 @@ def time_fused(torch):
             t["library_ms"] += blocks * lib_ms
             t["bound_ms"] += blocks * bound_ms
             t[bound_by] += blocks * bound_ms     # what sets the sum
-            parts.append(f"{kern} {ms:.3f} ms, max abs err vs plain "
+            flops = 2.0 * TRAIN_BATCH * hw * hw * co * k * k * ci
+            t["flops"] += blocks * flops
+            parts.append(f"{kern} {ms:.3f} ms = {flops / ms / 1e9:.1f} "
+                         f"TFLOP/s, max abs err vs plain "
                          f"in f64 {err:.3e} (plain in f32: {plain_err:.3e})"
                          f" (plain {plain_ms:.3f}, cuDNN "
                          f"conv alone {lib_ms:.3f}, bound {bound_ms:.4f} by "
@@ -928,7 +1010,8 @@ def time_fused(torch):
             else "bytes"
         log(f"time per step [fused_conv_{kern}, 32 launches, max abs err "
             f"vs plain in f64 {t['max_abs_err']:.3e}]: kernel "
-            f"{t['ms']:.2f} ms, plain {t['plain_ms']:.2f} ms, cuDNN conv "
+            f"{t['ms']:.2f} ms = {t.pop('flops') / t['ms'] / 1e9:.1f} "
+            f"TFLOP/s, plain {t['plain_ms']:.2f} ms, cuDNN conv "
             f"alone {t['library_ms']:.2f} ms, bound {t['bound_ms']:.3f} ms "
             f"({t['bound_by']}), kernel at "
             f"{100 * t['bound_ms'] / t['ms']:.2f}% of bound")

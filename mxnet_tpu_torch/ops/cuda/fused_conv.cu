@@ -15,32 +15,80 @@
 // which multiply the f32 prologue by the f32-cast weights).  out, dx and
 // dres are written in x's type; dscale, dshift and dW in f32.
 //
-// All three are implicit GEMMs over NHWC, sharing one tile loop:
+// All three are implicit GEMMs over NHWC:
 //   fwd : rows = output positions (N*Ho*Wo), cols = Co, depth = k*k*Ci
 //   dX  : rows = input positions (N*H*W),    cols = Ci, depth = k*k*Co
 //   dW  : rows = (tap, ci) (k*k*Ci),         cols = Co, depth = N*Ho*Wo
-// A 256-thread block owns a 64x64 tile of the result; per step of 16 in
-// the depth it stages a 16x64 A tile and a 16x64 B tile in shared memory
-// (as f32; rows padded by 4 floats against bank conflicts) and each
-// thread accumulates a 4x4 sub-tile in registers from float4 reads.  The
-// loaders compute their own NHWC offsets and zero what lies outside the
-// image (SAME padding is zero padding of X, after the prologue), so the
-// Pallas kernels' padded copies, contiguous-slice taps and zero-
+// The loaders compute their own NHWC offsets and zero what lies outside
+// the image (SAME padding is zero padding of X, after the prologue), so
+// the Pallas kernels' padded copies, contiguous-slice taps and zero-
 // interleaved dilation of dO (workarounds for Mosaic's missing strided
 // slices) have no counterpart here.
 //
-// Bound (see chip_smoke.py for the numbers at ResNet-50's shapes): the
-// 3x3 convs sit near the card's bf16 ridge (~290 flops per byte), the
-// 1x1 convs are byte-bound.  This first version multiplies on the f32
-// SIMT units, not the tensor cores, so it is compute-bound far above
-// either bound; what the design buys is the traffic: each kernel reads x
-// (and res) once per tile that needs it and never writes or rereads X.
-// Tensor cores (wgmma on bf16 tiles fed by TMA) are the next step.
+// Forward and dW run on the tensor cores: warpgroup MMAs (wgmma, bf16
+// operands, f32 accumulators) fed through shared-memory rings, B (w
+// viewed as [k*k*Ci, Co], dO as [N*Ho*Wo, Co]) by the TMA as 64 x 64
+// panels, 128-byte swizzled, completing on mbarriers.  X is formed from
+// the staged raw x in f32 (the prologue rounded as below) and split into
+// bf16 pieces.
+//
+// The training path (bf16, stride 1, no residual) forms X once per x
+// element and 64-channel chunk, not once per tap: a block's TMA stages
+// the consecutive NHWC positions that all its taps reach (its "halo"),
+// X is formed from them into swizzled bf16 tiles, and each tap's A
+// fragments are read from those rows by ldmatrix, one row address per
+// lane (a zero row where the tap leaves the image: SAME padding), into
+// registers for wgmma.
+//   `fwd_halo_kernel`: 128 output positions x 64, 128 or 256 output
+//     channels a block (wide tiles form X for fewer blocks); the next
+//     chunk's halo arrives while this chunk's taps run.
+//   `dw_halo_kernel` (3x3): 64 input x 64 output channels for all nine
+//     taps over a chunk of positions, three warpgroups, one kernel row
+//     each; A = X^T comes by ldmatrix.trans; chunks of positions are
+//     reduced by `reduce_splits` in order (no atomics: the same bits on
+//     every run).
+// `tc_kernel` takes the rest (f32, stride 2, a residual; dW of the 1x1
+// convs): per step of 64 in the depth every thread gathers its share of
+// the raw rows with 16-byte cp.async copies (one row = one position's
+// 64-channel slice at the step's tap; a row outside the image is
+// fetched as nothing and flagged), X is formed into swizzled tiles that
+// wgmma reads from shared memory while the previous step's MMAs run.
+// The tile is [position][ci], 128 bytes a row: the forward reads it
+// K-major (A = positions x ci), dW transposed (A = ci x positions, one
+// tap a tile, split-K as above).
+//
+// Numerics: every product is f32-accurate, as in the TPU kernels (which
+// multiply the f32 prologue by the f32-cast operand).  X is split into
+// bf16 pieces, hi = bf16(X) and each further piece the rounded remainder
+// (every remainder is exact in f32).  With bf16 inputs B (w or dO) is
+// exact in bf16, so each depth step issues X_hi.B and X_lo.B into one f32
+// accumulator: X to ~2^-16 relative, within the card check's tolerance.
+// With f32 inputs the wrapper passes B as its three bf16 pieces (hi,
+// mid, lo) and X is cut in three as well: the six products whose piece
+// orders sum to at most 2 hold each product to ~2^-24, as f32 does (two
+// pieces of each, three products, measured 3-12x the model check's noise
+// floor on the card).  The tensor cores' f32 accumulation does not round
+// to nearest, so `tc_kernel`'s dW and f32 paths sum each step's products
+// in a fresh accumulator and add it to the total on the SIMT units; the
+// halo dW keeps its chunks short (~1500 positions) instead.  The split
+// doubles the tensor-core work of the bf16 path against one product per
+// term (f32 inputs: six times).
+//
+// Bound (numbers in chip_smoke.py at ResNet-50's shapes): the 3x3 convs
+// sit near the card's bf16 ridge (~290 flops per byte), the 1x1 convs
+// are byte-bound; with two products per term the tensor work is twice
+// the function's.  What holds the kernels back now (PERF.md): the SIMT
+// work of forming X, one block per SM, and tensor cores idle while a
+// step's X is formed and between steps.  dX still multiplies on
+// the f32 SIMT units (64x64 tiles, 4x4 results per thread, f32 tiles
+// staged through registers), far above its bound.
 //
 // Every kernel allocates nothing and launches on the caller's stream;
 // each entry point returns cudaGetLastError() after its launches.
+#include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
@@ -101,86 +149,1024 @@ __device__ __forceinline__ void mma_tile(float (*as)[kBM + kPad],
   }
 }
 
-// ---------------------------------------------------------------- forward
-// Replaces `_fwd_kernel`.  The TPU grid (N, Co/block) holds a whole image
-// per step in VMEM; here a block owns 64 output positions x 64 output
-// channels, so every SM has work at any batch.  The A tile is X at the
-// tap of each depth index, formed on load.
+// --------------------------------------------------- tensor-core helpers
+constexpr int kPanel = 64;                      // rows and cols of a panel
+constexpr int kPanelBytes = kPanel * kPanel * 2;  // one bf16 64x64 panel
+constexpr int kSmemMax = 232448;                // a block's dynamic limit
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Byte offset of 16-byte chunk q of row r in a tile of 128-byte rows,
+// 128-byte swizzled as the TMA writes it (tile base 1024-aligned).
+__device__ __forceinline__ int swz(int r, int q) {
+  return r * 128 + ((q ^ (r & 7)) << 4);
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets (16-byte units), layout 1.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) |
+         (static_cast<uint64_t>(1) << 62);
+}
+
+__device__ __forceinline__ void fence_acc(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d[64x64] = A[64x16] B[16x64] (+ d when `add`): A K-major (kTransA 0)
+// or M-major (1), B N-major (transposed), both bf16 in shared memory.
+template <int kTransA>
+__device__ __forceinline__ void wgmma64(float (&d)[32], uint64_t a,
+                                       uint64_t b, int add) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1, %35, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(add), "n"(kTransA));
+}
+
+// The same over 128 columns: d holds cols 0-63, e cols 64-127 (B spans
+// two 64-wide panels, kPanelBytes apart).
+template <int kTransA>
+__device__ __forceinline__ void wgmma128(float (&d)[32], float (&e)[32],
+                                        uint64_t a, uint64_t b, int add) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, "
+      "1, 1, %67, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(e[0]), "+f"(e[1]), "+f"(e[2]), "+f"(e[3]),
+        "+f"(e[4]), "+f"(e[5]), "+f"(e[6]), "+f"(e[7]), "+f"(e[8]), "+f"(e[9]),
+        "+f"(e[10]), "+f"(e[11]), "+f"(e[12]), "+f"(e[13]), "+f"(e[14]),
+        "+f"(e[15]), "+f"(e[16]), "+f"(e[17]), "+f"(e[18]), "+f"(e[19]),
+        "+f"(e[20]), "+f"(e[21]), "+f"(e[22]), "+f"(e[23]), "+f"(e[24]),
+        "+f"(e[25]), "+f"(e[26]), "+f"(e[27]), "+f"(e[28]), "+f"(e[29]),
+        "+f"(e[30]), "+f"(e[31])
+      : "l"(a), "l"(b), "r"(add), "n"(kTransA));
+}
+
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int kPending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending)
+               : "memory");
+}
+
+// 16 bytes global -> shared, or 16 zero bytes when !ok (nothing read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+// Wait for the phase of `parity` to complete; traps (a launch error, not
+// a hang) if it has not after ~10 s.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  const long long t0 = clock64();
+  while (true) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - t0 > 20000000000LL) __trap();
+  }
+}
+
+// One box of a 2-D tensor map at (col, row) into shared memory,
+// completing on `bar`.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int col, int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Eight staged values of type T from shared memory as floats, read in
+// 16-byte loads (a bf16 is the top half of its f32).
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-fwd_kernel(const T* __restrict__ x, const float* __restrict__ scale,
-           const float* __restrict__ shift, const T* __restrict__ w,
-           const T* __restrict__ res, T* __restrict__ out, Geom g, int relu) {
-  __shared__ __align__(16) float as[kBK][kBM + kPad];
-  __shared__ __align__(16) float bs[kBK][kBN + kPad];
+__device__ __forceinline__ void load8(const uint8_t* p, float (&v)[8]) {
+  if constexpr (sizeof(T) == 4) {
+    const float4 a = reinterpret_cast<const float4*>(p)[0];
+    const float4 b = reinterpret_cast<const float4*>(p)[1];
+    v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+    v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+  } else {
+    const uint4 a = *reinterpret_cast<const uint4*>(p);
+    const uint32_t w[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      v[2 * i] = __uint_as_float(w[i] << 16);
+      v[2 * i + 1] = __uint_as_float(w[i] & 0xFFFF0000u);
+    }
+  }
+}
+
+// scale and shift of channels c..c+7 (zeros past ci, where X is then 0).
+__device__ __forceinline__ void load_affine(const float* scale,
+                                            const float* shift, int c,
+                                            int ci, float (&sc)[8],
+                                            float (&sh)[8]) {
+#pragma unroll
+  for (int e = 0; e < 8; e += 4) {
+    const bool ok = c + e < ci;
+    const float4 a = ok ? *reinterpret_cast<const float4*>(scale + c + e)
+                        : make_float4(0.f, 0.f, 0.f, 0.f);
+    const float4 b = ok ? *reinterpret_cast<const float4*>(shift + c + e)
+                        : make_float4(0.f, 0.f, 0.f, 0.f);
+    sc[e] = a.x, sc[e + 1] = a.y, sc[e + 2] = a.z, sc[e + 3] = a.w;
+    sh[e] = b.x, sh[e + 1] = b.y, sh[e + 2] = b.z, sh[e + 3] = b.w;
+  }
+}
+
+__device__ __forceinline__ void st2(float* p, long long i, float a,
+                                    float b) {
+  *reinterpret_cast<float2*>(p + i) = make_float2(a, b);
+}
+__device__ __forceinline__ void st2(__nv_bfloat16* p, long long i, float a,
+                                    float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p + i) = __floats2bfloat162_rn(a, b);
+}
+
+// What a tensor-core kernel stages per step and how it is cut.
+//   kWG: consumer warpgroups (all threads also load and transform);
+//   kNP: 64-wide column panels per warpgroup;
+//   kDW: false = forward (warpgroups split the rows: 64 positions each),
+//        true = dW (one 64-row (tap, ci) tile; warpgroups split the cols).
+template <typename T, int kWG, int kNP, bool kDW>
+struct Tile {
+  static constexpr int kThreads = 128 * kWG;
+  static constexpr int kRows = kDW ? 64 : 64 * kWG;  // staged positions
+  static constexpr int kPanels = kDW ? kNP * kWG : kNP;  // B panels
+  static constexpr int kCols = kPanel * kPanels;          // block cols
+  // bf16 pieces of X and of B: X = hi + lo (bf16 inputs: B exact);
+  // f32 inputs: X and B each hi + mid + lo
+  static constexpr int kPiecesX = sizeof(T) == 4 ? 3 : 2;
+  static constexpr int kTermsB = sizeof(T) == 4 ? 3 : 1;
+  // Each step's products are summed in a fresh accumulator and added to
+  // the f32 total by the SIMT units (rounded to nearest): the tensor
+  // cores' own accumulation does not round to nearest and drifts over a
+  // long sum.  For dW (reductions of up to ~14000 positions a block) and
+  // the f32 check path; the bf16 forward keeps one accumulator.
+  static constexpr bool kPromote = kDW || sizeof(T) == 4;
+  static constexpr int kRawRow = 64 * static_cast<int>(sizeof(T));
+  static constexpr int kUnits = kRows * 8 / kThreads;  // 8-ch units/thread
+  static constexpr int kBBytes = kTermsB * kPanels * kPanelBytes;
+  static constexpr int kRawBytes = kRows * kRawRow;
+  static constexpr int kABytes = kRows * 128;           // one bf16 A tile
+
+  // dynamic shared memory of `stages` stages (+1024 for alignment)
+  static __host__ __device__ int smem_bytes(int stages, bool res) {
+    return 1024 + stages * (kBBytes + kRawBytes * (res ? 2 : 1)) +
+           2 * kPiecesX * kABytes + stages * kRows + 8 * 4 + 8;
+  }
+};
+
+// Replaces `_fwd_kernel` (kDW false) and `_dw_kernel` (kDW true).
+//   forward: block = kRows output positions x kCols output channels;
+//            step s = (tap, 64-channel chunk); B = w rows tap*Ci + c0.
+//   dW: block = (tap, 64 channels) x kCols output channels x one chunk
+//       of positions [kbeg, kend); step s = 64 positions; B = dO rows.
+// `b0`.. map the bf16 pieces of B (one for bf16 inputs, three for f32:
+// hi, mid, lo).  `dst` is out (forward, x's type) or this split's f32
+// partial of dW.
+template <typename T, int kWG, int kNP, bool kDW>
+__global__ void __launch_bounds__(128 * kWG, 1)
+tc_kernel(const __grid_constant__ CUtensorMap b0,
+          const __grid_constant__ CUtensorMap b1,
+          const __grid_constant__ CUtensorMap b2, const T* __restrict__ x,
+          const T* __restrict__ res, const float* __restrict__ scale,
+          const float* __restrict__ shift, void* __restrict__ dst, Geom g,
+          int relu, int stages, int chunk) {
+  using L = Tile<T, kWG, kNP, kDW>;
+  constexpr int kRows = L::kRows, kRawRow = L::kRawRow;
+  constexpr int kChunkElems = 16 / static_cast<int>(sizeof(T));
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const bool has_res = res != nullptr;
+  uint8_t* sB = sm;                                  // [stages] B panels
+  uint8_t* sX = sB + stages * L::kBBytes;            // [stages] raw x
+  uint8_t* sR = sX + stages * L::kRawBytes;          // [stages] raw res
+  uint8_t* sA = sR + (has_res ? stages * L::kRawBytes : 0);  // [2][piece]
+  uint8_t* sOk = sA + 2 * L::kPiecesX * L::kABytes;  // [stages][kRows]
+  uint64_t* bar = reinterpret_cast<uint64_t*>(
+      (reinterpret_cast<uintptr_t>(sOk + stages * kRows) + 7) &
+      ~uintptr_t(7));
+
   const int tid = threadIdx.x;
-  const int tr = tid / 16, tc = tid % 16;
-  const int M = g.n * g.ho * g.wo;
-  const int K = g.k * g.k * g.ci;
-  const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
+  const int wg = tid / 128;
+  const int nch = (g.ci + 63) / 64;   // 64-channel chunks per tap
+  const int P = g.n * g.ho * g.wo;    // output positions
+  const int hw = g.ho * g.wo;
+  const int n0 = blockIdx.y * L::kCols;
+  // forward: this block's positions; dW: its tap, channels, positions
+  const int m0 = kDW ? 0 : blockIdx.x * kRows;
+  const int dw_tap = kDW ? blockIdx.x / nch : 0;
+  const int dw_c0 = kDW ? (blockIdx.x % nch) * 64 : 0;
+  const int kbeg = kDW ? blockIdx.z * chunk : 0;
+  const int kend = kDW ? min(P, kbeg + chunk) : 0;
+  const int steps = kDW ? (kend - kbeg + 63) / 64 : g.k * g.k * nch;
 
-  // A loader: depth index tid % 16, rows tid / 16 + 16 j (consecutive
-  // threads read consecutive input channels of one pixel)
-  const int a_k = tid % kBK;
-  int a_n[4], a_iy[4], a_ix[4];
-  bool a_ok[4];
+  // forward: each thread's staged rows keep their positions all along
+  int fn[L::kUnits], fy[L::kUnits], fx[L::kUnits];
+  bool fok[L::kUnits];
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int m = m0 + tid / kBK + 16 * j;
-    a_ok[j] = m < M;
-    const int mm = a_ok[j] ? m : 0;
-    const int img = mm / (g.ho * g.wo);
-    const int rem = mm - img * g.ho * g.wo;
-    const int oy = rem / g.wo, ox = rem - (rem / g.wo) * g.wo;
-    a_n[j] = img;
-    a_iy[j] = oy * g.stride - g.pad_y;
-    a_ix[j] = ox * g.stride - g.pad_x;
+  for (int j = 0; j < L::kUnits; ++j) {
+    const int m = m0 + (tid + j * L::kThreads) / 8;
+    fok[j] = !kDW && m < P;
+    const int mm = fok[j] ? m : 0;
+    fn[j] = mm / hw;
+    const int rem = mm - fn[j] * hw;
+    fy[j] = (rem / g.wo) * g.stride - g.pad_y;
+    fx[j] = (rem % g.wo) * g.stride - g.pad_x;
   }
-  // B loader: output channel tid % 64, depth rows tid / 64 + 4 j
-  const int b_n = tid % kBN, b_k = tid / kBN;
 
-  float acc[4][4] = {};
-  for (int k0 = 0; k0 < K; k0 += kBK) {
-    const int kg = k0 + a_k;
-    const bool kok = kg < K;
-    const int tap = kok ? kg / g.ci : 0;
-    const int c = kok ? kg - tap * g.ci : 0;
+  // gather step s's raw rows into stage `slot` (flag the valid ones) and
+  // ask for its B tile
+  auto issue = [&](int s, int slot) {
+    int tap, c0, brow, p0 = 0;
+    if (kDW) {
+      tap = dw_tap;
+      c0 = dw_c0;
+      p0 = kbeg + s * 64;
+      brow = p0;
+    } else {
+      tap = s / nch;
+      c0 = (s - tap * nch) * 64;
+      brow = tap * g.ci + c0;
+    }
     const int ky = tap / g.k, kx = tap - (tap / g.k) * g.k;
-    const float sc = kok ? scale[c] : 0.f, sh = kok ? shift[c] : 0.f;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      float v = 0.f;
-      const int iy = a_iy[j] + ky, ix = a_ix[j] + kx;
-      if (kok && a_ok[j] && iy >= 0 && iy < g.h && ix >= 0 && ix < g.w) {
-        const long long off =
-            ((static_cast<long long>(a_n[j]) * g.h + iy) * g.w + ix) * g.ci +
-            c;
-        v = prologue(ld(x, off), res != nullptr ? ld(res, off) : 0.f,
-                     res != nullptr, sc, sh, relu);
+    for (int j = 0; j < L::kUnits; ++j) {
+      const int u = tid + j * L::kThreads, r = u / 8, q = u % 8;
+      int img, iy, ix;
+      bool ok;
+      if (kDW) {
+        const int p = p0 + r;
+        ok = p < kend;
+        const int pp = ok ? p : 0;
+        img = pp / hw;
+        const int rem = pp - img * hw;
+        iy = (rem / g.wo) * g.stride - g.pad_y + ky;
+        ix = (rem % g.wo) * g.stride - g.pad_x + kx;
+      } else {
+        ok = fok[j];
+        img = fn[j];
+        iy = fy[j] + ky;
+        ix = fx[j] + kx;
       }
-      as[a_k][tid / kBK + 16 * j] = v;
-    }
+      ok = ok && iy >= 0 && iy < g.h && ix >= 0 && ix < g.w;
+      const int c = c0 + q * 8;
+      const bool cok = ok && c < g.ci;
+      const long long off =
+          cok ? ((static_cast<long long>(img) * g.h + iy) * g.w + ix) *
+                        g.ci + c
+              : 0;
+      uint8_t* xd = sX + slot * L::kRawBytes + r * kRawRow +
+                    q * 8 * static_cast<int>(sizeof(T));
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int kk = b_k + 4 * j;
-      const int kgb = k0 + kk, col = n0 + b_n;
-      bs[kk][b_n] = (kgb < K && col < g.co)
-                        ? ld(w, static_cast<long long>(kgb) * g.co + col)
-                        : 0.f;
+      for (int h = 0; h < static_cast<int>(sizeof(T)) / 2; ++h)
+        cp_async16(xd + 16 * h, x + off + h * kChunkElems, cok);
+      if (has_res) {
+        uint8_t* rd = xd + (sR - sX);
+#pragma unroll
+        for (int h = 0; h < static_cast<int>(sizeof(T)) / 2; ++h)
+          cp_async16(rd + 16 * h, res + off + h * kChunkElems, cok);
+      }
+      if (q == 0) sOk[slot * kRows + r] = ok;
     }
-    __syncthreads();
-    mma_tile(as, bs, acc, tr, tc);
-    __syncthreads();
+    cp_async_commit();
+    if (tid == 0) {
+      mbar_expect_tx(&bar[slot], L::kBBytes);
+#pragma unroll
+      for (int t = 0; t < L::kTermsB; ++t)
+#pragma unroll
+        for (int p = 0; p < L::kPanels; ++p)
+          tma_load(sB + slot * L::kBBytes + (t * L::kPanels + p) *
+                                                kPanelBytes,
+                   t == 0 ? &b0 : t == 1 ? &b1 : &b2, &bar[slot],
+                   n0 + p * kPanel,
+                   brow);
+    }
+  };
+
+  // A thread always takes channels q*8.. of a 64-channel chunk (q =
+  // tid % 8): their scale and shift are loaded once a step (forward, the
+  // chunk moves) or once (dW)
+  const int q = tid % 8;
+  float sc[8], sh[8];
+  if (kDW) load_affine(scale, shift, dw_c0 + q * 8, g.ci, sc, sh);
+
+  // X = relu(x*scale + shift [+ res]) of stage `slot` -> A tiles `buf`,
+  // as bf16 pieces hi = bf16(X), then each the rounded remainder (each
+  // remainder is exact in f32); flagged rows and channels past Ci are 0
+  auto transform = [&](int s, int slot, int buf) {
+    const int c = (kDW ? dw_c0 : (s % nch) * 64) + q * 8;
+    if (!kDW) load_affine(scale, shift, c, g.ci, sc, sh);
+    uint8_t* a0 = sA + buf * L::kPiecesX * L::kABytes;
+#pragma unroll
+    for (int j = 0; j < L::kUnits; ++j) {
+      const int r = (tid + j * L::kThreads) / 8;
+      uint32_t pk[L::kPiecesX][4] = {};
+      if (sOk[slot * kRows + r] && c < g.ci) {
+        const uint8_t* xs = sX + slot * L::kRawBytes + r * kRawRow +
+                            q * 8 * static_cast<int>(sizeof(T));
+        float xv[8], rv[8] = {};
+        load8<T>(xs, xv);
+        if (has_res) load8<T>(xs + (sR - sX), rv);
+#pragma unroll
+        for (int e = 0; e < 8; e += 2) {
+          float X[2];
+#pragma unroll
+          for (int f = 0; f < 2; ++f)
+            X[f] = prologue(xv[e + f], rv[e + f], has_res, sc[e + f],
+                            sh[e + f], relu);
+#pragma unroll
+          for (int t = 0; t < L::kPiecesX; ++t) {
+            const __nv_bfloat162 b = __floats2bfloat162_rn(X[0], X[1]);
+            pk[t][e / 2] = *reinterpret_cast<const uint32_t*>(&b);
+            X[0] -= __low2float(b);
+            X[1] -= __high2float(b);
+          }
+        }
+      }
+#pragma unroll
+      for (int t = 0; t < L::kPiecesX; ++t)
+        *reinterpret_cast<uint4*>(a0 + t * L::kABytes + swz(r, q)) =
+            make_uint4(pk[t][0], pk[t][1], pk[t][2], pk[t][3]);
+    }
+  };
+
+  float acc[kNP][32], tot[kNP][32];
+#pragma unroll
+  for (int p = 0; p < kNP; ++p)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[p][i] = tot[p][i] = 0.f;
+
+  // issue the MMAs of one step on stage `slot` and A tiles `buf`: the
+  // products of pieces whose orders sum to at most 1 (bf16 inputs:
+  // X_hi.B, X_lo.B) or 2 (f32: hi.hi, hi.mid, mid.hi, hi.lo, lo.hi,
+  // mid.mid; the dropped terms are ~2^-24 of the product)
+  auto mma = [&](int slot, int buf) {
+    uint32_t a0 = smem_u32(sA + buf * L::kPiecesX * L::kABytes);
+    if (!kDW) a0 += wg * 64 * 128;         // this warpgroup's 64 rows
+    const uint32_t b0s = smem_u32(sB + slot * L::kBBytes);
+#pragma unroll
+    for (int p = 0; p < kNP; ++p) fence_acc(acc[p]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      // K-major A steps 16 channels (32 bytes) along its rows; an
+      // M-major A and the N-major B step 16 rows (2048 bytes).  The
+      // stride offset is the 1024 bytes between groups of 8 rows; the
+      // leading offset of an M/N-major operand is the stride between
+      // 64-wide panels (unused by a K-major one)
+      const uint32_t aoff = kDW ? kk * 2048 : kk * 32;
+      const uint32_t alb = kDW ? kPanelBytes : 16;
+#pragma unroll
+      for (int ta = 0; ta < L::kPiecesX; ++ta)
+#pragma unroll
+        for (int tb = 0; tb < L::kTermsB; ++tb) {
+          if (ta + tb > L::kPiecesX - 1) continue;
+          const uint64_t da =
+              smem_desc(a0 + ta * L::kABytes + aoff, alb, 1024);
+          const int add = !L::kPromote || kk + ta + tb > 0;
+#pragma unroll
+          for (int p = 0; p < kNP; p += 2) {
+            // n128 over panel pairs, n64 for a last odd panel
+            const int panel = kDW ? wg * kNP + p : p;
+            const uint64_t db =
+                smem_desc(b0s + panel * kPanelBytes + kk * 2048 +
+                              tb * L::kPanels * kPanelBytes,
+                          kPanelBytes, 1024);
+            if (p + 1 < kNP)
+              wgmma128<kDW ? 1 : 0>(acc[p], acc[p + 1 < kNP ? p + 1 : p], da,
+                                      db, add);
+            else
+              wgmma64<kDW ? 1 : 0>(acc[p], da, db, add);
+          }
+        }
+    }
+    wgmma_commit();
+  };
+
+  if (tid == 0) {
+    for (int i = 0; i < stages; ++i) mbar_init(&bar[i], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
+  // stages-2 steps in flight ahead of the one being transformed; the
+  // one before it is still in the tensor cores
+  for (int s = 0; s < stages - 2; ++s) {
+    if (s < steps) issue(s, s);
+    else cp_async_commit();
+  }
+  for (int s = 0; s < steps; ++s) {
+    const int slot = s % stages;
+    if (stages == 4) cp_async_wait<1>();
+    else cp_async_wait<0>();
+    mbar_wait(&bar[slot], (s / stages) & 1);
+    wgmma_wait<1>();           // step s-2's MMAs are done (this warpgroup)
+    __syncthreads();           // ... and every warpgroup's: its stage and
+                               // A tiles are free; stage s has landed
+    transform(s, slot, s & 1);
+    // make the A tiles visible to the tensor cores (the async proxy)
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    const int next = s + stages - 2;
+    if (next < steps) issue(next, next % stages);
+    else cp_async_commit();
+    if constexpr (L::kPromote) {
+      wgmma_wait<0>();         // step s-1's sum (zeros at s = 0) is done
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + tr * 4 + i;
-    if (m >= M) continue;
+      for (int p = 0; p < kNP; ++p) {
+        fence_acc(acc[p]);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = n0 + tc * 4 + j;
-      if (col < g.co) st(out, static_cast<long long>(m) * g.co + col,
-                         acc[i][j]);
+        for (int i = 0; i < 32; ++i) tot[p][i] += acc[p][i];
+      }
+    }
+    __syncthreads();
+    mma(slot, s & 1);
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int p = 0; p < kNP; ++p) {
+    fence_acc(acc[p]);
+    if constexpr (L::kPromote) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) tot[p][i] += acc[p][i];
+    } else {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) tot[p][i] = acc[p][i];
+    }
+  }
+
+  // accumulator (i) of thread t: row 16*warp + lane/4 (+8 for i%4 >= 2),
+  // col 8*(i/4) + 2*(lane%4) + i%2, within the warpgroup's 64 x 64 panel
+  const int warp = (tid % 128) / 32, lane = tid % 32;
+  const int r0 = warp * 16 + lane / 4;
+#pragma unroll
+  for (int p = 0; p < kNP; ++p) {
+    const int cbase = n0 + (kDW ? wg * kNP + p : p) * kPanel + 2 * (lane % 4);
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int col = cbase + 8 * q;
+      if (col >= g.co) continue;
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int r = r0 + 8 * hf;
+        const float a = tot[p][4 * q + 2 * hf], b = tot[p][4 * q + 2 * hf + 1];
+        if (kDW) {
+          const int c = dw_c0 + r;
+          if (c >= g.ci) continue;
+          const long long row = static_cast<long long>(dw_tap) * g.ci + c;
+          float* part = static_cast<float*>(dst) +
+                        static_cast<long long>(blockIdx.z) * g.k * g.k *
+                            g.ci * g.co;
+          st2(part, row * g.co + col, a, b);
+        } else {
+          const int m = m0 + wg * 64 + r;
+          if (m >= P) continue;
+          st2(static_cast<T*>(dst), static_cast<long long>(m) * g.co + col,
+              a, b);
+        }
+      }
+    }
+  }
+}
+
+// d[64xN] += A[64x16] B[16xN] with A in registers (a warp's 16 rows in
+// mma.m16n8k16's A layout, as ldmatrix.x4 gives them), B N-major in
+// shared memory; N = 64 (d) or 128 (d, e).
+__device__ __forceinline__ void wgmma64_rs(float (&d)[32],
+                                          const uint32_t (&a)[4],
+                                          uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma128_rs(float (&d)[32], float (&e)[32],
+                                           const uint32_t (&a)[4],
+                                           uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(e[0]), "+f"(e[1]), "+f"(e[2]),
+        "+f"(e[3]), "+f"(e[4]), "+f"(e[5]), "+f"(e[6]), "+f"(e[7]),
+        "+f"(e[8]), "+f"(e[9]), "+f"(e[10]), "+f"(e[11]), "+f"(e[12]),
+        "+f"(e[13]), "+f"(e[14]), "+f"(e[15]), "+f"(e[16]), "+f"(e[17]),
+        "+f"(e[18]), "+f"(e[19]), "+f"(e[20]), "+f"(e[21]), "+f"(e[22]),
+        "+f"(e[23]), "+f"(e[24]), "+f"(e[25]), "+f"(e[26]), "+f"(e[27]),
+        "+f"(e[28]), "+f"(e[29]), "+f"(e[30]), "+f"(e[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4],
+                                            uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// What the halo forward stages.  A block takes 128 output positions (two
+// warpgroups of 64) x 64*kNP output channels (kNP = 4 leaves room for
+// two B stages only); per 64-channel chunk it
+// stages the x rows that its positions' taps reach, kHaloMax at most
+// (128 + (k-1)*(W+1) rows), forms X from them once, and the k*k taps
+// read their rows of that X.
+template <int kNP>
+struct Halo {
+  static constexpr int kThreads = 256;
+  static constexpr int kRows = 128;
+  static constexpr int kHaloMax = 256;
+  static constexpr int kBBytes = kNP * kPanelBytes;
+  static constexpr int kRawBytes = kHaloMax * 128;   // bf16 rows of 64 ch
+  static constexpr int kABytes = kHaloMax * 128;     // one bf16 piece
+  static constexpr int kStages = kNP == 4 ? 2 : 4;  // B ring
+  static constexpr int smem_bytes() {
+    return 1024 + kStages * kBBytes + 2 * kRawBytes + 2 * kABytes + 128 +
+           8 * (kStages + 2);
+  }
+};
+
+// Replaces `_fwd_kernel` for bf16 x at stride 1 without a residual (the
+// ResNet path) where the halo fits: the prologue and split run once per
+// x element and chunk instead of once per tap.  Steps are (chunk, tap),
+// chunk outer; B (w rows tap*Ci + c0) arrives by TMA in a 4-stage ring,
+// the raw halo of the next chunk by TMA while the current chunk's taps
+// run.  A warp's A fragments come from the X tiles by ldmatrix, one row
+// address per lane: the row its output position reaches at the tap, or
+// a zero row where that lies outside the image (SAME padding).
+template <int kNP>
+__global__ void __launch_bounds__(256, 1)
+fwd_halo_kernel(const __grid_constant__ CUtensorMap bm,
+                const __grid_constant__ CUtensorMap xm,
+                const float* __restrict__ scale,
+                const float* __restrict__ shift,
+                __nv_bfloat16* __restrict__ out, Geom g, int relu,
+                int halo_rows) {
+  using L = Halo<kNP>;
+  constexpr int S = L::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* sB = sm;                            // [S] B panels
+  uint8_t* sX = sB + S * L::kBBytes;           // [2] raw halo
+  uint8_t* sA = sX + 2 * L::kRawBytes;         // [hi, lo] X halo
+  uint8_t* sZero = sA + 2 * L::kABytes;        // one zero row
+  uint64_t* bar = reinterpret_cast<uint64_t*>(sZero + 128);  // [S] B
+  uint64_t* xbar = bar + S;                                   // [2] halo
+
+  const int tid = threadIdx.x, wg = tid / 128;
+  const int warp = (tid % 128) / 32, lane = tid % 32;
+  const int nch = (g.ci + 63) / 64;
+  const int taps = g.k * g.k;
+  const int steps = nch * taps;
+  const int P = g.n * g.h * g.w;
+  const int m0 = blockIdx.x * L::kRows;
+  const int n0 = blockIdx.y * kPanel * kNP;
+  const int h0 = m0 - g.pad_y * g.w - g.pad_x;   // first halo row
+
+  // this lane's ldmatrix row: output position m, image row/col (y, x)
+  const int lrow = wg * 64 + warp * 16 + (lane & 7) + 8 * ((lane >> 3) & 1);
+  const int lm = m0 + lrow;
+  const bool lok = lm < P;
+  const int lrem = (lok ? lm : 0) % (g.h * g.w);
+  const int ly = lrem / g.w, lx = lrem % g.w;
+
+  if (tid == 0) {
+    for (int i = 0; i < S; ++i) mbar_init(&bar[i], 1);
+    for (int i = 0; i < 2; ++i) mbar_init(&xbar[i], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (tid < 32) reinterpret_cast<uint32_t*>(sZero)[tid] = 0u;
+  __syncthreads();
+
+  auto load_b = [&](int s) {        // thread 0: step s's B into its slot
+    const int cc = s / taps, tap = s - cc * taps;
+    const int slot = s % S;
+    mbar_expect_tx(&bar[slot], L::kBBytes);
+#pragma unroll
+    for (int p = 0; p < kNP; ++p)
+      tma_load(sB + slot * L::kBBytes + p * kPanelBytes, &bm, &bar[slot],
+               n0 + p * kPanel, tap * g.ci + cc * 64);
+  };
+  auto load_x = [&](int cc) {       // thread 0: chunk cc's raw halo
+    mbar_expect_tx(&xbar[cc & 1], L::kRawBytes);
+    tma_load(sX + (cc & 1) * L::kRawBytes, &xm, &xbar[cc & 1], cc * 64, h0);
+  };
+  if (tid == 0) {
+    load_x(0);
+    for (int s = 0; s < S && s < steps; ++s) load_b(s);
+  }
+
+  const int q = tid % 8;
+  float sc[8], sh[8];
+  float acc[kNP][32];
+#pragma unroll
+  for (int p = 0; p < kNP; ++p)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[p][i] = 0.f;
+
+  for (int cc = 0; cc < nch; ++cc) {
+    // X of chunk cc's halo, hi and lo pieces (the taps of chunk cc-1 are
+    // done: every step ends on a barrier after its MMAs)
+    load_affine(scale, shift, cc * 64 + q * 8, g.ci, sc, sh);
+    mbar_wait(&xbar[cc & 1], (cc >> 1) & 1);
+    const uint8_t* raw = sX + (cc & 1) * L::kRawBytes;
+    for (int u = tid; u < halo_rows * 8; u += L::kThreads) {
+      const int r = u / 8;
+      float xv[8];
+      load8<__nv_bfloat16>(raw + r * 128 + q * 16, xv);
+      uint32_t hi[4], lo[4];
+#pragma unroll
+      for (int e = 0; e < 8; e += 2) {
+        float X0 = prologue(xv[e], 0.f, false, sc[e], sh[e], relu);
+        float X1 = prologue(xv[e + 1], 0.f, false, sc[e + 1], sh[e + 1], relu);
+        const __nv_bfloat162 b = __floats2bfloat162_rn(X0, X1);
+        const __nv_bfloat162 l = __floats2bfloat162_rn(
+            X0 - __low2float(b), X1 - __high2float(b));
+        hi[e / 2] = *reinterpret_cast<const uint32_t*>(&b);
+        lo[e / 2] = *reinterpret_cast<const uint32_t*>(&l);
+      }
+      *reinterpret_cast<uint4*>(sA + swz(r, q)) =
+          make_uint4(hi[0], hi[1], hi[2], hi[3]);
+      *reinterpret_cast<uint4*>(sA + L::kABytes + swz(r, q)) =
+          make_uint4(lo[0], lo[1], lo[2], lo[3]);
+    }
+    __syncthreads();   // the X halo is whole; raw buffer cc&1 is free
+    if (tid == 0 && cc + 1 < nch) load_x(cc + 1);
+
+    for (int tap = 0; tap < taps; ++tap) {
+      const int s = cc * taps + tap, slot = s % S;
+      const int ky = tap / g.k, kx = tap - (tap / g.k) * g.k;
+      const int iy = ly + ky - g.pad_y, ix = lx + kx - g.pad_x;
+      const bool ok = lok && iy >= 0 && iy < g.h && ix >= 0 && ix < g.w;
+      const int hr = lrow + ky * g.w + kx;     // halo row of this lane
+      // A fragments: per k16 slice kk, pieces hi and lo
+      uint32_t a[4][2][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int t = 0; t < 2; ++t) {
+          const uint32_t addr =
+              ok ? smem_u32(sA + t * L::kABytes +
+                            swz(hr, 2 * kk + (lane >> 4)))
+                 : smem_u32(sZero);
+          ldmatrix_x4(a[kk][t], addr);
+        }
+      mbar_wait(&bar[slot], (s / S) & 1);
+#pragma unroll
+      for (int p = 0; p < kNP; ++p) fence_acc(acc[p]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t db = smem_desc(
+            smem_u32(sB + slot * L::kBBytes) + kk * 2048, kPanelBytes, 1024);
+#pragma unroll
+        for (int t = 0; t < 2; ++t) {
+          if constexpr (kNP == 1) {
+            wgmma64_rs(acc[0], a[kk][t], db);
+          } else {
+#pragma unroll
+            for (int p = 0; p < kNP; p += 2)
+              wgmma128_rs(acc[p], acc[p + 1], a[kk][t],
+                          db + ((p * kPanelBytes) >> 4));
+          }
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int p = 0; p < kNP; ++p) fence_acc(acc[p]);
+      __syncthreads();   // every warpgroup is done with the slot
+      if (tid == 0 && s + S < steps) load_b(s + S);
+    }
+  }
+
+  // accumulator (i) of thread t: row 16*warp + lane/4 (+8 for i%4 >= 2),
+  // col 8*(i/4) + 2*(lane%4) + i%2, within the warpgroup's 64 x 64 panel
+  const int r0 = warp * 16 + lane / 4;
+#pragma unroll
+  for (int p = 0; p < kNP; ++p) {
+    const int cbase = n0 + p * kPanel + 2 * (lane % 4);
+#pragma unroll
+    for (int qq = 0; qq < 8; ++qq) {
+      const int col = cbase + 8 * qq;
+      if (col >= g.co) continue;
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int m = m0 + wg * 64 + r0 + 8 * hf;
+        if (m >= P) continue;
+        st2(out, static_cast<long long>(m) * g.co + col,
+            acc[p][4 * qq + 2 * hf], acc[p][4 * qq + 2 * hf + 1]);
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&a)[4],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// Keeps registers that an issued wgmma still reads alive (unchanged) up
+// to this point.
+__device__ __forceinline__ void keep(const uint32_t (&a)[4]) {
+  asm volatile("" ::"r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]) : "memory");
+}
+
+// What the 3x3 halo dW stages: three warpgroups, one kernel row each;
+// per step of 64 positions the x rows all nine taps reach (64 + 2W + 2,
+// kHaloMax at most).
+struct DwHalo {
+  static constexpr int kThreads = 384;
+  static constexpr int kHaloMax = 256;
+  static constexpr int kStages = 4;
+  static constexpr int kRawBytes = kHaloMax * 128;
+  static constexpr int kABytes = kHaloMax * 128;     // one bf16 piece
+  static constexpr int smem_bytes() {
+    return 1024 + kStages * kPanelBytes + 2 * kRawBytes + 4 * kABytes +
+           128 + 8 * (kStages + 2);
+  }
+};
+
+// Replaces `_dw_kernel` for bf16 x at stride 1, 3x3, without a residual
+// (the ResNet path) where the halo fits.  A block takes 64 input
+// channels x 64 output channels for all nine taps over one chunk of
+// positions: warpgroup ky keeps the accumulators of taps (ky, 0..2).  Per
+// step the TMA brings the 64 x 64 dO tile (B) and the raw x rows of the
+// step's halo; X is formed from them once (two bf16 pieces, double
+// buffered so the next step's X is formed while the tensor cores finish
+// this one), and each tap's A = X^T fragments come by ldmatrix.trans, one
+// position row per lane (a zero row where the tap leaves the image or
+// the position the chunk).  The sums run in the tensor cores'
+// accumulators over a chunk of ~1500 positions; chunks are added in
+// order by `reduce_splits`.
+__global__ void __launch_bounds__(384, 1)
+dw_halo_kernel(const __grid_constant__ CUtensorMap dm,
+               const __grid_constant__ CUtensorMap xm,
+               const float* __restrict__ scale,
+               const float* __restrict__ shift, float* __restrict__ part,
+               Geom g, int relu, int chunk, int halo_rows) {
+  using L = DwHalo;
+  constexpr int S = L::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* sB = sm;                            // [S] dO panels
+  uint8_t* sX = sB + S * kPanelBytes;          // [2] raw halo
+  uint8_t* sA = sX + 2 * L::kRawBytes;         // [2][hi, lo] X halo
+  uint8_t* sZero = sA + 4 * L::kABytes;        // one zero row
+  uint64_t* bar = reinterpret_cast<uint64_t*>(sZero + 128);  // [S] B
+  uint64_t* xbar = bar + S;                                   // [2] raw
+
+  const int tid = threadIdx.x, wg = tid / 128;     // wg = ky
+  const int warp = (tid % 128) / 32, lane = tid % 32;
+  const int P = g.n * g.h * g.w, hw = g.h * g.w;
+  const int c0 = blockIdx.x * 64, n0 = blockIdx.y * kPanel;
+  const int kbeg = blockIdx.z * chunk;
+  const int kend = min(P, kbeg + chunk);
+  const int steps = (kend - kbeg + 63) / 64;
+  const int lead = g.pad_y * g.w + g.pad_x;       // halo rows before p0
+
+  if (tid == 0) {
+    for (int i = 0; i < S; ++i) mbar_init(&bar[i], 1);
+    for (int i = 0; i < 2; ++i) mbar_init(&xbar[i], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (tid < 32) reinterpret_cast<uint32_t*>(sZero)[tid] = 0u;
+  __syncthreads();
+
+  auto load_b = [&](int s) {        // thread 0: step s's dO tile
+    mbar_expect_tx(&bar[s % S], kPanelBytes);
+    tma_load(sB + (s % S) * kPanelBytes, &dm, &bar[s % S], n0,
+             kbeg + s * 64);
+  };
+  auto load_x = [&](int s) {        // thread 0: step s's raw halo
+    mbar_expect_tx(&xbar[s & 1], L::kRawBytes);
+    tma_load(sX + (s & 1) * L::kRawBytes, &xm, &xbar[s & 1], c0,
+             kbeg + s * 64 - lead);
+  };
+  if (tid == 0) {
+    for (int s = 0; s < 2 && s < steps; ++s) load_x(s);
+    for (int s = 0; s < S - 1 && s < steps; ++s) load_b(s);
+  }
+
+  const int q = tid % 8;
+  float sc[8], sh[8];
+  load_affine(scale, shift, c0 + q * 8, g.ci, sc, sh);
+  float acc[3][32];
+#pragma unroll
+  for (int t = 0; t < 3; ++t)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[t][i] = 0.f;
+
+  // this lane's ldmatrix.trans row: matrix lane/8 holds positions
+  // 8*(lane/16).. of a 16-position slice and channels 16*warp + 8*(lane/8
+  // % 2)..; the lane gives the row of position (lane % 8) of that matrix
+  const int lpos = (lane & 7) + 8 * (lane >> 4);
+  const int lchunk = 2 * warp + ((lane >> 3) & 1);
+  const uint32_t zero = smem_u32(sZero);
+  // A fragments of two (k16 slice, tap) groups: a group's registers stay
+  // untouched until the wait after the next group's issue
+  uint32_t a[2][2][4] = {};
+
+  for (int s = 0; s < steps; ++s) {
+    const int p0 = kbeg + s * 64;
+    uint8_t* xa = sA + (s & 1) * 2 * L::kABytes;
+    mbar_wait(&xbar[s & 1], (s >> 1) & 1);
+    const uint8_t* raw = sX + (s & 1) * L::kRawBytes;
+    for (int u = tid; u < halo_rows * 8; u += L::kThreads) {
+      const int r = u / 8;
+      float xv[8];
+      load8<__nv_bfloat16>(raw + r * 128 + q * 16, xv);
+      uint32_t hi[4], lo[4];
+#pragma unroll
+      for (int e = 0; e < 8; e += 2) {
+        const float X0 = prologue(xv[e], 0.f, false, sc[e], sh[e], relu);
+        const float X1 =
+            prologue(xv[e + 1], 0.f, false, sc[e + 1], sh[e + 1], relu);
+        const __nv_bfloat162 b = __floats2bfloat162_rn(X0, X1);
+        const __nv_bfloat162 l = __floats2bfloat162_rn(
+            X0 - __low2float(b), X1 - __high2float(b));
+        hi[e / 2] = *reinterpret_cast<const uint32_t*>(&b);
+        lo[e / 2] = *reinterpret_cast<const uint32_t*>(&l);
+      }
+      *reinterpret_cast<uint4*>(xa + swz(r, q)) =
+          make_uint4(hi[0], hi[1], hi[2], hi[3]);
+      *reinterpret_cast<uint4*>(xa + L::kABytes + swz(r, q)) =
+          make_uint4(lo[0], lo[1], lo[2], lo[3]);
+    }
+    wgmma_wait<0>();   // step s-1's MMAs (their A registers, B slot)
+    keep(a[1][0]);     // ... whose last group read a[1] until now
+    keep(a[1][1]);
+#pragma unroll
+    for (int t = 0; t < 3; ++t) fence_acc(acc[t]);
+    __syncthreads();   // X of step s is whole; raw s&1 and B slot free
+    if (tid == 0) {
+      if (s + 2 < steps) load_x(s + 2);
+      if (s + S - 1 < steps) load_b(s + S - 1);
+    }
+
+    // row addresses of this lane's positions (one per k16 slice) at the
+    // three taps of kernel row wg
+    uint32_t addr[4][3];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const int pr = kk * 16 + lpos;             // position - p0
+      const int p = p0 + pr;
+      const int rem = (p < kend ? p : 0) % hw;
+      const int iy = rem / g.w + wg - g.pad_y;
+      const bool rok = p < kend && iy >= 0 && iy < g.h;
+      const int x = rem % g.w;
+#pragma unroll
+      for (int kx = 0; kx < 3; ++kx) {
+        const int ix = x + kx - g.pad_x;
+        const int hr = pr + wg * g.w + kx;
+        addr[kk][kx] = rok && ix >= 0 && ix < g.w
+                           ? smem_u32(xa) + swz(hr, lchunk)
+                           : zero;
+      }
+    }
+    mbar_wait(&bar[s % S], (s / S) & 1);
+    const uint32_t b0 = smem_u32(sB + (s % S) * kPanelBytes);
+    wgmma_fence();
+    // twelve groups (k16 slice, tap) of two wgmmas (X hi, X lo)
+#pragma unroll
+    for (int gi = 0; gi < 12; ++gi) {
+      const int kk = gi / 3, kx = gi % 3, buf = gi & 1;
+      const uint32_t ah = addr[kk][kx];
+      ldmatrix_x4_trans(a[buf][0], ah);
+      ldmatrix_x4_trans(a[buf][1], ah == zero ? zero : ah + L::kABytes);
+      const uint64_t db = smem_desc(b0 + kk * 2048, kPanelBytes, 1024);
+      wgmma64_rs(acc[kx], a[buf][0], db);
+      wgmma64_rs(acc[kx], a[buf][1], db);
+      wgmma_commit();
+      if (gi > 0) {
+        wgmma_wait<1>();
+        keep(a[buf ^ 1][0]);
+        keep(a[buf ^ 1][1]);
+      }
+    }
+  }
+  wgmma_wait<0>();
+  keep(a[1][0]);
+  keep(a[1][1]);
+#pragma unroll
+  for (int t = 0; t < 3; ++t) fence_acc(acc[t]);
+
+  // accumulator (i): row (input channel) 16*warp + lane/4 (+8 for i%4 >=
+  // 2), col (output channel) 8*(i/4) + 2*(lane%4) + i%2
+  float* dst = part + static_cast<long long>(blockIdx.z) * 9 * g.ci * g.co;
+  const int r0 = warp * 16 + lane / 4;
+#pragma unroll
+  for (int kx = 0; kx < 3; ++kx) {
+#pragma unroll
+    for (int qq = 0; qq < 8; ++qq) {
+      const int col = n0 + 8 * qq + 2 * (lane % 4);
+      if (col >= g.co) continue;
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int c = c0 + r0 + 8 * hf;
+        if (c >= g.ci) continue;
+        const long long row = static_cast<long long>(wg * 3 + kx) * g.ci + c;
+        st2(dst, row * g.co + col, acc[kx][4 * qq + 2 * hf],
+            acc[kx][4 * qq + 2 * hf + 1]);
+      }
     }
   }
 }
@@ -329,115 +1315,6 @@ reduce_rows(const float* __restrict__ part, int rows, int cols,
   }
 }
 
-// --------------------------------------------------------------------- dW
-// Replaces `_dw_kernel`.  The TPU grid (Co/block, N) carries one f32
-// accumulator across the batch in order; CUDA blocks run in no order, so
-// the N*Ho*Wo positions are cut into `gridDim.z` contiguous chunks, each
-// block reduces its chunk for a 64 (tap, ci) x 64 co tile, and writes an
-// f32 partial; `reduce_splits` adds the partials in split order (no
-// atomics: the result does not change from run to run).  The A tile is X
-// at each position's tap, formed on load.  Its positions are decoded into
-// shared memory once per depth step (two integer divisions per position,
-// not per loaded element), and the next step's raw values are loaded into
-// registers before the current step is multiplied.  (The same register
-// prefetch made the forward and dX kernels slower on the card, so they
-// load and multiply in turn; PERF.md has the times.)
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-dw_kernel(const T* __restrict__ x, const float* __restrict__ scale,
-          const float* __restrict__ shift, const T* __restrict__ dout,
-          const T* __restrict__ res, float* __restrict__ part, Geom g,
-          int relu, int chunk) {
-  __shared__ __align__(16) float as[kBK][kBM + kPad];
-  __shared__ __align__(16) float bs[kBK][kBN + kPad];
-  const int tid = threadIdx.x;
-  const int tr = tid / 16, tc = tid % 16;
-  const int M = g.k * g.k * g.ci;
-  const int K = g.n * g.ho * g.wo;
-  const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
-  const int kbeg = blockIdx.z * chunk;
-  const int kend = min(K, kbeg + chunk);
-
-  // A loader: one (tap, ci) row per thread (tid % 64, consecutive
-  // threads on consecutive channels), depth rows tid / 64 + 4 j
-  const int a_m = tid % kBM, a_k = tid / kBM;
-  const int mg = m0 + a_m;
-  const bool mok = mg < M;
-  const int tap = mok ? mg / g.ci : 0;
-  const int c = mok ? mg - tap * g.ci : 0;
-  const int ky = tap / g.k, kx = tap - (tap / g.k) * g.k;
-  const float sc = mok ? scale[c] : 0.f, sh = mok ? shift[c] : 0.f;
-  const int hw = g.ho * g.wo;
-
-  // the image and first input row/column of each of a depth step's 16
-  // positions, decoded once per step by 16 threads (double-buffered: a
-  // step's table is written while the previous step's is read)
-  __shared__ int pimg[2][kBK], piy[2][kBK], pix[2][kBK];
-  auto decode = [&](int k0, int buf) {
-    if (tid < kBK) {
-      const int kg = k0 + tid;
-      const int img = kg / hw;
-      const int rem = kg - img * hw;
-      const int oy = rem / g.wo, ox = rem - (rem / g.wo) * g.wo;
-      pimg[buf][tid] = kg < kend ? img : -1;
-      piy[buf][tid] = oy * g.stride - g.pad_y;
-      pix[buf][tid] = ox * g.stride - g.pad_x;
-    }
-  };
-  // raw values of the next depth step, loaded before the current step
-  // is multiplied
-  float xa[4], ra[4], db[4];
-  bool va[4];
-  auto load = [&](int k0, int buf) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int kk = a_k + 4 * j;
-      const int img = pimg[buf][kk];
-      const int iy = piy[buf][kk] + ky, ix = pix[buf][kk] + kx;
-      va[j] = mok && img >= 0 && iy >= 0 && iy < g.h && ix >= 0 && ix < g.w;
-      const long long off =
-          ((static_cast<long long>(img) * g.h + iy) * g.w + ix) * g.ci + c;
-      xa[j] = va[j] ? ld(x, off) : 0.f;
-      ra[j] = (va[j] && res != nullptr) ? ld(res, off) : 0.f;
-      const int kg = k0 + kk, col = n0 + a_m;
-      db[j] = (kg < kend && col < g.co)
-                  ? ld(dout, static_cast<long long>(kg) * g.co + col)
-                  : 0.f;
-    }
-  };
-
-  float acc[4][4] = {};
-  decode(kbeg, 0);
-  __syncthreads();
-  load(kbeg, 0);
-  int buf = 0;
-  for (int k0 = kbeg; k0 < kend; k0 += kBK, buf ^= 1) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int kk = a_k + 4 * j;
-      as[kk][a_m] =
-          va[j] ? prologue(xa[j], ra[j], res != nullptr, sc, sh, relu) : 0.f;
-      bs[kk][a_m] = db[j];
-    }
-    decode(k0 + kBK, buf ^ 1);
-    __syncthreads();
-    if (k0 + kBK < kend) load(k0 + kBK, buf ^ 1);
-    mma_tile(as, bs, acc, tr, tc);
-    __syncthreads();
-  }
-  float* dst = part + static_cast<long long>(blockIdx.z) * M * g.co;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + tr * 4 + i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = n0 + tc * 4 + j;
-      if (col < g.co) dst[static_cast<long long>(m) * g.co + col] = acc[i][j];
-    }
-  }
-}
-
 // out[e] = sum_s part[s, e] in split order.
 __global__ void __launch_bounds__(256)
 reduce_splits(const float* __restrict__ part, int splits, long long total,
@@ -458,17 +1335,160 @@ unsigned blocks_for(long long items, int per_block) {
   return static_cast<unsigned>((items + per_block - 1) / per_block);
 }
 
-template <typename T>
-void launch_fwd(const void* x, const void* scale, const void* shift,
-                const void* w, const void* res, void* out, Geom g, int relu,
-                cudaStream_t stream) {
-  const dim3 grid(blocks_for(static_cast<long long>(g.n) * g.ho * g.wo, kBM),
-                  blocks_for(g.co, kBN));
-  fwd_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(scale),
-      static_cast<const float*>(shift), static_cast<const T*>(w),
-      static_cast<const T*>(res), static_cast<T*>(out), g, relu);
+// cuTensorMapEncodeTiled from the driver, reached through the runtime
+// (no -lcuda at build time).
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled tensor_map_encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
 }
+
+// The bf16 matrix [rows, cols] (row-major) at `base` as boxes of
+// box_rows x 64, 128-byte swizzled (B operands) or not (raw x rows);
+// reads past its edges give zeros.
+cudaError_t make_map(CUtensorMap* map, const void* base, long long rows,
+                     int cols, int box_rows = kPanel, bool swizzle = true) {
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
+  const cuuint32_t box[2] = {kPanel, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t estr[2] = {1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
+      dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// B maps: bf16 B [rows, co] at `b`, or for f32 inputs its bf16 pieces
+// [3, rows, co] (hi, mid, lo) there.
+cudaError_t make_b_maps(int dtype, const void* b, long long rows, int co,
+                        CUtensorMap (&maps)[3]) {
+  for (int t = 0; t < 3; ++t) {
+    if (dtype != 0 && t > 0) {
+      maps[t] = maps[0];
+      continue;
+    }
+    const cudaError_t e = make_map(
+        &maps[t], static_cast<const __nv_bfloat16*>(b) + t * rows * co, rows,
+        co);
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
+}
+
+// The deepest ring (4 stages, at least 3) that fits, then the launch.
+template <typename T, int kWG, int kNP, bool kDW>
+cudaError_t launch_tc(const CUtensorMap (&maps)[3],
+                      const void* x, const void* res, const void* scale,
+                      const void* shift, void* dst, Geom g, int relu,
+                      int chunk, dim3 grid, cudaStream_t stream) {
+  using L = Tile<T, kWG, kNP, kDW>;
+  const bool has_res = res != nullptr;
+  int stages = 4;
+  while (stages > 3 && L::smem_bytes(stages, has_res) > kSmemMax) --stages;
+  const int bytes = L::smem_bytes(stages, has_res);
+  if (bytes > kSmemMax) return cudaErrorInvalidValue;
+  auto kernel = tc_kernel<T, kWG, kNP, kDW>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return e;
+  kernel<<<grid, L::kThreads, bytes, stream>>>(
+      maps[0], maps[1], maps[2], static_cast<const T*>(x),
+      static_cast<const T*>(res),
+      static_cast<const float*>(scale), static_cast<const float*>(shift),
+      dst, g, relu, stages, chunk);
+  return cudaGetLastError();
+}
+
+// Rows of the halo forward's staged x: 128 positions and what their taps
+// reach beyond them.
+int halo_rows(const Geom& g) { return 128 + (g.k - 1) * (g.w + 1); }
+
+// The halo forward: bf16, stride 1, no residual, halo_rows(g) at most
+// kHaloMax (every fused conv of ResNet-50; the rest takes `tc_kernel`).
+bool halo_fits(int dtype, const Geom& g, const void* res) {
+  return dtype == 1 && g.stride == 1 && res == nullptr &&
+         halo_rows(g) <= Halo<1>::kHaloMax;
+}
+
+cudaError_t launch_halo(const CUtensorMap& bm, const void* x,
+                        const void* scale, const void* shift, void* out,
+                        Geom g, int relu, cudaStream_t stream) {
+  CUtensorMap xm;
+  cudaError_t e = make_map(&xm, x, static_cast<long long>(g.n) * g.h * g.w,
+                           g.ci, Halo<1>::kHaloMax, false);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(blocks_for(static_cast<long long>(g.n) * g.h * g.w, 128),
+                  blocks_for(g.co, g.co <= 64 ? 64 : g.co <= 128 ? 128 : 256));
+  auto launch = [&](auto kernel, int bytes) {
+    const cudaError_t a = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (a != cudaSuccess) return a;
+    kernel<<<grid, 256, bytes, stream>>>(
+        bm, xm, static_cast<const float*>(scale),
+        static_cast<const float*>(shift), static_cast<__nv_bfloat16*>(out),
+        g, relu, halo_rows(g));
+    return cudaGetLastError();
+  };
+  if (g.co <= 64) return launch(fwd_halo_kernel<1>, Halo<1>::smem_bytes());
+  if (g.co <= 128) return launch(fwd_halo_kernel<2>, Halo<2>::smem_bytes());
+  return launch(fwd_halo_kernel<4>, Halo<4>::smem_bytes());
+}
+
+// The 3x3 halo dW: bf16, stride 1, no residual, its halo (64 + 2(W+1)
+// rows) within kHaloMax (every 3x3 fused conv of ResNet-50).
+bool dw_halo_fits(int dtype, const Geom& g, const void* res) {
+  return dtype == 1 && g.stride == 1 && g.k == 3 && res == nullptr &&
+         64 + 2 * (g.w + 1) <= DwHalo::kHaloMax;
+}
+
+cudaError_t launch_dw_halo(const CUtensorMap& dm, const void* x,
+                           const void* scale, const void* shift,
+                           float* part, Geom g, int relu, int splits,
+                           int chunk, cudaStream_t stream) {
+  CUtensorMap xm;
+  cudaError_t e = make_map(&xm, x, static_cast<long long>(g.n) * g.h * g.w,
+                           g.ci, DwHalo::kHaloMax, false);
+  if (e != cudaSuccess) return e;
+  const int bytes = DwHalo::smem_bytes();
+  e = cudaFuncSetAttribute(dw_halo_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           bytes);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(blocks_for(g.ci, 64), blocks_for(g.co, 64), splits);
+  dw_halo_kernel<<<grid, DwHalo::kThreads, bytes, stream>>>(
+      dm, xm, static_cast<const float*>(scale),
+      static_cast<const float*>(shift), part, g, relu, chunk,
+      64 + 2 * (g.w + 1));
+  return cudaGetLastError();
+}
+
+// The channel counts the tensor-core kernels take: 16-byte rows of x
+// (cp.async) and of B (the TMA's stride rule).
+bool tc_widths_ok(const Geom& g) { return g.ci % 8 == 0 && g.co % 8 == 0; }
 
 template <typename T>
 void launch_dx(const void* x, const void* scale, const void* shift,
@@ -484,18 +1504,6 @@ void launch_dx(const void* x, const void* scale, const void* shift,
       static_cast<T*>(dx), static_cast<T*>(dres), part_sc, part_sh, g, relu);
 }
 
-template <typename T>
-void launch_dw(const void* x, const void* scale, const void* shift,
-               const void* dout, const void* res, float* part, Geom g,
-               int relu, int splits, int chunk, cudaStream_t stream) {
-  const dim3 grid(blocks_for(static_cast<long long>(g.k) * g.k * g.ci, kBM),
-                  blocks_for(g.co, kBN), splits);
-  dw_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(scale),
-      static_cast<const float*>(shift), static_cast<const T*>(dout),
-      static_cast<const T*>(res), part, g, relu, chunk);
-}
-
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (x, res, dO, w, out, dx, dres).
@@ -503,6 +1511,10 @@ void launch_dw(const void* x, const void* scale, const void* shift,
 // and low-side padding (pad_y, pad_x) as the wrapper computes them.
 // `res` and `dres` may be null (no residual).  Each returns
 // cudaGetLastError() after its launches (0 on success).
+//
+// Forward: with dtype 1, w is the bf16 HWIO weight ([k*k*ci, co]); with
+// dtype 0, w is the f32 weight's bf16 pieces [3, k*k*ci, co] (hi, mid,
+// lo), which the wrapper splits.  ci and co must be multiples of 8.
 extern "C" int fused_conv_fwd(int dtype, const void* x, const void* scale,
                               const void* shift, const void* w,
                               const void* res, void* out, int n, int h,
@@ -511,13 +1523,25 @@ extern "C" int fused_conv_fwd(int dtype, const void* x, const void* scale,
                               void* stream) {
   const Geom g = make_geom(n, h, wd, ci, co, k, stride, ho, wo, pad_y, pad_x);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    launch_fwd<float>(x, scale, shift, w, res, out, g, relu, s);
-  else if (dtype == 1)
-    launch_fwd<__nv_bfloat16>(x, scale, shift, w, res, out, g, relu, s);
-  else
+  if ((dtype != 0 && dtype != 1) || !tc_widths_ok(g))
     return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+  CUtensorMap maps[3];
+  cudaError_t e = make_b_maps(dtype, w, static_cast<long long>(k) * k * ci,
+                              co, maps);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long rows = static_cast<long long>(n) * ho * wo;
+  using bf16 = __nv_bfloat16;
+  if (halo_fits(dtype, g, res))
+    e = launch_halo(maps[0], x, scale, shift, out, g, relu, s);
+  else if (dtype == 0)
+    e = launch_tc<float, 1, 1, false>(
+        maps, x, res, scale, shift, out, g, relu, 0,
+        dim3(blocks_for(rows, 64), blocks_for(co, 64)), s);
+  else
+    e = launch_tc<bf16, 2, 2, false>(
+        maps, x, res, scale, shift, out, g, relu, 0,
+        dim3(blocks_for(rows, 128), blocks_for(co, 128)), s);
+  return static_cast<int>(e);
 }
 
 // part_sc/part_sh: scratch of ceil(n*h*w / 64) * ci floats each;
@@ -554,7 +1578,12 @@ extern "C" int fused_conv_dx(int dtype, const void* x, const void* scale,
 
 // part: scratch of splits * k*k*ci*co floats (may be `dw` itself when
 // splits == 1); dw: k*k*ci*co floats (f32).  Split i reduces positions
-// [i*chunk, min(n*ho*wo, (i+1)*chunk)); chunk is a multiple of 16.
+// [i*chunk, min(n*ho*wo, (i+1)*chunk)).  With dtype 1, dout is the bf16
+// dO ([n*ho*wo, co]); with dtype 0, the f32 dO's bf16 pieces [3,
+// n*ho*wo, co] (hi, mid, lo), which the wrapper splits.  ci and co must be
+// multiples of 8.  The 3x3 halo kernel (`dw_halo_fits`) takes 64 ci x 64
+// co for all nine taps a block; `tc_kernel` 64 (tap, ci) rows and 256
+// output channels (f32: 64).
 extern "C" int fused_conv_dw(int dtype, const void* x, const void* scale,
                              const void* shift, const void* dout,
                              const void* res, void* part, void* dw, int n,
@@ -564,15 +1593,28 @@ extern "C" int fused_conv_dw(int dtype, const void* x, const void* scale,
                              void* stream) {
   const Geom g = make_geom(n, h, wd, ci, co, k, stride, ho, wo, pad_y, pad_x);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* p = static_cast<float*>(part);
-  if (dtype == 0)
-    launch_dw<float>(x, scale, shift, dout, res, p, g, relu, splits, chunk,
-                     s);
-  else if (dtype == 1)
-    launch_dw<__nv_bfloat16>(x, scale, shift, dout, res, p, g, relu, splits,
-                             chunk, s);
-  else
+  if ((dtype != 0 && dtype != 1) || !tc_widths_ok(g) || splits < 1 ||
+      chunk < 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap maps[3];
+  cudaError_t e = make_b_maps(dtype, dout,
+                              static_cast<long long>(n) * ho * wo, co, maps);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const unsigned tiles = static_cast<unsigned>(k * k * ((ci + 63) / 64));
+  float* p = static_cast<float*>(part);
+  using bf16 = __nv_bfloat16;
+  if (dw_halo_fits(dtype, g, res))
+    e = launch_dw_halo(maps[0], x, scale, shift, p, g, relu, splits, chunk,
+                       s);
+  else if (dtype == 0)
+    e = launch_tc<float, 1, 1, true>(
+        maps, x, res, scale, shift, p, g, relu, chunk,
+        dim3(tiles, blocks_for(co, 64), splits), s);
+  else
+    e = launch_tc<bf16, 2, 2, true>(
+        maps, x, res, scale, shift, p, g, relu, chunk,
+        dim3(tiles, blocks_for(co, 256), splits), s);
+  if (e != cudaSuccess) return static_cast<int>(e);
   if (splits > 1) {
     const long long total = static_cast<long long>(k) * k * ci * co;
     reduce_splits<<<blocks_for(total, 256), 256, 0, s>>>(

@@ -29,7 +29,11 @@ stay f32), a reference for the kernels' f32 sums over many positions.
 Which body runs is decided by where the tensors lie, never by a
 fallback: CPU tensors run the plain versions; CUDA tensors launch the
 hand-written kernels of ``ops/cuda/fused_conv.cu`` (float32 or bfloat16
-``x``/``w``/``res``/``dO``, f32 ``scale``/``shift``) or raise.
+``x``/``w``/``res``/``dO``, f32 ``scale``/``shift``; Ci and Co multiples
+of 8, tensors 16-byte aligned) or raise.  The forward and dW kernels
+multiply on the tensor cores in bf16 pieces with f32-accurate products
+(an f32 ``w``/``dO`` goes to them as its three bf16 pieces,
+``_b_operand``).
 ``norm_relu_conv.launches`` counts kernel launches per kernel
 (``"fwd"``, ``"dx"``, ``"dw"``).
 
@@ -47,8 +51,9 @@ __all__ = ["supports", "norm_relu_conv", "norm_relu_conv_reference"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _TILE = 64                  # rows/cols of a kernel's result tile
-_DEPTH = 16                 # depth of one staged step in the kernels
+_DEPTH = 64                 # dW: positions in one staged step
 _TARGET_BLOCKS = 4 * 132    # dW: enough blocks for four waves on 132 SMs
+_MIN_STEPS = 8              # dW: least depth steps a split takes
 
 
 def supports(kh, kw, stride, groups=1):
@@ -157,8 +162,32 @@ def _check_cuda(what, x, scale, shift, others):
     if len({t.device for t in tensors}) != 1:
         raise ValueError(f"{what}: inputs on several devices")
     for t in tensors:
-        if not t.is_contiguous():
-            raise ValueError(f"{what}: inputs must be contiguous")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{what}: inputs must be contiguous and "
+                             f"16-byte aligned")
+
+
+def _check_widths(what, ci, co):
+    """The tensor-core kernels copy 16-byte rows: Ci and Co multiples of
+    8 (every ResNet width is)."""
+    if ci % 8 or co % 8:
+        raise ValueError(f"{what} kernel takes Ci and Co in multiples of "
+                         f"8, got Ci={ci} Co={co}")
+
+
+def _b_operand(t):
+    """The kernels' B operand (w or dO): a bf16 tensor as it is; an f32
+    one as its bf16 pieces ``(hi, mid, lo)`` stacked on a new first axis,
+    ``hi = bf16(t)`` and each further piece the rounded remainder, so that
+    their sum holds t to ~2**-24 relative and the kernels' bf16 products
+    stay f32-accurate."""
+    if t.dtype == torch.bfloat16:
+        return t
+    pieces, rest = [], t
+    for _ in range(3):
+        pieces.append(rest.to(torch.bfloat16))
+        rest = rest - pieces[-1].float()
+    return torch.stack(pieces)
 
 
 def _launch(fn, what, *args):
@@ -180,14 +209,16 @@ def _fwd_cuda(x, scale, shift, w, res, relu, stride):
     from .cuda import load
 
     _check_cuda("fused_conv_fwd", x, scale, shift, (w, res))
+    _check_widths("fused_conv_fwd", x.shape[3], w.shape[3])
     g = _geometry(x, w.shape[0], w.shape[3], stride)
     out = torch.empty((g[0], g[7], g[8], g[4]), dtype=x.dtype,
                       device=x.device)
+    wb = _b_operand(w)
     lib = load("fused_conv")
     with torch.cuda.device(x.device):
         _launch(lib.fused_conv_fwd, "fused_conv_fwd", _DTYPE_CODES[x.dtype],
                 x.data_ptr(), scale.data_ptr(), shift.data_ptr(),
-                w.data_ptr(), _ptr(res), out.data_ptr(), *g, int(relu),
+                wb.data_ptr(), _ptr(res), out.data_ptr(), *g, int(relu),
                 _stream(x))
     return out
 
@@ -214,13 +245,28 @@ def _dx_cuda(x, scale, shift, w, res, do, relu, stride):
     return dx, dres, sums[0], sums[1]
 
 
-def _dw_splits(rows, co, positions):
-    """How the dW kernel cuts the ``positions`` reduction: ``(splits,
-    chunk)`` so that tiles x splits gives about ``_TARGET_BLOCKS`` blocks,
-    each split at least 8 depth steps, ``chunk`` a multiple of 16."""
-    tiles = -(-rows // _TILE) * -(-co // _TILE)
+def _dw_halo(x, k, res, stride):
+    """True where ``fused_conv_dw`` takes its 3x3 halo kernel (bf16,
+    stride 1, no residual, a halo of 64 + 2(W+1) rows within 256): a
+    block then covers all nine taps of 64 x 64 channels."""
+    return (x.dtype == torch.bfloat16 and stride == 1 and k == 3
+            and res is None and 64 + 2 * (x.shape[2] + 1) <= 256)
+
+
+def _dw_splits(rows, co, positions, halo=False):
+    """How the dW kernel cuts the ``positions`` reduction for ``rows`` =
+    k*k*Ci: ``(splits, chunk)`` so that tiles x splits gives about
+    ``_TARGET_BLOCKS`` blocks, each split at least ``_MIN_STEPS`` steps
+    of ``_DEPTH`` positions, ``chunk`` a multiple of ``_DEPTH``.  A block
+    takes 64 (tap, ci) rows x 256 output channels, or with the halo
+    kernel (``_dw_halo``) all nine taps of 64 x 64 channels."""
+    if halo:
+        tiles = -(-rows // (9 * _TILE)) * -(-co // _TILE)
+    else:
+        tiles = -(-rows // _TILE) * -(-co // (4 * _TILE))
     steps = -(-positions // _DEPTH)
-    splits = max(1, min(-(-_TARGET_BLOCKS // tiles), -(-steps // 8)))
+    splits = max(1, min(-(-_TARGET_BLOCKS // tiles),
+                        -(-steps // _MIN_STEPS)))
     chunk = -(-steps // splits) * _DEPTH
     return -(-positions // chunk), chunk
 
@@ -230,18 +276,21 @@ def _dw_cuda(x, scale, shift, res, do, k, relu, stride):
 
     _check_cuda("fused_conv_dw", x, scale, shift, (res, do))
     co = do.shape[3]
+    _check_widths("fused_conv_dw", x.shape[3], co)
     g = _geometry(x, k, co, stride)
     rows = k * k * x.shape[3]
-    splits, chunk = _dw_splits(rows, co, g[0] * g[7] * g[8])
+    splits, chunk = _dw_splits(rows, co, g[0] * g[7] * g[8],
+                               _dw_halo(x, k, res, stride))
     dw = torch.empty((k, k, x.shape[3], co), dtype=torch.float32,
                      device=x.device)
     part = dw if splits == 1 else torch.empty(
         (splits, rows * co), dtype=torch.float32, device=x.device)
+    dob = _b_operand(do)
     lib = load("fused_conv")
     with torch.cuda.device(x.device):
         _launch(lib.fused_conv_dw, "fused_conv_dw", _DTYPE_CODES[x.dtype],
                 x.data_ptr(), scale.data_ptr(), shift.data_ptr(),
-                do.data_ptr(), _ptr(res), part.data_ptr(), dw.data_ptr(),
+                dob.data_ptr(), _ptr(res), part.data_ptr(), dw.data_ptr(),
                 *g, int(relu), splits, chunk, _stream(x))
     return dw
 

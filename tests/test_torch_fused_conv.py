@@ -17,6 +17,8 @@ the card: the ``gpu``-marked test skips here and runs with
 with one.
 """
 import gc
+import itertools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -178,12 +180,121 @@ def test_cpu_runs_no_kernel_and_a_mix_of_devices_raises():
     assert tfc._use_plain((torch.zeros(1), None))
 
 
+# the eight fused convs of ResNet-50 v1: (hw, ci, co, k), as chip_smoke.py
+# lists them; and the small shapes above
+RESNET50_SHAPES = [(56, 64, 64, 3), (56, 64, 256, 1), (28, 128, 128, 3),
+                   (28, 128, 512, 1), (14, 256, 256, 3), (14, 256, 1024, 1),
+                   (7, 512, 512, 3), (7, 512, 2048, 1)]
+
+
 def test_dw_splits_cover_the_positions():
-    for rows, co, positions in ((576, 64, 802816), (4608, 512, 12544),
-                                (72, 16, 128), (9, 3, 7)):
-        splits, chunk = tfc._dw_splits(rows, co, positions)
-        assert chunk % 16 == 0 and splits >= 1
+    """The dW kernel's split plan covers every position exactly once, in
+    chunks of whole 64-position steps, every split non-empty."""
+    shapes = [(256 * hw * hw, k * k * ci, co)
+              for hw, ci, co, k in RESNET50_SHAPES]
+    shapes += [(2 * (-(-h // s)) ** 2, k * k * ci, co)
+               for k, s, h, ci, co, _, _ in CASES]
+    shapes += [(128, 72, 16), (7, 9, 8)]
+    for (positions, rows, co), halo in itertools.product(shapes,
+                                                         (False, True)):
+        splits, chunk = tfc._dw_splits(rows, co, positions, halo)
+        assert chunk % tfc._DEPTH == 0 and splits >= 1
         assert (splits - 1) * chunk < positions <= splits * chunk
+        covered = np.zeros(positions, np.int64)
+        for i in range(splits):
+            covered[i * chunk:min(positions, (i + 1) * chunk)] += 1
+        assert (covered == 1).all(), (positions, rows, co, halo)
+
+
+def test_b_operand_split_holds_f32():
+    """An f32 B (w or dO) goes to the kernels as its bf16 pieces (hi,
+    mid, lo): hi + mid holds it to 2**-16 relative, all three to 2**-23;
+    a bf16 B goes as it is."""
+    rng = np.random.RandomState(6)
+    t = torch.from_numpy((rng.randn(3, 3, 8, 40)
+                          * 10.0 ** rng.uniform(-6, 6, (3, 3, 8, 40)))
+                         .astype(np.float32))
+    pieces = tfc._b_operand(t)
+    assert pieces.dtype == torch.bfloat16 and pieces.shape == (3,) + t.shape
+    t64, p64 = t.double(), pieces.double()
+    for n, bound in ((2, 2.0 ** -16), (3, 2.0 ** -23)):
+        back = p64[:n].sum(dim=0)
+        assert bool(((back - t64).abs() <= bound * t64.abs()).all()), n
+    b = t.to(torch.bfloat16)
+    assert tfc._b_operand(b) is b
+    with pytest.raises(ValueError, match="multiples of 8"):
+        tfc._check_widths("fused_conv_fwd", 12, 16)
+    tfc._check_widths("fused_conv_fwd", 8, 40)
+
+
+def _pieces(t, n):
+    """t as n bf16 pieces, each the rounded remainder of the ones before
+    (the kernels' split of X; the wrapper's of an f32 B)."""
+    out, rest = [], t.float()
+    for _ in range(n):
+        out.append(rest.to(torch.bfloat16))
+        rest = rest - out[-1].float()
+    return [p.double() for p in out]
+
+
+def _split_terms(X, B, f32):
+    """The kernels' product terms as pairs of f64 operands: bf16 inputs
+    take X in two pieces times B (exact in bf16); f32 inputs cut X and B
+    in three pieces each and take the six products whose piece orders
+    sum to at most 2."""
+    if not f32:
+        return [(x, B.double()) for x in _pieces(X, 2)]
+    xs, bs = _pieces(X, 3), _pieces(B, 3)
+    return [(xs[i], bs[j]) for i in range(3) for j in range(3) if i + j <= 2]
+
+
+def _hold(got, want, dtype):
+    """chip_smoke.py's check_outputs rule: each element within rtol of
+    the output's largest magnitude plus its own; rtol 1e-4 for f32
+    outputs, 2**-6 for bf16 ones."""
+    rtol = 2.0 ** -6 if dtype == torch.bfloat16 else 1e-4
+    got, want = got.double(), want.double()
+    err = (got - want).abs()
+    assert bool((err <= rtol * (want.abs().max() + want.abs())).all()), \
+        float(err.max())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hw,ci,co,k", RESNET50_SHAPES[:2])
+def test_split_products_hold_the_f64_plain_versions(hw, ci, co, k, dtype):
+    """The tensor-core kernels' arithmetic, emulated: X from the plain
+    prologue cut into bf16 pieces, times B (bf16: two terms; f32: B cut
+    too, six terms), each product exact and summed in f64,
+    against ``_fwd_plain``/``_dw_plain`` summed in f64, under the card
+    check's rule, at the two stage-1 shapes at N = 4."""
+    dt = getattr(torch, dtype)
+    rng = np.random.RandomState(7)
+    n = 4
+    x = torch.from_numpy(rng.randn(n, hw, hw, ci).astype(np.float32)).to(dt)
+    sc = torch.from_numpy((rng.rand(ci) + 0.5).astype(np.float32))
+    sh = torch.from_numpy((0.1 * rng.randn(ci)).astype(np.float32))
+    w = torch.from_numpy((rng.randn(k, k, ci, co)
+                          * (2.0 / (k * k * ci)) ** 0.5)
+                         .astype(np.float32)).to(dt)
+    do = torch.from_numpy(rng.randn(n, hw, hw, co).astype(np.float32)).to(dt)
+    f64, f32 = torch.float64, dtype == "float32"
+    X = tfc._prologue(x, sc, sh, None, True)
+
+    out = sum(torch.nn.functional.conv2d(
+        tfc._padded_nchw(a, k, 1), b.permute(3, 2, 0, 1))
+        for a, b in _split_terms(X, w, f32))
+    out = out.permute(0, 2, 3, 1).to(dt)
+    want = tfc._fwd_plain(x, sc, sh, w, None, True, 1, f64)
+    assert out.shape == want.shape and want.dtype == dt
+    _hold(out, want, dt)
+
+    dw = sum(torch.nn.grad.conv2d_weight(
+        tfc._padded_nchw(a, k, 1), (co, ci, k, k), b.permute(0, 3, 1, 2))
+        for a, b in _split_terms(X, do, f32))
+    dw = dw.permute(2, 3, 1, 0).float()
+    want = tfc._dw_plain(x, sc, sh, None, do, k, True, 1, f64).float()
+    assert dw.shape == want.shape == (k, k, ci, co)
+    _hold(dw, want, torch.float32)
 
 
 # ------------------------------------------------------------ on the card --
