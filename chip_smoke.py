@@ -55,7 +55,10 @@ Phases, each of which fails the run (each prints its wall time):
    tensor-core forward and dW kernels beside their shared memory;
 8. each flash-attention kernel (forward, dQ, dK/dV) against its plain
    version summed in f64: BERT-base's shape at dropout 0 and 0.1,
-   causal, S = 512, S = 200, D = 128, f32;
+   causal, S = 512, S = 200 causal (bf16 and f32), B*H = 37, D = 128,
+   f32; in every bf16 case each backward kernel's error from the
+   unrounded f64 sums within 2x the plain version's in f32, and a
+   second launch giving the same bits;
 9. full-width BERT-base (f32, batch 8, dropout 0): forward and backward
    through the kernels against the plain versions on the card — loss,
    the four outputs, every gradient — leaf by leaf, as in 5;
@@ -68,7 +71,9 @@ Phases, each of which fails the run (each prints its wall time):
 11. each flash kernel at BERT-base's shape, bf16, dropout 0.1, timed
     beside its bound, its plain version and
     ``scaled_dot_product_attention`` (forward; backward for dQ + dK/dV
-    together); summed over a step's 12 launches.
+    together), with its achieved TFLOP/s; summed over a step's 12
+    launches; before it, ``nvcc -Xptxas -v``'s registers and spills of
+    the tensor-core dQ and dK/dV kernels beside their shared memory.
 
 Prints one JSON ``kernels`` line, then the card line, then as the last
 line ``{"ok": true, "device": {...}}``.  Without a card, or without the
@@ -78,6 +83,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -140,6 +146,11 @@ BERT_CHECK_BATCH = 8
 BERT_WARMUP_STEPS, BERT_TIMED_STEPS = 2, 10
 FLASH = ("fwd", "dq", "dkv")
 FLASH_SEED = 1234567
+# bf16 flash backward: the kernel's largest error from the f64 sums may
+# be at most this many times the plain version's in f32 (both outputs
+# round to bf16, half an ulp of the largest values; the kernel's split
+# products and tensor-core sums add ~2^-16 of them)
+BWD_ERR_FACTOR = 2.0
 # model check: kernel route vs plain route, per leaf, in units of the
 # plain-on-card vs plain-on-host noise floor (floors under a few f32
 # ulps are raised to MODEL_MIN_FLOOR)
@@ -856,62 +867,85 @@ def tc_smem_bytes(dtype_bytes, wg, np_, dw, res):
             return stages, total
 
 
-def ptxas_report():
-    """``nvcc -Xptxas -v`` of fused_conv.cu: registers and spills of each
-    tensor-core kernel (``fwd_halo_kernel<panels>``, ``dw_halo_kernel``,
-    ``tc_kernel<type, warpgroups, panels, dW>``) beside its dynamic
-    shared memory, and ptxas's wgmma serialisation warnings (C7515)."""
-    import re
+FUSED_KERNELS = re.compile(r"tc_kernelI(13__nv_bfloat16|f)Li(\d)ELi(\d)ELb(\d)E"
+                           r"|fwd_halo_kernelILi(\d)E|dw_halo_kernelE")
+FLASH_TC_KERNELS = re.compile(r"(dq|dkv)_tc_kernelILi(\d+)E")
 
+
+def fused_kernel_info(mangled):
+    """What ptxas_report prints for a fused-conv tensor-core kernel:
+    ``(name, dynamic shared memory bytes, what it holds)``, or None for
+    the other kernels of fused_conv.cu."""
+    name = FUSED_KERNELS.search(mangled)
+    if name is None:
+        return None
+    if name.group(0) == "dw_halo_kernelE":
+        return ("dw_halo_kernel", 1024 + 4 * 8192 + 6 * 256 * 128 + 128 + 48,
+                "4 dO stages, 2 raw halos, 2 X halos of hi and lo")
+    if name.group(5):
+        np_ = int(name.group(5))
+        stages = 2 if np_ == 4 else 4
+        return (f"fwd_halo_kernel<{np_} panels>",
+                1024 + stages * np_ * 8192 + 4 * 256 * 128 + 128
+                + 8 * (stages + 2),
+                f"{stages} B stages, 2 raw halos, X halo of hi and lo")
+    bf16 = name.group(1) != "f"
+    wg, np_, dw = (int(name.group(i)) for i in (2, 3, 4))
+    st = [tc_smem_bytes(2 if bf16 else 4, wg, np_, dw, res)
+          for res in (False, True)]
+    return (f"tc_kernel<{'bf16' if bf16 else 'f32'}, {wg} warpgroups, "
+            f"{np_} panels, {'dW' if dw else 'fwd'}>", st[0][1],
+            f"{st[0][0]} stages; {st[1][1]} in {st[1][0]} with a residual")
+
+
+def flash_kernel_info(mangled):
+    """The same for the flash backward's tensor-core kernels
+    (``TcTiles<D>`` in flash_attention.cu)."""
+    name = FLASH_TC_KERNELS.search(mangled)
+    if name is None:
+        return None
+    d = int(name.group(2))
+    return (f"{name.group(1)}_tc_kernel<D={d}>",
+            1024 + 8 * 64 * d * 2 + 64 + 2 * 2 * 64 * 4,
+            "two slots of its own pair of 64 x D tiles, two stages of the "
+            "streamed pair, 4 mbarriers, two stages of lse and delta")
+
+
+def ptxas_report(source, describe):
+    """``nvcc -Xptxas -v`` of one kernel source: registers and spills of
+    each kernel that ``describe`` (mangled name -> ``(name, dynamic shared
+    memory bytes, what it holds)`` or None) names, beside its shared
+    memory, and ptxas's wgmma serialisation warnings (C7515).  Returns
+    the names of the kernels whose wgmmas ptxas serialised."""
     from mxnet_tpu_torch.ops import cuda as kcuda
 
     kcuda.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out = kcuda.BUILD_DIR / f"ptxas-{os.getpid()}.so"
     r = subprocess.run([kcuda.nvcc_path(), *kcuda.NVCC_FLAGS, "-Xptxas",
-                        "-v", "-o", str(out),
-                        str(kcuda.SRC_DIR / "fused_conv.cu")],
+                        "-v", "-o", str(out), str(kcuda.SRC_DIR / source)],
                        capture_output=True, text=True, timeout=600)
     out.unlink(missing_ok=True)
     expect(r.returncode == 0, f"nvcc -Xptxas -v failed:\n{r.stderr}")
-    pat = re.compile(r"tc_kernelI(13__nv_bfloat16|f)Li(\d)ELi(\d)ELb(\d)E"
-                     r"|fwd_halo_kernelILi(\d)E|dw_halo_kernelE")
+    mangled = re.compile(r"(_Z\w+)")
     lines = (r.stdout + r.stderr).splitlines()
-    serial = {pat.search(line).group(0) for line in lines
-              if "C7515" in line and pat.search(line)}
-    name = None
+    serial = set()
     for line in lines:
-        m = pat.search(line)
+        m = mangled.search(line)
+        if "C7515" in line and m and describe(m.group(1)):
+            serial.add(describe(m.group(1))[0])
+    info = None
+    for line in lines:
+        m = mangled.search(line)
         if "Compiling entry function" in line:
-            name = m
-        elif name is not None and "spill" in line:
+            info = describe(m.group(1)) if m else None
+        elif info is not None and "spill" in line:
             spills = line.strip()
-        elif name is not None and "Used" in line:
-            if name.group(0) == "dw_halo_kernelE":
-                what = "dw_halo_kernel"
-                smem = (1024 + 4 * 8192 + 6 * 256 * 128 + 128 + 48,
-                        "4 dO stages, 2 raw halos, 2 X halos of hi and lo")
-            elif name.group(5):
-                np_ = int(name.group(5))
-                what = f"fwd_halo_kernel<{np_} panels>"
-                stages = 2 if np_ == 4 else 4
-                smem = (1024 + stages * np_ * 8192 + 4 * 256 * 128 + 128
-                        + 8 * (stages + 2), f"{stages} B stages, 2 raw "
-                        "halos, X halo of hi and lo")
-            else:
-                bf16 = name.group(1) != "f"
-                wg, np_, dw = (int(name.group(i)) for i in (2, 3, 4))
-                what = (f"tc_kernel<{'bf16' if bf16 else 'f32'}, {wg} "
-                        f"warpgroups, {np_} panels, {'dW' if dw else 'fwd'}>")
-                st = [tc_smem_bytes(2 if bf16 else 4, wg, np_, dw, res)
-                      for res in (False, True)]
-                smem = (st[0][1], f"{st[0][0]} stages; {st[1][1]} in "
-                        f"{st[1][0]} with a residual")
+        elif info is not None and "Used" in line:
+            what, smem, holds = info
             log(f"ptxas [{what}]: {line.split(':', 1)[1].strip()}; "
-                f"{spills}; dynamic shared memory {smem[0]} bytes "
-                f"({smem[1]})"
-                + ("; wgmmas serialised (C7515)" if name.group(0) in serial
-                   else ""))
-            name = None
+                f"{spills}; dynamic shared memory {smem} bytes ({holds})"
+                + ("; wgmmas serialised (C7515)" if what in serial else ""))
+            info = None
     return serial
 
 
@@ -928,7 +962,7 @@ def time_fused(torch):
 
     from mxnet_tpu_torch.ops import fused_conv as fc
 
-    ptxas_report()
+    ptxas_report("fused_conv.cu", fused_kernel_info)
     gen = torch.Generator(device=DEVICE).manual_seed(3)
     flush = torch.empty(1024 * 2**20, dtype=torch.uint8, device=DEVICE)
     before = dict(fc.norm_relu_conv.launches)
@@ -1061,14 +1095,32 @@ def flash_plain(fa, q, k, v, do, lse, delta, args, acc):
                                       acc=acc))}
 
 
+def flash_exact(fa, q, k, v, do, lse, delta, args):
+    """dQ, dK and dV of the plain versions on the inputs cast to f64:
+    summed in f64 and not rounded to the inputs' type."""
+    q, k, v, do = (x.double() for x in (q, k, v, do))
+    return {"dq": [fa._dq_plain(q, k, v, do, lse, delta, *args)],
+            "dkv": list(fa._dkv_plain(q, k, v, do, lse, delta, *args))}
+
+
+def max_err(got, want):
+    return max(float((a.double() - b.double()).abs().max())
+               for a, b in zip(got, want))
+
+
 def flash_vs_plain(torch):
     """Every flash kernel (forward O and lse, dQ, dK/dV) against its plain
     version summed in f64 on the card: BERT-base's own shape (B*H 768,
     S 128, D 64, bf16) at dropout 0 and 0.1 with a fixed seed, causal,
-    S = 512 (eight tiles), S = 200 (a tail), D = 128, f32.  Within
-    F32_RTOL of each output's scale for f32 outputs (lse among them) and
-    BF16_RTOL for bf16 ones; a wrong dropout mask shows as an O(1) error
-    in the rows it hits.  Returns the worst abs error per kernel at
+    S = 512 (eight tiles), S = 200 (a tail) causal in bf16 and in f32,
+    B*H = 37, D = 128, f32.  Within F32_RTOL of each output's scale for
+    f32 outputs (lse among them) and BF16_RTOL for bf16 ones; a wrong
+    dropout mask shows as an O(1) error in the rows it hits.  In every
+    bf16 case each backward kernel's largest error from the f64 sums
+    before their rounding to bf16 must be at most BWD_ERR_FACTOR times
+    that of the plain version summed in f32 (its outputs rounded to bf16
+    as the kernel's are), and a second launch of each backward kernel
+    must give the same bits.  Returns the worst abs error per kernel at
     BERT-base's shape with dropout on."""
     fa = flash_module()
     gen = torch.Generator(device=DEVICE).manual_seed(4)
@@ -1078,9 +1130,14 @@ def flash_vs_plain(torch):
               False, BERT_DROPOUT),
              ("causal", 96, BERT_SEQ, BERT_HEAD_DIM, bf16, True, BERT_DROPOUT),
              ("S=512", 48, 512, BERT_HEAD_DIM, bf16, False, BERT_DROPOUT),
+             ("S=200 tail, causal", 48, 200, BERT_HEAD_DIM, bf16, True,
+              BERT_DROPOUT),
              ("S=200 tail, causal", 48, 200, BERT_HEAD_DIM, f32, True,
               BERT_DROPOUT),
+             ("B*H=37", 37, BERT_SEQ, BERT_HEAD_DIM, bf16, False,
+              BERT_DROPOUT),
              ("D=128", 48, 256, 128, bf16, False, BERT_DROPOUT),
+             ("D=128, causal tail", 40, 200, 128, bf16, True, BERT_DROPOUT),
              ("f32", BERT_BH, BERT_SEQ, BERT_HEAD_DIM, f32, False,
               BERT_DROPOUT)]
     before = dict(fa.flash_attention.launches)
@@ -1100,9 +1157,33 @@ def flash_vs_plain(torch):
             path_err = errs
         log(f"flash vs plain [{what}]: max abs err "
             + ", ".join(f"{kern} {e:.3e}" for kern, e in errs.items()))
+        if dtype != bf16:
+            continue
+        exact = flash_exact(fa, q, k, v, do, lse, delta, args)
+        plain = flash_plain(fa, q, k, v, do, lse, delta, args, f32)
+        again = {"dq": [fa._dq_cuda(q, k, v, do, lse, delta, *args)],
+                 "dkv": list(fa._dkv_cuda(q, k, v, do, lse, delta, *args))}
+        torch.cuda.synchronize()
+        parts = []
+        for kern in ("dq", "dkv"):
+            k_err = max_err(got[kern], exact[kern])
+            p_err = max_err(plain[kern], exact[kern])
+            parts.append(f"{kern} kernel {k_err:.3e}, plain in f32 "
+                         f"{p_err:.3e} ({k_err / p_err:.2f}x)")
+            expect(k_err <= BWD_ERR_FACTOR * p_err,
+                   f"{what}: {kern} kernel strays {k_err:.3e} from the f64 "
+                   f"sums, more than {BWD_ERR_FACTOR}x the plain version "
+                   f"in f32 ({p_err:.3e})")
+            expect(all(torch.equal(a, b)
+                       for a, b in zip(got[kern], again[kern])),
+                   f"{what}: two launches of the {kern} kernel differ")
+        log(f"flash backward vs f64 before rounding [{what}]: "
+            + "; ".join(parts) + "; a second launch gives the same bits")
     fa.flash_attention.launches = before      # comparisons are not the path
     log(f"flash kernels agree with their plain versions summed in f64 (rtol "
-        f"f32 {F32_RTOL}, bf16 {BF16_RTOL} of each output's scale)")
+        f"f32 {F32_RTOL}, bf16 {BF16_RTOL} of each output's scale); bf16 "
+        f"backward errors within {BWD_ERR_FACTOR}x the plain version's in "
+        f"f32, bits repeatable")
     return path_err
 
 
@@ -1271,19 +1352,23 @@ def bert_train_run(torch, net, impl, steps):
             "launches": launches, "peak": peak}, step, (data, labels)
 
 
+def flash_flops(bh, s, d, kernel):
+    """The function's flops of one launch, 2 per multiply-add: fwd QK^T
+    and PV, dQ S/dP/dQ, dK/dV S/dP/dV/dK (non-causal)."""
+    return {"fwd": 2, "dq": 3, "dkv": 4}[kernel] * 2.0 * bh * s * s * d
+
+
 def flash_bound(bh, s, d, kernel, elem=2):
-    """Least time (ms) of one launch: the larger of its flops (2 per
-    multiply-add; fwd QK^T and PV, dQ S/dP/dQ, dK/dV S/dP/dV/dK) at the
+    """Least time (ms) of one launch: the larger of its flops at the
     bf16 dense peak and its bytes (q, k, v, dO read once in ``elem``-byte
     elements, lse/delta f32, each output written once) at the HBM rate.
     Returns ``(ops_ms, bytes_ms)``."""
     mat, row = bh * s * d * elem, bh * s * 4
-    products = {"fwd": 2, "dq": 3, "dkv": 4}[kernel]
     nbytes = {"fwd": 3 * mat + mat + row,
               "dq": 4 * mat + 2 * row + mat,
               "dkv": 4 * mat + 2 * row + 2 * mat}[kernel]
-    flops = products * 2.0 * bh * s * s * d
-    return flops / BF16_FLOP_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (flash_flops(bh, s, d, kernel) / BF16_FLOP_PER_S * 1e3,
+            nbytes / HBM_BYTES_PER_S * 1e3)
 
 
 def time_flash(torch, path_err):
@@ -1294,9 +1379,11 @@ def time_flash(torch, path_err):
     for the forward kernel, and that call's backward (dQ, dK and dV in
     one) for the two backward kernels together — at dropout 0 and 0.1
     (its RNG is not the kernels': a time yardstick, never on the path).
-    Per step: 12 launches of each."""
+    Per step: 12 launches of each.  Before it, ``nvcc -Xptxas -v``'s
+    registers and spills of the tensor-core dQ and dK/dV kernels."""
     import torch.nn.functional as F
 
+    ptxas_report("flash_attention.cu", flash_kernel_info)
     fa = flash_module()
     gen = torch.Generator(device=DEVICE).manual_seed(5)
     flush = torch.empty(1024 * 2**20, dtype=torch.uint8, device=DEVICE)
@@ -1342,9 +1429,12 @@ def time_flash(torch, path_err):
                      "bound_by": "operations" if ops_ms >= bytes_ms
                      else "bytes", "library_ms": lib_ms,
                      "max_abs_err": path_err[kern]}
+        tflops = flash_flops(BERT_BH, BERT_SEQ, BERT_HEAD_DIM, kern) \
+            / ms / 1e9
         log(f"time [flash_attention_{kern}, B*H {BERT_BH}, S {BERT_SEQ}, D "
             f"{BERT_HEAD_DIM}, bf16, dropout {BERT_DROPOUT}]: kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, "
+            f"{ms:.4f} ms = {tflops:.1f} TFLOP/s, plain {plain_ms:.4f} ms, "
+            f"library {lib_ms:.4f} ms, "
             f"bound {bound_ms:.4f} ms ({res[kern]['bound_by']}; operations "
             f"{ops_ms:.4f}, bytes {bytes_ms:.4f}), kernel at "
             f"{100 * bound_ms / ms:.1f}% of bound; per step (x{BERT_LAYERS})"

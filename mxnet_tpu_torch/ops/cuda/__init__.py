@@ -3,8 +3,9 @@
 Each kernel is one ``<name>.cu`` file in this directory with a plain C
 entry point.  At first use it is compiled by ``nvcc`` for Hopper
 (``sm_90a``) into a shared library under ``mxnet_tpu_torch/_build/``
-(named by a hash of the source and flags, so an edited source rebuilds)
-and loaded with ``ctypes``.  Nothing here runs at import: the CPU test
+(named by a hash of the source, the shared ``*.cuh`` headers and the
+flags, so an edited source or header rebuilds) and loaded with
+``ctypes``.  Nothing here runs at import: the CPU test
 suite imports every module on machines without ``nvcc``.
 
 ``build_all()`` starts one ``nvcc`` per source at once and waits for
@@ -75,10 +76,14 @@ def nvcc_path():
 
 
 def _lib_path(name):
+    """The source of one kernel and its library's path, named by a hash
+    of the source, every header (``*.cuh``) beside it and the flags."""
     src = SRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return src, BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    h = hashlib.sha256(src.read_bytes())
+    for hdr in sorted(SRC_DIR.glob("*.cuh")):
+        h.update(hdr.name.encode() + b"\0" + hdr.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return src, BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start_build(name):

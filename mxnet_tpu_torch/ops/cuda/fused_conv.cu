@@ -90,6 +90,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"  // wgmma, mbarrier, TMA and ldmatrix wrappers
+
 namespace {
 
 constexpr int kBM = 64;        // rows of the result tile
@@ -149,100 +151,6 @@ __device__ __forceinline__ void mma_tile(float (*as)[kBM + kPad],
   }
 }
 
-// --------------------------------------------------- tensor-core helpers
-constexpr int kPanel = 64;                      // rows and cols of a panel
-constexpr int kPanelBytes = kPanel * kPanel * 2;  // one bf16 64x64 panel
-constexpr int kSmemMax = 232448;                // a block's dynamic limit
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Byte offset of 16-byte chunk q of row r in a tile of 128-byte rows,
-// 128-byte swizzled as the TMA writes it (tile base 1024-aligned).
-__device__ __forceinline__ int swz(int r, int q) {
-  return r * 128 + ((q ^ (r & 7)) << 4);
-}
-
-// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
-// address, leading and stride byte offsets (16-byte units), layout 1.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) |
-         (static_cast<uint64_t>(1) << 62);
-}
-
-__device__ __forceinline__ void fence_acc(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// d[64x64] = A[64x16] B[16x64] (+ d when `add`): A K-major (kTransA 0)
-// or M-major (1), B N-major (transposed), both bf16 in shared memory.
-template <int kTransA>
-__device__ __forceinline__ void wgmma64(float (&d)[32], uint64_t a,
-                                       uint64_t b, int add) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31}, %32, %33, p, 1, 1, %35, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(add), "n"(kTransA));
-}
-
-// The same over 128 columns: d holds cols 0-63, e cols 64-127 (B spans
-// two 64-wide panels, kPanelBytes apart).
-template <int kTransA>
-__device__ __forceinline__ void wgmma128(float (&d)[32], float (&e)[32],
-                                        uint64_t a, uint64_t b, int add) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
-      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
-      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, "
-      "1, 1, %67, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
-        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31]), "+f"(e[0]), "+f"(e[1]), "+f"(e[2]), "+f"(e[3]),
-        "+f"(e[4]), "+f"(e[5]), "+f"(e[6]), "+f"(e[7]), "+f"(e[8]), "+f"(e[9]),
-        "+f"(e[10]), "+f"(e[11]), "+f"(e[12]), "+f"(e[13]), "+f"(e[14]),
-        "+f"(e[15]), "+f"(e[16]), "+f"(e[17]), "+f"(e[18]), "+f"(e[19]),
-        "+f"(e[20]), "+f"(e[21]), "+f"(e[22]), "+f"(e[23]), "+f"(e[24]),
-        "+f"(e[25]), "+f"(e[26]), "+f"(e[27]), "+f"(e[28]), "+f"(e[29]),
-        "+f"(e[30]), "+f"(e[31])
-      : "l"(a), "l"(b), "r"(add), "n"(kTransA));
-}
-
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int kPending>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending)
-               : "memory");
-}
-
 // 16 bytes global -> shared, or 16 zero bytes when !ok (nothing read)
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool ok) {
@@ -257,51 +165,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int kPending>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
-                                               uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-// Wait for the phase of `parity` to complete; traps (a launch error, not
-// a hang) if it has not after ~10 s.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  const long long t0 = clock64();
-  while (true) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (clock64() - t0 > 20000000000LL) __trap();
-  }
-}
-
-// One box of a 2-D tensor map at (col, row) into shared memory,
-// completing on `bar`.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int col, int row) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row),
-      "r"(smem_u32(bar))
-      : "memory");
 }
 
 // Eight staged values of type T from shared memory as floats, read in
@@ -634,7 +497,7 @@ tc_kernel(const __grid_constant__ CUtensorMap b0,
                                // A tiles are free; stage s has landed
     transform(s, slot, s & 1);
     // make the A tiles visible to the tensor cores (the async proxy)
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    fence_proxy_async();
     const int next = s + stages - 2;
     if (next < steps) issue(next, next % stages);
     else cp_async_commit();
@@ -695,65 +558,6 @@ tc_kernel(const __grid_constant__ CUtensorMap b0,
       }
     }
   }
-}
-
-// d[64xN] += A[64x16] B[16xN] with A in registers (a warp's 16 rows in
-// mma.m16n8k16's A layout, as ldmatrix.x4 gives them), B N-major in
-// shared memory; N = 64 (d) or 128 (d, e).
-__device__ __forceinline__ void wgmma64_rs(float (&d)[32],
-                                          const uint32_t (&a)[4],
-                                          uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma128_rs(float (&d)[32], float (&e)[32],
-                                           const uint32_t (&a)[4],
-                                           uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
-      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
-      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(e[0]), "+f"(e[1]), "+f"(e[2]),
-        "+f"(e[3]), "+f"(e[4]), "+f"(e[5]), "+f"(e[6]), "+f"(e[7]),
-        "+f"(e[8]), "+f"(e[9]), "+f"(e[10]), "+f"(e[11]), "+f"(e[12]),
-        "+f"(e[13]), "+f"(e[14]), "+f"(e[15]), "+f"(e[16]), "+f"(e[17]),
-        "+f"(e[18]), "+f"(e[19]), "+f"(e[20]), "+f"(e[21]), "+f"(e[22]),
-        "+f"(e[23]), "+f"(e[24]), "+f"(e[25]), "+f"(e[26]), "+f"(e[27]),
-        "+f"(e[28]), "+f"(e[29]), "+f"(e[30]), "+f"(e[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4],
-                                            uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
-      : "r"(addr)
-      : "memory");
 }
 
 // What the halo forward stages.  A block takes 128 output positions (two
@@ -951,22 +755,6 @@ fwd_halo_kernel(const __grid_constant__ CUtensorMap bm,
       }
     }
   }
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&a)[4],
-                                                  uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
-      : "r"(addr)
-      : "memory");
-}
-
-// Keeps registers that an issued wgmma still reads alive (unchanged) up
-// to this point.
-__device__ __forceinline__ void keep(const uint32_t (&a)[4]) {
-  asm volatile("" ::"r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]) : "memory");
 }
 
 // What the 3x3 halo dW stages: three warpgroups, one kernel row each;
@@ -1333,33 +1121,6 @@ Geom make_geom(int n, int h, int w, int ci, int co, int k, int stride,
 
 unsigned blocks_for(long long items, int per_block) {
   return static_cast<unsigned>((items + per_block - 1) / per_block);
-}
-
-// cuTensorMapEncodeTiled from the driver, reached through the runtime
-// (no -lcuda at build time).
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
-                                cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled tensor_map_encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
 }
 
 // The bf16 matrix [rows, cols] (row-major) at `base` as boxes of

@@ -24,7 +24,10 @@ for the kernels on the card); ``lse`` and ``delta`` are in that type.
 Which body runs is decided by where the tensors lie, never by a
 fallback: CPU tensors run the plain versions; CUDA tensors launch the
 hand-written kernels of ``ops/cuda/flash_attention.cu`` (float32 or
-bfloat16, contiguous, D = 64 or 128) or raise.
+bfloat16, contiguous, D = 64 or 128; bf16 16-byte aligned) or raise.
+In bf16 the dQ and dK/dV kernels multiply on the tensor cores (``p``
+and ``ds`` as two bf16 pieces each, summed in f32); f32 inputs and the
+forward run SIMT f32 bodies.
 ``flash_attention.launches`` counts kernel launches per kernel
 (``"fwd"``, ``"dq"``, ``"dkv"``).  The kernels tile S by 64 and mask the
 tail, so S need not divide by any block; ``block_q``/``block_k`` are
@@ -185,6 +188,10 @@ def _check_cuda(what, tensors, rows=()):
         if not t.is_contiguous():
             raise ValueError(f"{what}: inputs must be contiguous "
                              f"(make the (B*H, S, D) views contiguous)")
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16
+                                         for t in tensors):
+        raise ValueError(f"{what}: bf16 inputs must start at 16-byte "
+                         f"aligned addresses (the kernels read them by TMA)")
 
 
 def _launch(what, fn, q, ptrs, scale, causal, dropout, seed):

@@ -15,7 +15,12 @@ package's Pallas flash attention (interpret mode on the CPU).
 - the op on ``(B, S, H*D)`` (B = 2, H = 3) against the JAX op, and with
   dropout against the JAX kernels fed the seed the op drew;
 - ``torch.autograd.gradcheck`` of the function in f64 on the plain path;
-- the kernels' argument checks, and ``gpu``-marked kernel-against-plain
+- the bf16 tensor-core backward's arithmetic emulated in plain PyTorch
+  (``p`` and ``ds`` cut into hi + lo bf16 pieces, times the bf16
+  operands, summed in f32) against the JAX kernels and the plain
+  versions summed in f64;
+- the kernels' argument checks, a kernel library's name following its
+  headers, and ``gpu``-marked kernel-against-plain and repeatability
   cases that skip without a card.
 """
 import gc
@@ -252,7 +257,126 @@ def test_dense_op_dropout_is_train_only():
                                                     dropout=0.5), base)
 
 
+# ------------------------------------------- the tensor cores' arithmetic --
+def _pieces(x):
+    """f32 ``x`` as the kernels' bf16 pieces: hi = bf16(x), lo =
+    bf16(x - hi)."""
+    hi = x.to(torch.bfloat16)
+    return hi, (x - hi.float()).to(torch.bfloat16)
+
+
+def _split_product(x, b):
+    """``x @ b`` as the bf16 kernels form it: x (f32) in two bf16 pieces,
+    b bf16, every product exact and all of them summed in one f32 sum."""
+    hi, lo = _pieces(x)
+    return torch.cat([hi, lo], dim=-1).float() \
+        @ torch.cat([b, b], dim=-2).float()
+
+
+def _split_bwd(q, k, v, do, lse, delta, scale, causal, dropout, seed):
+    """dQ, dK, dV in f32 (before their rounding to bf16) by the bf16
+    tensor-core kernels' arithmetic: S and dP from the bf16 inputs
+    (exact products, f32 sums), ``scale`` on the S sum, ``p``, ``mask``
+    and ``ds`` in f32, then ``ds K``, ``mask(p)^T dO`` and ``ds^T Q``
+    through ``_split_product``."""
+    qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
+    s = (qf @ kf.transpose(1, 2)) * scale
+    if causal:
+        n = s.shape[-1]
+        s = torch.where(torch.ones(n, n, dtype=torch.bool).tril(), s,
+                        torch.tensor(tfa._NEG_INF))
+    p = torch.exp(s - lse[..., None])
+    dp = dof @ vf.transpose(1, 2)
+    pd = p
+    if dropout > 0.0:
+        keep = tfa._keep(q.shape[0], q.shape[1], seed, dropout, q.device)
+        pd, dp = tfa._drop(p, keep, dropout), tfa._drop(dp, keep, dropout)
+    ds = p * (dp - delta[..., None])
+    return (_split_product(ds, k) * scale,
+            _split_product(ds.transpose(1, 2).contiguous(), q) * scale,
+            _split_product(pd.transpose(1, 2).contiguous(), do))
+
+
+def _hold_bf16(got, want, name):
+    """chip_smoke.py's bf16 rule: each element within 2**-6 of the
+    output's largest magnitude plus its own (two roundings of nearly
+    the same value to bf16 differ by one bf16 ulp, 2**-8 to 2**-7
+    relative)."""
+    got, want = got.double(), want.double()
+    err = (got - want).abs()
+    assert bool((err <= 2.0 ** -6 * (want.abs().max() + want.abs())).all()), \
+        (name, float(err.max()))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dropout", [0.0, 0.25])
+def test_split_products_hold_the_jax_kernels_and_f64_plain_versions(
+        causal, dropout):
+    """The bf16 dQ and dK/dV kernels' arithmetic, emulated: against the
+    JAX kernels (interpret mode) on the same bf16 inputs, lse and delta,
+    and against ``_dq_plain``/``_dkv_plain`` summed in f64, both under
+    chip_smoke.py's bf16 rule; before the outputs' rounding to bf16,
+    within 2**-12 of each output's largest magnitude of the f64 sums
+    (the hi + lo split keeps p and ds to ~2**-16 relative; one bf16
+    piece alone would keep them to 2**-9)."""
+    q, k, v, do = (jnp.asarray(x).astype(jnp.bfloat16)
+                   for x in arrays(4, (BH, S, D), seed=10))
+    seed = jnp.asarray([SEED], jnp.int32)
+    jo, jl = jfa._flash_fwd(q, k, v, seed, SCALE, causal, 32, 32, True,
+                            dropout)
+    jg = jfa._flash_bwd(q, k, v, seed, jo, jl, do, SCALE, causal, 32, 32,
+                        True, dropout)
+    tq, tk, tv, tdo = (torch.from_numpy(np.array(x.astype(jnp.float32)))
+                       .to(torch.bfloat16) for x in (q, k, v, do))
+    lse = torch.from_numpy(np.array(jl))
+    delta = (torch.from_numpy(np.asarray(jo.astype(jnp.float32)))
+             * tdo.float()).sum(-1)
+    args = (SCALE, causal, dropout, SEED)
+    split = _split_bwd(tq, tk, tv, tdo, lse, delta, *args)
+    f64 = torch.float64
+    exact = (tfa._dq_plain(*(x.double() for x in (tq, tk, tv, tdo)), lse,
+                           delta, *args),
+             *tfa._dkv_plain(*(x.double() for x in (tq, tk, tv, tdo)), lse,
+                             delta, *args))
+    plain = (tfa._dq_plain(tq, tk, tv, tdo, lse, delta, *args, acc=f64),
+             *tfa._dkv_plain(tq, tk, tv, tdo, lse, delta, *args, acc=f64))
+    for name, s32, jx, pl, ex in zip(("dq", "dk", "dv"), split, jg, plain,
+                                     exact):
+        got = s32.to(torch.bfloat16)
+        _hold_bf16(got, torch.from_numpy(np.array(jx.astype(jnp.float32))),
+                   name + " vs JAX")
+        assert pl.dtype == torch.bfloat16
+        _hold_bf16(got, pl, name + " vs f64 plain")
+        err = float((s32.double() - ex).abs().max())
+        assert err <= 2.0 ** -12 * float(ex.abs().max()), (name, err)
+
+
 # ----------------------------------------------------------- the kernels --
+def test_library_name_follows_sources_and_headers(tmp_path, monkeypatch):
+    """A kernel's library is named by a hash of its source, the shared
+    ``*.cuh`` headers beside it and the flags: editing a header renames
+    every library (so it rebuilds), editing a source only its own."""
+    from mxnet_tpu_torch.ops import cuda as kcuda
+
+    for name in ("a.cu", "b.cu", "common.cuh"):
+        (tmp_path / name).write_text(f"// {name}\n")
+    monkeypatch.setattr(kcuda, "SRC_DIR", tmp_path)
+    monkeypatch.setattr(kcuda, "BUILD_DIR", tmp_path / "_build")
+
+    def names():
+        return {n: kcuda._lib_path(n)[1].name for n in ("a", "b")}
+    first = names()
+    assert first["a"] != first["b"] and first == names()
+    (tmp_path / "common.cuh").write_text("// edited\n")
+    second = names()
+    assert all(second[n] != first[n] for n in first)
+    (tmp_path / "a.cu").write_text("// a, edited\n")
+    third = names()
+    assert third["a"] != second["a"] and third["b"] == second["b"]
+    (tmp_path / "more.cuh").write_text("// another header\n")
+    assert all(names()[n] != third[n] for n in third)
+
+
 def test_cpu_runs_no_kernel():
     before = dict(flash_attention.launches)
     q, k, v = (x.requires_grad_(True) for x in t(*arrays(3, (2, 8, 64), 0)))
@@ -277,23 +401,37 @@ def test_kernel_arguments_are_checked(what, shape, dtype, err):
                          torch.zeros(2, 8)))
     with pytest.raises(ValueError, match="shape"):
         flash_attention(ok, ok, torch.zeros((2, 9, 64)))
+    # bf16 tiles come by TMA: a view 2 bytes past an aligned start raises
+    flat = torch.zeros(2 * 8 * 64 + 1, dtype=torch.bfloat16)
+    b = flat[1:].view(2, 8, 64)
+    with pytest.raises(ValueError, match="16-byte"):
+        tfa._check_cuda("flash_attention_dq", (b, b, b, b),
+                        (torch.zeros(2, 8), torch.zeros(2, 8)))
 
 
 gpu = pytest.mark.gpu
 
 
+def _card_inputs(bh, s, d, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run with -m gpu on the card)")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    return [torch.randn(bh, s, d, generator=gen, device="cuda").to(dtype)
+            for _ in range(4)]
+
+
 @gpu
 @pytest.mark.parametrize("bh,s,d,dtype,causal,dropout", [
     (96, 128, 64, torch.bfloat16, False, 0.1),
+    (24, 200, 64, torch.bfloat16, True, 0.1),
+    (24, 256, 128, torch.bfloat16, False, 0.1),
+    (37, 200, 128, torch.bfloat16, True, 0.0),
+    (37, 128, 64, torch.bfloat16, False, 0.1),
     (24, 200, 64, torch.float32, True, 0.1),
     (24, 512, 128, torch.float32, False, 0.0)])
 def test_kernels_match_plain_versions_on_the_card(bh, s, d, dtype, causal,
                                                   dropout):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (run with -m gpu on the card)")
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    q, k, v, do = (torch.randn(bh, s, d, generator=gen, device="cuda")
-                   .to(dtype) for _ in range(4))
+    q, k, v, do = _card_inputs(bh, s, d, dtype)
     args = (d ** -0.5, causal, dropout, SEED)
     o, lse = tfa._fwd_cuda(q, k, v, *args)
     delta = (o.float() * do.float()).sum(-1)
@@ -311,3 +449,20 @@ def test_kernels_match_plain_versions_on_the_card(bh, s, d, dtype, causal,
         a, b = a.double(), b.double()
         assert bool(((a - b).abs() <= rtol * (b.abs().max() + b.abs()))
                     .all())
+
+
+@gpu
+@pytest.mark.parametrize("d,causal", [(64, False), (128, True)])
+def test_backward_kernels_repeat_their_bits_on_the_card(d, causal):
+    """No atomics: two launches of each bf16 backward kernel on the same
+    inputs give the same bits (S = 200: a tail)."""
+    q, k, v, do = _card_inputs(37, 200, d, torch.bfloat16)
+    args = (d ** -0.5, causal, 0.1, SEED)
+    o, lse = tfa._fwd_cuda(q, k, v, *args)
+    delta = (o.float() * do.float()).sum(-1)
+    runs = [(tfa._dq_cuda(q, k, v, do, lse, delta, *args),
+             *tfa._dkv_cuda(q, k, v, do, lse, delta, *args))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
