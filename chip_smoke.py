@@ -35,7 +35,7 @@ Phases, each of which fails the run (each prints its wall time):
    ``torch.profiler``;
 4. each fused-conv kernel (forward, dX, dW) against its plain version at
    the eight ResNet-50 shapes (N = 8) and the other cases the op takes,
-   in f32 and bf16;
+   in f32 and bf16, dX launched twice for the same bits;
 5. full-width ResNet-50 (f32, batch 8): forward and backward through
    the kernels against the same through the plain versions on the
    card, from the same parameters — loss, every gradient, running
@@ -51,8 +51,9 @@ Phases, each of which fails the run (each prints its wall time):
    against its plain version, then timed (CUDA events, L2 flushed)
    beside its bound, its plain version and the cuDNN call for the conv
    alone, with its achieved TFLOP/s; summed over a step's 32 launches;
-   before it, ``nvcc -Xptxas -v``'s registers and spills of the
-   tensor-core forward and dW kernels beside their shared memory;
+   dX launched twice, its outputs (dscale, dshift among them) the same
+   bits; before it, ``nvcc -Xptxas -v``'s registers and spills of the
+   tensor-core kernels beside their shared memory;
 8. each flash-attention kernel (forward, dQ, dK/dV) against its plain
    version summed in f64: BERT-base's shape at dropout 0 and 0.1,
    causal, S = 512, S = 200 causal (bf16 and f32), B*H = 37, D = 128,
@@ -73,7 +74,8 @@ Phases, each of which fails the run (each prints its wall time):
     ``scaled_dot_product_attention`` (forward; backward for dQ + dK/dV
     together), with its achieved TFLOP/s; summed over a step's 12
     launches; before it, ``nvcc -Xptxas -v``'s registers and spills of
-    the tensor-core dQ and dK/dV kernels beside their shared memory.
+    the tensor-core forward, dQ and dK/dV kernels beside their shared
+    memory.
 
 Prints one JSON ``kernels`` line, then the card line, then as the last
 line ``{"ok": true, "device": {...}}``.  Without a card, or without the
@@ -81,6 +83,7 @@ package beside it, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -562,7 +565,11 @@ def check_outputs(torch, what, kern, got, want):
 def fused_vs_plain(torch):
     """Every fused-conv kernel against its plain version: the eight
     ResNet-50 shapes at N = 8, then stride 2 at H = 8 and 9, the
-    residual without relu, Co = 192; f32 and bf16."""
+    residual without relu, Co = 192, Ci = 40 < 64 with Co = 24, Ci = 128
+    and 256 with Co = 64; f32 and bf16.  Each dX is launched twice and its
+    outputs must repeat their bits: among the bf16 cases, the tensor-core
+    dX's last step lands on B slot 0, which its epilogue reuses (steps =
+    1 mod its B stages), at one, two and four panels."""
     from mxnet_tpu_torch.context import resolve_device
     from mxnet_tpu_torch.ops import fused_conv as fc
 
@@ -575,7 +582,10 @@ def fused_vs_plain(torch):
               ("1x1 stride 2 @9", 2, 9, 8, 16, 1, 2, False, True),
               ("3x3 residual, no relu @8", 2, 8, 8, 16, 3, 1, True, False),
               ("1x1 residual @7", 2, 7, 24, 40, 1, 1, True, True),
-              ("3x3 Co=192 @4", 2, 4, 8, 192, 3, 1, False, True)]
+              ("3x3 Co=192 @4", 2, 4, 8, 192, 3, 1, False, True),
+              ("3x3 Ci=40 -> Co=24 @7", 2, 7, 40, 24, 3, 1, False, True),
+              ("3x3 Ci=128 -> Co=64 @7", 2, 7, 128, 64, 3, 1, False, True),
+              ("3x3 Ci=256 -> Co=64 @5", 2, 5, 256, 64, 3, 1, False, True)]
     before = dict(fc.norm_relu_conv.launches)
     for dtype in (torch.float32, torch.bfloat16):
         for label, n, h, ci, co, k, stride, res, relu in cases:
@@ -585,10 +595,15 @@ def fused_vs_plain(torch):
                                stride)
             want = fused_bodies(fc, True, x, sc, sh, w, r, do, k, relu,
                                 stride)
+            again = fused_bodies(fc, False, x, sc, sh, w, r, do, k, relu,
+                                 stride)["dx"]
             torch.cuda.synchronize()
             what = f"{label}, N={n}, {str(dtype).split('.')[1]}"
             err = max(check_outputs(torch, what, kern, got[kern], want[kern])
                       for kern in FUSED)
+            expect(all(a is None or torch.equal(a, b)
+                       for a, b in zip(got["dx"], again)),
+                   f"{what}: two launches of the dX kernel differ")
             log(f"fused conv vs plain [{what}]: max abs err {err:.3e}")
     fc.norm_relu_conv.launches = before       # comparisons are not the path
     log(f"fused conv kernels agree with their plain versions (rtol f32 "
@@ -662,6 +677,18 @@ def forward_backward(torch, net, x, y):
     return [t.double().cpu() for t in leaves]
 
 
+@contextlib.contextmanager
+def plain_versions(module):
+    """Inside the block, CUDA tensors run ``module``'s plain versions
+    (its ``_BODIES``) instead of its kernels."""
+    cuda_bodies = module._BODIES[False]
+    module._BODIES[False] = module._BODIES[True]
+    try:
+        yield
+    finally:
+        module._BODIES[False] = cuda_bodies
+
+
 def model_check(torch):
     """Full-width fused ResNet-50 in f32: one training forward and
     backward through the kernels, held leaf by leaf against the same
@@ -700,12 +727,8 @@ def model_check(torch):
     for n, p in params:                 # the kernel run updated them
         if p.grad_req == "null":
             p.set_data(start[n])
-    cuda_bodies = fc._BODIES[False]
-    fc._BODIES[False] = fc._BODIES[True]  # CUDA tensors: plain versions
-    try:
+    with plain_versions(fc):
         plain = forward_backward(torch, fused, xd, yd)
-    finally:
-        fc._BODIES[False] = cuda_bodies
     on_host = forward_backward(torch, host, x, y)
     launched = {k: fc.norm_relu_conv.launches[k] - before[k] for k in FUSED}
     fc.norm_relu_conv.launches = before
@@ -868,8 +891,9 @@ def tc_smem_bytes(dtype_bytes, wg, np_, dw, res):
 
 
 FUSED_KERNELS = re.compile(r"tc_kernelI(13__nv_bfloat16|f)Li(\d)ELi(\d)ELb(\d)E"
-                           r"|fwd_halo_kernelILi(\d)E|dw_halo_kernelE")
-FLASH_TC_KERNELS = re.compile(r"(dq|dkv)_tc_kernelILi(\d+)E")
+                           r"|fwd_halo_kernelILi(\d)E|dw_halo_kernelE"
+                           r"|dx_tc_kernelILi(\d)E")
+FLASH_TC_KERNELS = re.compile(r"(fwd|dq|dkv)_tc_kernelILi(\d+)E")
 
 
 def fused_kernel_info(mangled):
@@ -879,6 +903,12 @@ def fused_kernel_info(mangled):
     name = FUSED_KERNELS.search(mangled)
     if name is None:
         return None
+    if name.group(6):
+        np_ = int(name.group(6))
+        stages = 2 if np_ == 2 else 4
+        return (f"dx_tc_kernel<{np_} panels>",
+                1024 + stages * np_ * 8192 + 65536 + 128 + 8 * (stages + 4),
+                f"{stages} B stages, 64 KB of dO halo slots")
     if name.group(0) == "dw_halo_kernelE":
         return ("dw_halo_kernel", 1024 + 4 * 8192 + 6 * 256 * 128 + 128 + 48,
                 "4 dO stages, 2 raw halos, 2 X halos of hi and lo")
@@ -899,16 +929,18 @@ def fused_kernel_info(mangled):
 
 
 def flash_kernel_info(mangled):
-    """The same for the flash backward's tensor-core kernels
-    (``TcTiles<D>`` in flash_attention.cu)."""
+    """The same for the flash tensor-core kernels (``TcTiles<D, kOwn>``
+    in flash_attention.cu: the forward's own slots hold Q alone)."""
     name = FLASH_TC_KERNELS.search(mangled)
     if name is None:
         return None
     d = int(name.group(2))
+    own = 1 if name.group(1) == "fwd" else 2
     return (f"{name.group(1)}_tc_kernel<D={d}>",
-            1024 + 8 * 64 * d * 2 + 64 + 2 * 2 * 64 * 4,
-            "two slots of its own pair of 64 x D tiles, two stages of the "
-            "streamed pair, 4 mbarriers, two stages of lse and delta")
+            1024 + (2 * own + 4) * 64 * d * 2 + 64 + 2 * 2 * 64 * 4,
+            f"two slots of its own {'Q tile' if own == 1 else 'pair'} of "
+            f"64 x D, two stages of the streamed pair, 4 mbarriers, two "
+            f"stages of lse and delta")
 
 
 def ptxas_report(source, describe):
@@ -952,7 +984,8 @@ def ptxas_report(source, describe):
 def time_fused(torch):
     """Each fused-conv kernel at the eight ResNet-50 shapes at N = 256,
     bf16, as the training run calls it: its outputs held against its
-    plain version's (``check_outputs``), then timed beside the plain
+    plain version's (``check_outputs``; dX launched twice, every output,
+    dscale and dshift among them, the same bits), then timed beside the plain
     version, cuDNN on the already normalised input (``library``: the
     conv alone, without the prologue, the mask or the dscale/dshift
     epilogue — less work than the kernel), and the bound.  Per-step sums
@@ -1009,6 +1042,12 @@ def time_fused(torch):
                     for t in want]
             err = check_outputs(torch, f"{label}, N={TRAIN_BATCH}, bf16",
                                 kern, got, want)
+            if kern == "dx":    # no atomics: dscale/dshift repeat their bits
+                again = kfn()
+                expect(all(torch.equal(a, b) for a, b in zip(got, again)
+                           if a is not None),
+                       f"{label}: two launches of the dX kernel differ")
+                del again
             plain = pfn()
             plain = list(plain) if isinstance(plain, tuple) else [plain]
             plain_err = max(float((a.float() - b.float()).abs().max())
@@ -1278,12 +1317,8 @@ def bert_model_check(torch):
     expect(launched == dict.fromkeys(FLASH, BERT_LAYERS),
            f"BERT model check: kernel launches {launched}, expected "
            f"{BERT_LAYERS} each")
-    cuda_bodies = fa._BODIES[False]
-    fa._BODIES[False] = fa._BODIES[True]  # CUDA tensors: plain versions
-    try:
+    with plain_versions(fa):
         plain = bert_leaves(torch, net, data, labels)
-    finally:
-        fa._BODIES[False] = cuda_bodies
     on_host = bert_leaves(torch, host, hdata, hlabels)
     launched = {k: fa.flash_attention.launches[k] - before[k] for k in FLASH}
     fa.flash_attention.launches = before
@@ -1380,7 +1415,7 @@ def time_flash(torch, path_err):
     one) for the two backward kernels together — at dropout 0 and 0.1
     (its RNG is not the kernels': a time yardstick, never on the path).
     Per step: 12 launches of each.  Before it, ``nvcc -Xptxas -v``'s
-    registers and spills of the tensor-core dQ and dK/dV kernels."""
+    registers and spills of the tensor-core kernels."""
     import torch.nn.functional as F
 
     ptxas_report("flash_attention.cu", flash_kernel_info)

@@ -26,18 +26,24 @@
 // and dV are written in the input type, lse in f32.  S need not divide
 // by the tile: rows and keys past S arrive as zeros and are masked.
 //
-// bf16 dQ and dK/dV (`dq_tc_kernel`, `dkv_tc_kernel`; the training path)
-// run on the tensor cores.  A work item is 64 query rows (dQ) or 64 keys
-// (dK/dV) of one head: one warpgroup (128 threads) owns it and loops
-// over the other axis' 64-wide tiles.  Blocks are persistent, as many as
+// bf16 inputs (the training path) run on the tensor cores: the forward
+// `fwd_tc_kernel`, dQ `dq_tc_kernel` and dK/dV `dkv_tc_kernel`.  A work
+// item is 64 query rows (forward, dQ) or 64 keys (dK/dV) of one head:
+// one warpgroup (128 threads) owns it and loops over the other axis'
+// 64-wide tiles.  Blocks are persistent, as many as
 // fit on the card at once, each walking items blockIdx.x, + gridDim.x,
 // ...  Tiles come by TMA (3-D tensor maps over (D, S, B*H): rows past S
 // come as zeros and never from the next head) into 128-byte-swizzled
-// shared memory on mbarriers: the next item's own pair while this item
+// shared memory on mbarriers: the next item's own tiles while this item
 // runs, the streamed pair two steps ahead, across items.  Results go out
 // through the item's own tiles in shared memory by TMA, in whole lines
 // (rows past S are not written).  Per tile, with wgmma m64nNk16 (bf16
 // operands, f32 accumulators):
+//   fwd : S = Q K^T from shared memory (K-major along D); the online
+//         softmax in registers (each thread holds two rows of the
+//         accumulator: row max and sum over the quad of lanes sharing a
+//         row), O rescaled by alpha; then O += mask(P) V with p as the
+//         A operand from registers and V read MN-major;
 //   dQ  : S = Q K^T and dP = dO V^T from shared memory (K-major along D);
 //         p and ds in registers on the accumulator fragments; then
 //         dQ += ds K with ds as the A operand from registers (the
@@ -48,13 +54,16 @@
 //         dV += mask(P)^T dO and dK += dS^T Q, B read MN-major.
 // Numerics: p and ds are f32, as the TPU kernels multiply them.  Each is
 // cut into hi = bf16(x) and lo = bf16(x - hi) and both pieces go into
-// one f32 accumulator against the exact bf16 operand (K, Q or dO): x to
+// one f32 accumulator against the exact bf16 operand (V, K, Q or dO): x to
 // ~2^-16 relative, far inside the bf16 rounding of the outputs.  `scale`
 // multiplies the f32 S accumulator (the plain versions scale q before the
 // product), folded with log2(e) into one fma whose result goes to the
 // SFU's 2^x: p = 2^(s scale log2(e) - lse log2(e)) to ~2^-19 relative
 // for |scale s - lse| up to ~30 (the rounded constants and ex2.approx),
-// again below the split's 2^-16.  At D = 64 scale is 1/8, exact; at
+// again below the split's 2^-16.  The forward takes the same 2^x of
+// s scale log2(e) - m log2(e) with m its running row max, and writes
+// lse = m + log(l) to f32 accuracy, since the backward kernels recompute
+// p from it.  At D = 64 scale is 1/8, exact; at
 // D = 128 scaling the sum rather than q differs by an f32 ulp or so of
 // s.  The summation order of the tensor cores differs from the plain
 // versions' (and their f32 adds do not round to nearest), a few f32 ulps
@@ -63,8 +72,8 @@
 // stay in the block that owns them: no atomics, the same bits on every
 // run.
 //
-// Bound (chip_smoke.py, at BERT-base's 768 x 128 x 64 bf16): both
-// backward kernels are bound by bytes (reading q, k, v and dO once);
+// Bound (chip_smoke.py, at BERT-base's 768 x 128 x 64 bf16): all three
+// kernels are bound by bytes (reading q, k, v and dO once);
 // their flops with the split, at the bf16 tensor-core rate, take about a
 // third of that.  What is left: the copies alone run near the card's
 // copy rate, but a block's steps are serial (products, wait, the
@@ -75,14 +84,13 @@
 // Tried and measured slower (PERF.md): two warpgroups a block sharing
 // the stream, items in consecutive shares per block.
 //
-// f32 inputs keep SIMT bodies (`dq_simt_kernel`, `dkv_simt_kernel`, and
-// the forward for both types): one 256-thread block owns 64 rows, tiles
+// f32 inputs (the f32 model checks) keep SIMT bodies (`fwd_simt_kernel`,
+// `dq_simt_kernel`, `dkv_simt_kernel`): one 256-thread block owns 64 rows, tiles
 // are staged in shared memory as f32 with rows padded by one float, and
 // each thread computes a 4 x 4 block of every 64 x 64 product and a
 // 4 x D/16 block of every 64 x D one, all in f32.  Whole tiles past the
 // diagonal are skipped under causal masking, as the TPU kernels skip
-// whole blocks, in every body.  The forward is still SIMT: far above its
-// bound.
+// whole blocks, in every body.  They are far above their bound.
 //
 // Every kernel allocates nothing and launches on the caller's stream;
 // each entry point returns cudaGetLastError() after its launch.
@@ -101,19 +109,6 @@ constexpr int kTile = 64;        // query rows / keys per tile
 constexpr int kThreads = 256;    // 16 x 16 threads
 constexpr int kLdP = kTile + 1;  // row stride of a 64 x 64 f32 tile
 constexpr float kNegInf = -1e30f;  // the TPU kernels' _NEG_INF
-
-__device__ __forceinline__ float ld(const float* p, long long i) {
-  return p[i];
-}
-__device__ __forceinline__ float ld(const __nv_bfloat16* p, long long i) {
-  return __bfloat162float(p[i]);
-}
-__device__ __forceinline__ void st(float* p, long long i, float v) {
-  p[i] = v;
-}
-__device__ __forceinline__ void st(__nv_bfloat16* p, long long i, float v) {
-  p[i] = __float2bfloat16(v);  // round to nearest even, as torch casts
-}
 
 // The top 24 bits of the TPU kernels' `_uniform01` hash of (bh, q, k,
 // seed), uint32 arithmetic wrapping mod 2^32.
@@ -149,12 +144,12 @@ __device__ __forceinline__ uint32_t keep_threshold(const Drop& drop) {
 
 // Stage rows [row0, row0 + 64) of one (S, D) matrix into a 64 x (D+1) f32
 // tile, times `mul`; rows at or past S are zeros.
-template <typename T, int D>
-__device__ __forceinline__ void stage(float* dst, const T* src, int row0,
+template <int D>
+__device__ __forceinline__ void stage(float* dst, const float* src, int row0,
                                       int S, float mul) {
   for (int i = threadIdx.x; i < kTile * D; i += kThreads) {
     const int r = i / D, c = i % D, g = row0 + r;
-    dst[r * (D + 1) + c] = g < S ? ld(src, (long long)g * D + c) * mul : 0.f;
+    dst[r * (D + 1) + c] = g < S ? src[(long long)g * D + c] * mul : 0.f;
   }
 }
 
@@ -232,13 +227,13 @@ __device__ __forceinline__ bool in_mask(int qp, int kp, int S, bool causal) {
   return qp < S && kp < S && (!causal || qp >= kp);
 }
 
-// ------------------------------------------------------------- forward ---
-template <typename T, int D>
+// --------------------------------------------------------- forward, f32 ---
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-    fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-               const T* __restrict__ v, T* __restrict__ o,
-               float* __restrict__ lse, int S, float scale, int causal,
-               Drop drop) {
+    fwd_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, float* __restrict__ o,
+                    float* __restrict__ lse, int S, float scale, int causal,
+                    Drop drop) {
   extern __shared__ float sm[];
   float* Qs = sm;                       // 64 x (D+1), times scale
   float* Ks = Qs + kTile * (D + 1);     // 64 x (D+1)
@@ -252,7 +247,7 @@ __global__ void __launch_bounds__(kThreads)
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const int warp = tid / 32, lane = tid % 32;
 
-  stage<T, D>(Qs, q + base, q0, S, scale);
+  stage<D>(Qs, q + base, q0, S, scale);
   if (tid < kTile) {
     m_s[tid] = kNegInf;
     l_s[tid] = 0.f;
@@ -269,8 +264,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int kt = 0; kt < n_k; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();  // the previous tile's readers of Ks/Vs/Ps are done
-    stage<T, D>(Ks, k + base, k0, S, 1.f);
-    stage<T, D>(Vs, v + base, k0, S, 1.f);
+    stage<D>(Ks, k + base, k0, S, 1.f);
+    stage<D>(Vs, v + base, k0, S, 1.f);
     __syncthreads();
     float s[4][4];
     mm_abt<D>(Qs, Ks, 1.f, s, ty, tx);
@@ -332,7 +327,7 @@ __global__ void __launch_bounds__(kThreads)
       const float l = l_s[r];
 #pragma unroll
       for (int j = 0; j < D / 16; ++j)
-        st(o, base + (long long)qp * D + tx + 16 * j, acc[i][j] / l);
+        o[base + (long long)qp * D + tx + 16 * j] = acc[i][j] / l;
     }
   }
   if (tid < kTile && q0 + tid < S)
@@ -360,8 +355,8 @@ __global__ void __launch_bounds__(kThreads)
   const long long base = (long long)bh * S * D;
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
 
-  stage<float, D>(Qs, q + base, q0, S, scale);
-  stage<float, D>(dOs, dout + base, q0, S, 1.f);
+  stage<D>(Qs, q + base, q0, S, scale);
+  stage<D>(dOs, dout + base, q0, S, 1.f);
   stage_rows(lse_s, lse + (long long)bh * S, q0, S);
   stage_rows(dl_s, delta + (long long)bh * S, q0, S);
   float acc[4][D / 16];
@@ -375,8 +370,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int kt = 0; kt < n_k; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();
-    stage<float, D>(Ks, k + base, k0, S, 1.f);
-    stage<float, D>(Vs, v + base, k0, S, 1.f);
+    stage<D>(Ks, k + base, k0, S, 1.f);
+    stage<D>(Vs, v + base, k0, S, 1.f);
     __syncthreads();
     float s[4][4], dp[4][4];
     mm_abt<D>(Qs, Ks, 1.f, s, ty, tx);
@@ -432,8 +427,8 @@ __global__ void __launch_bounds__(kThreads)
   const long long base = (long long)bh * S * D;
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
 
-  stage<float, D>(Ks, k + base, k0, S, 1.f);
-  stage<float, D>(Vs, v + base, k0, S, 1.f);
+  stage<D>(Ks, k + base, k0, S, 1.f);
+  stage<D>(Vs, v + base, k0, S, 1.f);
   float dk_acc[4][D / 16], dv_acc[4][D / 16];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -445,8 +440,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int qt = causal ? (int)blockIdx.y : 0; qt < n_q; ++qt) {
     const int q0 = qt * kTile;
     __syncthreads();
-    stage<float, D>(Qs, q + base, q0, S, 1.f);
-    stage<float, D>(dOs, dout + base, q0, S, 1.f);
+    stage<D>(Qs, q + base, q0, S, 1.f);
+    stage<D>(dOs, dout + base, q0, S, 1.f);
     stage_rows(lse_s, lse + (long long)bh * S, q0, S);
     stage_rows(dl_s, delta + (long long)bh * S, q0, S);
     __syncthreads();
@@ -488,21 +483,22 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// ------------------------------------------- bf16 dQ, dK/dV: tensor cores
+// ------------------------------------- bf16 forward, dQ, dK/dV: tensor cores
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
-// A block's shared memory: two slots of its own pair of 64 x D tiles (Q
-// and dO, or K and V: this item's and the next), two stages of the
-// streamed pair (K and V, or Q and dO), each tile D/64 panels of 64 rows
-// x 128 bytes (the TMA's 128-byte swizzle); four mbarriers (two slots,
-// two stages; 64 bytes kept); (dK/dV) two stages of the streamed query
-// tile's lse*log2(e) and delta.
-template <int D>
+// A block's shared memory: two slots of its own kOwn 64 x D tiles (the
+// pair Q and dO, or K and V; the forward's Q alone: this item's and the
+// next), two stages of the streamed pair (K and V, or Q and dO), each
+// tile D/64 panels of 64 rows x 128 bytes (the TMA's 128-byte swizzle);
+// four mbarriers (two slots, two stages; 64 bytes kept); (dK/dV) two
+// stages of the streamed query tile's lse*log2(e) and delta.
+template <int D, int kOwn = 2>
 struct TcTiles {
   static constexpr int kPanels = D / 64;
   static constexpr int kBytes = kPanels * kPanelBytes;  // one 64 x D tile
-  static constexpr int kStreamOff = 4 * kBytes;
-  static constexpr int kBarOff = 8 * kBytes;
+  static constexpr int kStreamOff = 2 * kOwn * kBytes;
+  static constexpr int kBarOff = kStreamOff + 4 * kBytes;
   static constexpr int kRowsOff = kBarOff + 64;
   static constexpr int smem_bytes() {
     return 1024 + kRowsOff + 2 * 2 * kTile * 4;
@@ -511,8 +507,8 @@ struct TcTiles {
 
 // A persistent block's walk: work items w = blockIdx.x, + gridDim.x, ...
 // below n_items, item w = (head w / n_t, own tile w % n_t); per item the
-// streamed tiles first(t)..last(t) (dQ: key tiles up to the diagonal
-// under causal masking; dK/dV: query tiles from it).
+// streamed tiles first(t)..last(t) (forward and dQ, `dq` true: key tiles
+// up to the diagonal under causal masking; dK/dV: query tiles from it).
 struct Walk {
   int n_t, n_items;
   bool causal, dq;
@@ -714,10 +710,10 @@ __device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
 // The parts of a persistent tensor-core block: its shared memory, the
 // walk, and thread 0's loads.  Thread 0 keeps the stream two steps ahead
 // of the block (across items) and each item's own pair one item ahead.
-template <int D>
+template <int D, int kOwn = 2>
 struct TcBlock {
-  using L = TcTiles<D>;
-  uint8_t* own;        // [2 slots][own pair]
+  using L = TcTiles<D, kOwn>;
+  uint8_t* own;        // [2 slots][kOwn own tiles]
   uint8_t* stream;     // [2 stages][streamed pair]
   uint64_t* bar;       // [own slot 0, 1, stage 0, 1]
   Walk walk;
@@ -733,19 +729,20 @@ struct TcBlock {
         pst(walk.first(blockIdx.x % n_t)), ps(0), pmore(true) {}
 
   __device__ uint8_t* own_tile(int j, int which) const {
-    return own + ((j & 1) * 2 + which) * L::kBytes;
+    return own + ((j & 1) * kOwn + which) * L::kBytes;
   }
   __device__ uint8_t* stream_tile(int s, int which) const {
     return stream + ((s & 1) * 2 + which) * L::kBytes;
   }
-  // thread 0: item w's own pair into slot j&1
+  // thread 0: item w's own pair into slot j&1 (the forward's Q alone:
+  // b null, kOwn 1)
   __device__ void load_own(int w, int j, const CUtensorMap* a,
                            const CUtensorMap* b) {
     uint64_t* bb = &bar[j & 1];
     const int row0 = w % walk.n_t * kTile, bh = w / walk.n_t;
-    mbar_expect_tx(bb, 2 * L::kBytes);
+    mbar_expect_tx(bb, (b != nullptr ? 2 : 1) * L::kBytes);
     load_tile<D>(own_tile(j, 0), a, bb, row0, bh);
-    load_tile<D>(own_tile(j, 1), b, bb, row0, bh);
+    if (b != nullptr) load_tile<D>(own_tile(j, 1), b, bb, row0, bh);
   }
   // thread 0: the next streamed step's pair into its stage
   __device__ void load_step(const CUtensorMap* a, const CUtensorMap* b) {
@@ -994,6 +991,162 @@ __global__ void __launch_bounds__(128, D == 64 ? 3 : 1)
   if (tid == 0) bulk_wait_read();
 }
 
+// The forward's online softmax on this thread's 32 elements of a 64 x 64
+// score tile (rows = queries from q0, columns = keys from k0), in place
+// of s.  Scores go to log2 units, t = s scale log2(e), set to kNegInf
+// where masked (only on a tile that reaches past S or the diagonal:
+// kEdge); the running row max m2 (log2 units) is reduced over the quad
+// of lanes that share a row (xor 1, 2); alpha = 2^(m2 old - m2 new)
+// rescales this thread's part of the normaliser l, which then takes p =
+// 2^(t - m2) before dropout; p is then dropped by the hash and scaled
+// (kDrop).  A row with every score masked keeps m2 = kNegInf, finite:
+// p = 1 there, never NaN.
+template <bool kEdge, bool kDrop>
+__device__ __forceinline__ void fwd_terms(float (&s)[32], float (&m2)[2],
+                                          float (&l)[2], float (&alpha)[2],
+                                          int q0, int k0, int S, bool causal,
+                                          float sl2, int bh, Drop drop) {
+  float mx[2] = {m2[0], m2[1]};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int h = (i >> 1) & 1;
+    float t = s[i] * sl2;
+    if (kEdge && !in_mask(q0 + acc_row(i), k0 + acc_col(i), S, causal))
+      t = kNegInf;
+    s[i] = t;
+    mx[h] = fmaxf(mx[h], t);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+    alpha[h] = ex2(m2[h] - mx[h]);
+    m2[h] = mx[h];
+    l[h] *= alpha[h];
+  }
+  const uint32_t thr = keep_threshold(drop);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int h = (i >> 1) & 1;
+    float p = ex2(s[i] - m2[h]);
+    l[h] += p;
+    if (kDrop)
+      p = hash24(bh, q0 + acc_row(i), k0 + acc_col(i), drop.seed) >= thr
+              ? p * drop.scale
+              : 0.f;
+    s[i] = p;
+  }
+}
+
+// Replaces `_fwd_kernel` for bf16.  A persistent block of one warpgroup
+// walks items (head, 64 query rows); per item, the key and value tiles
+// stream past its Q (up to the diagonal under causal masking) and O
+// accumulates in registers under the online softmax: S = Q K^T, then
+// O = alpha O + mask(P) V with the dropped p as the A operand from
+// registers in hi + lo pieces.  O / l leaves through the item's Q tile
+// by TMA; lse = m + log(l) (natural log, f32) by one lane of each quad.
+// Its own slots hold Q alone, so at D = 64 four blocks fit an SM, held to
+// 128 registers.
+template <int D>
+__global__ void __launch_bounds__(128, D == 64 ? 4 : 2)
+    fwd_tc_kernel(const __grid_constant__ CUtensorMap qm,
+                  const __grid_constant__ CUtensorMap km,
+                  const __grid_constant__ CUtensorMap vm,
+                  const __grid_constant__ CUtensorMap om, int n_items,
+                  float* __restrict__ lse, int S, float scale, int causal,
+                  Drop drop) {
+  extern __shared__ uint8_t smem_raw[];
+  const int n_t = (S + kTile - 1) / kTile, tid = threadIdx.x;
+  TcBlock<D, 1> blk(align1024(smem_raw), n_t, n_items, causal, true);
+  if (tid == 0) blk.start(&qm, nullptr, &km, &vm);
+  __syncthreads();   // the barriers are initialised
+
+  const float sl2 = scale * kLog2e;
+  const bool dropping = drop.p > 0.f;
+  float acc[D / 64][32];
+  int s = 0;         // the block's streamed step
+  for (int w = blockIdx.x, j = 0; w < n_items; w += gridDim.x, ++j) {
+    const int bh = w / n_t, qt = w % n_t, q0 = qt * kTile;
+    if (tid == 0) blk.next_own(w, j, &qm, nullptr);
+    // this thread's two rows (h: +8): running max in log2 units, its
+    // part of the normaliser
+    float m2[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+#pragma unroll
+    for (int p = 0; p < D / 64; ++p)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[p][i] = 0.f;
+    uint8_t* q_t = blk.own_tile(j, 0);
+    mbar_wait(&blk.bar[j & 1], (j >> 1) & 1);
+    for (int kt = 0; kt <= blk.walk.last(qt); ++kt, ++s) {
+      const int k0 = kt * kTile;
+      mbar_wait(&blk.bar[2 + (s & 1)], (s >> 1) & 1);
+      float sc[32];
+      fence_acc(sc);
+      wgmma_fence();
+      mma_abt_tc<D>(sc, q_t, blk.stream_tile(s, 0));        // Q K^T
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(sc);
+      // p in place of sc; masks only on the diagonal tile and the tail
+      float alpha[2];
+      if ((causal && kt == qt) || k0 + kTile > S || q0 + kTile > S) {
+        if (dropping)
+          fwd_terms<true, true>(sc, m2, l, alpha, q0, k0, S, causal, sl2, bh,
+                                drop);
+        else
+          fwd_terms<true, false>(sc, m2, l, alpha, q0, k0, S, causal, sl2,
+                                 bh, drop);
+      } else if (dropping) {
+        fwd_terms<false, true>(sc, m2, l, alpha, q0, k0, S, causal, sl2, bh,
+                               drop);
+      } else {
+        fwd_terms<false, false>(sc, m2, l, alpha, q0, k0, S, causal, sl2,
+                                bh, drop);
+      }
+#pragma unroll
+      for (int p = 0; p < D / 64; ++p)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[p][i] *= alpha[(i >> 1) & 1];
+      uint32_t x[4][2][4];
+      split_frags(sc, x);
+#pragma unroll
+      for (int p = 0; p < D / 64; ++p) fence_acc(acc[p]);
+      wgmma_fence();
+      mma_xb_tc<D>(acc, x, blk.stream_tile(s, 1));          // O += P V
+      wgmma_commit();
+      wgmma_wait<0>();
+      keep_frags(x);
+#pragma unroll
+      for (int p = 0; p < D / 64; ++p) fence_acc(acc[p]);
+      __syncthreads();   // every warp is done with this stage
+      if (tid == 0) blk.load_step(&km, &vm);
+    }
+    // the normaliser of each row over its quad; O / l out through the
+    // item's Q tile (its last reader is done)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    }
+#pragma unroll
+    for (int p = 0; p < D / 64; ++p)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[p][i] /= l[(i >> 1) & 1];
+    stage_out<D>(q_t, acc, 1.f);
+    fence_proxy_async();
+    __syncthreads();
+    if (tid == 0) store_out<D>(&om, q_t, q0, bh);
+    if (tid % 4 == 0) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int g = q0 + acc_row(2 * h);
+        if (g < S) lse[(long long)bh * S + g] = m2[h] * kLn2 + logf(l[h]);
+      }
+    }
+  }
+  if (tid == 0) bulk_wait_read();
+}
+
 // ---------------------------------------------------------------- launch ---
 constexpr size_t tile_floats(int d) { return (size_t)kTile * (d + 1); }
 constexpr size_t fwd_smem(int d) {
@@ -1030,14 +1183,14 @@ Drop make_drop(float p, float scale, int seed) {
   return Drop{p, scale, static_cast<uint32_t>(seed)};
 }
 
-template <typename T, int D>
-int fwd_typed(const void* q, const void* k, const void* v, void* o,
-              float* lse, int bh, int S, float scale, int causal, Drop dr,
-              void* stream) {
-  return launch(fwd_kernel<T, D>, fwd_smem(D), bh, S, stream,
-                static_cast<const T*>(q), static_cast<const T*>(k),
-                static_cast<const T*>(v), static_cast<T*>(o), lse, S, scale,
-                causal, dr);
+template <int D>
+int fwd_simt(const void* q, const void* k, const void* v, void* o,
+             float* lse, int bh, int S, float scale, int causal, Drop dr,
+             void* stream) {
+  return launch(fwd_simt_kernel<D>, fwd_smem(D), bh, S, stream,
+                static_cast<const float*>(q), static_cast<const float*>(k),
+                static_cast<const float*>(v), static_cast<float*>(o), lse, S,
+                scale, causal, dr);
 }
 
 template <int D>
@@ -1109,13 +1262,24 @@ int launch_tc(Kernel kernel, int smem, const void* const (&ptrs)[N], int bh,
   const int items = bh * ((S + kTile - 1) / kTile);
   const int blocks = std::min(items, std::max(1, per_sm) * sms);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if constexpr (N == 5)
+  if constexpr (N == 4)
+    kernel<<<blocks, 128, smem, st>>>(maps[0], maps[1], maps[2], maps[3],
+                                      items, args...);
+  else if constexpr (N == 5)
     kernel<<<blocks, 128, smem, st>>>(maps[0], maps[1], maps[2], maps[3],
                                       maps[4], items, args...);
   else
     kernel<<<blocks, 128, smem, st>>>(maps[0], maps[1], maps[2], maps[3],
                                       maps[4], maps[5], items, args...);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int fwd_tc(const void* q, const void* k, const void* v, void* o, float* lse,
+           int bh, int S, float scale, int causal, Drop dr, void* stream) {
+  const void* const ptrs[4] = {q, k, v, o};
+  return launch_tc(fwd_tc_kernel<D>, TcTiles<D, 1>::smem_bytes(), ptrs, bh,
+                   S, D, stream, lse, S, scale, causal, dr);
 }
 
 template <int D>
@@ -1140,8 +1304,8 @@ int dkv_tc(const void* q, const void* k, const void* v, const void* dout,
 
 // dtype: 0 float32, 1 bfloat16.  All tensors contiguous, (bh, S, d) or
 // (bh, S) for lse/delta.  seed is the int32 seed (its bits are used).
-// bf16 dQ and dK/dV read q, k, v and dO by TMA: their addresses must be
-// 16-byte aligned.
+// The bf16 kernels read q, k, v and dO and write O, dQ, dK and dV by
+// TMA: their addresses must be 16-byte aligned.
 extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k,
                                    const void* v, void* o, float* lse,
                                    int bh, int S, int d, float scale,
@@ -1152,14 +1316,14 @@ extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k,
     return static_cast<int>(cudaErrorInvalidValue);
   const Drop dr = make_drop(dropout, drop_scale, seed);
   if (dtype == 0)
-    return d == 64 ? fwd_typed<float, 64>(q, k, v, o, lse, bh, S, scale,
-                                          causal, dr, stream)
-                   : fwd_typed<float, 128>(q, k, v, o, lse, bh, S, scale,
-                                           causal, dr, stream);
-  return d == 64 ? fwd_typed<__nv_bfloat16, 64>(q, k, v, o, lse, bh, S,
-                                                scale, causal, dr, stream)
-                 : fwd_typed<__nv_bfloat16, 128>(q, k, v, o, lse, bh, S,
-                                                 scale, causal, dr, stream);
+    return d == 64 ? fwd_simt<64>(q, k, v, o, lse, bh, S, scale, causal, dr,
+                                  stream)
+                   : fwd_simt<128>(q, k, v, o, lse, bh, S, scale, causal, dr,
+                                   stream);
+  return d == 64 ? fwd_tc<64>(q, k, v, o, lse, bh, S, scale, causal, dr,
+                              stream)
+                 : fwd_tc<128>(q, k, v, o, lse, bh, S, scale, causal, dr,
+                               stream);
 }
 
 extern "C" int flash_attention_dq(int dtype, const void* q, const void* k,

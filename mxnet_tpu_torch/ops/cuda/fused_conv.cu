@@ -30,7 +30,9 @@
 // viewed as [k*k*Ci, Co], dO as [N*Ho*Wo, Co]) by the TMA as 64 x 64
 // panels, 128-byte swizzled, completing on mbarriers.  X is formed from
 // the staged raw x in f32 (the prologue rounded as below) and split into
-// bf16 pieces.
+// bf16 pieces.  The bf16 dX at stride 1 (`dx_tc_kernel`) runs there too:
+// its A operand is the raw dO and its B is w, both exact bf16, so it
+// forms no X and needs one product per term.
 //
 // The training path (bf16, stride 1, no residual) forms X once per x
 // element and 64-channel chunk, not once per tap: a block's TMA stages
@@ -47,6 +49,10 @@
 //     each; A = X^T comes by ldmatrix.trans; chunks of positions are
 //     reduced by `reduce_splits` in order (no atomics: the same bits on
 //     every run).
+//   `dx_tc_kernel` (1x1 and 3x3, with or without a residual): 128 input
+//     positions x 64, 128 or 256 input channels a block; the halo is of
+//     dO, staged by the TMA straight into swizzled tiles (nothing to
+//     form), read at the forward's tap offsets mirrored; w read K-major.
 // `tc_kernel` takes the rest (f32, stride 2, a residual; dW of the 1x1
 // convs): per step of 64 in the depth every thread gathers its share of
 // the raw rows with 16-byte cp.async copies (one row = one position's
@@ -79,9 +85,11 @@
 // are byte-bound; with two products per term the tensor work is twice
 // the function's.  What holds the kernels back now (PERF.md): the SIMT
 // work of forming X, one block per SM, and tensor cores idle while a
-// step's X is formed and between steps.  dX still multiplies on
-// the f32 SIMT units (64x64 tiles, 4x4 results per thread, f32 tiles
-// staged through registers), far above its bound.
+// step's X is formed and between steps.  dX in f32 and at stride 2
+// keeps `dx_kernel` on the f32 SIMT units (64x64 tiles, 4x4 results per
+// thread, f32 tiles staged through registers), far above its bound; it
+// serves the f32 model check and the stride-2 cases, not the training
+// path.
 //
 // Every kernel allocates nothing and launches on the caller's stream;
 // each entry point returns cudaGetLastError() after its launches.
@@ -960,7 +968,8 @@ dw_halo_kernel(const __grid_constant__ CUtensorMap dm,
 }
 
 // --------------------------------------------------------------------- dX
-// Replaces `_dx_kernel`.  G = dO correlated with the flipped taps: input
+// Replaces `_dx_kernel` for f32 and stride 2 (bf16 at stride 1 takes
+// `dx_tc_kernel`).  G = dO correlated with the flipped taps: input
 // position (iy, ix) takes, for each tap (ky, kx), the output position
 // oy = (iy + pad_y - ky) / stride when that division is exact and in
 // range (the dO positions that map to this input position are indexed
@@ -1080,6 +1089,282 @@ dx_kernel(const T* __restrict__ x, const float* __restrict__ scale,
     const long long o = static_cast<long long>(blockIdx.x) * g.ci + n0 + tid;
     part_sc[o] = s0;
     part_sh[o] = s1;
+  }
+}
+
+// What the tensor-core dX stages.  A block takes 128 input positions
+// (two warpgroups of 64) x 64*kNP input channels; per 64-channel chunk of
+// Co the TMA brings the dO rows that all its positions' taps reach (its
+// halo: 128 + (k-1)(W+1) rows, rounded up to whole 8-row swizzle atoms)
+// into a ring of halo slots in kRingBytes (two at the widest images, up
+// to kMaxSlots), and per (chunk, tap) step the 64*kNP x 64 panel of w
+// rows tap*Ci + c0.. into a B ring.
+template <int kNP>
+struct DxHalo {
+  static constexpr int kThreads = 256;
+  static constexpr int kRows = 128;
+  static constexpr int kHaloMax = 256;
+  static constexpr int kBBytes = kNP * kPanelBytes;
+  static constexpr int kStages = kNP == 2 ? 2 : 4;  // B ring
+  static constexpr int kRingBytes = 65536;          // dO halo slots
+  static constexpr int kMaxSlots = 4;
+  static constexpr int smem_bytes() {
+    return 1024 + kStages * kBBytes + kRingBytes + 128 +
+           8 * (kStages + kMaxSlots);
+  }
+};
+
+// Replaces `_dx_kernel` for bf16 at stride 1 (the ResNet path).  G = dO
+// correlated with the flipped taps is an implicit GEMM over the input
+// positions, whose A operand is the raw dO: no prologue, and both
+// operands are exact bf16, so one product per term.  Steps are (chunk of
+// 64 output channels, tap), chunk outer.  A warp's A fragments come from
+// the chunk's staged halo by ldmatrix, one row address per lane: the dO
+// row its input position reaches at the tap, (pad - ky) W + (pad - kx)
+// rows from it, or a zero row where that lies outside the image.  B is w
+// as [k*k*Ci, Co], read K-major (Co contiguous), so no transposed copy of
+// w exists; where a panel runs past this tap's Ci rows (Ci < 64 or the
+// last column block) those rows feed only columns >= Ci, never written.
+// One step's MMAs stay in flight while the next step's fragments are
+// loaded (wgmma_wait<1>); the loads of a panel's x (and res) for the
+// epilogue are all issued before any is used.
+// The epilogue recomputes the relu mask from the raw x (and res) with
+// `pre_act`, writes dx = G*m*scale and dres = G*m in bf16, and one
+// partial row of sum G*m*x and sum G*m per 64 positions (a warpgroup),
+// summed in a fixed order (the quad's two rows, the warp's lanes by a
+// shuffle tree, the four warps in turn): the same bits on every run.
+template <int kNP>
+__global__ void __launch_bounds__(256, kNP == 4 ? 1 : 2)
+dx_tc_kernel(const __grid_constant__ CUtensorMap wm,
+             const __grid_constant__ CUtensorMap dm,
+             const __nv_bfloat16* __restrict__ x,
+             const __nv_bfloat16* __restrict__ res,
+             const float* __restrict__ scale,
+             const float* __restrict__ shift, __nv_bfloat16* __restrict__ dx,
+             __nv_bfloat16* __restrict__ dres, float* __restrict__ part_sc,
+             float* __restrict__ part_sh, Geom g, int relu, int slot_bytes,
+             int slots) {
+  using L = DxHalo<kNP>;
+  constexpr int SB = L::kStages, kCols = kNP * kPanel;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* sB = sm;                            // [SB] w panels
+  uint8_t* sD = sB + SB * L::kBBytes;          // [slots] dO halos
+  uint8_t* sZero = sD + L::kRingBytes;         // one zero row
+  uint64_t* bar = reinterpret_cast<uint64_t*>(sZero + 128);  // [SB] B
+  uint64_t* dbar = bar + SB;                                  // halos
+
+  const int tid = threadIdx.x, wg = tid / 128;
+  const int warp = (tid % 128) / 32, lane = tid % 32;
+  const int nch = (g.co + 63) / 64;
+  const int taps = g.k * g.k;
+  const int steps = nch * taps;
+  const int P = g.n * g.h * g.w;
+  const int m0 = blockIdx.x * L::kRows;
+  const int c0 = blockIdx.y * kCols;
+  // halo row 0 is dO row m0 - lead, where the last tap reaches
+  const int lead = (g.k - 1 - g.pad_y) * g.w + (g.k - 1 - g.pad_x);
+
+  // this lane's ldmatrix row: input position m, image row/col (y, x)
+  const int lrow = wg * 64 + warp * 16 + (lane & 7) + 8 * ((lane >> 3) & 1);
+  const int lm = m0 + lrow;
+  const bool lok = lm < P;
+  const int lrem = (lok ? lm : 0) % (g.h * g.w);
+  const int ly = lrem / g.w, lx = lrem % g.w;
+
+  if (tid == 0) {
+    for (int i = 0; i < SB; ++i) mbar_init(&bar[i], 1);
+    for (int i = 0; i < L::kMaxSlots; ++i) mbar_init(&dbar[i], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (tid < 32) reinterpret_cast<uint32_t*>(sZero)[tid] = 0u;
+  __syncthreads();
+
+  auto load_b = [&](int s) {        // thread 0: step s's w panels
+    const int cc = s / taps, tap = s - cc * taps;
+    const int slot = s % SB;
+    mbar_expect_tx(&bar[slot], L::kBBytes);
+#pragma unroll
+    for (int p = 0; p < kNP; ++p)
+      tma_load(sB + slot * L::kBBytes + p * kPanelBytes, &wm, &bar[slot],
+               cc * 64, tap * g.ci + c0 + p * kPanel);
+  };
+  auto load_d = [&](int cc) {       // thread 0: chunk cc's dO halo
+    const int slot = cc % slots;
+    mbar_expect_tx(&dbar[slot], slot_bytes);
+    tma_load(sD + slot * slot_bytes, &dm, &dbar[slot], cc * 64, m0 - lead);
+  };
+  if (tid == 0) {
+    for (int cc = 0; cc < slots && cc < nch; ++cc) load_d(cc);
+    for (int s = 0; s < SB && s < steps; ++s) load_b(s);
+  }
+
+  float acc[kNP][32];
+#pragma unroll
+  for (int p = 0; p < kNP; ++p)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[p][i] = 0.f;
+
+  // Step s = (chunk s / taps, tap s % taps).  Its A fragments go to one
+  // of two register sets, a0 for even steps and a1 for odd ones (each
+  // step's code is inlined twice, so no set is indexed at run time): a
+  // set stays untouched until the next step's wait finds its MMAs done,
+  // while the next step's are loaded.
+  uint32_t a0[4][4], a1[4][4];
+  auto step = [&](int s, uint32_t (&a)[4][4], uint32_t (&prev)[4][4]) {
+    const int cc = s / taps, tap = s - cc * taps, slot = s % SB;
+    const int dslot = cc % slots;
+    const uint8_t* halo = sD + dslot * slot_bytes;
+    if (tap == 0) mbar_wait(&dbar[dslot], (cc / slots) & 1);
+    const int ky = tap / g.k, kx = tap - ky * g.k;
+    const int oy = ly + g.pad_y - ky, ox = lx + g.pad_x - kx;
+    const bool ok = lok && oy >= 0 && oy < g.h && ox >= 0 && ox < g.w;
+    const int hr = lrow + lead + (g.pad_y - ky) * g.w + (g.pad_x - kx);
+    // A fragments of the chunk's four k16 slices at this tap
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      ldmatrix_x4(a[kk], ok ? smem_u32(halo + swz(hr, 2 * kk + (lane >> 4)))
+                            : smem_u32(sZero));
+    mbar_wait(&bar[slot], (s / SB) & 1);
+#pragma unroll
+    for (int p = 0; p < kNP; ++p) fence_acc(acc[p]);
+    wgmma_fence();
+    const uint32_t b0 = smem_u32(sB + slot * L::kBBytes);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      // K-major B: a k16 slice is 32 bytes along each 128-byte row
+      const uint64_t db = smem_desc(b0 + kk * 32, 16, 1024);
+      if constexpr (kNP == 1) {
+        wgmma64_rs<0>(acc[0], a[kk], db);
+      } else {
+#pragma unroll
+        for (int p = 0; p < kNP; p += 2)
+          wgmma128_rs<0>(acc[p], acc[p + 1], a[kk],
+                         db + ((p * kPanelBytes) >> 4));
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<1>();     // step s-1's MMAs are done (this warpgroup)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) keep(prev[kk]);
+    __syncthreads();     // ... and every warpgroup's: its B slot is free
+                         // (and, past a chunk's last tap, every warp has
+                         // read the chunk's halo)
+    if (tid == 0) {
+      if (s > 0 && s - 1 + SB < steps) load_b(s - 1 + SB);
+      if (tap == taps - 1 && cc + slots < nch) load_d(cc + slots);
+    }
+  };
+  for (int s = 0; s < steps; ++s) {
+    if (s & 1)
+      step(s, a1, a0);
+    else
+      step(s, a0, a1);
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    keep(a0[kk]);
+    keep(a1[kk]);
+  }
+#pragma unroll
+  for (int p = 0; p < kNP; ++p) fence_acc(acc[p]);
+  // wgmma_wait<0> covers this warpgroup's MMAs only: the other's last
+  // step may still read its B panel, which may lie under `red` below
+  __syncthreads();
+
+  // accumulator (i) of thread t: row 16*warp + lane/4 (+8 for i%4 >= 2),
+  // col 8*(i/4) + 2*(lane%4) + i%2, within the warpgroup's 64 x 64 panel.
+  // The B ring is free (every load and every MMA was waited for): it
+  // holds the warps' column sums, [warpgroup][warp][sum G*m*x, sum G*m]
+  // [kCols].
+  const bool has_res = res != nullptr;
+  float* red = reinterpret_cast<float*>(sB);
+  const int r0 = warp * 16 + lane / 4;
+#pragma unroll
+  for (int p = 0; p < kNP; ++p) {
+    __nv_bfloat162 xr[8][2], rr[8][2];
+#pragma unroll
+    for (int qq = 0; qq < 8; ++qq) {
+      const int col = c0 + p * kPanel + 8 * qq + 2 * (lane % 4);
+      const bool cok = col < g.ci;
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int m = m0 + wg * 64 + r0 + 8 * hf;
+        const long long off = static_cast<long long>(m) * g.ci + col;
+        const bool in = cok && m < P;
+        const __nv_bfloat162 z = __floats2bfloat162_rn(0.f, 0.f);
+        xr[qq][hf] =
+            in ? *reinterpret_cast<const __nv_bfloat162*>(x + off) : z;
+        rr[qq][hf] = in && has_res
+                         ? *reinterpret_cast<const __nv_bfloat162*>(res + off)
+                         : z;
+      }
+    }
+#pragma unroll
+    for (int qq = 0; qq < 8; ++qq) {
+      const int cl = p * kPanel + 8 * qq + 2 * (lane % 4);
+      const int col = c0 + cl;
+      float ssc[2] = {0.f, 0.f}, ssh[2] = {0.f, 0.f};
+      const bool cok = col < g.ci;
+      const float2 zero2 = make_float2(0.f, 0.f);
+      const float2 sc =
+          cok ? *reinterpret_cast<const float2*>(scale + col) : zero2;
+      const float2 sh =
+          cok ? *reinterpret_cast<const float2*>(shift + col) : zero2;
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int m = m0 + wg * 64 + r0 + 8 * hf;
+        if (!cok || m >= P) continue;
+        const long long off = static_cast<long long>(m) * g.ci + col;
+        const float2 xv = __bfloat1622float2(xr[qq][hf]);
+        const float2 rv = __bfloat1622float2(rr[qq][hf]);
+        float g0 = acc[p][4 * qq + 2 * hf], g1 = acc[p][4 * qq + 2 * hf + 1];
+        if (relu && !(pre_act(xv.x, rv.x, has_res, sc.x, sh.x) > 0.f))
+          g0 = 0.f;
+        if (relu && !(pre_act(xv.y, rv.y, has_res, sc.y, sh.y) > 0.f))
+          g1 = 0.f;
+        st2(dx, off, g0 * sc.x, g1 * sc.y);
+        if (dres != nullptr) st2(dres, off, g0, g1);
+        ssc[0] += g0 * xv.x;
+        ssc[1] += g1 * xv.y;
+        ssh[0] += g0;
+        ssh[1] += g1;
+      }
+      // over the warp's eight row groups (lanes xor 4, 8, 16)
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          ssc[e] += __shfl_xor_sync(0xffffffffu, ssc[e], o);
+          ssh[e] += __shfl_xor_sync(0xffffffffu, ssh[e], o);
+        }
+      if (lane < 4) {
+        float* rw = red + (wg * 4 + warp) * 2 * kCols;
+        rw[cl] = ssc[0];
+        rw[cl + 1] = ssc[1];
+        rw[kCols + cl] = ssh[0];
+        rw[kCols + cl + 1] = ssh[1];
+      }
+    }
+  }
+  __syncthreads();
+  // one partial row per warpgroup's 64 positions: its four warps in turn
+  for (int i = tid; i < 2 * kCols; i += L::kThreads) {
+    const int w2 = i / kCols, cl = i % kCols, col = c0 + cl;
+    const int row = blockIdx.x * 2 + w2;
+    if (col >= g.ci || row * 64 >= P) continue;
+    float a = 0.f, b = 0.f;
+#pragma unroll
+    for (int wp = 0; wp < 4; ++wp) {
+      const float* rw = red + (w2 * 4 + wp) * 2 * kCols;
+      a += rw[cl];
+      b += rw[kCols + cl];
+    }
+    const long long o = static_cast<long long>(row) * g.ci + col;
+    part_sc[o] = a;
+    part_sh[o] = b;
   }
 }
 
@@ -1252,10 +1537,10 @@ cudaError_t launch_dw_halo(const CUtensorMap& dm, const void* x,
 bool tc_widths_ok(const Geom& g) { return g.ci % 8 == 0 && g.co % 8 == 0; }
 
 template <typename T>
-void launch_dx(const void* x, const void* scale, const void* shift,
-               const void* w, const void* dout, const void* res, void* dx,
-               void* dres, float* part_sc, float* part_sh, Geom g, int relu,
-               cudaStream_t stream) {
+cudaError_t launch_dx(const void* x, const void* scale, const void* shift,
+                      const void* w, const void* dout, const void* res,
+                      void* dx, void* dres, float* part_sc, float* part_sh,
+                      Geom g, int relu, cudaStream_t stream) {
   const dim3 grid(blocks_for(static_cast<long long>(g.n) * g.h * g.w, kBM),
                   blocks_for(g.ci, kBN));
   dx_kernel<T><<<grid, kThreads, 0, stream>>>(
@@ -1263,6 +1548,53 @@ void launch_dx(const void* x, const void* scale, const void* shift,
       static_cast<const float*>(shift), static_cast<const T*>(w),
       static_cast<const T*>(dout), static_cast<const T*>(res),
       static_cast<T*>(dx), static_cast<T*>(dres), part_sc, part_sh, g, relu);
+  return cudaGetLastError();
+}
+
+// The tensor-core dX: bf16, stride 1, Ci and Co multiples of 8, its halo
+// within kHaloMax rows (every fused conv of ResNet-50; the rest keeps the
+// SIMT `dx_kernel`).
+bool dx_tc_fits(int dtype, const Geom& g) {
+  return dtype == 1 && g.stride == 1 && tc_widths_ok(g) &&
+         halo_rows(g) <= DxHalo<1>::kHaloMax;
+}
+
+// Maps of w ([k*k*Ci, Co], 64 x 64 panels) and dO ([N*H*W, Co], boxes of
+// the halo's rows x 64 channels, both 128-byte swizzled), the halo ring
+// cut into as many slots as fit (at most kMaxSlots), 64, 128 or 256
+// input channels a block by Ci; then the launch.
+cudaError_t launch_dx_tc(const void* x, const void* scale, const void* shift,
+                         const void* w, const void* dout, const void* res,
+                         void* dx, void* dres, float* part_sc,
+                         float* part_sh, Geom g, int relu,
+                         cudaStream_t stream) {
+  const int rows = (halo_rows(g) + 7) / 8 * 8;   // whole swizzle atoms
+  const int slot_bytes = rows * 128;
+  const int fit = DxHalo<1>::kRingBytes / slot_bytes;
+  const int slots = fit < DxHalo<1>::kMaxSlots ? fit : DxHalo<1>::kMaxSlots;
+  const long long P = static_cast<long long>(g.n) * g.h * g.w;
+  CUtensorMap wm, dm;
+  cudaError_t e = make_map(&wm, w, static_cast<long long>(g.k) * g.k * g.ci,
+                           g.co);
+  if (e == cudaSuccess) e = make_map(&dm, dout, P, g.co, rows);
+  if (e != cudaSuccess) return e;
+  const int np = g.ci <= 64 ? 1 : g.ci <= 128 ? 2 : 4;
+  const dim3 grid(blocks_for(P, 128), blocks_for(g.ci, 64 * np));
+  auto launch = [&](auto kernel, int bytes) {
+    const cudaError_t a = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (a != cudaSuccess) return a;
+    kernel<<<grid, 256, bytes, stream>>>(
+        wm, dm, static_cast<const __nv_bfloat16*>(x),
+        static_cast<const __nv_bfloat16*>(res),
+        static_cast<const float*>(scale), static_cast<const float*>(shift),
+        static_cast<__nv_bfloat16*>(dx), static_cast<__nv_bfloat16*>(dres),
+        part_sc, part_sh, g, relu, slot_bytes, slots);
+    return cudaGetLastError();
+  };
+  if (np == 1) return launch(dx_tc_kernel<1>, DxHalo<1>::smem_bytes());
+  if (np == 2) return launch(dx_tc_kernel<2>, DxHalo<2>::smem_bytes());
+  return launch(dx_tc_kernel<4>, DxHalo<4>::smem_bytes());
 }
 
 }  // namespace
@@ -1319,14 +1651,19 @@ extern "C" int fused_conv_dx(int dtype, const void* x, const void* scale,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* psc = static_cast<float*>(part_sc);
   float* psh = static_cast<float*>(part_sh);
-  if (dtype == 0)
-    launch_dx<float>(x, scale, shift, w, dout, res, dx, dres, psc, psh, g,
-                     relu, s);
-  else if (dtype == 1)
-    launch_dx<__nv_bfloat16>(x, scale, shift, w, dout, res, dx, dres, psc,
-                             psh, g, relu, s);
-  else
+  cudaError_t e;
+  if (dtype != 0 && dtype != 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (dx_tc_fits(dtype, g))
+    e = launch_dx_tc(x, scale, shift, w, dout, res, dx, dres, psc, psh, g,
+                     relu, s);
+  else if (dtype == 0)
+    e = launch_dx<float>(x, scale, shift, w, dout, res, dx, dres, psc, psh,
+                         g, relu, s);
+  else
+    e = launch_dx<__nv_bfloat16>(x, scale, shift, w, dout, res, dx, dres,
+                                 psc, psh, g, relu, s);
+  if (e != cudaSuccess) return static_cast<int>(e);
   const int rows = static_cast<int>(
       blocks_for(static_cast<long long>(n) * h * wd, kBM));
   const dim3 rgrid(blocks_for(ci, 32)), rblock(32, 32);

@@ -192,8 +192,9 @@ __device__ __forceinline__ void fence_proxy_async() {
 }
 
 // d[64xN] += A[64x16] B[16xN] with A in registers (a warp's 16 rows in
-// mma.m16n8k16's A layout, as ldmatrix.x4 gives them), B N-major in
-// shared memory; N = 64 (d) or 128 (d, e).
+// mma.m16n8k16's A layout, as ldmatrix.x4 gives them), B in shared
+// memory N-major (kTransB 1) or K-major (0); N = 64 (d) or 128 (d, e).
+template <int kTransB = 1>
 __device__ __forceinline__ void wgmma64_rs(float (&d)[32],
                                           const uint32_t (&a)[4],
                                           uint64_t b) {
@@ -202,7 +203,7 @@ __device__ __forceinline__ void wgmma64_rs(float (&d)[32],
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
       "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -210,9 +211,11 @@ __device__ __forceinline__ void wgmma64_rs(float (&d)[32],
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1),
+        "n"(kTransB));
 }
 
+template <int kTransB = 1>
 __device__ __forceinline__ void wgmma128_rs(float (&d)[32], float (&e)[32],
                                            const uint32_t (&a)[4],
                                            uint64_t b) {
@@ -224,7 +227,7 @@ __device__ __forceinline__ void wgmma128_rs(float (&d)[32], float (&e)[32],
       "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
       "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
       "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -238,7 +241,8 @@ __device__ __forceinline__ void wgmma128_rs(float (&d)[32], float (&e)[32],
         "+f"(e[18]), "+f"(e[19]), "+f"(e[20]), "+f"(e[21]), "+f"(e[22]),
         "+f"(e[23]), "+f"(e[24]), "+f"(e[25]), "+f"(e[26]), "+f"(e[27]),
         "+f"(e[28]), "+f"(e[29]), "+f"(e[30]), "+f"(e[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1),
+        "n"(kTransB));
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4],

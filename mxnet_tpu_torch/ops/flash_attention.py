@@ -25,9 +25,9 @@ Which body runs is decided by where the tensors lie, never by a
 fallback: CPU tensors run the plain versions; CUDA tensors launch the
 hand-written kernels of ``ops/cuda/flash_attention.cu`` (float32 or
 bfloat16, contiguous, D = 64 or 128; bf16 16-byte aligned) or raise.
-In bf16 the dQ and dK/dV kernels multiply on the tensor cores (``p``
-and ``ds`` as two bf16 pieces each, summed in f32); f32 inputs and the
-forward run SIMT f32 bodies.
+In bf16 all three kernels multiply on the tensor cores (``p`` and ``ds``
+as two bf16 pieces each, summed in f32) and read and write their tiles
+by TMA; f32 inputs run SIMT f32 bodies.
 ``flash_attention.launches`` counts kernel launches per kernel
 (``"fwd"``, ``"dq"``, ``"dkv"``).  The kernels tile S by 64 and mask the
 tail, so S need not divide by any block; ``block_q``/``block_k`` are

@@ -33,7 +33,8 @@ hand-written kernels of ``ops/cuda/fused_conv.cu`` (float32 or bfloat16
 of 8, tensors 16-byte aligned) or raise.  The forward and dW kernels
 multiply on the tensor cores in bf16 pieces with f32-accurate products
 (an f32 ``w``/``dO`` goes to them as its three bf16 pieces,
-``_b_operand``).
+``_b_operand``); so does dX in bf16 at stride 1 (its operands dO and w
+are exact bf16), while f32 and stride-2 dX keep a SIMT f32 kernel.
 ``norm_relu_conv.launches`` counts kernel launches per kernel
 (``"fwd"``, ``"dx"``, ``"dw"``).
 

@@ -15,10 +15,10 @@ package's Pallas flash attention (interpret mode on the CPU).
 - the op on ``(B, S, H*D)`` (B = 2, H = 3) against the JAX op, and with
   dropout against the JAX kernels fed the seed the op drew;
 - ``torch.autograd.gradcheck`` of the function in f64 on the plain path;
-- the bf16 tensor-core backward's arithmetic emulated in plain PyTorch
-  (``p`` and ``ds`` cut into hi + lo bf16 pieces, times the bf16
-  operands, summed in f32) against the JAX kernels and the plain
-  versions summed in f64;
+- the bf16 tensor-core kernels' arithmetic emulated in plain PyTorch
+  (the forward's online softmax over 64-key tiles; ``p`` and ``ds`` cut
+  into hi + lo bf16 pieces, times the bf16 operands, summed in f32)
+  against the JAX kernels and the plain versions summed in f64;
 - the kernels' argument checks, a kernel library's name following its
   headers, and ``gpu``-marked kernel-against-plain and repeatability
   cases that skip without a card.
@@ -351,6 +351,71 @@ def test_split_products_hold_the_jax_kernels_and_f64_plain_versions(
         assert err <= 2.0 ** -12 * float(ex.abs().max()), (name, err)
 
 
+def _split_fwd(q, k, v, scale, causal, dropout, seed):
+    """O (in f32, before its rounding to bf16) and lse by the bf16
+    tensor-core forward's arithmetic: S from the bf16 inputs (exact
+    products, f32 sums) times ``scale``, an online softmax over key tiles
+    of 64 (running row max m and normaliser l, taken before dropout; O
+    rescaled by alpha = exp(m_old - m_new)), the dropped p through
+    ``_split_product`` against V, then O / l and lse = m + log l."""
+    qf, kf = q.float(), k.float()
+    bh, s, _ = q.shape
+    m = torch.full((bh, s, 1), tfa._NEG_INF)
+    l = torch.zeros((bh, s, 1))
+    o = torch.zeros(q.shape)
+    keep = tfa._keep(bh, s, seed, dropout, q.device) if dropout else None
+    for k0 in range(0, s, 64):
+        k1 = min(s, k0 + 64)
+        sc = (qf @ kf[:, k0:k1].transpose(1, 2)) * scale
+        if causal:
+            sc = torch.where(torch.arange(s)[:, None]
+                             >= torch.arange(k0, k1)[None, :], sc,
+                             torch.tensor(tfa._NEG_INF))
+        m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(sc - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        if dropout:
+            p = tfa._drop(p, keep[:, :, k0:k1], dropout)
+        o = o * alpha + _split_product(p, v[:, k0:k1])
+        m = m_new
+    return o / l, (m + torch.log(l))[..., 0]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dropout", [0.0, 0.25])
+def test_split_forward_holds_the_jax_kernel_and_f64_plain_version(
+        causal, dropout):
+    """The bf16 forward kernel's arithmetic, emulated, at S = 96 (one
+    whole 64-key tile and a tail): O against the JAX ``_flash_fwd``
+    (interpret mode) on the same bf16 inputs and against ``_fwd_plain``
+    summed in f64, under chip_smoke.py's bf16 rule, and before its
+    rounding within 2**-12 of O's largest magnitude of the f64 sums (p in
+    hi + lo pieces keeps it to ~2**-16 relative); lse within the F32
+    tolerance of the JAX kernel's and the f64 one's."""
+    s = 96
+    q, k, v = (jnp.asarray(x).astype(jnp.bfloat16)
+               for x in arrays(3, (BH, s, D), seed=11))
+    jo, jl = jfa._flash_fwd(q, k, v, jnp.asarray([SEED], jnp.int32), SCALE,
+                            causal, 32, 32, True, dropout)
+    tq, tk, tv = (torch.from_numpy(np.array(x.astype(jnp.float32)))
+                  .to(torch.bfloat16) for x in (q, k, v))
+    args = (SCALE, causal, dropout, SEED)
+    o32, lse = _split_fwd(tq, tk, tv, *args)
+    got = o32.to(torch.bfloat16)
+    _hold_bf16(got, torch.from_numpy(np.array(jo.astype(jnp.float32))),
+               "O vs JAX")
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jl), **F32)
+    plain, _ = tfa._fwd_plain(tq, tk, tv, *args, acc=torch.float64)
+    assert plain.dtype == torch.bfloat16
+    _hold_bf16(got, plain, "O vs f64 plain")
+    exact, exact_lse = tfa._fwd_plain(tq.double(), tk.double(), tv.double(),
+                                      *args)
+    err = float((o32.double() - exact).abs().max())
+    assert err <= 2.0 ** -12 * float(exact.abs().max()), err
+    np.testing.assert_allclose(lse.numpy(), exact_lse.numpy(), **F32)
+
+
 # ----------------------------------------------------------- the kernels --
 def test_library_name_follows_sources_and_headers(tmp_path, monkeypatch):
     """A kernel's library is named by a hash of its source, the shared
@@ -426,6 +491,7 @@ def _card_inputs(bh, s, d, dtype):
     (24, 200, 64, torch.bfloat16, True, 0.1),
     (24, 256, 128, torch.bfloat16, False, 0.1),
     (37, 200, 128, torch.bfloat16, True, 0.0),
+    (40, 200, 128, torch.bfloat16, True, 0.1),
     (37, 128, 64, torch.bfloat16, False, 0.1),
     (24, 200, 64, torch.float32, True, 0.1),
     (24, 512, 128, torch.float32, False, 0.0)])

@@ -297,6 +297,101 @@ def test_split_products_hold_the_f64_plain_versions(hw, ci, co, k, dtype):
     _hold(dw, want, torch.float32)
 
 
+def _halo_dx(x, sc, sh, w, res, do, relu):
+    """``(dx, dres, dscale, dshift)`` by the tensor-core dX's own walk
+    (stride 1), on flattened NHWC rows: per block of 128 input positions,
+    the halo of dO rows from ``m0 - lead`` (zero rows outside the
+    tensor), each tap's A rows read at the mirrored offset ``(pad - ky) W
+    + (pad - kx)`` from the position's own, a zero row where the tap
+    leaves the image; G summed in f32 over taps (bf16 products, exact);
+    the epilogue's mask from ``x*scale + shift [+ res]``; per 64-row tile
+    the column sums in the kernel's order (a thread's two rows, the
+    shuffle tree over the warp's eight row groups, the four warps in
+    turn), then the tiles in ``reduce_rows``' order (32 lanes of rows,
+    then the lanes)."""
+    n, h, wd, ci = x.shape
+    k, co = w.shape[0], w.shape[3]
+    pad = (k - 1) // 2
+    P = n * h * wd
+    lead = (k - 1 - pad) * wd + (k - 1 - pad)
+    rows = 128 + (k - 1) * (wd + 1)
+    dof, wf = do.float().reshape(P, co), w.float()
+    G = torch.zeros(P, ci)
+    for m0 in range(0, P, 128):
+        src = torch.arange(rows) + m0 - lead
+        halo = torch.where(((src >= 0) & (src < P))[:, None],
+                           dof[src.clamp(0, P - 1)], torch.zeros(()))
+        m = m0 + torch.arange(128)
+        y, xx = (m % (h * wd)) // wd, m % wd
+        for ky in range(k):
+            for kx in range(k):
+                oy, ox = y + pad - ky, xx + pad - kx
+                ok = (m < P) & (oy >= 0) & (oy < h) & (ox >= 0) & (ox < wd)
+                hr = torch.arange(128) + lead + (pad - ky) * wd + (pad - kx)
+                a = torch.where(ok[:, None], halo[hr], torch.zeros(()))
+                blk = a @ wf[ky, kx].T
+                G[m0:m0 + 128][: P - m0] += blk[: P - m0]
+    pre = x.float().reshape(P, ci) * sc + sh
+    if res is not None:
+        pre = pre + res.float().reshape(P, ci)
+    gm = torch.where(pre > 0.0, G, torch.zeros(())) if relu else G
+    dx = (gm * sc).to(x.dtype).reshape(x.shape)
+    dres = None if res is None else gm.to(res.dtype).reshape(x.shape)
+
+    def total(v):
+        t = -(-P // 64)
+        v = torch.cat([v, torch.zeros(t * 64 - P, ci)]).view(t, 4, 2, 8, ci)
+        s = v[:, :, 0] + v[:, :, 1]                    # a thread's rows
+        s = s[:, :, 0::2] + s[:, :, 1::2]              # lanes xor 4
+        s = s[:, :, 0::2] + s[:, :, 1::2]              # xor 8
+        s = s[:, :, 0] + s[:, :, 1]                    # xor 16
+        part = ((s[:, 0] + s[:, 1]) + s[:, 2]) + s[:, 3]
+        lanes = torch.zeros(32, ci)
+        for r in range(t):                             # reduce_rows
+            lanes[r % 32] += part[r]
+        out = torch.zeros(ci)
+        for i in range(32):
+            out += lanes[i]
+        return out
+    return dx, dres, total(gm * x.float().reshape(P, ci)), total(gm)
+
+
+@pytest.mark.parametrize("h,k,res_on", [(5, 3, False), (7, 3, True),
+                                        (5, 1, True), (7, 1, False)])
+def test_halo_dx_holds_the_f64_plain_version_and_jax(h, k, res_on):
+    """The bf16 tensor-core dX's walk, emulated at odd H = W and N = 6
+    (128-row blocks straddle images; taps at x = 0 and W - 1 must not
+    wrap to the neighbouring row), Ci = 16 != Co = 24: against
+    ``_dx_plain`` summed in f64 and the JAX ``_dx`` (interpret mode) on
+    the same bf16 inputs, under the card check's rule (bf16 outputs
+    2**-6, dscale/dshift 1e-4 of their scale)."""
+    from mxnet_tpu.ops.pallas.fused_conv import _dx as jax_dx
+
+    ci, co, n = 16, 24, 6
+    x, sc, sh, w, res = _inputs(k, h, ci, co, res_on, seed=8, n=n)
+    do = np.random.RandomState(9).randn(n, h, h, co).astype(np.float32)
+    bf = torch.bfloat16
+    tx, tw, tdo = (torch.from_numpy(a).to(bf) for a in (x, w, do))
+    tres = None if res is None else torch.from_numpy(res).to(bf)
+    tsc, tsh = torch.from_numpy(sc), torch.from_numpy(sh)
+    got = _halo_dx(tx, tsc, tsh, tw, tres, tdo, True)
+    want = [t if t is None or t.dtype != torch.float64 else t.float()
+            for t in tfc._dx_plain(tx, tsc, tsh, tw, tres, tdo, True, 1,
+                                   torch.float64)]
+    jb = [None if t is None else jnp.asarray(t.float().numpy())
+          .astype(jnp.bfloat16) for t in (tx, tw, tres, tdo)]
+    jout = jax_dx(jb[0], jnp.asarray(sc), jnp.asarray(sh), jb[1], jb[2],
+                  jb[3], True, 1, True)
+    for i, (a, b, j) in enumerate(zip(got, want, jout)):
+        if b is None:
+            assert a is None and j is None
+            continue
+        assert a.shape == b.shape and a.dtype == b.dtype, i
+        _hold(a, b, b.dtype)
+        _hold(a, torch.from_numpy(np.asarray(j.astype(jnp.float32)))
+              .to(a.dtype), a.dtype)
+
+
 # ------------------------------------------------------------ on the card --
 @gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -310,7 +405,12 @@ def test_kernels_match_plain_versions_on_the_card(dtype):
     # f32: the same f32 sums in another order; bf16: outputs round to
     # bf16 after that, so they may differ by one bf16 ulp (2**-8 relative)
     rtol = 1e-4 if dtype == "float32" else 2 ** -6
-    for k, stride, h, ci, co, res_on, relu in CASES:
+    # beyond CASES: a 1x1 and a 3x3 with a residual at odd H, Ci < 64 and
+    # Ci != Co, and a 3x3 at Ci = 128 (in bf16 the tensor-core dX takes
+    # them, with its last step on the B slot its epilogue reuses)
+    for k, stride, h, ci, co, res_on, relu in CASES + [
+            (1, 1, 7, 24, 40, True, True), (3, 1, 7, 16, 40, True, True),
+            (3, 1, 5, 128, 64, False, True)]:
         arrays = _inputs(k, h, ci, co, res_on, seed=3)
         x, sc, sh, w, res = [None if a is None else
                              torch.from_numpy(a).to(dev) for a in arrays]
@@ -318,7 +418,11 @@ def test_kernels_match_plain_versions_on_the_card(dtype):
         res = None if res is None else res.to(dt)
         out = tfc._fwd_cuda(x, sc, sh, w, res, relu, stride)
         do = torch.randn(out.shape, device=dev).to(dt)
-        got = (out,) + tfc._dx_cuda(x, sc, sh, w, res, do, relu, stride) \
+        dx = tfc._dx_cuda(x, sc, sh, w, res, do, relu, stride)
+        again = tfc._dx_cuda(x, sc, sh, w, res, do, relu, stride)
+        assert all(a is None or torch.equal(a, b)
+                   for a, b in zip(dx, again)), (k, h, ci, co, dtype)
+        got = (out,) + dx \
             + (tfc._dw_cuda(x, sc, sh, res, do, k, relu, stride),)
         want = (tfc._fwd_plain(x, sc, sh, w, res, relu, stride),) \
             + tfc._dx_plain(x, sc, sh, w, res, do, relu, stride) \
