@@ -27,12 +27,17 @@ Phases, each of which fails the run (each prints its wall time):
 1. card report (name, count, ``nvidia-smi`` name and power limit);
 2. build every CUDA kernel from the sources in the checkout (one
    ``nvcc`` per source, all started together);
-3. serving: the paged attention kernel against its plain version; the
-   decode forward with the kernel against the plain one; a
-   ``GenerationServer`` answers 256 greedy requests (tokens checked
-   against a teacher-forced full forward, launches against decode steps
-   x layers); the kernel timed beside its bound; a shorter serve under
-   ``torch.profiler``;
+3. serving: the paged attention kernel against its plain version at
+   three cases — path (the serving config, 64 slots x 2 pages), long (64
+   slots x 32 pages) and few-long (4 slots of ~16k tokens among 60 idle
+   ones) — idle slots exactly zero, a second launch the same bits, one
+   call under ``set_sync_debug_mode("error")``; the decode forward with
+   the kernel against the plain one; a ``GenerationServer`` answers 256
+   greedy requests (tokens checked against a teacher-forced full
+   forward, launches against decode steps x layers); the kernel timed at
+   the three cases beside its bound, with ptxas's counts, the wrapper's
+   host time a call and the two-call library route for context; a
+   shorter serve under ``torch.profiler``;
 4. each fused-conv kernel (forward, dX, dW) against its plain version at
    the eight ResNet-50 shapes (N = 8) and the other cases the op takes,
    in f32 and bf16, dX launched twice for the same bits;
@@ -103,6 +108,10 @@ SLOTS, N_PAGES, PAGE_SIZE, MAX_NEW = 64, 512, 64, 64
 BATCH_BUCKETS, LENGTH_BUCKETS = (1, 2, 4), (32, 64)
 N_REQUESTS = 256
 ATOL, RTOL = 1e-5, 1e-4          # kernel vs plain, f32
+# few long sequences decoding among idle slots: 4 of 64 slots active, 256
+# pages each (ragged tails), in a pool of exactly their pages (+ sink)
+FEW_LONG_PPS, FEW_LONG = 256, (16384, 16384, 16383, 16320)
+HOST_CALLS = 1000                # wrapper calls timed on the host
 HOST_SLACK_CYCLES = 4_000_000    # device sleep before a timed span (~2 ms)
 LOGIT_ATOL, LOGIT_RTOL = 1e-4, 1e-4
 REPLACES = {"paged_decode_attention":
@@ -190,6 +199,41 @@ def paged_inputs(torch, rng, slots, pages_per_seq, lengths):
                  (q, kp, vp, tables, np.asarray(lengths, np.int32)))
 
 
+def few_long_inputs(torch, rng):
+    """The few-long case: 4 active slots of FEW_LONG tokens among SLOTS,
+    each with FEW_LONG_PPS distinct pages of a pool of 1 + 4 x
+    FEW_LONG_PPS pages; the idle slots' tables point at the sink.
+    Returns the five inputs on the card and the active slots' indices."""
+    n_act = len(FEW_LONG)
+    n_pages = 1 + n_act * FEW_LONG_PPS
+    act = np.sort(rng.choice(SLOTS, n_act, replace=False))
+    lengths = np.zeros(SLOTS, np.int32)
+    lengths[act] = FEW_LONG
+    tables = np.zeros((SLOTS, FEW_LONG_PPS), np.int32)
+    tables[act] = rng.permutation(np.arange(1, n_pages)).astype(
+        np.int32).reshape(n_act, FEW_LONG_PPS)
+    q = rng.standard_normal((SLOTS, HEADS, HEAD_DIM), dtype=np.float32)
+    pools = [rng.standard_normal((n_pages, PAGE_SIZE, HEADS, HEAD_DIM),
+                                 dtype=np.float32) for _ in range(2)]
+    dev = torch.device("cuda")
+    args = tuple(torch.from_numpy(x).to(dev) for x in
+                 (q, *pools, tables, lengths))
+    return args, torch.from_numpy(act).to(dev)
+
+
+def paged_cases(torch, rng, lengths):
+    """The paged kernel's three cases: ``(label, inputs, rows)`` where
+    ``rows`` are the slots the plain version is held on (None: all).
+    path: the serving config's 64 slots x 2 pages; long: 64 slots x 32
+    pages; few-long: 4 long slots among 60 idle ones (the plain version on
+    the active rows only: gathering all 64 slots' 256 pages would
+    materialise 4 GiB)."""
+    P = -(-(max(LENGTH_BUCKETS) + MAX_NEW) // PAGE_SIZE)
+    yield "path", paged_inputs(torch, rng, SLOTS, P, lengths[0]), None
+    yield "long", paged_inputs(torch, rng, SLOTS, 32, lengths[1]), None
+    yield ("few-long", *few_long_inputs(torch, rng))
+
+
 def serving_lengths(rng, slots):
     """Context lengths as the serving mix gives them: a prompt of 4-60
     tokens plus 0-63 generated, plus the token being decoded."""
@@ -259,40 +303,64 @@ def build_kernels():
     return dt
 
 
+def plain_rows(torch, fn, args, rows):
+    """The plain version on every slot, or on the slots ``rows`` only
+    (slots are independent)."""
+    if rows is None:
+        return fn(*args)
+    q, kp, vp, tables, lens = args
+    return fn(q[rows], kp, vp, tables[rows], lens[rows])
+
+
 def kernel_vs_plain(torch, rng):
+    """The paged kernel against its plain version at the path, long and
+    few-long cases: within ATOL/RTOL on every active slot, exact zeros on
+    the idle ones, the same bits from a second launch, and one call under
+    ``torch.cuda.set_sync_debug_mode("error")`` (a host sync in the
+    wrapper fails the run)."""
     from mxnet_tpu_torch.ops.paged_attention import (
         paged_decode_attention, paged_decode_attention_reference)
 
     worst = 0.0
     P = -(-(max(LENGTH_BUCKETS) + MAX_NEW) // PAGE_SIZE)
-    cases = {
-        "path": (P, np.concatenate([
-            [0, 1, PAGE_SIZE - 1, PAGE_SIZE, PAGE_SIZE + 1, P * PAGE_SIZE],
-            serving_lengths(rng, SLOTS - 6)])),
-        "long": (32, np.concatenate([
-            [0, 1, PAGE_SIZE, PAGE_SIZE + 1, 32 * PAGE_SIZE - 1,
-             32 * PAGE_SIZE],
-            rng.integers(1, 32 * PAGE_SIZE + 1, SLOTS - 6)])),
-    }
-    for label, (pps, lengths) in cases.items():
-        q, kp, vp, tables, lens = paged_inputs(torch, rng, SLOTS, pps,
-                                               lengths)
-        out = paged_decode_attention(q, kp, vp, tables, lens)
-        ref = paged_decode_attention_reference(q, kp, vp, tables, lens)
+    lengths = (
+        np.concatenate([[0, 1, PAGE_SIZE - 1, PAGE_SIZE, PAGE_SIZE + 1,
+                         P * PAGE_SIZE], serving_lengths(rng, SLOTS - 6)]),
+        np.concatenate([[0, 1, PAGE_SIZE, PAGE_SIZE + 1, 32 * PAGE_SIZE - 1,
+                         32 * PAGE_SIZE],
+                        rng.integers(1, 32 * PAGE_SIZE + 1, SLOTS - 6)]))
+    for label, args, rows in paged_cases(torch, rng, lengths):
+        lens = args[-1]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = paged_decode_attention(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        again = paged_decode_attention(*args)
+        ref = plain_rows(torch, paged_decode_attention_reference, args, rows)
         torch.cuda.synchronize()
         act = lens > 0
+        got = out[act] if rows is None else out[rows]
+        want = ref[act] if rows is None else ref
         expect(bool(torch.isfinite(out).all()), f"{label}: non-finite")
         expect(bool((out[~act] == 0).all()),
                f"{label}: a length-0 slot is not zero")
-        err = (out[act] - ref[act]).abs()
-        tol = ATOL + RTOL * ref[act].abs()
+        expect(torch.equal(out, again),
+               f"{label}: a second launch gave other bits")
+        err = (got - want).abs()
+        tol = ATOL + RTOL * want.abs()
         max_err = float(err.max())
         worst = max(worst, max_err)
-        log(f"kernel vs plain [{label}: pages_per_seq {pps}, lengths "
-            f"{int(lens.min())}..{int(lens.max())}]: max abs err "
-            f"{max_err:.3e} (atol {ATOL}, rtol {RTOL})")
+        log(f"kernel vs plain [{label}: pages_per_seq {args[3].shape[1]}, "
+            f"lengths {int(lens.min())}..{int(lens.max())}, "
+            f"{int(act.sum())} active]: max abs err {max_err:.3e} (atol "
+            f"{ATOL}, rtol {RTOL}); idle slots zero, a second launch the "
+            f"same bits, no host sync")
         expect(bool((err <= tol).all()),
                f"{label}: kernel disagrees with its plain version")
+        del args, out, again, ref
+    torch.cuda.empty_cache()
     return worst
 
 
@@ -413,31 +481,85 @@ def serve(torch, params, cfg):
             "launches": launches, "peak_bytes": peak}
 
 
-def time_kernel(torch, rng):
-    from mxnet_tpu_torch.ops.paged_attention import (
-        paged_decode_attention, paged_decode_attention_reference)
+def two_call_route(torch, q, kp, vp, tables, lens):
+    """For context only, never ``library_ms``: the library route for the
+    same function in two calls, the pages gathered by table
+    (``k_pages[idx]``) and then ``scaled_dot_product_attention`` under a
+    length mask."""
+    import torch.nn.functional as F
 
-    P = -(-(max(LENGTH_BUCKETS) + MAX_NEW) // PAGE_SIZE)
+    n_pages, page, heads, d = kp.shape
+    slots, pps = tables.shape
+    idx = tables.long().clamp(0, n_pages - 1)
+    k = kp[idx].reshape(slots, pps * page, heads, d).transpose(1, 2)
+    v = vp[idx].reshape(slots, pps * page, heads, d).transpose(1, 2)
+    pos = torch.arange(pps * page, device=q.device)
+    mask = (pos[None, :] < lens[:, None])[:, None, None, :]
+    return F.scaled_dot_product_attention(q[:, :, None, :], k, v,
+                                          attn_mask=mask)[:, :, 0]
+
+
+def time_kernel(torch, rng):
+    """The paged kernel at the path, long and few-long cases: CUDA events
+    with L2 flushed beside its bound and its plain version (few-long: on
+    the active rows), the launch plan of each case, ptxas's counts, and
+    the wrapper's host time per call.  The two-call library route
+    (gather, then SDPA) is printed at path and long for context."""
+    from mxnet_tpu_torch.ops import cuda as kcuda
+    from mxnet_tpu_torch.ops import paged_attention as pa
+
+    smem = kcuda.load("paged_attention").paged_decode_attention_smem_bytes()
+    ptxas_report("paged_attention.cu", lambda m: (
+        "paged_decode_attention", smem,
+        "a 3-stage ring of K/V bulk copies, scratch, barriers")
+        if "paged_decode_attention_f32_kernel" in m else None)
     flush = torch.empty(1024 * 2**20, dtype=torch.uint8, device="cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    lengths = (serving_lengths(rng, SLOTS),
+               rng.integers(1, 32 * PAGE_SIZE + 1, SLOTS))
     res = {}
-    for label, pps, lengths in (
-            ("path", P, serving_lengths(rng, SLOTS)),
-            ("long", 32, rng.integers(1, 32 * PAGE_SIZE + 1, SLOTS))):
-        q, kp, vp, tables, lens = paged_inputs(torch, rng, SLOTS, pps,
-                                               lengths)
-        before = paged_decode_attention.launches
-        ms = time_ms(torch, lambda: paged_decode_attention(
-            q, kp, vp, tables, lens), 200, flush)
-        plain_ms = time_ms(torch, lambda: paged_decode_attention_reference(
-            q, kp, vp, tables, lens), 50, flush)
-        paged_decode_attention.launches = before   # timing is not the path
-        bound_ms, bound_by = attention_bound(lengths, SLOTS, pps)
+    for label, args, rows in paged_cases(torch, rng, lengths):
+        q, kp, vp, tables, lens = args
+        lens_np = lens.cpu().numpy()
+        pps = tables.shape[1]
+        part = pa._partition(SLOTS, HEADS, HEAD_DIM, PAGE_SIZE, pps, sms)
+        before = pa.paged_decode_attention.launches
+        ms = time_ms(torch, lambda: pa.paged_decode_attention(*args), 200,
+                     flush)
+        plain_ms = time_ms(torch, lambda: plain_rows(
+            torch, pa.paged_decode_attention_reference, args, rows),
+            10 if rows is not None else 50, flush)
+        pa.paged_decode_attention.launches = before  # timing is not the path
+        bound_ms, bound_by = attention_bound(lens_np, SLOTS, pps)
         log(f"time [{label}: {SLOTS} slots, pages_per_seq {pps}, "
-            f"{int(np.sum(lengths))} context tokens]: kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-            f"({bound_by}), kernel at {100 * bound_ms / ms:.1f}% of bound")
+            f"{int(lens_np.sum())} context tokens; span {part.span}, "
+            f"{part.n_split} splits, {part.head_chunks} head chunks, "
+            f"{part.blocks} blocks]: kernel {ms:.4f} "
+            f"ms, plain {plain_ms:.4f} ms"
+            f"{' (active rows)' if rows is not None else ''}, bound "
+            f"{bound_ms:.4f} ms ({bound_by}), kernel at "
+            f"{100 * bound_ms / ms:.1f}% of bound")
         res[label] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                       "bound_by": bound_by}
+        if label != "few-long":
+            two_ms = time_ms(torch, lambda: two_call_route(torch, *args), 50,
+                             flush)
+            log(f"context [{label}]: two library calls (pages gathered by "
+                f"table, then SDPA with a length mask) {two_ms:.4f} ms; not "
+                f"library_ms, which is one call")
+        if label == "path":
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(HOST_CALLS):
+                pa.paged_decode_attention(*args)
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            pa.paged_decode_attention.launches = before
+            log(f"host: the wrapper takes {(t1 - t0) / HOST_CALLS * 1e6:.2f} "
+                f"us a call ({HOST_CALLS} calls at the path case, no sync "
+                f"between them)")
+        del args
+    torch.cuda.empty_cache()
     log("library: no single PyTorch call computes paged attention over a "
         "page table (SDPA needs the pages gathered first), so library_ms "
         "is null")
@@ -1595,7 +1717,9 @@ def main():
         "replaces": REPLACES["paged_decode_attention"],
         "launches": served["launches"], "max_abs_err": max_err,
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-        "bound_by": t["bound_by"], "library_ms": None}]}
+        "bound_by": t["bound_by"], "library_ms": None,
+        "cases": {label: {k: c[k] for k in ("ms", "bound_ms", "plain_ms")}
+                  for label, c in timing.items()}}]}
     for kern in FUSED:
         kname, t = f"fused_conv_{kern}", fused_times[kern]
         kernels["kernels"].append({

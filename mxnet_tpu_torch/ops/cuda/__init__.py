@@ -31,8 +31,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNELS = {
     "paged_attention": {
-        "paged_decode_attention_f32":
-            (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
+        # q, pools, tables, lengths, out, workspace, counters, the call's
+        # constant arguments (shapes, partition, scale), stream
+        "paged_decode_attention_f32": (_P,) * 10,
+        "paged_decode_attention_smem_bytes": (),
     },
     "fused_conv": {
         # dtype, 6 pointers, 11 geometry ints + relu, stream

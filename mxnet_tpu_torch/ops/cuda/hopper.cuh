@@ -1,8 +1,9 @@
-// Hopper (sm_90a) PTX wrappers shared by the port's tensor-core kernels
-// (fused_conv.cu, flash_attention.cu): warpgroup MMAs (wgmma) with their
-// shared-memory descriptors, fences and waits; mbarriers; TMA tile
-// loads; ldmatrix; and the driver's cuTensorMapEncodeTiled, reached
-// through the runtime (no -lcuda at build time).
+// Hopper (sm_90a) PTX wrappers shared by the port's kernels
+// (fused_conv.cu, flash_attention.cu, paged_attention.cu): warpgroup MMAs
+// (wgmma) with their shared-memory descriptors, fences and waits;
+// mbarriers; TMA tile loads and 1-D bulk copies; ldmatrix; and the
+// driver's cuTensorMapEncodeTiled, reached through the runtime (no -lcuda
+// at build time).
 //
 // Each kernel source is built into its own library, so the helpers live
 // in an anonymous namespace of every source that includes this file.
@@ -121,6 +122,17 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
       "r"(bytes)
       : "memory");
 }
+// One arrival of this thread on `bar` (no transaction bytes).
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+// Make barrier inits visible to the async proxy and the other threads
+// (after mbar_init, before the block's first barrier sync).
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
 // Wait for the phase of `parity` to complete; traps (a launch error, not
 // a hang) if it has not after ~10 s.
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
@@ -138,6 +150,27 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
     if (done) return;
     if (clock64() - t0 > 20000000000LL) __trap();
   }
+}
+
+// An L2 policy that evicts first what it tags (data streamed once).
+__device__ __forceinline__ uint64_t l2_evict_first() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+               : "=l"(policy));
+  return policy;
+}
+// `bytes` contiguous bytes of global memory into shared memory by one
+// 1-D bulk copy (no tensor map) under an L2 cache policy, completing on
+// `bar`.  Both addresses and `bytes` are multiples of 16.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar,
+                                          uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".L2::cache_hint [%0], [%1], %2, [%3], %4;\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar)),
+      "l"(policy)
+      : "memory");
 }
 
 // One box of a 2-D tensor map at (col, row) into shared memory,

@@ -12,9 +12,14 @@ Two bodies, chosen by where the tensors lie — never by a fallback:
   JAX package's jnp path): gather each slot's pages by table, mask past
   its length, softmax.  It runs for CPU tensors.
 - the hand-written CUDA kernel ``ops/cuda/paged_attention.cu`` (the
-  port of the Pallas kernel ``ops/pallas/paged_attention.py``): one
-  thread block per (slot, head) streams only the slot's valid positions,
-  online softmax in f32.  It runs for CUDA tensors.
+  port of the Pallas kernel ``ops/pallas/paged_attention.py``): each
+  slot's context is cut into splits of ``span`` positions (and its heads
+  into chunks, where contexts are short), a block each (bulk async
+  copies of a page's rows into a ring of stages, online softmax in f32);
+  a block past its slot's length exits at once, and the partials of a
+  slot with several splits are merged in split order.  The partition
+  comes from static shapes only (``_partition``), so the wrapper never
+  reads the lengths or tables on the host.  It runs for CUDA tensors.
 
 ``paged_decode_attention`` dispatches: all-CPU inputs take the plain
 version, all-CUDA inputs launch the kernel (or raise on what it does not
@@ -29,6 +34,8 @@ Both are finite and callers ignore such rows.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -113,10 +120,11 @@ def _check_cuda_args(q, k_pages, v_pages, page_tables, lengths):
     if head_dim % 4 or lanes < 1 or lanes > 32 or lanes & (lanes - 1):
         raise ValueError(f"paged_decode_attention kernel: head_dim "
                          f"{head_dim} must be 4 x a power of two, <= 128")
-    devs = {t.device for t in (q, k_pages, v_pages, page_tables, lengths)}
+    devs = {t.get_device() for t in (q, k_pages, v_pages, page_tables,
+                                     lengths)}
     if len(devs) != 1:
         raise ValueError(f"paged_decode_attention: inputs on several "
-                         f"devices {sorted(map(str, devs))}")
+                         f"devices {sorted(devs)}")
     for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
                     ("page_tables", page_tables), ("lengths", lengths)):
         if not t.is_contiguous():
@@ -125,27 +133,151 @@ def _check_cuda_args(q, k_pages, v_pages, page_tables, lengths):
     for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
         if t.data_ptr() % 16:
             raise ValueError(f"paged_decode_attention: {name} must be "
-                             f"16-byte aligned (float4 loads)")
+                             f"16-byte aligned (bulk copies, float4 loads)")
+
+
+# The kernel's fixed sizes (ops/cuda/paged_attention.cu checks every
+# partition it is given against its own copies of the first two).
+_STAGE_BYTES = 32768    # K and V of one ring stage, at most
+_ROW_FLOATS = 1024      # heads x head_dim a block takes per position
+_MIN_STAGES = 8         # a split spans at least this many stages
+_MIN_ROW_BYTES = 512    # a head chunk's row copy, at least
+
+
+class Partition(NamedTuple):
+    """How one call's work is cut, from static shapes only.
+
+    ``heads_per_chunk`` heads' rows of a position are copied together
+    (one contiguous span of the pool when it is all the heads);
+    ``stage_positions`` positions fill one ring stage; a split is
+    ``span`` positions of a slot's context and the longest context has
+    ``n_split`` of them; the grid has ``blocks`` blocks, one per (slot,
+    split, head chunk); ``ws_floats`` and ``counters`` size the workspace
+    (partials and per-(slot, head chunk) arrival counters)."""
+    heads_per_chunk: int
+    head_chunks: int
+    stage_positions: int
+    span: int
+    n_split: int
+    blocks: int
+    ws_floats: int
+    counters: int
+
+
+@functools.lru_cache(maxsize=256)
+def _partition(slots, heads, head_dim, page_size, pages_per_seq, sms):
+    """The split of one call over ``sms`` SMs.  A split spans about
+    ``ctx / sms`` positions (at least ``_MIN_STAGES`` stages), so ONE slot
+    at full length already covers every SM: a few long slots among idle
+    ones spread over the card as well as many full ones do.  Where even
+    full slots would give fewer blocks than SMs (short contexts), the
+    heads are cut into chunks, halved while a row copy keeps
+    ``_MIN_ROW_BYTES``: chunks write disjoint outputs, so they add blocks
+    without merges.  Nothing here reads lengths or tables."""
+    ctx = pages_per_seq * page_size
+
+    def split(hc):
+        tc = max(1, _STAGE_BYTES // (2 * hc * head_dim * 4))
+        ctx_stages = -(-ctx // tc)
+        span_stages = min(max(_MIN_STAGES, -(-ctx // (sms * tc))), ctx_stages)
+        return tc, span_stages * tc, -(-ctx // (span_stages * tc))
+
+    hc = min(heads, _ROW_FLOATS // head_dim)
+    tc, span, n_split = split(hc)
+    while (slots * -(-heads // hc) * n_split < sms
+           and hc // 2 * head_dim * 4 >= _MIN_ROW_BYTES):
+        hc //= 2
+        tc, span, n_split = split(hc)
+    n_hc = -(-heads // hc)
+    ws = slots * n_split * heads * (head_dim + 2) if n_split > 1 else 0
+    return Partition(hc, n_hc, tc, span, n_split, slots * n_hc * n_split,
+                     ws, slots * n_hc)
+
+
+class _Call(ctypes.Structure):
+    """The entry point's constant arguments for one launch plan (one
+    pointer instead of eleven ctypes conversions a call)."""
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "slots", "heads", "head_dim", "n_pages", "page_size",
+        "pages_per_seq", "heads_per_chunk", "stage_positions", "span",
+        "n_split")] + [("scale", ctypes.c_float)]
+
+
+_SMS = {}
+_PLANS = {}
+_MAX_PLANS = 64
+
+
+def _sm_count(device):
+    n = _SMS.get(device)
+    if n is None:
+        n = _SMS[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return n
+
+
+def _plan(q, k_pages, v_pages, page_tables, lengths, device, stream):
+    """The launch plan of one set of shapes on one (device, stream): its
+    shapes checked, the partition's arguments and its own workspace —
+    partials, and arrival counters zeroed once here, which the kernel
+    leaves zero (launches on one stream never overlap).  Returns
+    ``(workspace pointer, counters pointer, _Call pointer)``."""
+    key = (q.shape, k_pages.shape, v_pages.shape, page_tables.shape,
+           lengths.shape, device, stream)
+    plan = _PLANS.get(key)
+    if plan is None:
+        _check_cuda_args(q, k_pages, v_pages, page_tables, lengths)
+        slots, heads, head_dim = q.shape
+        n_pages, page_size = k_pages.shape[:2]
+        pages_per_seq = page_tables.shape[1]
+        part = _partition(slots, heads, head_dim, page_size, pages_per_seq,
+                          _sm_count(device))
+        ws = torch.empty(max(part.ws_floats, 4), dtype=torch.float32,
+                         device=q.device)
+        counters = torch.zeros(part.counters, dtype=torch.int32,
+                               device=q.device)
+        call = _Call(slots, heads, head_dim, n_pages, page_size,
+                     pages_per_seq, part.heads_per_chunk,
+                     part.stage_positions, part.span, part.n_split,
+                     _scale(head_dim))
+        if len(_PLANS) >= _MAX_PLANS:
+            _PLANS.clear()
+        plan = _PLANS[key] = (ws.data_ptr(), counters.data_ptr(),
+                              ctypes.addressof(call), (ws, counters, call))
+    return plan
 
 
 def _paged_decode_attention_cuda(q, k_pages, v_pages, page_tables,
                                  lengths):
     from .cuda import check, load
 
-    _check_cuda_args(q, k_pages, v_pages, page_tables, lengths)
-    lib = load("paged_attention")
-    slots, heads, head_dim = q.shape
-    n_pages, page_size = k_pages.shape[:2]
+    qp, kp, vp = q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr()
+    dev = q.get_device()
+    # the per-tensor checks in one expression; the full check raises
+    # with the reason (the shapes' checks run once, with the plan)
+    if (q.dtype is not torch.float32 or k_pages.dtype is not torch.float32
+            or v_pages.dtype is not torch.float32
+            or page_tables.dtype is not torch.int32
+            or lengths.dtype is not torch.int32 or (qp | kp | vp) & 15
+            or not (q.is_contiguous() and k_pages.is_contiguous()
+                    and v_pages.is_contiguous()
+                    and page_tables.is_contiguous()
+                    and lengths.is_contiguous())
+            or not (dev == k_pages.get_device() == v_pages.get_device()
+                    == page_tables.get_device() == lengths.get_device())):
+        _check_cuda_args(q, k_pages, v_pages, page_tables, lengths)
+    fn = load("paged_attention").paged_decode_attention_f32
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ws, counters, call, _ = _plan(q, k_pages, v_pages, page_tables, lengths,
+                                  dev, stream)
     out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
-        status = lib.paged_decode_attention_f32(
-            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            page_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            slots, heads, head_dim, n_pages, page_size,
-            page_tables.shape[1],
-            ctypes.c_float(_scale(head_dim)),
-            stream)
+    args = (qp, kp, vp, page_tables.data_ptr(), lengths.data_ptr(),
+            out.data_ptr(), ws, counters, call, stream)
+    if dev == torch.cuda.current_device():
+        status = fn(*args)
+    else:
+        with torch.cuda.device(dev):
+            status = fn(*args)
     check(status, "paged_decode_attention")
     paged_decode_attention.launches += 1
     return out
@@ -157,14 +289,12 @@ def paged_decode_attention(q, k_pages, v_pages, page_tables, lengths):
     version; CUDA tensors launch the hand-written kernel, which takes
     float32 q/pools, int32 tables/lengths, contiguous, and raises on
     anything else.  Returns ``[slots, heads, head_dim]`` in q's dtype."""
-    kinds = {t.device.type for t in (q, k_pages, v_pages, page_tables,
-                                     lengths)}
+    ts = (q, k_pages, v_pages, page_tables, lengths)
+    if all(t.is_cuda for t in ts):
+        return _paged_decode_attention_cuda(*ts)
+    kinds = {t.device.type for t in ts}
     if kinds == {"cpu"}:
-        return paged_decode_attention_reference(q, k_pages, v_pages,
-                                                page_tables, lengths)
-    if kinds == {"cuda"}:
-        return _paged_decode_attention_cuda(q, k_pages, v_pages,
-                                            page_tables, lengths)
+        return paged_decode_attention_reference(*ts)
     raise ValueError(f"paged_decode_attention: inputs must all lie on the "
                      f"CPU or all on one CUDA device, got {sorted(kinds)}")
 
