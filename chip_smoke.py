@@ -33,11 +33,17 @@ Phases, each of which fails the run (each prints its wall time):
    ones) — idle slots exactly zero, a second launch the same bits, one
    call under ``set_sync_debug_mode("error")``; the decode forward with
    the kernel against the plain one; a ``GenerationServer`` answers 256
-   greedy requests (tokens checked against a teacher-forced full
-   forward, launches against decode steps x layers); the kernel timed at
+   greedy requests through its captured steps (one CUDA graph per
+   prefill bucket plus the decode graph, ``graph_count() ==
+   census()``; tokens checked against a teacher-forced full forward,
+   launches — counted under replay — against decode steps x layers),
+   then through its eager steps (``capture=False``, the same tokens);
+   16 more requests through the captured steps under
+   ``set_sync_debug_mode("error")`` (no host sync but the token
+   read-back); the kernel timed at
    the three cases beside its bound, with ptxas's counts, the wrapper's
    host time a call and the two-call library route for context; a
-   shorter serve under ``torch.profiler``;
+   shorter serve under ``torch.profiler``, captured and eager;
 4. each fused-conv kernel (forward, dX, dW) against its plain version at
    the eight ResNet-50 shapes (N = 8) and the other cases the op takes,
    in f32 and bf16, dX launched twice for the same bits;
@@ -47,10 +53,13 @@ Phases, each of which fails the run (each prints its wall time):
    statistics — leaf by leaf, within a multiple of the noise floor that
    the plain versions on the card show against the same net on the
    host CPU;
-6. the ResNet training run: warm-up and timed steps at batch 256 (loss
-   finite and falling over the run, params finite, 32 launches of each
-   kernel per step) and one step under ``torch.profiler``, then the
-   same with ``fused=False`` (cuDNN convs) from the same parameters as
+6. the ResNet training run: warm-up and timed steps at batch 256
+   through the captured step (loss finite and falling over the run,
+   params finite, 32 launches of each kernel per step) and one step
+   under ``torch.profiler``, then the same through the eager step
+   (``capture=False``) from the same parameters; three steps of each
+   with cuDNN's deterministic algorithms, every loss and tensor the same
+   bits; then ``fused=False`` (cuDNN convs) from the same parameters as
    the yardstick (the two first losses agree);
 7. each fused-conv kernel at the eight shapes at N = 256, bf16: held
    against its plain version, then timed (CUDA events, L2 flushed)
@@ -59,8 +68,9 @@ Phases, each of which fails the run (each prints its wall time):
    dX launched twice, its outputs (dscale, dshift among them) the same
    bits; before it, ``nvcc -Xptxas -v``'s registers and spills of the
    tensor-core kernels beside their shared memory;
-8. each flash-attention kernel (forward, dQ, dK/dV) against its plain
-   version summed in f64: BERT-base's shape at dropout 0 and 0.1,
+8. each flash-attention kernel (forward, dQ, dK/dV, the dropout seed
+   read from device memory) against its plain version summed in f64:
+   BERT-base's shape at dropout 0 and 0.1,
    causal, S = 512, S = 200 causal (bf16 and f32), B*H = 37, D = 128,
    f32; in every bf16 case each backward kernel's error from the
    unrounded f64 sums within 2x the plain version's in f32, and a
@@ -68,9 +78,13 @@ Phases, each of which fails the run (each prints its wall time):
 9. full-width BERT-base (f32, batch 8, dropout 0): forward and backward
    through the kernels against the plain versions on the card — loss,
    the four outputs, every gradient — leaf by leaf, as in 5;
-10. the BERT training run: 2 warm-up and 10 timed steps (loss finite and
-    falling, params finite, 12 launches of each flash kernel per step)
-    and one step under ``torch.profiler``, then the same with
+10. the BERT training run: 2 warm-up and 10 timed steps through the
+    captured step (loss finite and falling, params finite, 12 launches
+    of each flash kernel per step) and one step under
+    ``torch.profiler``, then the same through the eager step from the
+    same parameters and seed (the losses equal, or within 2% with the
+    reason printed); three calls of a captured step at learning rate 0
+    give three losses (new dropout masks on every replay); then
     ``attention_impl="dense"`` from the same parameters as the
     yardstick (the first losses agree within 2%); tokens/s and peak
     memory of both;
@@ -412,7 +426,11 @@ def decode_parity(torch, rng, params, cfg):
     return err
 
 
-def serve(torch, params, cfg):
+def serve(torch, params, cfg, capture=None, check=True):
+    """``N_REQUESTS`` greedy requests through a ``GenerationServer``:
+    captured steps (the default, the main path) or eager ones
+    (``capture=False``, the yardstick).  Returns the numbers and the
+    tokens."""
     from mxnet_tpu_torch.gluon.model_zoo.causal_lm import sequence_logits
     from mxnet_tpu_torch.ops.paged_attention import paged_decode_attention
     from mxnet_tpu_torch.serving import BucketSpec, GenerationServer
@@ -420,6 +438,7 @@ def serve(torch, params, cfg):
     rng = np.random.RandomState(0)
     prompts = [rng.randint(0, VOCAB, size=int(rng.randint(4, 60)))
                .astype(np.int32) for _ in range(N_REQUESTS)]
+    how = "eager" if capture is False else "captured"
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     paged_decode_attention.launches = 0          # main path starts here
@@ -428,10 +447,14 @@ def serve(torch, params, cfg):
                                         length=LENGTH_BUCKETS),
         n_slots=SLOTS, n_pages=N_PAGES, page_size=PAGE_SIZE,
         max_new_tokens=MAX_NEW, max_queue=N_REQUESTS, seed=0,
-        device="cuda", name="ChipSmokeGen")
+        device="cuda", capture=capture, name=f"ChipSmokeGen-{how}")
     t_start = time.perf_counter()
     srv.start()
     t_ready = time.perf_counter()
+    graphs = srv.graph_count()
+    expect(graphs == (srv.census() if capture is None else 0),
+           f"serve [{how}]: {graphs} graphs after start, census "
+           f"{srv.census()}")
     try:
         t0 = time.perf_counter()
         reqs = [srv.submit(p) for p in prompts]
@@ -453,11 +476,17 @@ def serve(torch, params, cfg):
     expect(launches >= st["decode_steps"] * LAYERS > 0,
            f"kernel launches {launches} < decode steps "
            f"{st['decode_steps']} x {LAYERS} layers")
-    log(f"serve: {N_REQUESTS} requests, {n_tok} tokens in {dt:.3f} s = "
-        f"{n_tok / dt:.1f} tokens/s; warmup {t_ready - t_start:.3f} s; "
+    log(f"serve [{how}]: {N_REQUESTS} requests, {n_tok} tokens in "
+        f"{dt:.3f} s = {n_tok / dt:.1f} tokens/s; warmup (and capture) "
+        f"{t_ready - t_start:.3f} s; graphs {graphs}, census "
+        f"{srv.census()}; "
         f"decode steps {st['decode_steps']}, prefills {st['prefills']}, "
         f"preempted {st['preempted']}; kernel launches {launches}; peak "
         f"device memory {peak / 2**20:.1f} MiB")
+    res = {"tokens_per_s": n_tok / dt, "decode_steps": st["decode_steps"],
+           "launches": launches, "peak_bytes": peak, "outs": outs}
+    if not check:
+        return res
     # teacher-forced check: every generated token is the argmax of the
     # full forward (plain PyTorch, no kernel) over prompt + output so
     # far, up to a near-tie of 1e-4 between two logits
@@ -477,8 +506,7 @@ def serve(torch, params, cfg):
     log(f"teacher-forced check of 16 requests: {exact}/{total} tokens are "
         f"the exact argmax, worst logit shortfall {worst_gap:.3e}")
     expect(worst_gap <= 1e-4, "served tokens disagree with the full forward")
-    return {"tokens_per_s": n_tok / dt, "decode_steps": st["decode_steps"],
-            "launches": launches, "peak_bytes": peak}
+    return res
 
 
 def two_call_route(torch, q, kp, vp, tables, lens):
@@ -566,16 +594,18 @@ def time_kernel(torch, rng):
     return res
 
 
-def profile_serving(torch, params, cfg, n_requests=64):
-    """Serve ``n_requests`` more under ``torch.profiler`` and print
+def profile_serving(torch, params, cfg, n_requests=64, capture=None):
+    """Serve ``n_requests`` more under ``torch.profiler`` (captured
+    steps, or eager ones with ``capture=False``) and print
     where the time goes — wall time per
     decode step, the device's busy and idle share (kernel time summed
     over the wall time), and the kernels that take the most device
-    time."""
+    time.  Returns ``(ms per decode step, busy share)``."""
     from torch.profiler import ProfilerActivity, profile
 
     from mxnet_tpu_torch.serving import BucketSpec, GenerationServer
 
+    how = "eager" if capture is False else "captured"
     rng = np.random.RandomState(1)
     prompts = [rng.randint(0, VOCAB, size=int(rng.randint(4, 60)))
                .astype(np.int32) for _ in range(n_requests)]
@@ -584,7 +614,8 @@ def profile_serving(torch, params, cfg, n_requests=64):
                                         length=LENGTH_BUCKETS),
         n_slots=SLOTS, n_pages=N_PAGES, page_size=PAGE_SIZE,
         max_new_tokens=MAX_NEW, max_queue=n_requests, seed=1,
-        device="cuda", name="ChipSmokeProfile").start()
+        device="cuda", capture=capture,
+        name=f"ChipSmokeProfile-{how}").start()
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -596,11 +627,51 @@ def profile_serving(torch, params, cfg, n_requests=64):
     finally:
         expect(srv.drain(60), "profiled server did not drain")
     st = srv.stats
-    log(f"profile: {n_requests} requests, {st['decode_steps']} decode "
-        f"steps, {st['prefills']} prefills in {wall_us / 1e3:.3f} ms = "
-        f"{wall_us / 1e3 / max(st['decode_steps'], 1):.3f} ms wall per "
-        f"decode step")
-    print_profile(prof, wall_us, "serving")
+    per_step = wall_us / 1e3 / max(st['decode_steps'], 1)
+    log(f"profile [serving, {how}]: {n_requests} requests, "
+        f"{st['decode_steps']} decode steps, {st['prefills']} prefills in "
+        f"{wall_us / 1e3:.3f} ms = {per_step:.3f} ms wall per decode step")
+    return per_step, print_profile(prof, wall_us, f"serving, {how}")
+
+
+def serve_without_syncs(torch, params, cfg, n_requests=16):
+    """A captured server answers ``n_requests`` greedy requests under
+    ``torch.cuda.set_sync_debug_mode("error")``: a step may not sync the
+    host apart from its token read-back, which waits on a CUDA event
+    (not a sync the debug mode flags).  Its tokens equal the eager
+    server's."""
+    from mxnet_tpu_torch.serving import BucketSpec, GenerationServer
+
+    rng = np.random.RandomState(2)
+    prompts = [rng.randint(0, VOCAB, size=int(rng.randint(4, 60)))
+               .astype(np.int32) for _ in range(n_requests)]
+    outs = {}
+    for capture in (None, False):
+        srv = GenerationServer(
+            params, cfg, buckets=BucketSpec(batch=BATCH_BUCKETS,
+                                            length=LENGTH_BUCKETS),
+            n_slots=SLOTS, n_pages=N_PAGES, page_size=PAGE_SIZE,
+            max_new_tokens=MAX_NEW, max_queue=n_requests, seed=2,
+            device="cuda", capture=capture,
+            name=f"ChipSmokeNoSync-{capture}").start()
+        torch.cuda.synchronize()
+        if capture is None:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            reqs = [srv.submit(p) for p in prompts]
+            outs[capture] = [r.result(timeout=600) for r in reqs]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            expect(srv.drain(60), "server did not drain")
+        st = srv.stats
+        expect(st["completed"] == n_requests and st["failed"] == 0,
+               f"serve under sync debug mode: {st}")
+    expect(all(np.array_equal(a, b) for a, b in zip(outs[None],
+                                                     outs[False])),
+           "captured tokens differ from the eager server's")
+    log(f"serve [captured, set_sync_debug_mode('error')]: {n_requests} "
+        f"requests, {sum(map(len, outs[None]))} tokens, no host sync but "
+        f"the token read-back; tokens equal the eager server's")
 
 
 def print_profile(prof, wall_us, what):
@@ -619,6 +690,7 @@ def print_profile(prof, wall_us, what):
             if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
     busy_us = sum(dev_us(e) for e in rows)
     expect(busy_us > 0, "the profiler saw no device time")
+    busy = busy_us / wall_us
     log(f"profile [{what}]: wall {wall_us / 1e3:.3f} ms, device busy "
         f"{busy_us / 1e3:.3f} ms = {100 * busy_us / wall_us:.1f}% of wall, "
         f"idle {100 - 100 * busy_us / wall_us:.1f}%; "
@@ -627,6 +699,7 @@ def print_profile(prof, wall_us, what):
         log(f"profile:   {dev_us(e) / 1e3:9.3f} ms  "
             f"{100 * dev_us(e) / busy_us:5.1f}%  x{e.count:<6d} "
             f"{e.key[:90]}")
+    return busy
 
 
 # ---------------------------------------------------------------- training --
@@ -917,16 +990,20 @@ def training_nets(torch):
     return fused.cast("bfloat16"), plain.cast("bfloat16")
 
 
-def train_run(torch, net, fused, steps):
+def train_run(torch, net, fused, steps, capture=None):
     """bench_resnet's loop on the card: batch 256 of RandomState(0)
     inputs, bf16, SGD 0.1/0.9/1e-4, WARMUP_STEPS then ``steps`` timed
-    steps on the same batch.  Returns the numbers and the step."""
+    steps on the same batch, through the captured step (the default;
+    its first call runs eagerly, then captures) or the eager one
+    (``capture=False``).  The step owns copies of the net's parameters,
+    so every run starts from the same ones.  Returns the numbers and the
+    step."""
     from mxnet_tpu_torch import gluon, optimizer, parallel
     from mxnet_tpu_torch.ops.fused_conv import norm_relu_conv
 
     opt = optimizer.create("sgd", learning_rate=0.1, momentum=0.9, wd=1e-4)
     step = parallel.TrainStep(net, gluon.loss.SoftmaxCrossEntropyLoss(),
-                              opt)
+                              opt, capture=capture)
     rng = np.random.RandomState(0)
     xh = rng.randn(TRAIN_BATCH, 224, 224, 3).astype(np.float32)
     yh = rng.randint(0, 1000, (TRAIN_BATCH,)).astype(np.int32)
@@ -944,7 +1021,10 @@ def train_run(torch, net, fused, steps):
     launches = dict(norm_relu_conv.launches)           # ... and ends here
     losses += [float(v) for v in timed]
     peak = torch.cuda.max_memory_allocated()
-    name = "fused" if fused else "unfused"
+    name = ("fused" if fused else "unfused") \
+        + (", eager" if capture is False else ", captured")
+    expect(step.graph_count() == (0 if capture is False else 1),
+           f"{name}: {step.graph_count()} graphs")
     expect(all(np.isfinite(losses)), f"{name}: loss not finite {losses}")
     # the loss falls over the run; with momentum 0.9 at lr 0.1 on one
     # repeated batch it overshoots and rises again within a few steps,
@@ -964,6 +1044,39 @@ def train_run(torch, net, fused, steps):
         f"{launches}")
     return {"img_s": img_s, "ms_step": 1e3 * dt / steps, "losses": losses,
             "launches": launches, "peak": peak}, step, (x, y)
+
+
+def bit_check(torch, net, batch, steps=3):
+    """The captured ResNet step against the eager one from the same
+    parameters: ``steps`` losses and every parameter, running statistic
+    and optimizer state the same bits.  cuDNN may pick algorithms that
+    sum in another order from run to run (the library convs outside the
+    fused layers), so both runs use its deterministic ones here."""
+    from mxnet_tpu_torch import gluon, optimizer, parallel
+
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = []
+        for capture in (None, False):
+            step = parallel.TrainStep(
+                net, gluon.loss.SoftmaxCrossEntropyLoss(),
+                optimizer.create("sgd", learning_rate=0.1, momentum=0.9,
+                                 wd=1e-4), capture=capture)
+            losses = [float(step(*batch)) for _ in range(steps)]
+            runs.append((losses, [t.detach().clone() for t in
+                                  step._train + step._aux]
+                         + [s for st in step._states for s in st]))
+            del step
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    (lc, tc), (le, te) = runs
+    same = all(torch.equal(a, b) for a, b in zip(tc, te))
+    log(f"train [fused resnet50_v1, bf16, cuDNN deterministic]: captured "
+        f"losses {lc}, eager {le}; {len(tc)} parameter and state tensors "
+        f"{'the same bits' if same else 'DIFFER'}")
+    expect(lc == le and same, "the captured ResNet step differs from the "
+           "eager one")
 
 
 def track_losses(kernels, yardstick, what):
@@ -1225,7 +1338,7 @@ def profile_step(torch, step, batch, what):
         step(*batch)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    print_profile(prof, wall_us, what)
+    return print_profile(prof, wall_us, what)
 
 
 # -------------------------------------------------------------------- BERT --
@@ -1303,9 +1416,10 @@ def flash_vs_plain(torch):
               BERT_DROPOUT)]
     before = dict(fa.flash_attention.launches)
     path_err = {}
+    seed = fa.seed_tensor(FLASH_SEED, torch.device(DEVICE))  # device memory
     for label, bh, s, d, dtype, causal, dropout in cases:
         q, k, v, do = flash_args(torch, gen, bh, s, d, dtype)
-        args = (d ** -0.5, causal, dropout, FLASH_SEED)
+        args = (d ** -0.5, causal, dropout, seed)
         got, (lse, delta) = flash_kernels(fa, q, k, v, do, args)
         want = flash_plain(fa, q, k, v, do, lse, delta, args,
                            torch.float64)
@@ -1467,16 +1581,20 @@ def bert_nets(torch):
     return flash.cast("bfloat16"), dense.cast("bfloat16")
 
 
-def bert_train_run(torch, net, impl, steps):
+def bert_train_run(torch, net, impl, steps, capture=None):
     """bench_bert's loop on the card: batch BERT_BATCH x 128, 20 masked
     positions, bf16, LAMB (lr 1e-3, wd 0.01), BERT_WARMUP_STEPS then
-    ``steps`` timed steps on the same batch.  Returns the numbers and the
-    step."""
+    ``steps`` timed steps on the same batch, through the captured step
+    (the default) or the eager one (``capture=False``); the framework's
+    random stream restarts from the same seed first, so both draw the
+    same dropout masks.  Returns the numbers and the step."""
     from mxnet_tpu_torch import optimizer, parallel
+    from mxnet_tpu_torch import random as mxrandom
 
     fa = flash_module()
     opt = optimizer.create("lamb", learning_rate=1e-3, wd=0.01)
-    step = parallel.TrainStep(net, bert_loss_fn(), opt)
+    mxrandom.seed(1)
+    step = parallel.TrainStep(net, bert_loss_fn(), opt, capture=capture)
     data, labels = bert_batch(torch, BERT_BATCH)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1490,13 +1608,16 @@ def bert_train_run(torch, net, impl, steps):
     launches = dict(fa.flash_attention.launches)         # ... and ends here
     losses += [float(v) for v in timed]
     peak = torch.cuda.max_memory_allocated()
+    expect(step.graph_count() == (0 if capture is False else 1),
+           f"{impl}: {step.graph_count()} graphs")
+    impl += ", eager" if capture is False else ", captured"
     expect(all(np.isfinite(losses)), f"{impl}: loss not finite {losses}")
     expect(losses[-1] < losses[0] and min(losses) < losses[0],
            f"{impl}: loss did not fall over the run {losses}")
     expect(all(bool(torch.isfinite(t).all()) for t in step._train),
            f"{impl}: a parameter is not finite")
-    want = BERT_LAYERS * (BERT_WARMUP_STEPS + steps) if impl == "flash" \
-        else 0
+    want = BERT_LAYERS * (BERT_WARMUP_STEPS + steps) \
+        if impl.startswith("flash") else 0
     expect(launches == dict.fromkeys(FLASH, want),
            f"{impl}: flash kernel launches {launches}, expected {want} each")
     tok_s = BERT_BATCH * BERT_SEQ * steps / dt
@@ -1507,6 +1628,35 @@ def bert_train_run(torch, net, impl, steps):
         f"kernel launches {launches}")
     return {"tok_s": tok_s, "ms_step": 1e3 * dt / steps, "losses": losses,
             "launches": launches, "peak": peak}, step, (data, labels)
+
+
+def dropout_replays(torch, net, batch, calls=3):
+    """Dropout under replay: a captured step at learning rate 0 (the
+    parameters never change) from the same batch, its loss in f32 (the
+    scores cast before the loss, so that the masks' effect is not lost
+    to bf16 rounding).  Every call draws other masks — the flash
+    kernels read a new seed from the device counter and the Dropout
+    op's generator advances — so the ``calls`` losses must all differ;
+    each replay must also count one launch of each flash kernel per
+    layer."""
+    from mxnet_tpu_torch import optimizer, parallel
+    from mxnet_tpu_torch.gluon.model_zoo.bert import BERTPretrainLoss
+
+    fa = flash_module()
+    blk = BERTPretrainLoss()
+    step = parallel.TrainStep(
+        net, lambda out, lab: blk(out[3].float(), out[2].float(), *lab),
+        optimizer.create("lamb", learning_rate=0.0, wd=0.0))
+    before = dict(fa.flash_attention.launches)
+    losses = [float(step(*batch)) for _ in range(calls)]
+    launched = {k: fa.flash_attention.launches[k] - before[k] for k in FLASH}
+    fa.flash_attention.launches = before       # a check, not the path
+    log(f"dropout under replay [flash bert_12_768_12, lr 0, f32 loss]: "
+        f"losses {losses} (the first eager, then replays); launches "
+        f"{launched}")
+    expect(len(set(losses)) == calls, "replays repeated their dropout masks")
+    expect(launched == dict.fromkeys(FLASH, BERT_LAYERS * calls),
+           f"replays counted {launched} flash launches")
 
 
 def flash_flops(bh, s, d, kernel):
@@ -1546,7 +1696,8 @@ def time_flash(torch, path_err):
     flush = torch.empty(1024 * 2**20, dtype=torch.uint8, device=DEVICE)
     q, k, v, do = flash_args(torch, gen, BERT_BH, BERT_SEQ, BERT_HEAD_DIM,
                              torch.bfloat16)
-    args = (BERT_HEAD_DIM ** -0.5, False, BERT_DROPOUT, FLASH_SEED)
+    args = (BERT_HEAD_DIM ** -0.5, False, BERT_DROPOUT,
+            fa.seed_tensor(FLASH_SEED, torch.device(DEVICE)))
     before = dict(fa.flash_attention.launches)
     o, lse = fa._fwd_cuda(q, k, v, *args)
     delta = (o.float() * do.float()).sum(-1)
@@ -1652,8 +1803,24 @@ def main():
                                     device="cuda")
             decode_parity(torch, rng, params, cfg)
             served = serve(torch, params, cfg)
+            served_eager = serve(torch, params, cfg, capture=False,
+                                 check=False)
+            expect(all(np.array_equal(a, b) for a, b in
+                       zip(served["outs"], served_eager["outs"])),
+                   "captured serving tokens differ from the eager ones")
+            serve_without_syncs(torch, params, cfg)
             timing = time_kernel(torch, rng)
-            profile_serving(torch, params, cfg)
+            prof_serve = profile_serving(torch, params, cfg)
+            prof_serve_eager = profile_serving(torch, params, cfg,
+                                               capture=False)
+            log(f"serve: captured {served['tokens_per_s']:.1f} tokens/s "
+                f"({prof_serve[0]:.3f} ms per decode step, busy "
+                f"{100 * prof_serve[1]:.1f}%) vs eager "
+                f"{served_eager['tokens_per_s']:.1f} tokens/s "
+                f"({prof_serve_eager[0]:.3f} ms, busy "
+                f"{100 * prof_serve_eager[1]:.1f}%) = "
+                f"{served['tokens_per_s'] / served_eager['tokens_per_s']:.2f}"
+                f"x; the same tokens")
             del params
         with phase("fused conv vs plain"):
             fused_vs_plain(torch)
@@ -1663,9 +1830,27 @@ def main():
             fused_net, plain_net = training_nets(torch)
             trained, step, batch = train_run(torch, fused_net, True,
                                              TIMED_STEPS)
-            profile_step(torch, step, batch, "train step (fused ResNet-50, "
-                         f"batch {TRAIN_BATCH})")
-            del step, batch, fused_net
+            busy = profile_step(torch, step, batch, "train step (fused "
+                                f"ResNet-50, batch {TRAIN_BATCH}, captured)")
+            del step
+            torch.cuda.empty_cache()
+            eager, step, _ = train_run(torch, fused_net, True, TIMED_STEPS,
+                                       capture=False)
+            busy_eager = profile_step(torch, step, batch, "train step (fused "
+                                      f"ResNet-50, batch {TRAIN_BATCH}, "
+                                      "eager)")
+            del step
+            torch.cuda.empty_cache()
+            same = trained["losses"] == eager["losses"]
+            log(f"train: fused ResNet-50 captured {trained['ms_step']:.1f} "
+                f"ms/step = {trained['img_s']:.1f} img/s (busy "
+                f"{100 * busy:.1f}%) vs eager {eager['ms_step']:.1f} ms/step "
+                f"= {eager['img_s']:.1f} img/s (busy {100 * busy_eager:.1f}"
+                f"%) = {trained['img_s'] / eager['img_s']:.3f}x; losses "
+                f"{'the same bits' if same else 'differ'} (cuDNN's default "
+                f"algorithms)")
+            bit_check(torch, fused_net, batch)
+            del batch, fused_net
             torch.cuda.empty_cache()
             unfused = train_run(torch, plain_net, False, TIMED_STEPS)[0]
             del plain_net
@@ -1689,9 +1874,32 @@ def main():
             flash_net, dense_net = bert_nets(torch)
             bert, bstep, bbatch = bert_train_run(torch, flash_net, "flash",
                                                  BERT_TIMED_STEPS)
-            profile_step(torch, bstep, bbatch, "train step (flash BERT-base, "
-                         f"batch {BERT_BATCH} x {BERT_SEQ})")
-            del bstep, bbatch, flash_net
+            busy = profile_step(torch, bstep, bbatch, "train step (flash "
+                                f"BERT-base, batch {BERT_BATCH} x {BERT_SEQ}"
+                                ", captured)")
+            del bstep
+            torch.cuda.empty_cache()
+            beager, bstep, _ = bert_train_run(torch, flash_net, "flash",
+                                              BERT_TIMED_STEPS,
+                                              capture=False)
+            busy_eager = profile_step(torch, bstep, bbatch, "train step "
+                                      f"(flash BERT-base, batch {BERT_BATCH}"
+                                      f" x {BERT_SEQ}, eager)")
+            del bstep
+            torch.cuda.empty_cache()
+            same = bert["losses"] == beager["losses"]
+            log(f"train: flash BERT-base captured {bert['ms_step']:.1f} "
+                f"ms/step = {bert['tok_s']:.1f} tokens/s (busy "
+                f"{100 * busy:.1f}%) vs eager {beager['ms_step']:.1f} ms/step"
+                f" = {beager['tok_s']:.1f} tokens/s (busy "
+                f"{100 * busy_eager:.1f}%) = "
+                f"{bert['tok_s'] / beager['tok_s']:.3f}x; losses from the "
+                f"same seed {'equal' if same else 'differ'}")
+            if not same:      # said above; held to track_losses' limit
+                track_losses(bert["losses"], beager["losses"],
+                             "captured vs eager flash BERT-base")
+            dropout_replays(torch, flash_net, bbatch)
+            del bbatch, flash_net
             torch.cuda.empty_cache()
             dense = bert_train_run(torch, dense_net, "dense",
                                    BERT_TIMED_STEPS)[0]

@@ -25,11 +25,17 @@ Ported so far:
   ``BERTPretrainLoss`` through ``parallel.TrainStep`` with LAMB, with the
   flash-attention forward, dQ and dK/dV kernels
   (``ops.flash_attention``) when built with ``attention_impl="flash"``.
+
+On the card every step — ``parallel.TrainStep``, ``parallel.EvalStep``
+and the server's prefill and decode steps — runs as a captured CUDA
+graph (``graphs``), the counterpart of the JAX package's compiled
+programs; ``python -m mxnet_tpu_torch.bench {resnet,bert,llm}`` prints
+``bench.py``'s line for each slice.
 """
-from . import (autograd, context, gluon, initializer, optimizer, parallel,
-               random)
+from . import (autograd, context, gluon, initializer, lr_scheduler,
+               optimizer, parallel, random)
 from .context import cpu, current_context, gpu, resolve_device
 
-__all__ = ["autograd", "context", "gluon", "initializer", "optimizer",
-           "parallel", "random", "cpu", "gpu", "current_context",
-           "resolve_device"]
+__all__ = ["autograd", "context", "gluon", "initializer", "lr_scheduler",
+           "optimizer", "parallel", "random", "cpu", "gpu",
+           "current_context", "resolve_device"]

@@ -14,8 +14,9 @@ minor, contiguous) and calls ``ops.flash_attention``'s kernels.
 
 Both drop attention probabilities in training mode only: the dense op
 through the ``Dropout`` op (its mask from ``random.generator`` of the
-data's device), the flash op inside its kernels from a seed drawn per
-call by ``random.next_seed``.
+data's device), the flash op inside its kernels from a seed the device's
+counter gives per call (``random.next_seed_tensor``: a device tensor, so
+a captured graph of the step draws new masks on every replay).
 """
 from __future__ import annotations
 
@@ -53,7 +54,7 @@ def multi_head_attention(q, k, v, mask=None, heads=1, causal=False,
     qh, kh, vh = to_bhsd(q), to_bhsd(k), to_bhsd(v)
     scale = float(np.float32(1.0) / np.sqrt(np.float32(d)))
     scores = torch.matmul(qh * scale, kh.transpose(-1, -2))
-    neg = torch.tensor(_NEG, dtype=scores.dtype, device=scores.device)
+    neg = torch.full((), _NEG, dtype=scores.dtype, device=scores.device)
     if causal:
         sk = kh.shape[2]
         cm = torch.ones((sq, sk), dtype=torch.bool,
@@ -85,7 +86,7 @@ def flash_attention(q, k, v, heads=1, causal=False, block_q=128,
             .reshape(b * heads, -1, d).contiguous()
 
     drop = float(dropout) if training else 0.0
-    seed = _random.next_seed() if drop > 0.0 else None
+    seed = _random.next_seed_tensor(q.device) if drop > 0.0 else None
     out = _flash_bhsd(to_bhsd(q), to_bhsd(k), to_bhsd(v), None, causal,
                       block_q, block_k, drop, seed)
     return out.reshape(b, heads, sq, d).permute(0, 2, 1, 3) \

@@ -46,13 +46,13 @@ KERNELS = {
     },
     "flash_attention": {
         # dtype, pointers, bh, S, D, scale, causal, dropout, 1/(1-dropout),
-        # seed, stream
+        # the seed's device pointer (an int32), stream
         "flash_attention_fwd":
-            (_I,) + (_P,) * 5 + (_I,) * 3 + (_F, _I, _F, _F, _I, _P),
+            (_I,) + (_P,) * 5 + (_I,) * 3 + (_F, _I, _F, _F, _P, _P),
         "flash_attention_dq":
-            (_I,) + (_P,) * 7 + (_I,) * 3 + (_F, _I, _F, _F, _I, _P),
+            (_I,) + (_P,) * 7 + (_I,) * 3 + (_F, _I, _F, _F, _P, _P),
         "flash_attention_dkv":
-            (_I,) + (_P,) * 8 + (_I,) * 3 + (_F, _I, _F, _F, _I, _P),
+            (_I,) + (_P,) * 8 + (_I,) * 3 + (_F, _I, _F, _F, _P, _P),
     },
 }
 

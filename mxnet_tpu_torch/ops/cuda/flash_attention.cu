@@ -135,6 +135,19 @@ struct Drop {
   uint32_t seed;  // the int32 seed's bits
 };
 
+// The kernels' dropout argument: the int32 seed lies in device memory
+// (the caller writes it there, e.g. a counter that a captured graph
+// advances on every replay), read once by each thread at the start of a
+// kernel; not read at all when p == 0.
+struct DropArg {
+  float p;
+  float scale;
+  const int* seed;
+  __device__ __forceinline__ Drop load() const {
+    return Drop{p, scale, p > 0.f ? static_cast<uint32_t>(__ldg(seed)) : 0u};
+  }
+};
+
 // uniform01 >= p, as the tensor-core kernels test it: hash24 >= thr =
 // ceil(p * 2^24), the same bits (u * 2^-24 and p * 2^24 are exact in
 // f32, and hash24 is an integer).
@@ -233,7 +246,8 @@ __global__ void __launch_bounds__(kThreads)
     fwd_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, float* __restrict__ o,
                     float* __restrict__ lse, int S, float scale, int causal,
-                    Drop drop) {
+                    DropArg drop_arg) {
+  const Drop drop = drop_arg.load();
   extern __shared__ float sm[];
   float* Qs = sm;                       // 64 x (D+1), times scale
   float* Ks = Qs + kTile * (D + 1);     // 64 x (D+1)
@@ -342,7 +356,8 @@ __global__ void __launch_bounds__(kThreads)
                    const float* __restrict__ dout,
                    const float* __restrict__ lse,
                    const float* __restrict__ delta, float* __restrict__ dq,
-                   int S, float scale, int causal, Drop drop) {
+                   int S, float scale, int causal, DropArg drop_arg) {
+  const Drop drop = drop_arg.load();
   extern __shared__ float sm[];
   float* Qs = sm;                       // 64 x (D+1), times scale
   float* dOs = Qs + kTile * (D + 1);    // 64 x (D+1)
@@ -413,7 +428,8 @@ __global__ void __launch_bounds__(kThreads)
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, float* __restrict__ dk,
                     float* __restrict__ dv, int S, float scale, int causal,
-                    Drop drop) {
+                    DropArg drop_arg) {
+  const Drop drop = drop_arg.load();
   extern __shared__ float sm[];
   float* Ks = sm;                       // 64 x (D+1), this block's keys
   float* Vs = Ks + kTile * (D + 1);     // 64 x (D+1)
@@ -787,7 +803,8 @@ __global__ void __launch_bounds__(128)
                  const __grid_constant__ CUtensorMap dqm, int n_items,
                  const float* __restrict__ lse,
                  const float* __restrict__ delta, int S, float scale,
-                 int causal, Drop drop) {
+                 int causal, DropArg drop_arg) {
+  const Drop drop = drop_arg.load();
   extern __shared__ uint8_t smem_raw[];
   const int n_t = (S + kTile - 1) / kTile, tid = threadIdx.x;
   TcBlock<D> blk(align1024(smem_raw), n_t, n_items, causal, true);
@@ -882,7 +899,8 @@ __global__ void __launch_bounds__(128, D == 64 ? 3 : 1)
                   const __grid_constant__ CUtensorMap dvm, int n_items,
                   const float* __restrict__ lse,
                   const float* __restrict__ delta, int S, float scale,
-                  int causal, Drop drop) {
+                  int causal, DropArg drop_arg) {
+  const Drop drop = drop_arg.load();
   using L = TcTiles<D>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = align1024(smem_raw);
@@ -1054,7 +1072,8 @@ __global__ void __launch_bounds__(128, D == 64 ? 4 : 2)
                   const __grid_constant__ CUtensorMap vm,
                   const __grid_constant__ CUtensorMap om, int n_items,
                   float* __restrict__ lse, int S, float scale, int causal,
-                  Drop drop) {
+                  DropArg drop_arg) {
+  const Drop drop = drop_arg.load();
   extern __shared__ uint8_t smem_raw[];
   const int n_t = (S + kTile - 1) / kTile, tid = threadIdx.x;
   TcBlock<D, 1> blk(align1024(smem_raw), n_t, n_items, causal, true);
@@ -1179,13 +1198,13 @@ bool bad_args(int dtype, int bh, int S, int d) {
          (long long)bh * ((S + kTile - 1) / kTile) > 0x7FFFFFFFLL;
 }
 
-Drop make_drop(float p, float scale, int seed) {
-  return Drop{p, scale, static_cast<uint32_t>(seed)};
+DropArg make_drop(float p, float scale, const int* seed) {
+  return DropArg{p, scale, seed};
 }
 
 template <int D>
 int fwd_simt(const void* q, const void* k, const void* v, void* o,
-             float* lse, int bh, int S, float scale, int causal, Drop dr,
+             float* lse, int bh, int S, float scale, int causal, DropArg dr,
              void* stream) {
   return launch(fwd_simt_kernel<D>, fwd_smem(D), bh, S, stream,
                 static_cast<const float*>(q), static_cast<const float*>(k),
@@ -1196,7 +1215,7 @@ int fwd_simt(const void* q, const void* k, const void* v, void* o,
 template <int D>
 int dq_simt(const void* q, const void* k, const void* v, const void* dout,
             const float* lse, const float* delta, void* dq, int bh, int S,
-            float scale, int causal, Drop dr, void* stream) {
+            float scale, int causal, DropArg dr, void* stream) {
   return launch(dq_simt_kernel<D>, dq_smem(D), bh, S, stream,
                 static_cast<const float*>(q), static_cast<const float*>(k),
                 static_cast<const float*>(v),
@@ -1207,7 +1226,8 @@ int dq_simt(const void* q, const void* k, const void* v, const void* dout,
 template <int D>
 int dkv_simt(const void* q, const void* k, const void* v, const void* dout,
              const float* lse, const float* delta, void* dk, void* dv,
-             int bh, int S, float scale, int causal, Drop dr, void* stream) {
+             int bh, int S, float scale, int causal, DropArg dr,
+             void* stream) {
   return launch(dkv_simt_kernel<D>, dkv_smem(D), bh, S, stream,
                 static_cast<const float*>(q), static_cast<const float*>(k),
                 static_cast<const float*>(v),
@@ -1276,7 +1296,7 @@ int launch_tc(Kernel kernel, int smem, const void* const (&ptrs)[N], int bh,
 
 template <int D>
 int fwd_tc(const void* q, const void* k, const void* v, void* o, float* lse,
-           int bh, int S, float scale, int causal, Drop dr, void* stream) {
+           int bh, int S, float scale, int causal, DropArg dr, void* stream) {
   const void* const ptrs[4] = {q, k, v, o};
   return launch_tc(fwd_tc_kernel<D>, TcTiles<D, 1>::smem_bytes(), ptrs, bh,
                    S, D, stream, lse, S, scale, causal, dr);
@@ -1285,7 +1305,7 @@ int fwd_tc(const void* q, const void* k, const void* v, void* o, float* lse,
 template <int D>
 int dq_tc(const void* q, const void* k, const void* v, const void* dout,
           const float* lse, const float* delta, void* dq, int bh, int S,
-          float scale, int causal, Drop dr, void* stream) {
+          float scale, int causal, DropArg dr, void* stream) {
   const void* const ptrs[5] = {q, k, v, dout, dq};
   return launch_tc(dq_tc_kernel<D>, TcTiles<D>::smem_bytes(), ptrs, bh, S,
                    D, stream, lse, delta, S, scale, causal, dr);
@@ -1294,7 +1314,7 @@ int dq_tc(const void* q, const void* k, const void* v, const void* dout,
 template <int D>
 int dkv_tc(const void* q, const void* k, const void* v, const void* dout,
            const float* lse, const float* delta, void* dk, void* dv, int bh,
-           int S, float scale, int causal, Drop dr, void* stream) {
+           int S, float scale, int causal, DropArg dr, void* stream) {
   const void* const ptrs[6] = {q, k, v, dout, dk, dv};
   return launch_tc(dkv_tc_kernel<D>, TcTiles<D>::smem_bytes(), ptrs, bh, S,
                    D, stream, lse, delta, S, scale, causal, dr);
@@ -1303,18 +1323,20 @@ int dkv_tc(const void* q, const void* k, const void* v, const void* dout,
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16.  All tensors contiguous, (bh, S, d) or
-// (bh, S) for lse/delta.  seed is the int32 seed (its bits are used).
+// (bh, S) for lse/delta.  seed points at the int32 seed in device
+// memory (its bits are used; not read at dropout 0), so a captured graph
+// that rewrites it draws new masks on every replay.
 // The bf16 kernels read q, k, v and dO and write O, dQ, dK and dV by
 // TMA: their addresses must be 16-byte aligned.
 extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k,
                                    const void* v, void* o, float* lse,
                                    int bh, int S, int d, float scale,
                                    int causal, float dropout,
-                                   float drop_scale, int seed,
+                                   float drop_scale, const int* seed,
                                    void* stream) {
   if (bad_args(dtype, bh, S, d))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Drop dr = make_drop(dropout, drop_scale, seed);
+  const DropArg dr = make_drop(dropout, drop_scale, seed);
   if (dtype == 0)
     return d == 64 ? fwd_simt<64>(q, k, v, o, lse, bh, S, scale, causal, dr,
                                   stream)
@@ -1331,10 +1353,11 @@ extern "C" int flash_attention_dq(int dtype, const void* q, const void* k,
                                   const float* lse, const float* delta,
                                   void* dq, int bh, int S, int d,
                                   float scale, int causal, float dropout,
-                                  float drop_scale, int seed, void* stream) {
+                                  float drop_scale, const int* seed,
+                                  void* stream) {
   if (bad_args(dtype, bh, S, d))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Drop dr = make_drop(dropout, drop_scale, seed);
+  const DropArg dr = make_drop(dropout, drop_scale, seed);
   if (dtype == 0)
     return d == 64 ? dq_simt<64>(q, k, v, dout, lse, delta, dq, bh, S, scale,
                                  causal, dr, stream)
@@ -1351,11 +1374,11 @@ extern "C" int flash_attention_dkv(int dtype, const void* q, const void* k,
                                    const float* lse, const float* delta,
                                    void* dk, void* dv, int bh, int S, int d,
                                    float scale, int causal, float dropout,
-                                   float drop_scale, int seed,
+                                   float drop_scale, const int* seed,
                                    void* stream) {
   if (bad_args(dtype, bh, S, d))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Drop dr = make_drop(dropout, drop_scale, seed);
+  const DropArg dr = make_drop(dropout, drop_scale, seed);
   if (dtype == 0)
     return d == 64 ? dkv_simt<64>(q, k, v, dout, lse, delta, dk, dv, bh, S,
                                   scale, causal, dr, stream)

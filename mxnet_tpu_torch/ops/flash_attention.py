@@ -28,6 +28,11 @@ bfloat16, contiguous, D = 64 or 128; bf16 16-byte aligned) or raise.
 In bf16 all three kernels multiply on the tensor cores (``p`` and ``ds``
 as two bf16 pieces each, summed in f32) and read and write their tiles
 by TMA; f32 inputs run SIMT f32 bodies.
+The kernels read the dropout seed from device memory (a 0-d int32
+tensor): ``ops.flash_attention`` passes a fresh one from
+``random.next_seed_tensor`` per call, so a captured CUDA graph of a step
+draws new masks on every replay; an int seed is written into such a
+tensor first.  The plain versions take either.
 ``flash_attention.launches`` counts kernel launches per kernel
 (``"fwd"``, ``"dq"``, ``"dkv"``).  The kernels tile S by 64 and mask the
 tail, so S need not divide by any block; ``block_q``/``block_k`` are
@@ -41,7 +46,7 @@ import ctypes
 import numpy as np
 import torch
 
-__all__ = ["flash_attention", "uniform01"]
+__all__ = ["flash_attention", "uniform01", "seed_tensor"]
 
 _NEG_INF = -1e30
 _M32 = 0xFFFFFFFF
@@ -102,8 +107,8 @@ def _scores(q, k, scale, causal, acc):
     if causal:
         n = s.shape[-1]
         tri = torch.ones((n, n), dtype=torch.bool, device=s.device).tril()
-        s = torch.where(tri, s, torch.tensor(_NEG_INF, dtype=acc,
-                                             device=s.device))
+        s = torch.where(tri, s, torch.full((), _NEG_INF, dtype=acc,
+                                           device=s.device))
     return s
 
 
@@ -194,20 +199,37 @@ def _check_cuda(what, tensors, rows=()):
                          f"aligned addresses (the kernels read them by TMA)")
 
 
+def seed_tensor(seed, device):
+    """``seed`` as the 0-d int32 tensor on ``device`` the kernels read:
+    a tensor as it is (checked), an int's low 32 bits written into a new
+    one (a fill on the device, no copy from the host)."""
+    if isinstance(seed, torch.Tensor):
+        if seed.dtype != torch.int32 or seed.numel() != 1 \
+                or seed.device != torch.device(device):
+            raise TypeError(f"flash_attention: a seed tensor must be one "
+                            f"int32 on {device}, got {seed.dtype} "
+                            f"{tuple(seed.shape)} on {seed.device}")
+        return seed
+    seed = int(seed) & _M32
+    seed = seed - (1 << 32) if seed >= 1 << 31 else seed   # as an int32
+    return torch.full((), seed, dtype=torch.int32, device=device)
+
+
 def _launch(what, fn, q, ptrs, scale, causal, dropout, seed):
     """Call one C entry point on q's device and stream with the
-    pointers ``ptrs`` and the shared trailing arguments; raise on a CUDA
-    error, count the launch."""
+    pointers ``ptrs`` and the shared trailing arguments (the seed a
+    device tensor, or an int written into one; none at dropout 0); raise
+    on a CUDA error, count the launch."""
     from .cuda import check
 
     bh, s, d = q.shape
     drop_scale = _f32(1.0 / (1.0 - dropout)) if dropout > 0.0 else 1.0
-    seed = int(seed) & _M32
-    seed = seed - (1 << 32) if seed >= 1 << 31 else seed   # as an int32
+    seed = seed_tensor(seed, q.device) if dropout > 0.0 else None
     with torch.cuda.device(q.device):
         check(fn(_DTYPE_CODES[q.dtype], *ptrs, bh, s, d,
                  ctypes.c_float(scale), int(causal), ctypes.c_float(dropout),
-                 ctypes.c_float(drop_scale), seed,
+                 ctypes.c_float(drop_scale),
+                 None if seed is None else seed.data_ptr(),
                  torch.cuda.current_stream(q.device).cuda_stream), what)
     flash_attention.launches[what.rsplit("_", 1)[1]] += 1
 
@@ -272,6 +294,8 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, scale, causal, dropout, seed):
         ctx.bodies = _BODIES[_use_plain((q, k, v))]
+        if q.is_cuda and dropout > 0.0:
+            seed = seed_tensor(seed, q.device)   # one tensor for all three
         ctx.args = (scale, causal, dropout, seed)
         o, lse = ctx.bodies[0](q, k, v, scale, causal, dropout, seed)
         ctx.save_for_backward(q, k, v, o, lse)
@@ -293,18 +317,23 @@ def flash_attention(q, k, v, scale=None, causal=False, block_q=128,
     """``softmax(scale * Q K^T [causal]) V`` on ``(B*H, S, D)`` without
     materialising ``S x S`` on the card.  ``scale`` defaults to
     ``1/sqrt(D)``; ``dropout`` drops attention probabilities inside the
-    kernels, the mask drawn from ``seed`` (an int32; None: 0).  ``block_q``
-    and ``block_k`` are accepted for API parity and do not change the
-    result.  Differentiable in q, k, v.  Returns O in q's dtype."""
+    kernels, the mask drawn from ``seed`` (an int32, or a 0-d int32
+    tensor on q's device whose value is read when the kernels run; None:
+    0).  ``block_q`` and ``block_k`` are accepted for API parity and do
+    not change the result.  Differentiable in q, k, v.  Returns O in q's
+    dtype."""
     del block_q, block_k
     if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"flash_attention: q, k, v must share one "
                          f"(B*H, S, D) shape, got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     scale = 1.0 / (q.shape[-1] ** 0.5) if scale is None else float(scale)
+    if seed is None:
+        seed = 0
+    elif not isinstance(seed, torch.Tensor):
+        seed = int(seed)
     return _FlashAttention.apply(q, k, v, scale, bool(causal),
-                                 float(dropout), 0 if seed is None
-                                 else int(seed))
+                                 float(dropout), seed)
 
 
 flash_attention.launches = {"fwd": 0, "dq": 0, "dkv": 0}

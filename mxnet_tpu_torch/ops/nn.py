@@ -251,7 +251,7 @@ def Dropout(data, p=0.5, mode="training", axes=(), training=None,
         shape[a] = 1
     u = torch.rand(shape, generator=_random.generator(data.device),
                    device=data.device)
-    div = torch.tensor(1.0 - p, dtype=data.dtype, device=data.device)
+    div = torch.full((), 1.0 - p, dtype=data.dtype, device=data.device)
     return torch.where(u < 1.0 - p, data / div,
                        torch.zeros((), dtype=data.dtype, device=data.device))
 

@@ -57,8 +57,8 @@ def _masked_softmax(scores, valid):
     (not ``-inf``): a slot with ZERO valid keys degrades to uniform
     weights, never NaN."""
     scores = torch.where(valid, scores,
-                         torch.tensor(_NEG, dtype=scores.dtype,
-                                      device=scores.device))
+                         torch.full((), _NEG, dtype=scores.dtype,
+                                    device=scores.device))
     return torch.softmax(scores, dim=-1)
 
 
@@ -220,12 +220,23 @@ def _plan(q, k_pages, v_pages, page_tables, lengths, device, stream):
     """The launch plan of one set of shapes on one (device, stream): its
     shapes checked, the partition's arguments and its own workspace —
     partials, and arrival counters zeroed once here, which the kernel
-    leaves zero (launches on one stream never overlap).  Returns
-    ``(workspace pointer, counters pointer, _Call pointer)``."""
+    leaves zero (launches on one stream never overlap).  A captured
+    graph bakes the plan's pointers in, so the plan of the capturing
+    stream must exist before the capture: making one during it raises.
+    A graph's replays use the plan of the stream it was captured on, so
+    they must not overlap other launches with that plan (the port's
+    steps run one at a time).
+    Returns ``(workspace pointer, counters pointer, _Call pointer)``."""
     key = (q.shape, k_pages.shape, v_pages.shape, page_tables.shape,
            lengths.shape, device, stream)
     plan = _PLANS.get(key)
     if plan is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "paged_decode_attention: no launch plan for these shapes on "
+                "the capturing stream; a plan allocates and zeroes its "
+                "workspace, so it is made before a capture (run the step "
+                "once on that stream first)")
         _check_cuda_args(q, k_pages, v_pages, page_tables, lengths)
         slots, heads, head_dim = q.shape
         n_pages, page_size = k_pages.shape[:2]

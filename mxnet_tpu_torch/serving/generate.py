@@ -15,6 +15,16 @@ leave the in-flight batch at every decode step.
   fixed slot grid; slot mask, page table and lengths are arguments.
   Attention over the pages is the hand-written CUDA kernel on the card
   (``ops.paged_decode_attention``) and its plain version on the CPU.
+- **Captured steps** — on the card the decode step and each prefill
+  bucket's step run as CUDA graphs (``graphs.GraphCache``), the port's
+  counterpart of the JAX server's jitted programs: captured at
+  ``start()`` (one prefill graph per (batch, length) bucket plus the
+  decode graph, ``census()``; ``graph_count()`` counts those held) over
+  static device buffers.  A step call writes its slot arrays into one
+  pinned host buffer, copies it to the device with one non-blocking
+  copy, replays, and copies the tokens back into pinned memory: one
+  sync a step.  ``capture=False`` runs the same step bodies eagerly;
+  on the CPU they always run eagerly.
 - **Continuous-batching scheduler** (``GenerationServer``) — prompts
   prefill through ``BucketSpec`` length buckets (each warmed up before
   readiness), sequences are seated in fixed decode slots, retire per step
@@ -53,6 +63,7 @@ import torch
 from .. import fault as _fault
 from .. import profiler as _profiler
 from ..context import resolve_device
+from ..graphs import GraphCache
 from ..gluon.model_zoo.causal_lm import (decode_hidden, lm_logits,
                                          prefill_forward)
 from ..ops.paged_attention import (dense_decode_attention,
@@ -269,21 +280,20 @@ def _scaled_masked(logits, temps, topks):
     kidx = (topks.to(torch.int64) - 1).clamp(0, vocab - 1)
     thr = order.gather(1, kidx[:, None])
     cut = (topks[:, None] > 0) & (scaled < thr)
-    return torch.where(cut, torch.tensor(_NEG, dtype=scaled.dtype,
-                                         device=scaled.device), scaled)
+    return torch.where(cut, torch.full((), _NEG, dtype=scaled.dtype,
+                                       device=scaled.device), scaled)
 
 
 def _sample_tokens(logits, seeds, positions, temps, topks):
     """Per-slot next token: greedy where ``temps == 0``, else a draw
     from ``softmax(_scaled_masked(...))`` by Gumbel-max with the
     position-keyed noise of ``_gumbel_noise``, as
-    ``jax.random.categorical`` draws.  An all-greedy batch skips the
-    noise; otherwise both arms compute, so a mixed greedy/sampling batch
-    is one fixed-shape step.
+    ``jax.random.categorical`` draws.  Both arms always compute, as in
+    the JAX program, so every mix of greedy and sampling rows is one
+    fixed-shape step with no host sync (a captured graph holds it); the
+    greedy rows take the ``argmax`` whatever the noise.
     ``argmax`` takes the first maximum, as ``jnp.argmax`` does."""
     greedy = logits.argmax(dim=-1)
-    if not bool((temps > 0.0).any()):      # one host sync: an all-greedy
-        return greedy.to(torch.int32)      # batch draws no noise
     masked = _scaled_masked(logits, temps, topks)
     noise = _gumbel_noise(seeds, positions, logits.shape[-1])
     drawn = (masked + noise).argmax(dim=-1)
@@ -426,6 +436,49 @@ def build_dense_decode_step(config, max_ctx):
     return dense_step
 
 
+# ---------------------------------------------------------------- staging --
+_TORCH_DTYPES = {np.dtype(np.int32): torch.int32,
+                 np.dtype(np.int64): torch.int64,
+                 np.dtype(np.float32): torch.float32,
+                 np.dtype(np.bool_): torch.bool}
+
+
+class _Staged:
+    """A step's host arguments and their device copies, each set in one
+    buffer: ``host[name]`` are numpy views of one host buffer (pinned on
+    the card) that the scheduler writes; ``dev[name]`` are views of one
+    device buffer that the step reads; ``upload()`` copies the one into
+    the other with a single non-blocking copy."""
+
+    _ALIGN = 16
+
+    def __init__(self, fields, device):
+        spans, total = [], 0
+        for name, shape, dtype in fields:
+            dtype = np.dtype(dtype)
+            nbytes = int(np.prod(shape)) * dtype.itemsize
+            spans.append((name, shape, dtype, total, nbytes))
+            total += -(-nbytes // self._ALIGN) * self._ALIGN
+        self._host = torch.zeros(total, dtype=torch.uint8,
+                                 pin_memory=device.type == "cuda")
+        self._dev = torch.zeros(total, dtype=torch.uint8, device=device)
+        raw = self._host.numpy()
+        self.host = {name: raw[off:off + n].view(dtype).reshape(shape)
+                     for name, shape, dtype, off, n in spans}
+        self.dev = {name: self._dev[off:off + n].view(_TORCH_DTYPES[dtype])
+                    .view(shape) for name, shape, dtype, off, n in spans}
+
+    def upload(self):
+        self._dev.copy_(self._host, non_blocking=True)
+
+
+def _host_tokens(rows, device):
+    """Where a step's int32 tokens land on the host (pinned on the
+    card)."""
+    return torch.zeros(rows, dtype=torch.int32,
+                       pin_memory=device.type == "cuda")
+
+
 # ---------------------------------------------------------------- scheduler --
 class _Seq:
     """Decode-loop-private state of one admitted sequence."""
@@ -464,6 +517,8 @@ class GenerationServer:
     ``causal_lm.params_from_jax`` of a JAX param dict); it is moved to
     ``device`` as float32.  ``device`` defaults to ``"cuda"``: without a
     card the constructor raises unless ``device="cpu"`` is asked for.
+    On the card the steps run as captured CUDA graphs unless
+    ``capture=False``; ``capture=True`` on the CPU raises.
 
     One decode loop thread owns all device state (pools, slot arrays,
     allocator traffic); client threads touch only the admission deque,
@@ -480,8 +535,14 @@ class GenerationServer:
                  n_pages=64, page_size=16, max_context=None,
                  max_queue=128, rate=None, burst=None, breaker=None,
                  default_deadline=None, max_new_tokens=32, eos_id=None,
-                 seed=0, device="cuda", name="GenerationServer"):
+                 seed=0, device="cuda", capture=None,
+                 name="GenerationServer"):
         self.device = resolve_device(device)
+        if self.device.type != "cuda" and capture:
+            raise ValueError(f"{name}: capture=True needs the card, not "
+                             f"{self.device}; pass capture=None or False")
+        self._graphs = GraphCache(self.device) \
+            if self.device.type == "cuda" and capture is not False else None
         self.config = config
         if buckets is None:
             buckets = BucketSpec(batch=(1, 2), length=(16, 32))
@@ -524,19 +585,21 @@ class GenerationServer:
         self._seed_root = int(seed) & 0xFFFFFFFFFFFFFFFF
         self._admit_ord = 0                 # _admit_lock-guarded
 
-        # decode-loop-private device + slot state (pools made in start())
+        # decode-loop-private device + slot state (pools made in start()):
+        # the slot arrays are host views of the decode step's staging
         self._k_pool = self._v_pool = None
         self._seqs = {}                                  # slot -> _Seq
-        self._tokens = np.zeros((self.n_slots,), np.int32)
-        self._lengths = np.zeros((self.n_slots,), np.int32)
-        self._active = np.zeros((self.n_slots,), bool)
-        self._tables = np.zeros((self.n_slots, self.pages_per_seq),
-                                np.int32)
-        self._temps = np.zeros((self.n_slots,), np.float32)
-        self._topks = np.zeros((self.n_slots,), np.int32)
-        self._seeds = np.zeros((self.n_slots,), np.int64)
+        self._decode_in = _Staged(self._step_fields(self.n_slots),
+                                  self.device)
+        self._decode_out = _host_tokens(self.n_slots, self.device)
+        self._prefill_io = {}         # (batch, length) -> (_Staged, out)
+        d = self._decode_in.host
+        self._tokens, self._lengths = d["tokens"], d["lengths"]
+        self._active, self._tables = d["active"], d["tables"]
+        self._temps, self._topks = d["temps"], d["topks"]
+        self._seeds = d["seeds"]
         # CoW lanes of the decode signature: always (0, 0), inert
-        self._cow = np.zeros((self.n_slots,), np.int32)
+        self._cow = d["cow"]
 
         self._pending = collections.deque()
         self._admit_lock = threading.Lock()
@@ -564,7 +627,8 @@ class GenerationServer:
         every prefill bucket shape plus the decode step once with inert
         all-inactive arguments (writes sink to page 0, the allocator is
         untouched) before readiness flips — on the card this also builds
-        and loads the attention kernel."""
+        and loads the attention kernel and captures every step's graph
+        (``graph_count() == census()`` after it)."""
         if self._draining.is_set():
             raise ServerClosedError(f"{self._name}: already drained")
         c, npg, psz = self.config, self.alloc.n_pages, self.alloc.page_size
@@ -721,33 +785,84 @@ class GenerationServer:
         x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & 0xFFFFFFFFFFFFFFFF
         return (x ^ (x >> 31)) & 0xFFFFFFFF
 
-    def _dev(self, arr):
-        """Host array → tensor on the server's device."""
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+    def _step_fields(self, rows, length=None):
+        """The staged arguments of a step over ``rows`` slots (decode) or
+        a ``(rows, length)`` prefill bucket."""
+        return [("tokens", (rows,) if length is None else (rows, length),
+                 np.int32), ("lengths", (rows,), np.int32),
+                ("active", (rows,), np.bool_),
+                ("tables", (rows, self.pages_per_seq), np.int32),
+                ("seeds", (rows,), np.int64), ("temps", (rows,), np.float32),
+                ("topks", (rows,), np.int32)] \
+            + ([("cow", (rows,), np.int32)] if length is None else [])
+
+    def census(self):
+        """The step programs the server runs: one prefill graph per
+        (batch, length) bucket plus THE decode graph, as the JAX
+        server's ``census()``.  ``graph_count()`` equals it after
+        ``start()`` on the card, forever."""
+        return len(self.buckets.batch) * len(self.buckets.length) + 1
+
+    def graph_count(self):
+        """CUDA graphs captured so far (the JAX server's
+        ``jit_cache_count``); 0 where the steps run eagerly."""
+        return 0 if self._graphs is None else len(self._graphs)
+
+    def _run_step(self, key, body, out):
+        """Run ``body()`` — a step reading the staged device arguments,
+        returning its int32 tokens — through its graph (captured at its
+        first call, which runs it eagerly first) or eagerly, and copy
+        the tokens into the pinned ``out``; returns them on the host
+        after the one sync of the step."""
+        with torch.no_grad():
+            tok = body() if self._graphs is None \
+                else self._graphs.run(key, body)
+        out.copy_(tok, non_blocking=True)
+        if self.device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record()
+            done.synchronize()       # the token read-back: the step's sync
+        return out.numpy().copy()
 
     def _run_prefill(self, tokens, lengths, active, tables, seeds, temps,
                      topks):
         """One prefill step (pools updated in place); returns the
         first sampled tokens on the host."""
-        with torch.no_grad():
-            first, _, _ = self._prefill(
-                self._params, self._k_pool, self._v_pool, self._dev(tokens),
-                self._dev(lengths), self._dev(active), self._dev(tables),
-                self._dev(seeds), self._dev(temps), self._dev(topks))
-            return first.cpu().numpy()
+        b, L = tokens.shape
+        io = self._prefill_io.get((b, L))
+        if io is None:
+            io = self._prefill_io[(b, L)] = (
+                _Staged(self._step_fields(b, L), self.device),
+                _host_tokens(b, self.device))
+        staged, out = io
+        h = staged.host
+        for name, arr in (("tokens", tokens), ("lengths", lengths),
+                          ("active", active), ("tables", tables),
+                          ("seeds", seeds), ("temps", temps),
+                          ("topks", topks)):
+            h[name][...] = arr
+        staged.upload()
+        d = staged.dev
+
+        def body():
+            return self._prefill(
+                self._params, self._k_pool, self._v_pool, d["tokens"],
+                d["lengths"], d["active"], d["tables"], d["seeds"],
+                d["temps"], d["topks"])[0]
+        return self._run_step(("prefill", b, L), body, out)
 
     def _run_decode(self):
         """One decode step over the full slot grid (pools updated in
         place); returns the next tokens on the host."""
-        with torch.no_grad():
-            nxt, _, _ = self._decode(
-                self._params, self._k_pool, self._v_pool,
-                self._dev(self._tokens), self._dev(self._lengths),
-                self._dev(self._active), self._dev(self._tables),
-                self._dev(self._cow), self._dev(self._cow),
-                self._dev(self._seeds), self._dev(self._temps),
-                self._dev(self._topks))
-            return nxt.cpu().numpy()
+        self._decode_in.upload()
+        d = self._decode_in.dev
+
+        def body():
+            return self._decode(
+                self._params, self._k_pool, self._v_pool, d["tokens"],
+                d["lengths"], d["active"], d["tables"], d["cow"],
+                d["cow"], d["seeds"], d["temps"], d["topks"])[0]
+        return self._run_step(("decode",), body, self._decode_out)
 
     def _loop(self):
         try:

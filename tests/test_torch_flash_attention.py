@@ -442,6 +442,26 @@ def test_library_name_follows_sources_and_headers(tmp_path, monkeypatch):
     assert all(names()[n] != third[n] for n in third)
 
 
+def test_entry_points_take_the_seed_from_device_memory():
+    """The three C entry points take the dropout seed as a pointer to an
+    int32 on the card (a captured graph replays with the seed a device
+    counter wrote), in ``KERNELS`` and in the source."""
+    import ctypes
+    import os
+
+    from mxnet_tpu_torch.ops import cuda as kcuda
+
+    src = open(os.path.join(kcuda.SRC_DIR, "flash_attention.cu")).read()
+    for fn in ("flash_attention_fwd", "flash_attention_dq",
+               "flash_attention_dkv"):
+        args = kcuda.KERNELS["flash_attention"][fn]
+        assert args[-2] is ctypes.c_void_p and args[-3] is ctypes.c_float
+        decl = src[src.index(f'extern "C" int {fn}('):]
+        decl = decl[:decl.index(")")]
+        assert "const int* seed" in decl and "int seed" not in \
+            decl.replace("const int* seed", "")
+
+
 def test_cpu_runs_no_kernel():
     before = dict(flash_attention.launches)
     q, k, v = (x.requires_grad_(True) for x in t(*arrays(3, (2, 8, 64), 0)))

@@ -535,6 +535,27 @@ def _small_server(**kw):
                             name=f"TorchLife-{time.monotonic_ns()}", **kw)
 
 
+def test_slot_arrays_are_staged_in_one_buffer_per_step():
+    """The scheduler's slot arrays are views of the decode step's one
+    host staging buffer; an upload copies all of them into the device
+    views the step reads.  The CPU captures no graph."""
+    srv = _small_server()
+    staged = srv._decode_in
+    assert np.shares_memory(srv._tokens, staged.host["tokens"])
+    assert np.shares_memory(srv._tables, staged.host["tables"])
+    srv._tokens[:] = [3, 4]
+    srv._tables[1, :2] = [5, 6]
+    srv._seeds[0] = 2 ** 40 + 1
+    srv._active[1] = True
+    staged.upload()
+    assert staged.dev["tokens"].tolist() == [3, 4]
+    assert staged.dev["tables"][1, :2].tolist() == [5, 6]
+    assert staged.dev["seeds"][0].item() == 2 ** 40 + 1
+    assert staged.dev["active"].tolist() == [False, True]
+    assert staged.dev["cow"].dtype == torch.int32
+    assert srv.census() == 3 and srv.graph_count() == 0
+
+
 def test_server_rejects_unservable_prompts_and_drains():
     srv = _small_server().start()
     try:

@@ -129,6 +129,20 @@ def test_wrapper_refuses_other_devices():
         tpa.paged_decode_attention(*args)
 
 
+def test_launch_plan_is_not_made_inside_a_capture(monkeypatch):
+    """A captured graph bakes a plan's workspace and counters in, so the
+    plan of the capturing stream is made before the capture: asked for a
+    new one while a capture runs, the wrapper raises before it allocates
+    anything."""
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: True)
+    args = [torch.from_numpy(a) for a in _fixture(9)]
+    n = len(tpa._PLANS)
+    with pytest.raises(RuntimeError, match="before a capture"):
+        tpa._plan(*args, device=0, stream=-1)
+    assert len(tpa._PLANS) == n
+
+
 def test_scale_is_float32_rounded():
     for d in (8, 16, 64, 80):
         ref = np.asarray(1.0 / jnp.sqrt(jnp.asarray(d, jnp.float32)))
