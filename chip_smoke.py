@@ -44,16 +44,32 @@ Phases, each of which fails the run (each prints its wall time):
    the three cases beside its bound, with ptxas's counts, the wrapper's
    host time a call and the two-call library route for context; a
    shorter serve under ``torch.profiler``, captured and eager;
-4. each fused-conv kernel (forward, dX, dW) against its plain version at
+4. serving features: the paged kernel at the speculative verify step's
+   shape (64 slots x 4 lanes, each slot's table repeated per lane, lane
+   i over the slot's length + i + 1) against its plain version, then
+   timed beside its bound; 256 requests of shared-prefix traffic (a
+   192-token system prompt, prompts that end inside its last block and
+   take a CoW fault, prompts of its first 144 tokens plus 16) captured
+   and eager (the same tokens, CoW faults taken, pages shared, the pool
+   whole after the drain); the serve phase's traffic through two
+   speculative servers (spec_k 3, window 16) — a seeded 1-layer draft
+   and the target as its own draft — captured and eager, with their
+   acceptance rates and tokens/s beside the plain server's; under
+   captured steps a decode fault mid-run (every request completes with
+   the unfaulted tokens), ``drain(handoff=True)`` half way and a
+   successor's ``submit_resume`` of the exports, and a journal restore
+   on a fresh server (both token-exact).  Every server's graphs equal
+   its census, and every path counts its kernel launches from 0;
+5. each fused-conv kernel (forward, dX, dW) against its plain version at
    the eight ResNet-50 shapes (N = 8) and the other cases the op takes,
    in f32 and bf16, dX launched twice for the same bits;
-5. full-width ResNet-50 (f32, batch 8): forward and backward through
+6. full-width ResNet-50 (f32, batch 8): forward and backward through
    the kernels against the same through the plain versions on the
    card, from the same parameters — loss, every gradient, running
    statistics — leaf by leaf, within a multiple of the noise floor that
    the plain versions on the card show against the same net on the
    host CPU;
-6. the ResNet training run: warm-up and timed steps at batch 256
+7. the ResNet training run: warm-up and timed steps at batch 256
    through the captured step (loss finite and falling over the run,
    params finite, 32 launches of each kernel per step) and one step
    under ``torch.profiler``, then the same through the eager step
@@ -61,24 +77,24 @@ Phases, each of which fails the run (each prints its wall time):
    with cuDNN's deterministic algorithms, every loss and tensor the same
    bits; then ``fused=False`` (cuDNN convs) from the same parameters as
    the yardstick (the two first losses agree);
-7. each fused-conv kernel at the eight shapes at N = 256, bf16: held
+8. each fused-conv kernel at the eight shapes at N = 256, bf16: held
    against its plain version, then timed (CUDA events, L2 flushed)
    beside its bound, its plain version and the cuDNN call for the conv
    alone, with its achieved TFLOP/s; summed over a step's 32 launches;
    dX launched twice, its outputs (dscale, dshift among them) the same
    bits; before it, ``nvcc -Xptxas -v``'s registers and spills of the
    tensor-core kernels beside their shared memory;
-8. each flash-attention kernel (forward, dQ, dK/dV, the dropout seed
+9. each flash-attention kernel (forward, dQ, dK/dV, the dropout seed
    read from device memory) against its plain version summed in f64:
    BERT-base's shape at dropout 0 and 0.1,
    causal, S = 512, S = 200 causal (bf16 and f32), B*H = 37, D = 128,
    f32; in every bf16 case each backward kernel's error from the
    unrounded f64 sums within 2x the plain version's in f32, and a
    second launch giving the same bits;
-9. full-width BERT-base (f32, batch 8, dropout 0): forward and backward
+10. full-width BERT-base (f32, batch 8, dropout 0): forward and backward
    through the kernels against the plain versions on the card — loss,
-   the four outputs, every gradient — leaf by leaf, as in 5;
-10. the BERT training run: 2 warm-up and 10 timed steps through the
+   the four outputs, every gradient — leaf by leaf, as in 6;
+11. the BERT training run: 2 warm-up and 10 timed steps through the
     captured step (loss finite and falling, params finite, 12 launches
     of each flash kernel per step) and one step under
     ``torch.profiler``, then the same through the eager step from the
@@ -88,7 +104,7 @@ Phases, each of which fails the run (each prints its wall time):
     ``attention_impl="dense"`` from the same parameters as the
     yardstick (the first losses agree within 2%); tokens/s and peak
     memory of both;
-11. each flash kernel at BERT-base's shape, bf16, dropout 0.1, timed
+12. each flash kernel at BERT-base's shape, bf16, dropout 0.1, timed
     beside its bound, its plain version and
     ``scaled_dot_product_attention`` (forward; backward for dQ + dK/dV
     together), with its achieved TFLOP/s; summed over a step's 12
@@ -108,6 +124,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -128,6 +145,10 @@ FEW_LONG_PPS, FEW_LONG = 256, (16384, 16384, 16383, 16320)
 HOST_CALLS = 1000                # wrapper calls timed on the host
 HOST_SLACK_CYCLES = 4_000_000    # device sleep before a timed span (~2 ms)
 LOGIT_ATOL, LOGIT_RTOL = 1e-4, 1e-4
+# serving features: speculative decoding, shared-prefix traffic, salvage
+SPEC_K, SPEC_WINDOW = 3, 16
+PREFIX_REQUESTS, PREFIX_LENGTHS = 256, (32, 64, 192)
+RESUME_REQUESTS = 64
 REPLACES = {"paged_decode_attention":
             "mxnet_tpu/ops/pallas/paged_attention.py:31",
             "fused_conv_fwd": "mxnet_tpu/ops/pallas/fused_conv.py:100",
@@ -431,13 +452,10 @@ def serve(torch, params, cfg, capture=None, check=True):
     captured steps (the default, the main path) or eager ones
     (``capture=False``, the yardstick).  Returns the numbers and the
     tokens."""
-    from mxnet_tpu_torch.gluon.model_zoo.causal_lm import sequence_logits
     from mxnet_tpu_torch.ops.paged_attention import paged_decode_attention
     from mxnet_tpu_torch.serving import BucketSpec, GenerationServer
 
-    rng = np.random.RandomState(0)
-    prompts = [rng.randint(0, VOCAB, size=int(rng.randint(4, 60)))
-               .astype(np.int32) for _ in range(N_REQUESTS)]
+    prompts = serve_prompts()
     how = "eager" if capture is False else "captured"
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -484,29 +502,46 @@ def serve(torch, params, cfg, capture=None, check=True):
         f"preempted {st['preempted']}; kernel launches {launches}; peak "
         f"device memory {peak / 2**20:.1f} MiB")
     res = {"tokens_per_s": n_tok / dt, "decode_steps": st["decode_steps"],
-           "launches": launches, "peak_bytes": peak, "outs": outs}
-    if not check:
-        return res
-    # teacher-forced check: every generated token is the argmax of the
-    # full forward (plain PyTorch, no kernel) over prompt + output so
-    # far, up to a near-tie of 1e-4 between two logits
+           "launches": launches, "peak_bytes": peak, "outs": outs,
+           "prompts": prompts}
+    if check:
+        teacher_forced(torch, params, cfg, prompts, outs, "serve")
+    return res
+
+
+def teacher_forced(torch, params, cfg, prompts, outs, what, n=16):
+    """Every generated token of the first ``n`` requests is the argmax of
+    the full forward (plain PyTorch, no kernel) over prompt + output so
+    far, up to a near-tie of 1e-4 between two logits."""
+    from mxnet_tpu_torch.gluon.model_zoo.causal_lm import sequence_logits
+
+    dev = torch.device(DEVICE)
     worst_gap, exact, total = 0.0, 0, 0
-    for p, o in zip(prompts[:16], outs[:16]):
+    for p, o in zip(prompts[:n], outs[:n]):
         full = np.concatenate([p, o])
-        toks = torch.from_numpy(full[None].astype(np.int32)).cuda()
+        toks = torch.from_numpy(full[None].astype(np.int32)).to(dev)
         with torch.no_grad():
             lg = sequence_logits(params, cfg, toks)[0]
         rows = lg[len(p) - 1:len(full) - 1]
         chosen = rows.gather(1, torch.from_numpy(o.astype(np.int64))
-                             .cuda()[:, None])[:, 0]
+                             .to(dev)[:, None])[:, 0]
         gap = float((rows.max(dim=1).values - chosen).max())
         worst_gap = max(worst_gap, gap)
         exact += int((rows.argmax(dim=1).cpu().numpy() == o).sum())
         total += len(o)
-    log(f"teacher-forced check of 16 requests: {exact}/{total} tokens are "
-        f"the exact argmax, worst logit shortfall {worst_gap:.3e}")
-    expect(worst_gap <= 1e-4, "served tokens disagree with the full forward")
-    return res
+    log(f"teacher-forced check [{what}] of {min(n, len(outs))} requests: "
+        f"{exact}/{total} tokens are the exact argmax, worst logit "
+        f"shortfall {worst_gap:.3e}")
+    expect(worst_gap <= 1e-4,
+           f"{what}: served tokens disagree with the full forward")
+
+
+def serve_prompts():
+    """The serve phase's traffic: ``N_REQUESTS`` prompts of 4-60 random
+    tokens from ``RandomState(0)``."""
+    rng = np.random.RandomState(0)
+    return [rng.randint(0, VOCAB, size=int(rng.randint(4, 60)))
+            .astype(np.int32) for _ in range(N_REQUESTS)]
 
 
 def two_call_route(torch, q, kp, vp, tables, lens):
@@ -594,10 +629,11 @@ def time_kernel(torch, rng):
     return res
 
 
-def profile_serving(torch, params, cfg, n_requests=64, capture=None):
+def profile_serving(torch, params, cfg, n_requests=64, capture=None,
+                    what="serving", **kw):
     """Serve ``n_requests`` more under ``torch.profiler`` (captured
-    steps, or eager ones with ``capture=False``) and print
-    where the time goes — wall time per
+    steps, or eager ones with ``capture=False``; ``kw`` to the server,
+    e.g. a draft) and print where the time goes — wall time per
     decode step, the device's busy and idle share (kernel time summed
     over the wall time), and the kernels that take the most device
     time.  Returns ``(ms per decode step, busy share)``."""
@@ -605,7 +641,7 @@ def profile_serving(torch, params, cfg, n_requests=64, capture=None):
 
     from mxnet_tpu_torch.serving import BucketSpec, GenerationServer
 
-    how = "eager" if capture is False else "captured"
+    how = f"{what}, {'eager' if capture is False else 'captured'}"
     rng = np.random.RandomState(1)
     prompts = [rng.randint(0, VOCAB, size=int(rng.randint(4, 60)))
                .astype(np.int32) for _ in range(n_requests)]
@@ -615,7 +651,7 @@ def profile_serving(torch, params, cfg, n_requests=64, capture=None):
         n_slots=SLOTS, n_pages=N_PAGES, page_size=PAGE_SIZE,
         max_new_tokens=MAX_NEW, max_queue=n_requests, seed=1,
         device="cuda", capture=capture,
-        name=f"ChipSmokeProfile-{how}").start()
+        name=f"ChipSmokeProfile-{how}", **kw).start()
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -628,10 +664,10 @@ def profile_serving(torch, params, cfg, n_requests=64, capture=None):
         expect(srv.drain(60), "profiled server did not drain")
     st = srv.stats
     per_step = wall_us / 1e3 / max(st['decode_steps'], 1)
-    log(f"profile [serving, {how}]: {n_requests} requests, "
+    log(f"profile [{how}]: {n_requests} requests, "
         f"{st['decode_steps']} decode steps, {st['prefills']} prefills in "
         f"{wall_us / 1e3:.3f} ms = {per_step:.3f} ms wall per decode step")
-    return per_step, print_profile(prof, wall_us, f"serving, {how}")
+    return per_step, print_profile(prof, wall_us, how)
 
 
 def serve_without_syncs(torch, params, cfg, n_requests=16):
@@ -700,6 +736,377 @@ def print_profile(prof, wall_us, what):
             f"{100 * dev_us(e) / busy_us:5.1f}%  x{e.count:<6d} "
             f"{e.key[:90]}")
     return busy
+
+
+# -------------------------------------------------------- serving features --
+def count_launches(fn):
+    """``fn()`` with every kernel's launch count set to 0 just before it;
+    returns ``(fn's result, the paged kernel's launches in it)``."""
+    from mxnet_tpu_torch.ops.paged_attention import paged_decode_attention
+
+    paged_decode_attention.launches = 0
+    out = fn()
+    return out, paged_decode_attention.launches
+
+
+def feature_server(torch, params, cfg, name, capture=None,
+                   lengths=LENGTH_BUCKETS, n_requests=N_REQUESTS, **kw):
+    """A started ``GenerationServer`` at the serve phase's width (captured
+    steps by default, eager with ``capture=False``), its graphs checked
+    against its census."""
+    from mxnet_tpu_torch.serving import BucketSpec, GenerationServer
+
+    srv = GenerationServer(
+        params, cfg, buckets=BucketSpec(batch=BATCH_BUCKETS, length=lengths),
+        n_slots=SLOTS, n_pages=N_PAGES, page_size=PAGE_SIZE,
+        max_new_tokens=MAX_NEW, max_queue=n_requests, seed=0,
+        device=DEVICE, capture=capture, name=name, **kw).start()
+    expect_graphs(srv, capture, name)
+    return srv
+
+
+def expect_graphs(srv, capture, what):
+    """A captured server holds its census of graphs (an eager one, or one
+    on the host, none)."""
+    want = srv.census() if capture is None and DEVICE == "cuda" else 0
+    expect(srv.graph_count() == want, f"{what}: {srv.graph_count()} "
+           f"graphs, want {want} (census {srv.census()})")
+
+
+def run_requests(srv, prompts, **kw):
+    """Submit every prompt, wait for all, drain; returns the tokens and
+    the seconds from the first submit to the last result."""
+    try:
+        t0 = time.perf_counter()
+        reqs = [srv.submit(p, **kw) for p in prompts]
+        outs = [r.result(timeout=600) for r in reqs]
+        dt = time.perf_counter() - t0
+    finally:
+        expect(srv.drain(60), f"{srv._name} did not drain")
+    st = srv.stats
+    expect(st["completed"] == len(prompts) and st["failed"] == 0,
+           f"{srv._name}: stats {st}")
+    expect(all(len(o) == MAX_NEW and o.min() >= 0 and o.max() < VOCAB
+               for o in outs), f"{srv._name}: a wrong token count or id")
+    return outs, dt
+
+
+def verify_shape_inputs(torch, rng):
+    """The verify step's attention call at the serve width: SLOTS slots x
+    (SPEC_K + 1) lanes, each slot's table (of the speculative server's
+    width) repeated per lane, lane i over the slot's cached length + i +
+    1 positions.  Returns the five inputs on the card and the cached
+    lengths."""
+    k1 = SPEC_K + 1
+    pps = -(-(max(LENGTH_BUCKETS) + MAX_NEW + SPEC_K) // PAGE_SIZE)
+    cached = serving_lengths(rng, SLOTS) - 1
+    lanes = (np.repeat(cached, k1) + np.tile(np.arange(k1), SLOTS)
+             + 1).astype(np.int32)
+    n_pages = 1 + SLOTS * pps
+    q = rng.standard_normal((SLOTS * k1, HEADS, HEAD_DIM), dtype=np.float32)
+    kp = rng.standard_normal((n_pages, PAGE_SIZE, HEADS, HEAD_DIM),
+                             dtype=np.float32)
+    vp = rng.standard_normal((n_pages, PAGE_SIZE, HEADS, HEAD_DIM),
+                             dtype=np.float32)
+    tables = np.repeat(rng.permutation(np.arange(1, n_pages)).astype(
+        np.int32).reshape(SLOTS, pps), k1, axis=0)
+    dev = torch.device(DEVICE)
+    return tuple(torch.from_numpy(x).to(dev) for x in
+                 (q, kp, vp, tables, lanes)), cached
+
+
+def verify_bound(cached, pps):
+    """Least time for one verify-shape call: each slot's K/V rows read
+    once (the longest lane's, cached + SPEC_K + 1), q, the repeated
+    tables and the lane lengths read and the output written once; 4
+    flops per K/V element pair of every lane."""
+    k1 = SPEC_K + 1
+    row = HEADS * HEAD_DIM
+    rows = SLOTS * k1
+    kv = int((cached + k1).sum())
+    nbytes = kv * row * 4 * 2 + 2 * rows * row * 4 + rows * pps * 4 + rows * 4
+    lane_ctx = int((np.repeat(cached, k1) + np.tile(np.arange(k1), SLOTS)
+                    + 1).sum())
+    flops = 4 * lane_ctx * row
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def kernel_at_verify_shape(torch, rng):
+    """The paged kernel at the verify step's shape against its plain
+    version (ATOL/RTOL on every row, a second launch the same bits, no
+    host sync), then timed with L2 flushed beside its bound and its
+    plain version."""
+    from mxnet_tpu_torch.ops import paged_attention as pa
+
+    args, cached = verify_shape_inputs(torch, rng)
+    pps = args[3].shape[1]
+    before = pa.paged_decode_attention.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = pa.paged_decode_attention(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    again = pa.paged_decode_attention(*args)
+    ref = pa.paged_decode_attention_reference(*args)
+    torch.cuda.synchronize()
+    err = (out - ref).abs()
+    max_err = float(err.max())
+    expect(bool(torch.isfinite(out).all()), "verify shape: non-finite")
+    expect(torch.equal(out, again), "verify shape: a second launch gave "
+           "other bits")
+    expect(bool((err <= ATOL + RTOL * ref.abs()).all()),
+           "verify shape: kernel disagrees with its plain version")
+    flush = torch.empty(1024 * 2**20, dtype=torch.uint8, device=DEVICE)
+    ms = time_ms(torch, lambda: pa.paged_decode_attention(*args), 200, flush)
+    plain_ms = time_ms(torch, lambda: pa.paged_decode_attention_reference(
+        *args), 50, flush)
+    pa.paged_decode_attention.launches = before  # checks are not the path
+    bound_ms, bound_by = verify_bound(cached, pps)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    part = pa._partition(args[0].shape[0], HEADS, HEAD_DIM, PAGE_SIZE, pps,
+                         sms)
+    lens = args[4]
+    log(f"kernel vs plain [verify: {SLOTS} slots x {SPEC_K + 1} lanes, "
+        f"pages_per_seq {pps}, lane lengths {int(lens.min())}.."
+        f"{int(lens.max())}]: max abs err {max_err:.3e} (atol {ATOL}, "
+        f"rtol {RTOL}); a second launch the same bits, no host sync")
+    log(f"time [verify: {args[0].shape[0]} rows, span {part.span}, "
+        f"{part.n_split} splits, {part.head_chunks} head chunks, "
+        f"{part.blocks} blocks]: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+        f"ms, bound {bound_ms:.4f} ms ({bound_by}), kernel at "
+        f"{100 * bound_ms / ms:.1f}% of bound")
+    del args, out, again, ref, flush
+    torch.cuda.empty_cache()
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "max_abs_err": max_err}
+
+
+def prefix_prompts():
+    """Shared-prefix traffic: a system prompt ``P`` of three pages (192
+    tokens) from ``RandomState(0)``; request 0 is ``P`` (three full
+    pages resident), every fourth is ``P[:n]``, n in 129-191 (it ends
+    inside block 2 and maps onto the resident full block: a CoW fault at
+    its first decode write), the others ``P[:144]`` plus 16 random
+    tokens (bench.py's 90%-shared 160-token shape at page 64)."""
+    rng = np.random.RandomState(0)
+    system = rng.randint(0, VOCAB, size=3 * PAGE_SIZE).astype(np.int32)
+    plen = PAGE_SIZE * 5 // 2
+    shared = int(plen * 0.9)
+    prompts = [system.copy()]
+    for i in range(1, PREFIX_REQUESTS):
+        if i % 4 == 0:
+            n = int(rng.randint(2 * PAGE_SIZE + 1, 3 * PAGE_SIZE))
+            prompts.append(system[:n].copy())
+        else:
+            prompts.append(np.concatenate([system[:shared], rng.randint(
+                0, VOCAB, size=plen - shared).astype(np.int32)]))
+    return prompts
+
+
+def serve_prefix(torch, params, cfg):
+    """Shared-prefix traffic through captured steps, then eager steps:
+    the same tokens, the teacher-forced argmax, CoW faults taken, pages
+    shared, fewer pages charged than unshared prompts take, the pool
+    whole after the drain."""
+    prompts = prefix_prompts()
+    runs = {}
+    for capture in (None, False):
+        how = "eager" if capture is False else "captured"
+        srv = feature_server(torch, params, cfg, f"ChipSmokePrefix-{how}",
+                             capture=capture, lengths=PREFIX_LENGTHS,
+                             n_requests=PREFIX_REQUESTS)
+        (outs, dt), launches = count_launches(
+            lambda: run_requests(srv, prompts))
+        st = srv.stats
+        a = srv.alloc
+        expect(a.free_count() == a.allocatable and a.live_pages() == 0
+               and a.shared_pages() == 0,
+               f"prefix [{how}]: pages left after drain")
+        expect(srv._indexed_by_page == {} and srv._children == {},
+               f"prefix [{how}]: prefix index not empty after drain")
+        expect_graphs(srv, capture, f"prefix [{how}] after the run")
+        expect(launches >= st["decode_steps"] * LAYERS > 0,
+               f"prefix [{how}]: {launches} kernel launches")
+        runs[how] = (outs, dt, st, launches, srv.census())
+    outs, dt, st, launches, census = runs["captured"]
+    expect(all(np.array_equal(a, b) for a, b in zip(outs,
+                                                    runs["eager"][0])),
+           "prefix: captured tokens differ from the eager ones")
+    teacher_forced(torch, params, cfg, prompts, outs, "prefix")
+    unshared = sum(-(-len(p) // PAGE_SIZE) for p in prompts)
+    page_bytes = 2 * LAYERS * PAGE_SIZE * HEADS * HEAD_DIM * 4
+    expect(st["cow_faults"] >= 1, "prefix: no CoW fault taken")
+    expect(st["pages_shared_mapped"] > 0, "prefix: no page shared")
+    expect(st["pages_charged"] < unshared,
+           f"prefix: {st['pages_charged']} pages charged, unshared "
+           f"prompts take {unshared}")
+    n_tok = sum(map(len, outs))
+    log(f"prefix [captured]: {PREFIX_REQUESTS} requests, {n_tok} tokens in "
+        f"{dt:.3f} s = {n_tok / dt:.1f} tokens/s (eager "
+        f"{n_tok / runs['eager'][1]:.1f}); graphs = census {census}; "
+        f"prefills {st['prefills']}, decode steps {st['decode_steps']}, "
+        f"kernel launches {launches}; cow_faults {st['cow_faults']}, "
+        f"pages_shared_mapped {st['pages_shared_mapped']}, pages_charged "
+        f"{st['pages_charged']} of {unshared} unshared, page_bytes_per_seq "
+        f"{st['pages_charged'] * page_bytes / PREFIX_REQUESTS:.0f}; the "
+        f"same tokens captured and eager; pool whole after drain")
+    return {"launches": launches, "tokens_per_s": n_tok / dt}
+
+
+def serve_speculative(torch, params, cfg, plain):
+    """The serve phase's traffic through speculative servers, spec_k
+    SPEC_K and window SPEC_WINDOW: (a) a 1-layer draft of seeded random
+    weights (acceptance near zero: the reject path), (b) the target as
+    its own draft (only its window differs), (c) the same with a window
+    that holds every context (the draft is then the target: the accept
+    path, 1 + SPEC_K tokens a step but for near-ties).  Each: captured
+    against eager, the teacher-forced argmax, graphs = census = grid +
+    2, how many outputs equal the plain server's."""
+    from mxnet_tpu_torch.gluon.model_zoo.causal_lm import (draft_config,
+                                                           init_causal_lm)
+
+    prompts = plain["prompts"]
+    small = draft_config(cfg)
+    whole = max(LENGTH_BUCKETS) + MAX_NEW
+    drafts = {"draft-1-layer": (small, init_causal_lm(
+                  small, torch.Generator().manual_seed(1), device=DEVICE),
+                  SPEC_WINDOW),
+              "self-draft": (draft_config(cfg, n_layers=LAYERS), params,
+                             SPEC_WINDOW),
+              f"self-draft, window {whole}": (
+                  draft_config(cfg, n_layers=LAYERS), params, whole)}
+    res = {}
+    for label, (dcfg, dparams, window) in drafts.items():
+        runs = {}
+        for capture in (None, False):
+            how = "eager" if capture is False else "captured"
+            srv = feature_server(torch, params, cfg,
+                                 f"ChipSmokeSpec-{label}-{how}",
+                                 capture=capture, draft=dparams,
+                                 draft_config=dcfg, spec_k=SPEC_K,
+                                 spec_window=window)
+            expect(srv.census() == len(BATCH_BUCKETS) * len(LENGTH_BUCKETS)
+                   + 2, f"spec [{label}]: census {srv.census()}")
+            (outs, dt), launches = count_launches(
+                lambda: run_requests(srv, prompts))
+            st = srv.stats
+            expect_graphs(srv, capture, f"spec [{label}, {how}] after the "
+                          f"run")
+            expect(launches >= st["verify_steps"] * LAYERS > 0,
+                   f"spec [{label}, {how}]: {launches} kernel launches for "
+                   f"{st['verify_steps']} verify steps")
+            expect(srv.alloc.free_count() == srv.alloc.allocatable,
+                   f"spec [{label}, {how}]: pages left after drain")
+            runs[how] = (outs, dt, st, launches)
+        outs, dt, st, launches = runs["captured"]
+        expect(all(np.array_equal(a, b) for a, b in zip(outs,
+                                                        runs["eager"][0])),
+               f"spec [{label}]: captured tokens differ from the eager ones")
+        teacher_forced(torch, params, cfg, prompts, outs, f"spec {label}")
+        same = sum(np.array_equal(a, b) for a, b in zip(outs, plain["outs"]))
+        n_tok = sum(map(len, outs))
+        rate = st["spec_accepted"] / max(st["spec_proposed"], 1)
+        log(f"spec [{label}, captured]: {N_REQUESTS} requests, {n_tok} "
+            f"tokens in {dt:.3f} s = {n_tok / dt:.1f} tokens/s (eager "
+            f"{n_tok / runs['eager'][1]:.1f}; plain server "
+            f"{plain['tokens_per_s']:.1f}); acceptance {rate:.4f} "
+            f"({st['spec_accepted']} of {st['spec_proposed']}), verify steps "
+            f"{st['verify_steps']} (plain decode steps "
+            f"{plain['decode_steps']}), kernel launches {launches}; graphs = "
+            f"census {srv.census()}; {same} of {N_REQUESTS} outputs equal "
+            f"the plain server's token for token (near-ties may part: the "
+            f"verify step's kernel plan sums in another order)")
+        res[label] = {"launches": launches, "tokens_per_s": n_tok / dt,
+                      "accept_rate": rate, "same_as_plain": same,
+                      "verify_steps": st["verify_steps"]}
+    return res
+
+
+def serve_salvage_resume(torch, params, cfg, plain, root):
+    """Salvage and resume under captured steps, RESUME_REQUESTS of the
+    serve phase's requests (their plain tokens the reference): (a) one
+    decode step faulted mid-run, every request completes with the
+    reference tokens; then ``handoff_and_resume``, its journal in a
+    temporary directory under ``root``."""
+    from mxnet_tpu_torch import fault
+
+    prompts = plain["prompts"][:RESUME_REQUESTS]
+    ref = plain["outs"][:RESUME_REQUESTS]
+    n = RESUME_REQUESTS
+
+    srv = feature_server(torch, params, cfg, "ChipSmokeSalvage",
+                         n_requests=n, salvage_retries=1)
+
+    def faulted():
+        with fault.inject("generate.decode", RuntimeError("injected"),
+                          after_n=MAX_NEW // 2, times=1) as h:
+            out = run_requests(srv, prompts)
+        expect(h.fired == 1, "salvage: the fault did not fire")
+        return out
+
+    (outs, _), launches = count_launches(faulted)
+    st = srv.stats
+    expect(all(np.array_equal(a, b) for a, b in zip(outs, ref)),
+           "salvage: a salvaged request's tokens differ from the unfaulted "
+           "run's")
+    expect(st["salvage_retries"] >= 1 and st["resumes"] >= 1
+           and st["failed"] == 0, f"salvage: stats {st}")
+    log(f"salvage [captured, salvage_retries=1]: generate.decode faulted "
+        f"once mid-run; {st['salvage_retries']} seated sequences salvaged "
+        f"(one retry each), {st['tokens_salvaged']} tokens kept, "
+        f"{st['resumes']} resumes; all {n} requests complete with the "
+        f"unfaulted run's tokens; kernel launches {launches}")
+
+    # the journal lives in a temporary directory of the checkout
+    with tempfile.TemporaryDirectory(dir=root, prefix=".smoke-") as jdir:
+        handoff_and_resume(torch, params, cfg, prompts, ref,
+                           os.path.join(jdir, "journal.jsonl"))
+    return {"launches": launches}
+
+
+def handoff_and_resume(torch, params, cfg, prompts, ref, jpath):
+    """``drain(handoff=True)`` of a journaled server after about half
+    the tokens, then the exports resumed by a second server
+    (``submit_resume``) and the journal restored by a third: both
+    complete with ``ref``, the uninterrupted run's tokens."""
+    n = len(prompts)
+    first = feature_server(torch, params, cfg, "ChipSmokeHandoff",
+                           n_requests=n, journal=jpath, journal_every=8)
+    reqs = [first.submit(p) for p in prompts]
+    limit = time.monotonic() + 300
+    while first.stats["tokens_out"] < n * MAX_NEW // 2 \
+            and time.monotonic() < limit:
+        time.sleep(0.001)
+    expect(first.drain(60, handoff=True), "handoff drain did not finish")
+    done = [r for r in reqs if r.exception(timeout=5) is None]
+    exported = list(first.exported)
+    expect(len(done) + len(exported) == n and exported,
+           f"handoff: {len(done)} done + {len(exported)} exported != {n}")
+    expect(all(np.array_equal(r.result(0), ref[i]) for i, r in
+               enumerate(reqs) if r.exception(0) is None),
+           "handoff: a finished request's tokens differ")
+    for label, resume in (
+            ("submit_resume", lambda s: {x.rid: s.submit_resume(x)
+                                         for x in exported}),
+            ("restore_journal", lambda s: s.restore_journal(jpath))):
+        succ = feature_server(torch, params, cfg, f"ChipSmokeResume-{label}",
+                              n_requests=n)
+        try:
+            resumed = resume(succ)
+            got = {rid: r.result(timeout=600) for rid, r in resumed.items()}
+        finally:
+            expect(succ.drain(60), f"{label}: successor did not drain")
+        expect(sorted(got) == sorted(x.rid for x in exported),
+               f"{label}: resumed {sorted(got)}")
+        expect(all(np.array_equal(o, ref[rid]) for rid, o in got.items()),
+               f"{label}: a resumed request's tokens differ from the "
+               f"uninterrupted run's")
+        log(f"resume [{label}]: {len(got)} exported sequences (with "
+            f"{sum(len(x.out) for x in exported)} tokens generated before "
+            f"the drain) complete with the uninterrupted run's tokens")
 
 
 # ---------------------------------------------------------------- training --
@@ -1784,7 +2191,7 @@ def main():
     sys.path.insert(0, root)
     try:
         from mxnet_tpu_torch.gluon.model_zoo.causal_lm import (
-            CausalLMConfig, init_causal_lm)
+            CausalLMConfig, draft_config, init_causal_lm)
     except ImportError as exc:
         print(f"chip_smoke: the mxnet_tpu_torch package is not beside "
               f"this script ({exc})", file=sys.stderr)
@@ -1821,7 +2228,23 @@ def main():
                 f"{100 * prof_serve_eager[1]:.1f}%) = "
                 f"{served['tokens_per_s'] / served_eager['tokens_per_s']:.2f}"
                 f"x; the same tokens")
+        with phase("serving features"):
+            timing["verify"] = kernel_at_verify_shape(torch, rng)
+            paths = {"serve": served["launches"]}
+            paths["prefix"] = serve_prefix(torch, params, cfg)["launches"]
+            for label, r in serve_speculative(torch, params, cfg,
+                                              served).items():
+                paths[f"spec {label}"] = r["launches"]
+            small = draft_config(cfg)
+            profile_serving(torch, params, cfg, what="speculative, "
+                            "draft-1-layer", draft=init_causal_lm(
+                                small, torch.Generator().manual_seed(1),
+                                device="cuda"), draft_config=small,
+                            spec_k=SPEC_K, spec_window=SPEC_WINDOW)
+            paths["salvage"] = serve_salvage_resume(torch, params, cfg,
+                                                    served, root)["launches"]
             del params
+            torch.cuda.empty_cache()
         with phase("fused conv vs plain"):
             fused_vs_plain(torch)
         with phase("ResNet model check"):
@@ -1927,7 +2350,8 @@ def main():
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": None,
         "cases": {label: {k: c[k] for k in ("ms", "bound_ms", "plain_ms")}
-                  for label, c in timing.items()}}]}
+                  for label, c in timing.items()},
+        "launches_by_path": paths}]}
     for kern in FUSED:
         kname, t = f"fused_conv_{kern}", fused_times[kern]
         kernels["kernels"].append({

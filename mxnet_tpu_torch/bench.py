@@ -2,7 +2,7 @@
 
     python -m mxnet_tpu_torch.bench resnet           # on the card
     python -m mxnet_tpu_torch.bench bert [--model bert_24_1024_16]
-    python -m mxnet_tpu_torch.bench llm
+    python -m mxnet_tpu_torch.bench llm [--prefix]
     python -m mxnet_tpu_torch.bench llm --device cpu # plain versions, small
 
 The settings are those of the repo's ``bench.py`` (``bench_resnet``,
@@ -21,6 +21,13 @@ The settings are those of the repo's ``bench.py`` (``bench_resnet``,
 - ``llm``: a ``GenerationServer`` (vocab 4096, 4 layers, 8 heads x 64,
   d_ff 2048; 64 slots, 512 pages x 64, buckets (1, 2, 4) x (32, 64),
   64 new tokens) answering 256 greedy requests of 4-60 random tokens.
+  ``--prefix`` sends ``bench.py``'s ``MXTPU_BENCH_PREFIX=1`` traffic
+  instead: every prompt is one system prompt of 90% of ``2.5 x
+  page_size`` tokens (144 of 160 on the card) plus a random tail, so
+  prefix sharing carries the load; on the card the length buckets gain
+  192 so that 160-token prompts fit (bench.py keeps (32, 64), which
+  refuses them).  The line adds ``page_bytes_per_seq`` (pool bytes
+  charged per sequence), ``pages_shared_mapped`` and ``cow_faults``.
 
 On the CPU (``--device cpu``) it runs the plain versions at the sizes
 ``bench.py`` uses without an accelerator: batch 8 and 2 timed steps
@@ -176,10 +183,11 @@ def bench_bert(device="cuda", model="bert_12_768_12", iters=None):
                  last_loss=losses[-1])
 
 
-def bench_llm(device="cuda", config=None, n_requests=None):
+def bench_llm(device="cuda", config=None, n_requests=None, prefix=False):
     """Continuous-batching decode throughput of a ``GenerationServer``,
     generated tokens/s on one card.  ``config`` (a ``CausalLMConfig``)
-    and ``n_requests`` override bench_llm's (a small run in a test)."""
+    and ``n_requests`` override bench_llm's (a small run in a test);
+    ``prefix`` sends the shared-prefix traffic (the module's doc)."""
     from .gluon.model_zoo.causal_lm import CausalLMConfig, init_causal_lm
     from .serving import BucketSpec, GenerationServer
 
@@ -198,15 +206,29 @@ def bench_llm(device="cuda", config=None, n_requests=None):
                             device=device)
     if card:
         torch.cuda.reset_peak_memory_stats(device)
+    rng = np.random.RandomState(0)
+    lengths = (32, 64)
+    if prefix:
+        # one system prompt for every request: 90% of a fixed prompt
+        # length covering whole pages, the 10% tail random per request
+        plen = page_size * 5 // 2
+        shared = rng.randint(0, cfg.vocab_size,
+                             size=int(plen * 0.9)).astype(np.int32)
+        prompts = [np.concatenate([shared, rng.randint(
+            0, cfg.vocab_size, size=plen - len(shared)).astype(np.int32)])
+            for _ in range(n_requests)]
+        if plen > max(lengths):
+            lengths += (192,)
+    else:
+        prompts = [rng.randint(0, cfg.vocab_size,
+                               size=int(rng.randint(4, 60)))
+                   .astype(np.int32) for _ in range(n_requests)]
     srv = GenerationServer(
-        params, cfg, buckets=BucketSpec(batch=(1, 2, 4), length=(32, 64)),
+        params, cfg, buckets=BucketSpec(batch=(1, 2, 4), length=lengths),
         n_slots=n_slots, n_pages=n_pages, page_size=page_size,
         max_new_tokens=max_new, max_queue=n_requests, seed=0,
         device=device, name="PortBenchGen")
     srv.start()
-    rng = np.random.RandomState(0)
-    prompts = [rng.randint(0, cfg.vocab_size, size=int(rng.randint(4, 60)))
-               .astype(np.int32) for _ in range(n_requests)]
     try:
         t0 = time.perf_counter()
         reqs = [srv.submit(p) for p in prompts]
@@ -217,10 +239,20 @@ def bench_llm(device="cuda", config=None, n_requests=None):
         srv.drain(60)
     st = srv.stats
     tok_s = st["tokens_out"] / dt
+    extra = {}
+    if prefix:
+        page_bytes = (2 * cfg.n_layers * page_size * cfg.n_heads
+                      * cfg.head_dim * 4)
+        extra = {"prefix_shared_frac": 0.9,
+                 "page_bytes_per_seq": round(
+                     st["pages_charged"] * page_bytes
+                     / max(st["completed"], 1)),
+                 "pages_shared_mapped": st["pages_shared_mapped"],
+                 "cow_faults": st["cow_faults"]}
     return _line("llm", tok_s, "tokens/s", device,
                  sequences=st["completed"], preempted=st["preempted"],
                  decode_steps=st["decode_steps"], prefills=st["prefills"],
-                 graphs=srv.graph_count(), census=srv.census())
+                 graphs=srv.graph_count(), census=srv.census(), **extra)
 
 
 def main(argv=None, **overrides):
@@ -234,6 +266,8 @@ def main(argv=None, **overrides):
                     choices=sorted(BERT_MODELS), help="the BERT to run")
     ap.add_argument("--steps", type=int, default=None,
                     help="timed steps (default: bench.py's)")
+    ap.add_argument("--prefix", action="store_true",
+                    help="llm: bench.py's shared-prefix traffic")
     args = ap.parse_args(argv)
     for name in args.models:
         if name == "resnet":
@@ -241,7 +275,7 @@ def main(argv=None, **overrides):
         elif name == "bert":
             line = bench_bert(args.device, args.model, args.steps)
         else:
-            line = bench_llm(args.device, **overrides)
+            line = bench_llm(args.device, prefix=args.prefix, **overrides)
         print(json.dumps(line), flush=True)
     return 0
 

@@ -30,7 +30,7 @@ from ...ops.attention import multi_head_attention
 
 __all__ = ["CausalLMConfig", "init_causal_lm", "params_from_jax",
            "prefill_forward", "sequence_logits", "decode_hidden",
-           "lm_logits"]
+           "lm_logits", "draft_config", "window_logits", "verify_logits"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -175,6 +175,59 @@ def prefill_forward(params, config: CausalLMConfig, tokens, lengths):
     last = (lengths.to(h.device).long() - 1).clamp(0, L - 1)
     h_last = h[torch.arange(b, device=h.device), last]    # [b, d]
     return lm_logits(params, h_last), ks, vs
+
+
+def draft_config(config: CausalLMConfig, *, n_layers=1, n_heads=None,
+                 head_dim=None, d_ff=None) -> CausalLMConfig:
+    """The draft model's config for speculative decoding: the target's
+    family and vocabulary (the acceptance test compares distributions
+    over the same tokens, so the vocabulary is not a parameter), by
+    default one layer; the width arguments override the target's."""
+    return CausalLMConfig(
+        vocab_size=config.vocab_size,
+        n_layers=int(n_layers),
+        n_heads=config.n_heads if n_heads is None else int(n_heads),
+        head_dim=config.head_dim if head_dim is None else int(head_dim),
+        d_ff=config.d_ff if d_ff is None else int(d_ff))
+
+
+def window_logits(params, config: CausalLMConfig, tokens, n_valid):
+    """Next-token logits at the last position of a RIGHT-ALIGNED token
+    window ``tokens [S, W]`` whose ``n_valid [S]`` trailing entries are
+    valid: the draft's forward in the speculative verify step, with no
+    KV cache.  The ``W - n_valid`` leading positions are masked as keys
+    and the causal mask lies on top, so the last position attends to
+    exactly the valid suffix.  Returns ``[S, vocab]``."""
+    S, W = tokens.shape
+    heads = config.n_heads
+    h = params["embed"][tokens.long()]                    # [S, W, d]
+    mask = (torch.arange(W, device=h.device)[None, :]
+            >= (W - n_valid.to(h.device))[:, None]).to(
+                torch.float32)[:, None, None, :]
+    for layer in range(config.n_layers):
+        x = _ln(h, params["ln1_s"][layer], params["ln1_b"][layer])
+        qkv = x @ params["wqkv"][layer] + params["bqkv"][layer]
+        q, k, v = qkv.chunk(3, dim=-1)
+        ctx = multi_head_attention(q, k, v, mask=mask, heads=heads,
+                                   causal=True)
+        h = _layer_tail(params, layer, h, ctx)
+    return lm_logits(params, h[:, -1])
+
+
+def verify_logits(params, config: CausalLMConfig, tokens, attend):
+    """Next-token logits at EVERY position of a candidate block
+    ``tokens [S, K1]``: the target's forward in the speculative verify
+    step.  The ``S * K1`` lanes go through one ``decode_hidden`` pass
+    per layer; ``attend(layer, q, k, v) -> ctx`` is the caller's cache
+    hook over the flattened lanes (it writes the pools and masks each
+    lane causally by its attention length).  Returns
+    ``[S, K1, vocab]``."""
+    S, K1 = tokens.shape
+    h = params["embed"][tokens.long()].reshape(S * K1, -1)
+    for layer in range(config.n_layers):
+        h = decode_hidden(params, layer, h,
+                          lambda q, k, v, _l=layer: attend(_l, q, k, v))
+    return lm_logits(params, h).reshape(S, K1, -1)
 
 
 def sequence_logits(params, config: CausalLMConfig, tokens, lengths=None):

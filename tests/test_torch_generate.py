@@ -575,17 +575,45 @@ def test_server_rejects_unservable_prompts_and_drains():
 
 
 def test_decode_fault_fails_seated_requests_and_server_recovers():
+    """A failed decode step no longer fails its seated requests: with
+    the default salvage budget the sequence is requeued with its tokens
+    and completes with the unfaulted run's tokens (the JAX server's
+    salvage); with ``salvage_retries=0`` it fails terminally, the error
+    carrying the partial tokens and a resume snapshot.  Either way the
+    server keeps serving and the pool comes back whole."""
+    prompt = np.asarray([1, 2, 3], np.int32)
     srv = _small_server(max_new_tokens=3).start()
+    try:
+        want = srv.submit(prompt).result(timeout=60)
+        with tfault.inject("generate.decode", RuntimeError("boom"),
+                           times=1) as h:
+            got = srv.submit(prompt).result(timeout=60)
+        assert h.fired == 1
+        np.testing.assert_array_equal(got, want)
+        st = srv.stats
+        assert st["failed"] == 0 and st["salvage_retries"] == 1
+        assert st["resumes"] >= 1 and st["tokens_salvaged"] >= 1
+        assert srv.healthz()["last_error"]["type"] == "RuntimeError"
+    finally:
+        assert srv.drain(30)
+    assert srv.alloc.free_count() == srv.alloc.allocatable
+
+    srv = _small_server(max_new_tokens=3, salvage_retries=0).start()
     try:
         with tfault.inject("generate.decode", RuntimeError("boom"),
                            times=1):
-            r = srv.submit(np.asarray([1, 2, 3], np.int32))
-            with pytest.raises(RuntimeError, match="boom"):
+            r = srv.submit(prompt)
+            with pytest.raises(RuntimeError, match="boom") as info:
                 r.result(timeout=60)
+        err = info.value
+        assert "salvage budget" in str(err)
+        assert err.tokens_generated == len(err.partial_tokens) >= 1
+        assert err.partial_tokens == [int(t) for t in want[:1]]
+        assert err.snapshot.out == err.partial_tokens
+        assert err.snapshot.prompt == [1, 2, 3]
         ok = srv.submit(np.asarray([4, 5], np.int32)).result(timeout=60)
         assert len(ok) == 3
         assert srv.stats["failed"] == 1
-        assert srv.healthz()["last_error"]["type"] == "RuntimeError"
     finally:
         assert srv.drain(30)
     assert srv.alloc.free_count() == srv.alloc.allocatable
