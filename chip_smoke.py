@@ -3,9 +3,15 @@
 
     python3 chip_smoke.py
 
-Drives the port's three paths end to end on the first CUDA device, with
+Drives the port's four paths end to end on the first CUDA device, with
 random weights from a seed:
 
+- the imperative API: the Gluon MLP loop of
+  ``examples/train_mnist_mlp.py``'s ``_run`` (BASELINE config 1) on card
+  NDArrays at its width (784-128-64-10, Xavier, SGD 0.1, batch 256 of
+  MNIST-shaped ``RandomState`` data), ``nd.FusedNormReluConv`` at
+  ResNet-50's first-stage 3x3 and one ``gluon.Trainer`` step of
+  ResNet-50;
 - LLM serving at the width of ``bench.py llm`` on an accelerator (vocab
   4096, 4 layers, 8 heads x 64, d_ff 2048; 64 slots, 512 pages x 64
   tokens; buckets (1, 2, 4) x (32, 64); 64 new tokens; prompts of 4-60
@@ -27,7 +33,22 @@ Phases, each of which fails the run (each prints its wall time):
 1. card report (name, count, ``nvidia-smi`` name and power limit);
 2. build every CUDA kernel from the sources in the checkout (one
    ``nvcc`` per source, all started together);
-3. serving: the paged attention kernel against its plain version at
+3. imperative, (b) first (its backward is then the first CUDA work of
+   autograd's worker thread, as in a fresh user script): (a) the MLP
+   loop on card NDArrays — 5 steps held against the same steps on the
+   host from the same parameters (mean losses within 1e-4 relative),
+   then 2 warm-up and 50 timed steps (the loss falls), one step under
+   ``torch.profiler`` (busy share) and the host time of one ``nd.add``
+   dispatch on [256, 128] over 1000 calls; (b)
+   ``nd.FusedNormReluConv`` on [256, 56, 56, 64] -> 64, 3x3, bf16,
+   forward and ``backward()`` under ``record()``: one launch of each
+   fused kernel, counted from 0, and every output and gradient held
+   against the plain versions at phase 6's tolerances; (c) one
+   ``gluon.Trainer`` step against one ``TrainStep(capture=False)`` step
+   of fused ResNet-50, f32, batch 32, SGD 0.1 / 0.9 / 1e-4, from the
+   same parameters, every parameter held leaf by leaf as in 7 (the
+   floor: the Trainer step on the host CPU);
+4. serving: the paged attention kernel against its plain version at
    three cases — path (the serving config, 64 slots x 2 pages), long (64
    slots x 32 pages) and few-long (4 slots of ~16k tokens among 60 idle
    ones) — idle slots exactly zero, a second launch the same bits, one
@@ -44,7 +65,7 @@ Phases, each of which fails the run (each prints its wall time):
    the three cases beside its bound, with ptxas's counts, the wrapper's
    host time a call and the two-call library route for context; a
    shorter serve under ``torch.profiler``, captured and eager;
-4. serving features: the paged kernel at the speculative verify step's
+5. serving features: the paged kernel at the speculative verify step's
    shape (64 slots x 4 lanes, each slot's table repeated per lane, lane
    i over the slot's length + i + 1) against its plain version, then
    timed beside its bound; 256 requests of shared-prefix traffic (a
@@ -60,16 +81,16 @@ Phases, each of which fails the run (each prints its wall time):
    successor's ``submit_resume`` of the exports, and a journal restore
    on a fresh server (both token-exact).  Every server's graphs equal
    its census, and every path counts its kernel launches from 0;
-5. each fused-conv kernel (forward, dX, dW) against its plain version at
+6. each fused-conv kernel (forward, dX, dW) against its plain version at
    the eight ResNet-50 shapes (N = 8) and the other cases the op takes,
    in f32 and bf16, dX launched twice for the same bits;
-6. full-width ResNet-50 (f32, batch 8): forward and backward through
+7. full-width ResNet-50 (f32, batch 8): forward and backward through
    the kernels against the same through the plain versions on the
    card, from the same parameters — loss, every gradient, running
    statistics — leaf by leaf, within a multiple of the noise floor that
    the plain versions on the card show against the same net on the
    host CPU;
-7. the ResNet training run: warm-up and timed steps at batch 256
+8. the ResNet training run: warm-up and timed steps at batch 256
    through the captured step (loss finite and falling over the run,
    params finite, 32 launches of each kernel per step) and one step
    under ``torch.profiler``, then the same through the eager step
@@ -77,24 +98,24 @@ Phases, each of which fails the run (each prints its wall time):
    with cuDNN's deterministic algorithms, every loss and tensor the same
    bits; then ``fused=False`` (cuDNN convs) from the same parameters as
    the yardstick (the two first losses agree);
-8. each fused-conv kernel at the eight shapes at N = 256, bf16: held
+9. each fused-conv kernel at the eight shapes at N = 256, bf16: held
    against its plain version, then timed (CUDA events, L2 flushed)
    beside its bound, its plain version and the cuDNN call for the conv
    alone, with its achieved TFLOP/s; summed over a step's 32 launches;
    dX launched twice, its outputs (dscale, dshift among them) the same
    bits; before it, ``nvcc -Xptxas -v``'s registers and spills of the
    tensor-core kernels beside their shared memory;
-9. each flash-attention kernel (forward, dQ, dK/dV, the dropout seed
+10. each flash-attention kernel (forward, dQ, dK/dV, the dropout seed
    read from device memory) against its plain version summed in f64:
    BERT-base's shape at dropout 0 and 0.1,
    causal, S = 512, S = 200 causal (bf16 and f32), B*H = 37, D = 128,
    f32; in every bf16 case each backward kernel's error from the
    unrounded f64 sums within 2x the plain version's in f32, and a
    second launch giving the same bits;
-10. full-width BERT-base (f32, batch 8, dropout 0): forward and backward
+11. full-width BERT-base (f32, batch 8, dropout 0): forward and backward
    through the kernels against the plain versions on the card — loss,
-   the four outputs, every gradient — leaf by leaf, as in 6;
-11. the BERT training run: 2 warm-up and 10 timed steps through the
+   the four outputs, every gradient — leaf by leaf, as in 7;
+12. the BERT training run: 2 warm-up and 10 timed steps through the
     captured step (loss finite and falling, params finite, 12 launches
     of each flash kernel per step) and one step under
     ``torch.profiler``, then the same through the eager step from the
@@ -104,7 +125,7 @@ Phases, each of which fails the run (each prints its wall time):
     ``attention_impl="dense"`` from the same parameters as the
     yardstick (the first losses agree within 2%); tokens/s and peak
     memory of both;
-12. each flash kernel at BERT-base's shape, bf16, dropout 0.1, timed
+13. each flash kernel at BERT-base's shape, bf16, dropout 0.1, timed
     beside its bound, its plain version and
     ``scaled_dot_product_attention`` (forward; backward for dQ + dK/dV
     together), with its achieved TFLOP/s; summed over a step's 12
@@ -169,6 +190,17 @@ SOURCES = {"paged_decode_attention":
                             "flash_attention_dkv"),
                            "mxnet_tpu_torch/ops/cuda/flash_attention.cu")}
 
+# the imperative path: the Gluon MLP of examples/train_mnist_mlp.py
+# (BASELINE config 1) at its width, SGD 0.1, batch 256
+MLP_BATCH, MLP_WARMUP, MLP_TIMED, MLP_CHECK = 256, 2, 50, 5
+MLP_UNITS = (128, 64, 10)
+MLP_LOSS_RTOL = 1e-4             # card vs host, per step's mean loss
+DISPATCH_SHAPE, DISPATCH_CALLS = (256, 128), 1000
+# nd.FusedNormReluConv at ResNet-50's first-stage 3x3: N, H=W, Ci, Co
+IMPERATIVE_FUSED = (256, 56, 64, 64)
+# one gluon.Trainer step against one TrainStep step, resnet50_v1 f32
+IMPERATIVE_BATCH = 32
+SGD_KW = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}
 # ResNet-50 v1 training (bench.py bench_resnet's settings), on the card
 DEVICE = "cuda"
 TRAIN_BATCH, CHECK_BATCH, KERNEL_CHECK_BATCH = 256, 8, 8
@@ -1273,8 +1305,8 @@ def forward_backward(torch, net, x, y):
     with autograd.record():
         loss = gluon.loss.SoftmaxCrossEntropyLoss()(net(x), y).mean()
     grads = dict(zip(map(id, train), torch.autograd.grad(
-        loss, [p.data() for p in train])))
-    leaves = [loss.detach()] + [grads.get(id(p), p.data().detach())
+        loss, [p.tensor() for p in train])))
+    leaves = [loss.detach()] + [grads.get(id(p), p.tensor().detach())
                                 for p in params]
     return [t.double().cpu() for t in leaves]
 
@@ -1312,8 +1344,8 @@ def model_check(torch):
     host = build_resnet50(torch, fused=True, device="cpu")
     params = list(fused.collect_params().items())
     for (_, p), q in zip(params, host.collect_params().values()):
-        q.set_data(p.data().detach().cpu())
-    start = {n: p.data().detach().clone() for n, p in params
+        q.set_data(p.tensor().detach().cpu())
+    start = {n: p.tensor().detach().clone() for n, p in params
              if p.grad_req == "null"}
     rng = np.random.RandomState(1)
     x = torch.from_numpy(rng.randn(CHECK_BATCH, 224, 224, 3)
@@ -1393,7 +1425,8 @@ def training_nets(torch):
     fused = build_resnet50(torch, fused=True)
     plain = build_resnet50(torch, fused=False)
     for f, u, perm in fused_pairs(fused, plain):
-        u.set_data(f.data() if perm is None else f.data().permute(3, 0, 1, 2))
+        u.set_data(f.tensor() if perm is None
+                   else f.tensor().permute(3, 0, 1, 2))
     return fused.cast("bfloat16"), plain.cast("bfloat16")
 
 
@@ -1894,7 +1927,7 @@ def copy_params(src, dst):
     """``dst``'s parameters set to ``src``'s, by name without prefix."""
     from mxnet_tpu_torch.gluon.model_zoo.bert import params_from_jax
 
-    params_from_jax(dst, {k: p.data().detach().cpu().float().numpy()
+    params_from_jax(dst, {k: p.tensor().detach().cpu().float().numpy()
                           for k, p in src.collect_params().items()})
 
 
@@ -1937,7 +1970,7 @@ def bert_leaves(torch, net, data, labels):
     with autograd.record():
         out = net(*data)
         loss = bert_loss_fn()(out, labels)
-    grads = torch.autograd.grad(loss, [p.data() for p in params])
+    grads = torch.autograd.grad(loss, [p.tensor() for p in params])
     return [t.detach().double().cpu() for t in (loss, *out, *grads)]
 
 
@@ -2164,6 +2197,241 @@ def time_flash(torch, path_err):
     return res
 
 
+# -------------------------------------------------------------- imperative --
+def mlp_data(n_batches, batch):
+    """MNIST-shaped batches with learnable labels: each image is its
+    class's random prototype plus noise, in [0, 1], (N, 1, 28, 28)."""
+    rng = np.random.RandomState(0)
+    protos = rng.rand(10, 784).astype(np.float32)
+    labels = rng.randint(0, 10, n_batches * batch).astype(np.int32)
+    x = 0.6 * protos[labels] + 0.4 * rng.rand(n_batches * batch, 784)
+    return x.astype(np.float32).reshape(-1, 1, 28, 28), labels
+
+
+def mlp_batches(mx, x, y, ctx):
+    """``(data, label)`` NDArrays of MLP_BATCH rows on ``ctx``, sliced
+    from one copy of the whole set."""
+    xd, yd = mx.nd.array(x, ctx=ctx), mx.nd.array(y, ctx=ctx, dtype="int32")
+    return [(xd[i:i + MLP_BATCH], yd[i:i + MLP_BATCH])
+            for i in range(0, len(y), MLP_BATCH)]
+
+
+def mlp_net(mx, ctx, start=None):
+    """The example's net, made and initialised as ``_run`` makes it
+    (Xavier) inside ``with ctx:``, sized by a forward; its parameters
+    set from ``start`` if given."""
+    with ctx:
+        net = mx.gluon.nn.HybridSequential()
+        net.add(mx.gluon.nn.Dense(MLP_UNITS[0], activation="relu"),
+                mx.gluon.nn.Dense(MLP_UNITS[1], activation="relu"),
+                mx.gluon.nn.Dense(MLP_UNITS[2]))
+        net.initialize(mx.init.Xavier())
+        net(mx.nd.zeros((1, 784)))
+    params = list(net.collect_params().values())
+    for p, v in zip(params, start or ()):
+        p.set_data(v)
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                               {"learning_rate": 0.1})
+    return net, trainer, params
+
+
+def mlp_steps(mx, net, trainer, batches):
+    """The training loop of examples/train_mnist_mlp.py's ``_run``, as
+    written there; returns each step's loss (NDArrays, not read)."""
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    metric = mx.metric.Accuracy()
+    losses = []
+    for data, label in batches:
+        data = data.reshape((data.shape[0], -1))
+        with mx.autograd.record():
+            out = net(data)
+            loss = loss_fn(out, label)
+        loss.backward()
+        trainer.step(data.shape[0])
+        metric.update([label], [out])
+        losses.append(loss)
+    return losses, metric.get()[1]
+
+
+def imperative_mlp(torch):
+    """(a) The MLP loop on card NDArrays: MLP_CHECK steps held against
+    the same steps on the host from the same parameters, then
+    MLP_WARMUP + MLP_TIMED steps timed (the loss must fall), one step
+    under the profiler, and the host time of an ``nd`` dispatch."""
+    import mxnet_tpu_torch as mx
+
+    card, host = mx.gpu(0), mx.cpu()
+    mx.random.seed(0)
+    x, y = mlp_data(MLP_WARMUP + MLP_TIMED + 1, MLP_BATCH)
+    batches = mlp_batches(mx, x, y, card)
+    net, trainer, params = mlp_net(mx, card)
+    start = [p.data().asnumpy() for p in params]
+    on_card = [float(v.mean().asscalar()) for v in
+               mlp_steps(mx, net, trainer, batches[:MLP_CHECK])[0]]
+    hnet, htrainer, _ = mlp_net(mx, host, start)
+    on_host = [float(v.mean().asscalar()) for v in
+               mlp_steps(mx, hnet, htrainer,
+                         mlp_batches(mx, x[:MLP_CHECK * MLP_BATCH],
+                                     y[:MLP_CHECK * MLP_BATCH], host))[0]]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(on_card, on_host))
+    log(f"imperative MLP: {MLP_CHECK} steps, mean loss card {on_card} vs "
+        f"host {on_host}, max relative difference {rel:.3e}")
+    expect(rel <= MLP_LOSS_RTOL, f"imperative MLP: card and host losses "
+           f"differ by {rel:.3e} relative (limit {MLP_LOSS_RTOL})")
+
+    net, trainer, params = mlp_net(mx, card, start)
+    mlp_steps(mx, net, trainer, batches[:MLP_WARMUP])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses, acc = mlp_steps(mx, net, trainer,
+                            batches[MLP_WARMUP:MLP_WARMUP + MLP_TIMED])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / MLP_TIMED
+    means = [float(v.mean().asscalar()) for v in losses]
+    expect(all(np.isfinite(means)) and
+           np.mean(means[-5:]) < np.mean(means[:5]),
+           f"imperative MLP: the loss did not fall ({means[:5]} ... "
+           f"{means[-5:]})")
+    expect(all(bool(torch.isfinite(p.tensor()).all()) for p in params),
+           "imperative MLP: a parameter is not finite")
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        mlp_steps(mx, net, trainer, batches[-1:])
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t1) * 1e6
+    busy = print_profile(prof, wall_us, f"imperative MLP step, batch "
+                         f"{MLP_BATCH}")
+
+    a = mx.nd.ones(DISPATCH_SHAPE, ctx=card)
+    for _ in range(10):
+        mx.nd.add(a, a)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    for _ in range(DISPATCH_CALLS):
+        mx.nd.add(a, a)
+    dispatch_us = (time.perf_counter() - t2) * 1e6 / DISPATCH_CALLS
+    torch.cuda.synchronize()
+    log(f"imperative MLP (784-{'-'.join(map(str, MLP_UNITS))}, batch "
+        f"{MLP_BATCH}, SGD 0.1): {ms:.3f} ms/step = "
+        f"{MLP_BATCH * 1e3 / ms:.1f} samples/s over {MLP_TIMED} steps, "
+        f"loss {np.mean(means[:5]):.4f} -> {np.mean(means[-5:]):.4f}, "
+        f"train accuracy {acc:.4f}; device busy {100 * busy:.1f}% of a "
+        f"profiled step; nd.add on {list(DISPATCH_SHAPE)}: "
+        f"{dispatch_us:.2f} host us a dispatch ({DISPATCH_CALLS} calls)")
+    return {"ms_step": ms, "busy": busy, "dispatch_us": dispatch_us}
+
+
+def imperative_fused(torch):
+    """(b) ``nd.FusedNormReluConv`` at IMPERATIVE_FUSED, bf16, forward
+    and backward under ``record()`` on card NDArrays: one launch of each
+    kernel, counted from 0, then every output and gradient held against
+    the same op through the plain versions on the card."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import fused_conv as fc
+
+    n, hw, ci, co = IMPERATIVE_FUSED
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=DEVICE)
+
+    x = randn(n, hw, hw, ci).bfloat16()
+    w = (randn(3, 3, ci, co) * (2.0 / (9 * ci)) ** 0.5).bfloat16()
+    gamma = torch.rand(ci, generator=gen, device=DEVICE) + 0.5
+    beta = 0.1 * randn(ci)
+    do = randn(n, hw, hw, co).bfloat16()
+
+    def run():
+        args = [mx.nd.NDArray(t.clone()) for t in (x, w, gamma, beta)]
+        for a in args:
+            a.attach_grad()
+        stats = [mx.nd.zeros((ci,), ctx=mx.gpu(0)),
+                 mx.nd.ones((ci,), ctx=mx.gpu(0))]
+        with mx.autograd.record():
+            out, new_mm, new_mv = mx.nd.FusedNormReluConv(*args, *stats)
+        out.backward(mx.nd.NDArray(do))
+        return [t._data.detach() for t in (out, new_mm, new_mv)] + \
+            [a.grad._data for a in args]
+
+    fc.norm_relu_conv.launches = dict.fromkeys(FUSED, 0)
+    got = run()
+    torch.cuda.synchronize()
+    launches = dict(fc.norm_relu_conv.launches)
+    expect(launches == dict.fromkeys(FUSED, 1),
+           f"nd.FusedNormReluConv launched {launches}, expected one of "
+           f"each kernel")
+    with plain_versions(fc):
+        want = run()
+    expect(fc.norm_relu_conv.launches == launches,
+           "nd.FusedNormReluConv: the plain route launched kernels")
+    names = ("out", "new moving mean", "new moving var", "dx", "dw",
+             "dgamma", "dbeta")
+    what = f"nd.FusedNormReluConv {list(x.shape)} -> {co}, 3x3, bf16"
+    err = {nm: check_outputs(torch, what, nm, [g], [p])
+           for nm, g, p in zip(names, got, want)}
+    log(f"imperative fused [{what}]: launches {launches}; max abs err vs "
+        f"the plain versions " + ", ".join(f"{k} {v:.3e}"
+                                           for k, v in err.items()))
+    return launches
+
+
+def imperative_trainer_vs_step(torch):
+    """(c) One ``gluon.Trainer`` step (NDArrays, ``record``,
+    ``backward``, ``step``) against one ``TrainStep(capture=False)`` step
+    of fused resnet50_v1, f32, batch IMPERATIVE_BATCH, SGD_KW, from the
+    same parameters: every parameter after the step held leaf by leaf
+    against the noise floor of the Trainer step on the host CPU."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import optimizer, parallel
+    from mxnet_tpu_torch.ops import fused_conv as fc
+
+    net = build_resnet50(torch, fused=True)
+    host = build_resnet50(torch, fused=True, device="cpu")
+    params = list(net.collect_params().items())
+    for (_, p), q in zip(params, host.collect_params().values()):
+        q.set_data(p.tensor().detach().cpu())
+    start = [p.tensor().detach().clone() for _, p in params]
+    rng = np.random.RandomState(4)
+    x = rng.randn(IMPERATIVE_BATCH, 224, 224, 3).astype(np.float32)
+    y = rng.randint(0, 1000, IMPERATIVE_BATCH).astype(np.int32)
+
+    def trainer_step(block, ctx):
+        trainer = mx.gluon.Trainer(block.collect_params(), "sgd",
+                                   dict(SGD_KW))
+        xd = mx.nd.array(x, ctx=ctx)
+        yd = mx.nd.array(y, ctx=ctx, dtype="int32")
+        with mx.autograd.record():
+            loss = mx.gluon.loss.SoftmaxCrossEntropyLoss()(block(xd), yd)
+        loss.backward()
+        trainer.step(IMPERATIVE_BATCH)
+        return [p.tensor().detach().double().cpu()
+                for p in block.collect_params().values()]
+
+    fc.norm_relu_conv.launches = dict.fromkeys(FUSED, 0)
+    via_trainer = trainer_step(net, mx.gpu(0))
+    launches = dict(fc.norm_relu_conv.launches)
+    expect(launches == dict.fromkeys(FUSED, FUSED_PER_STEP),
+           f"Trainer step: kernel launches {launches}, expected "
+           f"{FUSED_PER_STEP} each")
+    for (_, p), v in zip(params, start):
+        p.set_data(v)
+    step = parallel.TrainStep(
+        net, mx.gluon.loss.SoftmaxCrossEntropyLoss(),
+        optimizer.create("sgd", **SGD_KW), capture=False)
+    step(torch.from_numpy(x), torch.from_numpy(y))
+    step.sync_params_to_net()
+    via_step = [p.tensor().detach().double().cpu() for _, p in params]
+    on_host = trainer_step(host, mx.cpu())
+    kinds = [(n, "parameter" if p.grad_req != "null"
+              else "running statistic") for n, p in params]
+    hold_leaves(torch, kinds, via_trainer, via_step, on_host,
+                f"Trainer vs TrainStep, resnet50_v1 f32, batch "
+                f"{IMPERATIVE_BATCH}")
+    return launches
+
+
 class phase:
     """Print a phase's wall time on its own line when it ends."""
 
@@ -2201,6 +2469,14 @@ def main():
         name, count, smi_line = card_report(torch)
         with phase("build"):
             build_kernels()
+        with phase("imperative"):
+            # first: its backward is the first CUDA work of autograd's
+            # worker thread, as in a fresh user script
+            imperative = {"imperative nd": imperative_fused(torch)}
+            imperative_mlp(torch)
+            imperative["imperative Trainer"] = imperative_trainer_vs_step(
+                torch)
+            torch.cuda.empty_cache()
         with phase("serving"):
             rng = np.random.default_rng(0)
             max_err = kernel_vs_plain(torch, rng)
@@ -2360,7 +2636,10 @@ def main():
             "launches": trained["launches"][kern],
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "launches_by_path": {"train": trained["launches"][kern],
+                                 **{k: v[kern]
+                                    for k, v in imperative.items()}}})
     for kern in FLASH:
         kname, t = f"flash_attention_{kern}", flash_times[kern]
         kernels["kernels"].append({

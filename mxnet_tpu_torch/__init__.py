@@ -24,18 +24,35 @@ Ported so far:
 - BERT pretraining — ``gluon.model_zoo.bert.BERTModel`` with
   ``BERTPretrainLoss`` through ``parallel.TrainStep`` with LAMB, with the
   flash-attention forward, dQ and dK/dV kernels
-  (``ops.flash_attention``) when built with ``attention_impl="flash"``.
+  (``ops.flash_attention``) when built with ``attention_impl="flash"``;
+- the imperative API — ``nd`` arrays (``ndarray.NDArray`` over a
+  ``torch.Tensor``) and the registered ops (``ops.registry.OPS``,
+  generated into ``nd``), ``autograd`` on NDArrays, the optimizers and
+  ``gluon.Trainer``: the Gluon MLP loop of
+  ``examples/train_mnist_mlp.py`` runs as written, with ``import
+  mxnet_tpu_torch as mx``.  ``nd.FusedNormReluConv`` on card arrays
+  reaches the fused-conv kernels.
 
 On the card every step — ``parallel.TrainStep``, ``parallel.EvalStep``
 and the server's prefill and decode steps — runs as a captured CUDA
 graph (``graphs``), the counterpart of the JAX package's compiled
 programs; ``python -m mxnet_tpu_torch.bench {resnet,bert,llm}`` prints
 ``bench.py``'s line for each slice.
-"""
-from . import (autograd, context, gluon, initializer, lr_scheduler,
-               optimizer, parallel, random)
-from .context import cpu, current_context, gpu, resolve_device
 
-__all__ = ["autograd", "context", "gluon", "initializer", "lr_scheduler",
-           "optimizer", "parallel", "random", "cpu", "gpu",
-           "current_context", "resolve_device"]
+Exports: ``nd`` (``ndarray``), ``autograd``, ``engine``, ``gluon``,
+``init`` (``initializer``), ``metric``, ``optimizer``, ``parallel``,
+``random``, ``Context``/``cpu``/``gpu``/``current_context``,
+``num_gpus`` and ``gpu_memory_info``.
+"""
+from . import (autograd, context, engine, gluon, initializer, lr_scheduler,
+               metric, ndarray, optimizer, parallel, random)
+from .context import (Context, cpu, current_context, gpu, gpu_memory_info,
+                      num_gpus, resolve_device)
+
+nd = ndarray
+init = initializer
+
+__all__ = ["autograd", "context", "engine", "gluon", "initializer", "init",
+           "lr_scheduler", "metric", "nd", "ndarray", "optimizer",
+           "parallel", "random", "Context", "cpu", "gpu", "current_context",
+           "num_gpus", "gpu_memory_info", "resolve_device"]

@@ -1,56 +1,163 @@
-"""Device resolution for the PyTorch/CUDA port.
+"""Device contexts for the PyTorch/CUDA port (the port of
+``mxnet_tpu/context.py``).
 
-Every entry point of the port takes a ``device`` (or, in the Gluon API,
-``ctx``) argument whose default is the card.  It runs on the card unless
-the caller asks for the CPU; when no card is present and the caller did
-not ask for ``"cpu"``, it raises — it never carries on silently on the
-host.  ``cpu()``/``gpu(i)``/``current_context()`` are the JAX package's
-context names; a context here is a ``torch.device``.
+A ``Context`` names a device, ``'gpu'`` (a CUDA card) or ``'cpu'``, and
+is a scope: ``with mx.cpu():`` makes the host the default context of
+the code inside it.  Every entry point of the port takes a ``device``
+(or, in the Gluon and ``nd`` API, ``ctx``) argument whose default is
+the current context, which outside any scope is the card.  Without a
+card, and without a ``cpu`` context asked for, it raises: it never
+carries on silently on the host (the JAX package's ``current_context``
+falls back to the CPU; the port does not).
 """
 from __future__ import annotations
 
+import threading
+
 import torch
 
-__all__ = ["resolve_device", "cpu", "gpu", "current_context"]
+__all__ = ["Context", "resolve_device", "cpu", "gpu", "current_context",
+           "num_gpus", "gpu_memory_info"]
+
+_tls = threading.local()
+
+
+def _card(device, index):
+    """The CUDA device ``index`` (None: the current one); raises without
+    a card.  On the card path float32 matrix products are pinned to full
+    float32 (no TF32), matching the JAX reference's float32 arithmetic."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device!r} requested but no CUDA device is available "
+            f"— pass device='cpu' (ctx=mx.cpu()) to run the plain PyTorch "
+            f"path")
+    if index is None:
+        index = torch.cuda.current_device()
+    if index >= torch.cuda.device_count():
+        raise RuntimeError(f"device {device!r}: only "
+                           f"{torch.cuda.device_count()} CUDA devices")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda", index)
+
+
+class Context:
+    """A device, ``Context('gpu', i)`` or ``Context('cpu')``; also a
+    scope that makes it the default context.  A ``gpu`` context checks
+    for the card when it is made.  It compares equal to the
+    ``torch.device`` it names."""
+
+    devtype2str = {1: "cpu", 2: "gpu"}
+    devstr2type = {v: k for k, v in devtype2str.items()}
+
+    def __init__(self, device_type, device_id: int = 0):
+        if isinstance(device_type, Context):
+            device_type, device_id = (device_type.device_type,
+                                      device_type.device_id)
+        elif isinstance(device_type, torch.device):
+            device_type, device_id = ("gpu" if device_type.type == "cuda"
+                                      else "cpu", device_type.index or 0)
+        if device_type not in self.devstr2type:
+            raise ValueError(f"unknown device type {device_type!r}: the "
+                             f"port runs on 'gpu' or, when asked, 'cpu'")
+        self.device_type = device_type
+        self.device_id = int(device_id)
+        self.device = (_card(f"gpu({self.device_id})", self.device_id)
+                       if device_type == "gpu" else torch.device("cpu"))
+
+    def __eq__(self, other):
+        if isinstance(other, torch.device):
+            return self.device == other
+        return (isinstance(other, Context)
+                and self.device_type == other.device_type
+                and self.device_id == other.device_id)
+
+    def __hash__(self):
+        return hash((self.device_type, self.device_id))
+
+    def __repr__(self):
+        return f"{self.device_type}({self.device_id})"
+
+    def __enter__(self):
+        stack = getattr(_tls, "stack", None)
+        if stack is None:
+            stack = _tls.stack = []
+        stack.append(self)
+        return self
+
+    def __exit__(self, *exc):
+        _tls.stack.pop()
+
+    def empty_cache(self):
+        """Return the card's cached, unused blocks to the driver."""
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+
+    def memory_info(self):
+        """The allocator's statistics of this device
+        (``torch.cuda.memory_stats``: ``allocated_bytes.all.current``,
+        ``reserved_bytes.all.peak``, ...); empty on the host."""
+        if self.device.type != "cuda":
+            return {}
+        return dict(torch.cuda.memory_stats(self.device))
+
+    @classmethod
+    def default_ctx(cls):
+        return current_context()
+
+
+def cpu(device_id=0) -> Context:
+    """The host (``device_id`` is accepted for API parity)."""
+    return Context("cpu", device_id)
+
+
+def gpu(device_id=0) -> Context:
+    """CUDA card ``device_id``; raises when there is none."""
+    return Context("gpu", device_id)
+
+
+def current_context() -> Context:
+    """The innermost ``with ctx:`` scope's context, else the current
+    CUDA card (raises without one)."""
+    stack = getattr(_tls, "stack", None)
+    if stack:
+        return stack[-1]
+    return Context("gpu", _card("gpu", None).index)
+
+
+_DEVICE_CTX = {}
+
+
+def context_of(device: torch.device) -> Context:
+    """The ``Context`` of a tensor's device (memoised: NDArray asks for
+    it on every ``.context``)."""
+    ctx = _DEVICE_CTX.get(device)
+    if ctx is None:
+        ctx = _DEVICE_CTX[device] = Context(device)
+    return ctx
+
+
+def num_gpus() -> int:
+    return torch.cuda.device_count() if torch.cuda.is_available() else 0
+
+
+def gpu_memory_info(device_id=0):
+    """``(free, total)`` bytes of CUDA card ``device_id``."""
+    return torch.cuda.mem_get_info(gpu(device_id).device)
 
 
 def resolve_device(device="cuda"):
-    """``"cuda"``/``"cuda:i"``/``"cpu"``/``torch.device`` → a
-    ``torch.device``.  A CUDA device needs a card: without one this
-    raises ``RuntimeError``.  On the card path float32 matrix products
-    are pinned to full float32 (no TF32), matching the JAX reference's
-    float32 arithmetic."""
+    """A ``torch.device`` from ``"cuda"``/``"cuda:i"``/``"cpu"``, a
+    ``torch.device``, a ``Context``, or None (the current context).  A
+    CUDA device needs a card: without one this raises ``RuntimeError``."""
+    if device is None:
+        return current_context().device
+    if isinstance(device, Context):
+        return device.device
     dev = torch.device(device)
     if dev.type == "cpu":
         return dev
     if dev.type != "cuda":
         raise ValueError(f"device {device!r}: the port runs on 'cuda' "
                          f"or, when asked, 'cpu'")
-    if not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {device!r} requested but no CUDA device is available "
-            f"— pass device='cpu' to run the plain PyTorch path")
-    if dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
-    if dev.index >= torch.cuda.device_count():
-        raise RuntimeError(f"device {device!r}: only "
-                           f"{torch.cuda.device_count()} CUDA devices")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    return dev
-
-
-
-def cpu(device_id=0):
-    """The host (``device_id`` is accepted for API parity)."""
-    return torch.device("cpu")
-
-
-def gpu(device_id=0):
-    """CUDA card ``device_id``; raises when there is none."""
-    return resolve_device(f"cuda:{int(device_id)}")
-
-
-def current_context():
-    """The default context: the current CUDA card (raises without one)."""
-    return resolve_device("cuda")
+    return _card(device, dev.index)

@@ -1,8 +1,10 @@
-"""Gluon API of the port: blocks, parameters, layers, losses and the
-model zoo."""
-from . import loss, model_zoo, nn
-from .block import Block, HybridBlock
+"""Gluon API of the port: blocks, parameters, layers, losses, the
+trainer, utilities and the model zoo."""
+from . import loss, model_zoo, nn, utils
+from .block import Block, HybridBlock, params_from_jax
 from .parameter import DeferredInitializationError, Parameter, ParameterDict
+from .trainer import Trainer
 
 __all__ = ["Block", "HybridBlock", "Parameter", "ParameterDict",
-           "DeferredInitializationError", "loss", "model_zoo", "nn"]
+           "DeferredInitializationError", "Trainer", "params_from_jax",
+           "loss", "model_zoo", "nn", "utils"]

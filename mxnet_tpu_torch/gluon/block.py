@@ -12,7 +12,15 @@ shape is still a wildcard is sized by the layer's ``infer_shape`` at
 the first forward.
 
 Calling a block builds the autograd graph only inside
-``autograd.record()``, as in the JAX package.
+``autograd.record()``, as in the JAX package.  A block takes tensors or
+NDArrays: NDArray inputs are unwrapped, and the outputs come back as
+NDArrays only when NDArrays went in, so the training steps, the
+captured graphs and the server keep passing tensors.
+
+``save_parameters``/``load_parameters`` use structural names
+(``0.weight``, ``features.3.body.1.gamma``) in ``nd.save``'s container,
+so a file written by either package loads in the other;
+``params_from_jax`` copies a JAX block's parameters in by full name.
 
 ``hybridize()`` is accepted and does nothing here: the blocks always run
 eagerly.  The captured-graph counterpart (a CUDA graph of the step) is
@@ -26,9 +34,10 @@ import torch
 
 from .. import autograd as _autograd
 from .. import ops as _ops
+from ..ndarray.ndarray import NDArray, _wrap_all
 from .parameter import DeferredInitializationError, Parameter, ParameterDict
 
-__all__ = ["Block", "HybridBlock"]
+__all__ = ["Block", "HybridBlock", "params_from_jax"]
 
 _naming = threading.local()
 
@@ -137,8 +146,53 @@ class Block(torch.nn.Module):
                 c.hybridize(active, **kwargs)
 
     def __call__(self, *args):
+        wrap = any(isinstance(a, NDArray) for a in args)
+        if wrap:
+            args = tuple(a._data if isinstance(a, NDArray) else a
+                         for a in args)
         with torch.set_grad_enabled(_autograd.is_recording()):
-            return super().__call__(*args)
+            out = super().__call__(*args)
+        return _wrap_all(out) if wrap else out
+
+    # ---------------------------------------------------------------- save --
+    def _collect_params_with_prefix(self, prefix=""):
+        """Parameters by structural name (``features.0.weight``),
+        independent of the name scopes."""
+        if prefix:
+            prefix += "."
+        ret = {prefix + k: v for k, v in self._reg_params.items()}
+        for name, child in self._children.items():
+            if child is not None:
+                ret.update(child._collect_params_with_prefix(prefix + name))
+        return ret
+
+    def save_parameters(self, filename, deduplicate=False):
+        """Every parameter by structural name, in ``nd.save``'s
+        container."""
+        from .. import ndarray as nd
+        nd.save(filename, {k: p.data() for k, p in
+                           self._collect_params_with_prefix().items()})
+
+    def load_parameters(self, filename, ctx=None, allow_missing=False,
+                        ignore_extra=False, cast_dtype=False,
+                        dtype_source="current"):
+        """Set parameters from a ``save_parameters`` file (either
+        package's); values are cast to each parameter's dtype."""
+        from .. import ndarray as nd
+        loaded = nd.load(filename, ctx="cpu")
+        by_key = self._collect_params_with_prefix()
+        for key, p in by_key.items():
+            if key in loaded:
+                if p._nd is None:
+                    p.initialize(ctx=ctx)
+                p.set_data(loaded[key])
+            elif not allow_missing:
+                raise ValueError(f"missing parameter '{key}' in {filename}")
+        if not ignore_extra:
+            extra = set(loaded) - set(by_key)
+            if extra:
+                raise ValueError(f"extra parameters in {filename}: "
+                                 f"{sorted(extra)}")
 
     def forward(self, *args):
         raise NotImplementedError
@@ -164,11 +218,33 @@ class HybridBlock(Block):
 
     def forward(self, x, *args):
         try:
-            params = {k: p.data() for k, p in self._reg_params.items()}
+            params = {k: p.tensor() for k, p in self._reg_params.items()}
         except DeferredInitializationError:
             self._ensure_init(x, *args)
-            params = {k: p.data() for k, p in self._reg_params.items()}
+            params = {k: p.tensor() for k, p in self._reg_params.items()}
         return self.hybrid_forward(_ops, x, *args, **params)
 
     def hybrid_forward(self, F, x, *args, **kwargs):
         raise NotImplementedError
+
+
+def params_from_jax(block, arrays):
+    """Copy a JAX block's parameters into ``block``: ``arrays`` maps the
+    JAX block's ``collect_params()`` names to numpy arrays, and must
+    hold exactly this block's names (build both blocks with the same
+    ``prefix``).  Values are cast to each parameter's dtype and device;
+    a deferred parameter takes the array's shape."""
+    params = block.collect_params()
+    if set(params.keys()) != set(arrays):
+        raise ValueError(
+            f"parameter names differ: only in the port "
+            f"{sorted(set(params.keys()) - set(arrays))}, only in the JAX "
+            f"block {sorted(set(arrays) - set(params.keys()))}")
+    for name, p in params.items():
+        value = arrays[name]
+        known = p.shape or ()
+        if len(known) != value.ndim or any(
+                s not in (0, v) for s, v in zip(known, value.shape)):
+            raise ValueError(f"shape of {name}: port {p.shape}, JAX "
+                             f"{tuple(value.shape)}")
+        p.set_data(value)

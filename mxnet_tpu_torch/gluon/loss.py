@@ -1,15 +1,38 @@
-"""Gluon losses (the port of ``mxnet_tpu/gluon/loss.py``'s ``Loss`` and
-``SoftmaxCrossEntropyLoss``)."""
+"""Gluon losses (the port of ``mxnet_tpu/gluon/loss.py``).
+
+Each loss is a ``HybridBlock`` over the registered ops (``F``), written
+as the JAX package writes it; ``forward`` returns the loss per sample
+(the mean over the other axes), weighted by ``weight`` and
+``sample_weight``.  ``CTCLoss`` comes with the LSTM slice.
+"""
 from __future__ import annotations
+
+import numpy as np
 
 from .block import HybridBlock
 
-__all__ = ["Loss", "SoftmaxCrossEntropyLoss", "SoftmaxCELoss"]
+__all__ = ["Loss", "L2Loss", "L1Loss", "SoftmaxCrossEntropyLoss",
+           "SoftmaxCELoss", "SigmoidBinaryCrossEntropyLoss", "SigmoidBCELoss",
+           "KLDivLoss", "HuberLoss", "HingeLoss", "SquaredHingeLoss",
+           "LogisticLoss", "TripletLoss", "CosineEmbeddingLoss",
+           "PoissonNLLLoss"]
+
+
+def _apply_weighting(F, loss, weight=None, sample_weight=None):
+    if sample_weight is not None:
+        loss = F.broadcast_mul(loss, sample_weight)
+    if weight is not None:
+        loss = loss * weight
+    return loss
+
+
+def _mean_rest(F, loss, batch_axis):
+    axes = tuple(i for i in range(loss.ndim) if i != batch_axis)
+    return F.mean(loss, axis=axes) if axes else loss
 
 
 class Loss(HybridBlock):
-    """Base loss: a scalar weight and the batch axis; ``forward`` returns
-    the per-sample loss (the mean over the other axes)."""
+    """Base loss: a scalar weight and the batch axis."""
 
     def __init__(self, weight, batch_axis, **kwargs):
         super().__init__(**kwargs)
@@ -19,13 +42,35 @@ class Loss(HybridBlock):
     def infer_shape(self, *args):
         pass
 
-    def _per_sample(self, loss, sample_weight):
-        if sample_weight is not None:
-            loss = loss * sample_weight
-        if self._weight is not None:
-            loss = loss * self._weight
-        axes = tuple(i for i in range(loss.dim()) if i != self._batch_axis)
-        return loss.mean(dim=axes) if axes else loss
+    def __repr__(self):
+        return (f"{type(self).__name__}(batch_axis={self._batch_axis}, "
+                f"w={self._weight})")
+
+
+class L2Loss(Loss):
+    """``weight / 2 * (pred - label)^2``."""
+
+    def __init__(self, weight=1.0, batch_axis=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        label = F.reshape_like(label, pred)
+        loss = F.square(label - pred)
+        loss = _apply_weighting(F, loss, self._weight / 2, sample_weight)
+        return _mean_rest(F, loss, self._batch_axis)
+
+
+class L1Loss(Loss):
+    """``weight * |pred - label|``."""
+
+    def __init__(self, weight=1.0, batch_axis=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        label = F.reshape_like(label, pred)
+        loss = F.abs(label - pred)
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return _mean_rest(F, loss, self._batch_axis)
 
 
 class SoftmaxCrossEntropyLoss(Loss):
@@ -45,9 +90,186 @@ class SoftmaxCrossEntropyLoss(Loss):
         if self._sparse_label:
             loss = -F.pick(pred, label, axis=self._axis, keepdims=True)
         else:
-            loss = -(pred * label.reshape(pred.shape)).sum(
-                dim=self._axis, keepdim=True)
-        return self._per_sample(loss, sample_weight)
+            label = F.reshape_like(label, pred)
+            loss = -F.sum(pred * label, axis=self._axis, keepdims=True)
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return _mean_rest(F, loss, self._batch_axis)
 
 
 SoftmaxCELoss = SoftmaxCrossEntropyLoss
+
+
+class SigmoidBinaryCrossEntropyLoss(Loss):
+    """Binary cross entropy of ``sigmoid(pred)`` (the stable
+    log-sum-exp form), or of ``pred`` itself with ``from_sigmoid``."""
+
+    def __init__(self, from_sigmoid=False, weight=None, batch_axis=0,
+                 **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._from_sigmoid = from_sigmoid
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None,
+                       pos_weight=None):
+        label = F.reshape_like(label, pred)
+        if not self._from_sigmoid:
+            softrelu = F.Activation(-F.abs(pred), act_type="softrelu")
+            if pos_weight is None:
+                loss = F.relu(pred) - pred * label + softrelu
+            else:
+                log_weight = 1 + (pos_weight - 1) * label
+                loss = (pred - pred * label
+                        + log_weight * (softrelu + F.relu(-pred)))
+        else:
+            eps = 1e-12
+            pos = F.log(pred + eps) * label
+            if pos_weight is not None:
+                pos = pos * pos_weight
+            loss = -(pos + F.log(1.0 - pred + eps) * (1.0 - label))
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return _mean_rest(F, loss, self._batch_axis)
+
+
+SigmoidBCELoss = SigmoidBinaryCrossEntropyLoss
+
+
+class KLDivLoss(Loss):
+    """``label * (log(label) - pred)``, ``pred`` as log-probabilities
+    (``from_logits``) or logits."""
+
+    def __init__(self, from_logits=True, axis=-1, weight=None, batch_axis=0,
+                 **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._from_logits = from_logits
+        self._axis = axis
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        if not self._from_logits:
+            pred = F.log_softmax(pred, axis=self._axis)
+        loss = label * (F.log(label + 1e-12) - pred)
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return _mean_rest(F, loss, self._batch_axis)
+
+
+class HuberLoss(Loss):
+    """Smooth L1 with threshold ``rho``."""
+
+    def __init__(self, rho=1.0, weight=None, batch_axis=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._rho = rho
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        label = F.reshape_like(label, pred)
+        loss = F.abs(label - pred)
+        loss = F.where(loss > self._rho, loss - 0.5 * self._rho,
+                       (0.5 / self._rho) * F.square(loss))
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return _mean_rest(F, loss, self._batch_axis)
+
+
+class HingeLoss(Loss):
+    """``max(0, margin - pred * label)``."""
+
+    def __init__(self, margin=1, weight=None, batch_axis=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._margin = margin
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        label = F.reshape_like(label, pred)
+        loss = F.relu(self._margin - pred * label)
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return _mean_rest(F, loss, self._batch_axis)
+
+
+class SquaredHingeLoss(Loss):
+    """``max(0, margin - pred * label)^2``."""
+
+    def __init__(self, margin=1, weight=None, batch_axis=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._margin = margin
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        label = F.reshape_like(label, pred)
+        loss = F.square(F.relu(self._margin - pred * label))
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return _mean_rest(F, loss, self._batch_axis)
+
+
+class LogisticLoss(Loss):
+    """Logistic loss on signed (-1/1) or binary (0/1) labels."""
+
+    def __init__(self, weight=None, batch_axis=0, label_format="signed",
+                 **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._label_format = label_format
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        label = F.reshape_like(label, pred)
+        if self._label_format == "signed":
+            label = (label + 1.0) / 2.0
+        loss = F.relu(pred) - pred * label + F.Activation(
+            -F.abs(pred), act_type="softrelu")
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return _mean_rest(F, loss, self._batch_axis)
+
+
+class TripletLoss(Loss):
+    """``max(0, |pos - pred|^2 - |neg - pred|^2 + margin)``."""
+
+    def __init__(self, margin=1, weight=None, batch_axis=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._margin = margin
+
+    def hybrid_forward(self, F, pred, positive, negative,
+                       sample_weight=None):
+        positive = F.reshape_like(positive, pred)
+        negative = F.reshape_like(negative, pred)
+        loss = F.sum(F.square(positive - pred) - F.square(negative - pred),
+                     axis=tuple(i for i in range(pred.ndim)
+                                if i != self._batch_axis))
+        loss = F.relu(loss + self._margin)
+        return _apply_weighting(F, loss, self._weight, sample_weight)
+
+
+class CosineEmbeddingLoss(Loss):
+    """``1 - cos`` for label 1, ``max(0, cos - margin)`` otherwise."""
+
+    def __init__(self, weight=None, batch_axis=0, margin=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._margin = margin
+
+    def hybrid_forward(self, F, input1, input2, label, sample_weight=None):
+        eps = 1e-12
+        prod = F.sum(input1 * input2, axis=-1)
+        n1 = F.sqrt(F.sum(F.square(input1), axis=-1) + eps)
+        n2 = F.sqrt(F.sum(F.square(input2), axis=-1) + eps)
+        cos = prod / (n1 * n2)
+        label = label.reshape(cos.shape)
+        loss = F.where(label == 1, 1.0 - cos, F.relu(cos - self._margin))
+        return _apply_weighting(F, loss, self._weight, sample_weight)
+
+
+class PoissonNLLLoss(Loss):
+    """Poisson negative log likelihood, averaged over every entry
+    (with ``compute_full``, plus Stirling's term for targets > 1)."""
+
+    def __init__(self, weight=None, from_logits=True, batch_axis=0,
+                 compute_full=False, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._from_logits = from_logits
+        self._compute_full = compute_full
+
+    def hybrid_forward(self, F, pred, target, sample_weight=None,
+                       epsilon=1e-08):
+        target = F.reshape_like(target, pred)
+        if self._from_logits:
+            loss = F.exp(pred) - target * pred
+        else:
+            loss = pred - target * F.log(pred + epsilon)
+        if self._compute_full:
+            stirling = (target * F.log(target + epsilon) - target
+                        + 0.5 * F.log(2 * np.pi * (target + epsilon)))
+            stirling = F.where(target <= 1, F.zeros_like(stirling),
+                               stirling)
+            loss = loss + stirling
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return F.mean(loss)

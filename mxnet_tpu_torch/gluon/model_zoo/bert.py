@@ -179,7 +179,7 @@ class BERTModel(HybridBlock):
 
     def _embed(self, inputs, token_types):
         x = self.word_embed(inputs) + self.token_type_embed(token_types)
-        pos = self.position_weight.data()[:inputs.shape[1]]
+        pos = self.position_weight.tensor()[:inputs.shape[1]]
         return self.embed_dropout(self.embed_ln(x + pos.unsqueeze(0)))
 
     def forward(self, inputs, token_types, valid_length=None,
@@ -201,10 +201,10 @@ class BERTModel(HybridBlock):
         if self._use_decoder and masked_positions is not None:
             sel = _take_along_seq(seq_out, masked_positions)    # (B, M, C)
             h = self.decoder_ln(self.decoder_transform(sel))
-            w = self.word_embed.weight.data()                   # (V, C)
+            w = self.word_embed.weight.tensor()                   # (V, C)
             mlm = torch.matmul(h.reshape(-1, self._units), w.t())
             mlm = mlm.reshape(inputs.shape[0], -1, w.shape[0]) \
-                + self.decoder_bias.data().reshape(1, 1, -1)
+                + self.decoder_bias.tensor().reshape(1, 1, -1)
             outputs.append(mlm)
         return tuple(outputs) if len(outputs) > 1 else outputs[0]
 

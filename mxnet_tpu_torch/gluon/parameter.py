@@ -1,42 +1,42 @@
 """Gluon Parameter / ParameterDict (the port of
 ``mxnet_tpu/gluon/parameter.py``).
 
-A ``Parameter`` owns one tensor on one device.  Its name is prefix-scoped
-(``resnetv10_stage1_conv0_weight``); a shape with a 0 is a wildcard that
-the owning layer fills at its first forward (deferred initialisation).
-A trainable parameter's tensor is a leaf with ``requires_grad``, so a
-backward inside ``autograd.record()`` leaves its gradient in ``grad()``;
-running statistics are created with ``differentiable=False``.
+A ``Parameter`` owns one NDArray on one device, as in the JAX package.
+Its name is prefix-scoped (``resnetv10_stage1_conv0_weight``); a shape
+with a 0 is a wildcard that the owning layer fills at its first forward
+(deferred initialisation).  A trainable parameter's array is marked for
+gradients (``grad_req`` ``'write'`` or ``'add'``): its tensor is a leaf
+with ``requires_grad``, and a backward inside ``autograd.record()``
+leaves its gradient in ``grad()``.  Running statistics are created with
+``differentiable=False``.
+
+``data()`` is the NDArray; ``tensor()`` is its ``torch.Tensor``, what
+the blocks' ``hybrid_forward`` and the port's training steps take.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .. import autograd as _autograd
 from .. import initializer as init_mod
-from ..base import dtype_torch
+from ..base import MXNetError, dtype_torch
 from ..context import resolve_device
+from ..ndarray.ndarray import NDArray, tensor_from_numpy
 
 __all__ = ["Parameter", "ParameterDict", "DeferredInitializationError"]
 
 
-class DeferredInitializationError(RuntimeError):
+class DeferredInitializationError(MXNetError):
     """Raised when ``data()`` is read before the shape is known."""
 
 
 def _as_tensor(data):
+    if isinstance(data, NDArray):
+        return data._data.detach()
     if isinstance(data, torch.Tensor):
         return data.detach()
-    return torch.from_numpy(np.array(data))
-
-
-def _write_not_add(leaf):
-    """A gradient hook that drops the leaf's old gradient just before
-    the new one is accumulated into it."""
-    def hook(grad):
-        leaf.grad = None
-        return grad
-    return hook
+    return tensor_from_numpy(np.array(data))
 
 
 class Parameter:
@@ -55,32 +55,53 @@ class Parameter:
         self.wd_mult = wd_mult
         self.init = init
         self.allow_deferred_init = allow_deferred_init
-        self._data = None
+        self._nd = None
         self._deferred_init = None  # (initializer, device, default_init)
 
     @property
     def grad_req(self):
         return self._grad_req
 
+    @grad_req.setter
+    def grad_req(self, req):
+        if req not in ("write", "add", "null"):
+            raise ValueError(f"grad_req {req!r}: 'write', 'add' or 'null'")
+        self._grad_req = req
+        if self._nd is not None:
+            self._adopt(self._nd._data)
+
+    @property
+    def _data(self):
+        """The tensor itself, or None before initialisation; a training
+        step assigns other tensors here for the span of a forward."""
+        return None if self._nd is None else self._nd._data
+
+    @_data.setter
+    def _data(self, tensor):
+        if self._nd is None:
+            self._nd = NDArray(tensor)
+        else:
+            self._nd._data = tensor
+
     def _adopt(self, tensor):
-        """Make ``tensor`` this parameter's data: a leaf that records its
-        gradient unless ``grad_req`` is "null".  With "write" (the
-        default) each backward replaces the gradient, as in the JAX
-        package, where torch would add to it."""
-        self._data = tensor.requires_grad_(self._grad_req != "null")
-        if self._grad_req == "write":
-            self._data.register_hook(_write_not_add(self._data))
+        """Make ``tensor`` this parameter's data, marked for gradients by
+        ``grad_req``; ``grad()`` starts at zeros."""
+        if self._nd is None:
+            self._nd = NDArray(tensor)
+        self._nd._grad = None
+        _autograd.attach(self._nd, tensor, self._grad_req)
 
     # ----------------------------------------------------------------- init --
     def initialize(self, init=None, ctx=None, default_init=None,
                    force_reinit=False):
-        """Allocate and fill on ``ctx`` (None: the card); defer while the
-        shape has a wildcard and ``allow_deferred_init`` is set."""
-        if self._data is not None and not force_reinit:
+        """Allocate and fill on ``ctx`` (None: the current context);
+        defer while the shape has a wildcard and ``allow_deferred_init``
+        is set."""
+        if self._nd is not None and not force_reinit:
             return
         if default_init is None:
             default_init = init_mod.Uniform()
-        device = resolve_device("cuda" if ctx is None else ctx)
+        device = resolve_device(ctx)
         if self.shape is None or any(s == 0 for s in self.shape):
             if self.allow_deferred_init:
                 self._deferred_init = (init, device, default_init)
@@ -108,8 +129,8 @@ class Parameter:
 
     # ----------------------------------------------------------------- data --
     def data(self, ctx=None):
-        """The tensor; raises while deferred or uninitialised."""
-        if self._data is None:
+        """The NDArray; raises while deferred or uninitialised."""
+        if self._nd is None:
             if self._deferred_init is not None:
                 raise DeferredInitializationError(
                     f"parameter '{self.name}' deferred-init pending: run a "
@@ -117,13 +138,17 @@ class Parameter:
                     f"accessing data()")
             raise RuntimeError(f"parameter '{self.name}' has not been "
                                f"initialized; call .initialize() first")
-        return self._data
+        return self._nd
+
+    def tensor(self):
+        """The data as a ``torch.Tensor`` (the leaf itself)."""
+        return self.data()._data
 
     def set_data(self, data):
-        """Replace the values (a tensor or numpy array), cast to this
-        parameter's dtype and device; the shape must match."""
+        """Replace the values (an NDArray, tensor or numpy array), cast
+        to this parameter's dtype, in place; the shape must match."""
         arr = _as_tensor(data)
-        if self._data is None:
+        if self._nd is None:
             device = self._deferred_init[1] if self._deferred_init \
                 else arr.device
             self.shape = tuple(arr.shape)
@@ -135,22 +160,30 @@ class Parameter:
             raise ValueError(f"shape mismatch for '{self.name}': "
                              f"{tuple(arr.shape)} vs {self.shape}")
         with torch.no_grad():
-            self._data.copy_(arr)
+            self._nd._data.copy_(arr)
 
     def grad(self, ctx=None):
-        """The gradient left by the last backward (zeros before one)."""
+        """The gradient NDArray the last backward left (zeros before
+        one)."""
         d = self.data(ctx)
         if self._grad_req == "null":
             raise RuntimeError(f"parameter '{self.name}' has "
                                f"grad_req='null'")
-        return d.grad if d.grad is not None else torch.zeros_like(d)
+        if d._grad is None:
+            d._grad = NDArray(torch.zeros_like(d._data))
+        return d._grad
+
+    def zero_grad(self):
+        if self._nd is not None and self._nd._grad is not None:
+            g = self._nd._grad
+            g._data = torch.zeros_like(g._data)
 
     def cast(self, dtype):
         """Change the dtype (``net.cast("bfloat16")``: bf16 compute, with
         f32 master weights kept by the optimizer)."""
         self.dtype = dtype
-        if self._data is not None:
-            self._adopt(self._data.detach().to(dtype_torch(dtype)))
+        if self._nd is not None:
+            self._adopt(self._nd._data.detach().to(dtype_torch(dtype)))
 
     def __repr__(self):
         return f"Parameter {self.name} (shape={self.shape}, " \
@@ -207,6 +240,43 @@ class ParameterDict:
         for p in self._params.values():
             p.initialize(init=None, ctx=ctx, default_init=init,
                          force_reinit=force_reinit)
+
+    def zero_grad(self):
+        for p in self._params.values():
+            p.zero_grad()
+
+    def setattr(self, name, value):
+        for p in self._params.values():
+            setattr(p, name, value)
+
+    def save(self, filename, strip_prefix=""):
+        """Every parameter by its full name (less ``strip_prefix``), in
+        ``nd.save``'s container."""
+        from .. import ndarray as nd
+        d = {}
+        for name, p in self._params.items():
+            if strip_prefix and name.startswith(strip_prefix):
+                name = name[len(strip_prefix):]
+            d[name] = p.data()
+        nd.save(filename, d)
+
+    def load(self, filename, ctx=None, allow_missing=False,
+             ignore_extra=False, restore_prefix=""):
+        from .. import ndarray as nd
+        loaded = nd.load(filename, ctx="cpu")
+        if restore_prefix:
+            loaded = {restore_prefix + k: v for k, v in loaded.items()}
+        for name, p in self._params.items():
+            if name in loaded:
+                p.set_data(loaded[name])
+            elif not allow_missing:
+                raise ValueError(f"parameter '{name}' missing in file "
+                                 f"{filename}")
+        if not ignore_extra:
+            extra = set(loaded) - set(self._params)
+            if extra:
+                raise ValueError(f"file {filename} has extra parameters "
+                                 f"{sorted(extra)}")
 
     def __repr__(self):
         body = "\n".join(f"  {p!r}" for p in self._params.values())

@@ -13,6 +13,7 @@ them all — the way a fresh checkout pays for its builds in parallel.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -20,6 +21,8 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+
+import torch
 
 __all__ = ["KERNELS", "build_all", "check", "load", "nvcc_path"]
 
@@ -149,6 +152,30 @@ def load(name):
     if lib is None:
         lib = build_all([name])[name]
     return lib
+
+
+_thread = threading.local()
+
+
+def bound(index):
+    """True once card ``index``'s context is current on this thread."""
+    return index in getattr(_thread, "cards", ())
+
+
+@contextlib.contextmanager
+def on_card(index):
+    """``torch.cuda.device(index)`` with that card's primary context
+    current on this thread.  The kernel libraries carry their own CUDA
+    runtime, which finds no context in a thread whose first CUDA work
+    they are — a fresh thread, or autograd's worker when a kernel's
+    backward is the first node it runs — and fails the launch
+    (cudaErrorInvalidValue); ``torch.cuda.set_device`` binds it, once
+    per thread and card."""
+    with torch.cuda.device(index):
+        if not bound(index):
+            torch.cuda.set_device(index)
+            _thread.__dict__.setdefault("cards", set()).add(index)
+        yield
 
 
 def check(status, what):

@@ -220,12 +220,12 @@ def _launch(what, fn, q, ptrs, scale, causal, dropout, seed):
     pointers ``ptrs`` and the shared trailing arguments (the seed a
     device tensor, or an int written into one; none at dropout 0); raise
     on a CUDA error, count the launch."""
-    from .cuda import check
+    from .cuda import check, on_card
 
     bh, s, d = q.shape
     drop_scale = _f32(1.0 / (1.0 - dropout)) if dropout > 0.0 else 1.0
     seed = seed_tensor(seed, q.device) if dropout > 0.0 else None
-    with torch.cuda.device(q.device):
+    with on_card(q.device.index):
         check(fn(_DTYPE_CODES[q.dtype], *ptrs, bh, s, d,
                  ctypes.c_float(scale), int(causal), ctypes.c_float(dropout),
                  ctypes.c_float(drop_scale),

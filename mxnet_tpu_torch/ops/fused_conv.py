@@ -207,7 +207,7 @@ def _stream(t):
 
 
 def _fwd_cuda(x, scale, shift, w, res, relu, stride):
-    from .cuda import load
+    from .cuda import load, on_card
 
     _check_cuda("fused_conv_fwd", x, scale, shift, (w, res))
     _check_widths("fused_conv_fwd", x.shape[3], w.shape[3])
@@ -216,7 +216,7 @@ def _fwd_cuda(x, scale, shift, w, res, relu, stride):
                       device=x.device)
     wb = _b_operand(w)
     lib = load("fused_conv")
-    with torch.cuda.device(x.device):
+    with on_card(x.device.index):
         _launch(lib.fused_conv_fwd, "fused_conv_fwd", _DTYPE_CODES[x.dtype],
                 x.data_ptr(), scale.data_ptr(), shift.data_ptr(),
                 wb.data_ptr(), _ptr(res), out.data_ptr(), *g, int(relu),
@@ -225,7 +225,7 @@ def _fwd_cuda(x, scale, shift, w, res, relu, stride):
 
 
 def _dx_cuda(x, scale, shift, w, res, do, relu, stride):
-    from .cuda import load
+    from .cuda import load, on_card
 
     _check_cuda("fused_conv_dx", x, scale, shift, (w, res, do))
     g = _geometry(x, w.shape[0], w.shape[3], stride)
@@ -236,7 +236,7 @@ def _dx_cuda(x, scale, shift, w, res, do, relu, stride):
     part = torch.empty((2, rows, ci), dtype=torch.float32, device=x.device)
     sums = torch.empty((2, ci), dtype=torch.float32, device=x.device)
     lib = load("fused_conv")
-    with torch.cuda.device(x.device):
+    with on_card(x.device.index):
         _launch(lib.fused_conv_dx, "fused_conv_dx", _DTYPE_CODES[x.dtype],
                 x.data_ptr(), scale.data_ptr(), shift.data_ptr(),
                 w.data_ptr(), do.data_ptr(), _ptr(res), dx.data_ptr(),
@@ -273,7 +273,7 @@ def _dw_splits(rows, co, positions, halo=False):
 
 
 def _dw_cuda(x, scale, shift, res, do, k, relu, stride):
-    from .cuda import load
+    from .cuda import load, on_card
 
     _check_cuda("fused_conv_dw", x, scale, shift, (res, do))
     co = do.shape[3]
@@ -288,7 +288,7 @@ def _dw_cuda(x, scale, shift, res, do, k, relu, stride):
         (splits, rows * co), dtype=torch.float32, device=x.device)
     dob = _b_operand(do)
     lib = load("fused_conv")
-    with torch.cuda.device(x.device):
+    with on_card(x.device.index):
         _launch(lib.fused_conv_dw, "fused_conv_dw", _DTYPE_CODES[x.dtype],
                 x.data_ptr(), scale.data_ptr(), shift.data_ptr(),
                 dob.data_ptr(), _ptr(res), part.data_ptr(), dw.data_ptr(),

@@ -260,7 +260,7 @@ def _plan(q, k_pages, v_pages, page_tables, lengths, device, stream):
 
 def _paged_decode_attention_cuda(q, k_pages, v_pages, page_tables,
                                  lengths):
-    from .cuda import check, load
+    from .cuda import bound, check, load, on_card
 
     qp, kp, vp = q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr()
     dev = q.get_device()
@@ -284,10 +284,10 @@ def _paged_decode_attention_cuda(q, k_pages, v_pages, page_tables,
     out = torch.empty_like(q)
     args = (qp, kp, vp, page_tables.data_ptr(), lengths.data_ptr(),
             out.data_ptr(), ws, counters, call, stream)
-    if dev == torch.cuda.current_device():
+    if dev == torch.cuda.current_device() and bound(dev):
         status = fn(*args)
     else:
-        with torch.cuda.device(dev):
+        with on_card(dev):
             status = fn(*args)
     check(status, "paged_decode_attention")
     paged_decode_attention.launches += 1

@@ -1,19 +1,31 @@
 """Optimizers (the port of ``mxnet_tpu/optimizer/optimizer.py``'s
-``Optimizer``, ``SGD``, ``LAMB`` and ``create``).
+``Optimizer``, ``SGD``, ``NAG``, ``Adam``, ``AdamW``, ``RMSProp``,
+``AdaGrad``, ``LAMB`` and ``create``).
 
-An optimizer here holds the hyperparameters and the multi-precision
-rule; ``parallel.TrainStep`` applies the update
-(``parallel.functional_opt``).  ``multi_precision=None`` (the default)
-keeps f32 master weights for float16/bfloat16 parameters, as in the JAX
-package.
+An optimizer holds the hyperparameters and the multi-precision rule,
+and two ways to apply them:
+
+- eagerly, on NDArrays: ``update(index, weight, grad, state)`` (what
+  ``gluon.Trainer`` calls) runs the registered update op
+  (``ops/optimizer_ops.py``) and writes the results into the weight and
+  state arrays in place;
+- fused, in ``parallel.TrainStep``, which runs
+  ``parallel.functional_opt``'s multi-tensor rules (SGD and LAMB).
+
+``multi_precision=None`` (the default) keeps f32 master weights for
+float16/bfloat16 parameters, as in the JAX package.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
 from ..base import dtype_torch
+from ..ndarray.ndarray import NDArray, invoke
 
-__all__ = ["Optimizer", "SGD", "LAMB", "create", "register"]
+__all__ = ["Optimizer", "SGD", "NAG", "Adam", "AdamW", "RMSProp", "AdaGrad",
+           "LAMB", "create", "register"]
 
 _REGISTRY = {}
 
@@ -34,13 +46,28 @@ def create(name, **kwargs):
     return _REGISTRY[n](**kwargs)
 
 
+def _writeback(outs, *targets):
+    """Write an update op's results into the live arrays, in place (so
+    a parameter keeps its tensor)."""
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    with torch.no_grad():
+        for t, o in zip(targets, outs):
+            t._data.copy_(o._data)
+
+
+def _zeros(weight):
+    return NDArray(torch.zeros_like(weight._data.detach()))
+
+
 class Optimizer:
     """Base optimizer: learning rate (or schedule), weight decay,
-    gradient rescale/clip and the multi-precision rule."""
+    gradient rescale/clip, per-parameter ``lr_mult``/``wd_mult``, update
+    counts and the multi-precision rule."""
 
-    def __init__(self, rescale_grad=1.0, wd=0.0, clip_gradient=None,
-                 learning_rate=0.01, lr_scheduler=None, begin_num_update=0,
-                 multi_precision=None):
+    def __init__(self, rescale_grad=1.0, param_idx2name=None, wd=0.0,
+                 clip_gradient=None, learning_rate=0.01, lr_scheduler=None,
+                 begin_num_update=0, multi_precision=None, param_dict=None,
+                 **_unused):
         self.rescale_grad = rescale_grad
         self.lr = learning_rate
         self.lr_scheduler = lr_scheduler
@@ -52,13 +79,93 @@ class Optimizer:
         self.begin_num_update = begin_num_update
         self.num_update = begin_num_update
         self.multi_precision = multi_precision
+        self.idx2name = param_idx2name or {}
+        self.param_dict = param_dict or {}
+        self._index_update_count = {}
+        self.lr_mult = {}
+        self.wd_mult = {}
 
+    # ------------------------------------------------------------- plumbing --
     def _mp_for(self, dtype):
         """True when a parameter of ``dtype`` gets an f32 master weight:
         automatic for half precision while ``multi_precision`` is None."""
         low = dtype_torch(dtype) in (torch.float16, torch.bfloat16)
         return low if self.multi_precision is None \
             else (self.multi_precision and low)
+
+    def create_state(self, index, weight):
+        return None
+
+    def create_state_multi_precision(self, index, weight):
+        """The state, with an f32 master copy first for a half-precision
+        weight."""
+        if self._mp_for(weight._data.dtype):
+            master = weight.astype("float32")
+            return (master, self.create_state(index, master))
+        return self.create_state(index, weight)
+
+    def _update_count(self, index):
+        self._index_update_count.setdefault(index, self.begin_num_update)
+        self._index_update_count[index] += 1
+        self.num_update = max(self._index_update_count[index],
+                              self.num_update)
+
+    def _get_lr(self, index):
+        lr = self.lr_scheduler(self.num_update) if self.lr_scheduler \
+            else self.lr
+        p = self.param_dict.get(index)
+        if p is not None:
+            return lr * p.lr_mult
+        return lr * self.lr_mult.get(index, self.lr_mult.get(
+            self.idx2name.get(index, ""), 1.0))
+
+    def _get_wd(self, index):
+        p = self.param_dict.get(index)
+        if p is not None:
+            return self.wd * p.wd_mult
+        return self.wd * self.wd_mult.get(index, self.wd_mult.get(
+            self.idx2name.get(index, ""), 1.0))
+
+    def _kw(self, index, **extra):
+        kw = dict(lr=self._get_lr(index), wd=self._get_wd(index),
+                  rescale_grad=self.rescale_grad, **extra)
+        if self.clip_gradient is not None:
+            kw["clip_gradient"] = self.clip_gradient
+        return kw
+
+    def set_learning_rate(self, lr):
+        self.lr = lr
+
+    @property
+    def learning_rate(self):
+        return self.lr_scheduler(self.num_update) if self.lr_scheduler \
+            else self.lr
+
+    def set_lr_mult(self, args_lr_mult):
+        self.lr_mult = dict(args_lr_mult)
+
+    def set_wd_mult(self, args_wd_mult):
+        self.wd_mult = dict(args_wd_mult)
+
+    # -------------------------------------------------------------- update --
+    def update(self, index, weight, grad, state):
+        raise NotImplementedError
+
+    def update_multi_precision(self, index, weight, grad, state):
+        """``update``; for a half-precision weight with an f32 master in
+        its state, update the master from the f32 gradient and write the
+        weight as the master cast back."""
+        if isinstance(state, tuple) and state and \
+                isinstance(state[0], NDArray) and \
+                state[0]._data.dtype == torch.float32 and \
+                weight._data.dtype != torch.float32 and \
+                self._mp_for(weight._data.dtype):
+            master, sub = state
+            self.update(index, master, grad.astype("float32"), sub)
+            with torch.no_grad():
+                weight._data.copy_(master._data)
+        else:
+            self.update(index, weight, grad, state)
 
     def __repr__(self):
         return f"{type(self).__name__}(lr={self.lr})"
@@ -69,9 +176,125 @@ class SGD(Optimizer):
     """SGD with optional momentum: ``mom = momentum*mom - lr*(g + wd*w)``,
     ``w += mom``."""
 
-    def __init__(self, momentum=0.0, **kwargs):
+    def __init__(self, momentum=0.0, lazy_update=False, **kwargs):
         super().__init__(**kwargs)
         self.momentum = momentum
+
+    def create_state(self, index, weight):
+        return _zeros(weight) if self.momentum != 0.0 else None
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        kw = self._kw(index)
+        if self.momentum == 0.0:
+            _writeback(invoke("sgd_update", weight, grad, **kw), weight)
+        else:
+            _writeback(invoke("sgd_mom_update", weight, grad, state,
+                              momentum=self.momentum, **kw), weight, state)
+
+
+@register
+class NAG(SGD):
+    """Nesterov momentum (``nag_mom_update``)."""
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        _writeback(invoke("nag_mom_update", weight, grad, state,
+                          momentum=self.momentum, **self._kw(index)),
+                   weight, state)
+
+
+@register
+class Adam(Optimizer):
+    """Adam, the bias correction folded into the step size."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, lazy_update=False, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
+
+    def create_state(self, index, weight):
+        return (_zeros(weight), _zeros(weight))
+
+    def _lr_t(self, index):
+        t = self._index_update_count[index]
+        coef1 = 1.0 - self.beta1 ** t
+        coef2 = 1.0 - self.beta2 ** t
+        return self._get_lr(index) * math.sqrt(coef2) / coef1
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        mean, var = state
+        kw = self._kw(index, beta1=self.beta1, beta2=self.beta2,
+                      epsilon=self.epsilon)
+        kw["lr"] = self._lr_t(index)
+        _writeback(invoke("adam_update", weight, grad, mean, var, **kw),
+                   weight, mean, var)
+
+
+@register
+class AdamW(Adam):
+    """Adam with decoupled weight decay (``adamw_update``)."""
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        mean, var = state
+        kw = self._kw(index, beta1=self.beta1, beta2=self.beta2,
+                      epsilon=self.epsilon, eta=1.0)
+        kw["lr"] = self._lr_t(index)
+        _writeback(invoke("adamw_update", weight, grad, mean, var, **kw),
+                   weight, mean, var)
+
+
+@register
+class RMSProp(Optimizer):
+    """RMSProp, plain or centred (``rmsprop_update``,
+    ``rmspropalex_update``)."""
+
+    def __init__(self, learning_rate=0.001, rho=0.9, momentum=0.9,
+                 epsilon=1e-8, centered=False, clip_weights=None, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.rho = rho
+        self.momentum = momentum
+        self.epsilon = epsilon
+        self.centered = centered
+        self.clip_weights = clip_weights
+
+    def create_state(self, index, weight):
+        if self.centered:
+            return (_zeros(weight), _zeros(weight), _zeros(weight))
+        return (_zeros(weight),)
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        kw = self._kw(index, rho=self.rho, epsilon=self.epsilon)
+        if self.centered:
+            n, g, delta = state
+            _writeback(invoke("rmspropalex_update", weight, grad, n, g,
+                              delta, momentum=self.momentum, **kw),
+                       weight, n, g, delta)
+        else:
+            (n,) = state
+            _writeback(invoke("rmsprop_update", weight, grad, n, **kw),
+                       weight, n)
+
+
+@register
+class AdaGrad(Optimizer):
+    """AdaGrad (``adagrad_update``)."""
+
+    def __init__(self, learning_rate=0.01, eps=1e-7, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.float_stable_eps = eps
+
+    def create_state(self, index, weight):
+        return _zeros(weight)
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        _writeback(invoke("adagrad_update", weight, grad, state,
+                          **self._kw(index, epsilon=self.float_stable_eps)),
+                   weight, state)
 
 
 @register
@@ -89,3 +312,26 @@ class LAMB(Optimizer):
         self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
         self.lower_bound, self.upper_bound = lower_bound, upper_bound
         self.bias_correction = bias_correction
+
+    def create_state(self, index, weight):
+        return (_zeros(weight), _zeros(weight))
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        mean, var = state
+        kw1 = dict(beta1=self.beta1, beta2=self.beta2, epsilon=self.epsilon,
+                   t=self._index_update_count[index],
+                   bias_correction=self.bias_correction,
+                   wd=self._get_wd(index), rescale_grad=self.rescale_grad)
+        if self.clip_gradient is not None:
+            kw1["clip_gradient"] = self.clip_gradient
+        g, new_mean, new_var = invoke("lamb_update_phase1", weight, grad,
+                                      mean, var, **kw1)
+        _writeback((new_mean, new_var), mean, var)
+        kw2 = dict(lr=self._get_lr(index))
+        if self.lower_bound is not None:
+            kw2["lower_bound"] = self.lower_bound
+        if self.upper_bound is not None:
+            kw2["upper_bound"] = self.upper_bound
+        _writeback(invoke("lamb_update_phase2", weight, g, weight.norm(),
+                          g.norm(), **kw2), weight)

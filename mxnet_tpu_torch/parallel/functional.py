@@ -18,7 +18,7 @@ def param_names_and_values(block):
     params = block.collect_params()
     names = sorted(params.keys())
     plist = [params[n] for n in names]
-    return names, plist, [p.data() for p in plist]
+    return names, plist, [p.tensor() for p in plist]
 
 
 def trainable_split(plist):

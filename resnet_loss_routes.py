@@ -66,7 +66,7 @@ def nets(torch, cs, fused_copies):
             q.set_data(p.data())
     unfused = cs.build_resnet50(torch, fused=False)
     for f, u, perm in cs.fused_pairs(fused[0], unfused):
-        u.set_data(f.data() if perm is None else f.data().permute(3, 0, 1, 2))
+        u.set_data(f.tensor() if perm is None else f.tensor().permute(3, 0, 1, 2))
     return [n.cast("bfloat16") for n in fused], unfused.cast("bfloat16")
 
 

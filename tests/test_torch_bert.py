@@ -111,7 +111,7 @@ def run_port(net, data, labels):
         out = net(*args)
         loss = tloss(out, labels)
     loss.backward()
-    grads = {k: p.grad().numpy() for k, p in net.collect_params().items()}
+    grads = {k: p.grad().asnumpy() for k, p in net.collect_params().items()}
     return ([o.detach().float().numpy() for o in out], float(loss.detach()),
             grads)
 
@@ -267,7 +267,7 @@ def test_layernorm_matches_jax(dtype):
                                    rtol=1e-3, atol=1e-3)
         for name in ("gamma", "beta"):
             np.testing.assert_allclose(
-                getattr(t, name).grad().numpy(),
+                getattr(t, name).grad().asnumpy(),
                 getattr(j, name).grad().asnumpy(), rtol=1e-3, atol=1e-3)
 
 

@@ -274,8 +274,8 @@ def test_five_resnet_steps_track_jax_with_a_factor_scheduler():
     want, got = ref_fused.collect_params(), fused.collect_params()
     for a, b in zip(sorted(tres._strip(got.keys()).items()),
                     sorted(tres._strip(want.keys()).items())):
-        np.testing.assert_allclose(got[a[1]].data().detach().numpy(),
-                                   want[b[1]].data().detach().numpy(),
+        np.testing.assert_allclose(got[a[1]].tensor().detach().numpy(),
+                                   want[b[1]].tensor().detach().numpy(),
                                    **TOL, err_msg=a[0])
 
 
@@ -303,7 +303,7 @@ def test_five_bert_steps_track_jax_with_a_factor_scheduler():
     tstep.sync_params_to_net()
     want = {k: jax_arrays(jnet)[n] for k, n in
             tres._strip(jax_arrays(jnet)).items()}
-    got = {k: p.data().detach().numpy()
+    got = {k: p.tensor().detach().numpy()
            for k, p in tnet.collect_params().items()}
     got = {k: got[n] for k, n in tres._strip(got).items()}
     assert set(got) == set(want)

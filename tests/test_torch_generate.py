@@ -714,7 +714,8 @@ def test_port_sources_import_no_jax_statically():
     found = []
     sources = list(_port_sources())
     for mod in ("gluon/nn/fused.py", "parallel/step.py",
-                "gluon/model_zoo/vision/resnet.py", "ops/fused_conv.py"):
+                "gluon/model_zoo/vision/resnet.py", "ops/fused_conv.py",
+                "ndarray/ndarray.py", "ops/registry.py"):
         assert os.path.join(REPO, "mxnet_tpu_torch", mod) in sources
     for path in sources:
         tree = ast.parse(open(path, encoding="utf-8").read(), path)

@@ -110,7 +110,7 @@ def test_three_bert_steps_match_the_jax_train_step(impl):
     jstep.sync_params_to_net()
     tstep.sync_params_to_net()
     want = jax_arrays(jnet)
-    got = {k: p.data().detach().numpy()
+    got = {k: p.tensor().detach().numpy()
            for k, p in tnet.collect_params().items()}
     want = {k: want[n] for k, n in tres._strip(want).items()}
     got = {k: got[n] for k, n in tres._strip(got).items()}

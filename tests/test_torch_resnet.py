@@ -104,7 +104,7 @@ def assert_params_close(jblock, tblock, tol, names=None):
     theirs = tres._strip(jblock.collect_params().keys())
     for key in names or ours:
         np.testing.assert_allclose(
-            tparams[ours[key]].data().detach().numpy(),
+            tparams[ours[key]].tensor().detach().numpy(),
             jblock.collect_params()[theirs[key]].data().asnumpy(), **tol,
             err_msg=key)
 
@@ -124,7 +124,7 @@ def test_conv2d_matches_jax(layout, stride, bias):
     jo, to, jg, tg = run_both(j, t, x, True)
     np.testing.assert_allclose(to, jo, **LAYER_TOL)
     np.testing.assert_allclose(tg, jg, **LAYER_TOL)
-    np.testing.assert_allclose(t.weight.grad().numpy(),
+    np.testing.assert_allclose(t.weight.grad().asnumpy(),
                                j.weight.grad().asnumpy(), rtol=1e-4,
                                atol=1e-4)
 
@@ -137,10 +137,10 @@ def test_batchnorm_train_eval_and_running_stats_match_jax():
         jo, to, jg, tg = run_both(j, t, x, True)
         np.testing.assert_allclose(to, jo, **LAYER_TOL)
         np.testing.assert_allclose(tg, jg, rtol=1e-4, atol=1e-4)
-    np.testing.assert_allclose(t.gamma.grad().numpy(),
+    np.testing.assert_allclose(t.gamma.grad().asnumpy(),
                                j.gamma.grad().asnumpy(), rtol=1e-4,
                                atol=1e-4)
-    np.testing.assert_allclose(t.beta.grad().numpy(),
+    np.testing.assert_allclose(t.beta.grad().asnumpy(),
                                j.beta.grad().asnumpy(), rtol=1e-4,
                                atol=1e-4)
     assert_params_close(j, t, LAYER_TOL, ["running_mean", "running_var"])
@@ -162,7 +162,7 @@ def test_pooling_and_dense_match_jax():
     jo, to, jg, tg = run_both(j, t, x, True)
     np.testing.assert_allclose(to, jo, **LAYER_TOL)
     np.testing.assert_allclose(tg, jg, **LAYER_TOL)
-    np.testing.assert_allclose(t.weight.grad().numpy(),
+    np.testing.assert_allclose(t.weight.grad().asnumpy(),
                                j.weight.grad().asnumpy(), rtol=1e-4,
                                atol=1e-4)
 
@@ -179,7 +179,7 @@ def test_norm_relu_conv2d_matches_jax(k, stride, res_on):
     np.testing.assert_allclose(to, jo, rtol=2e-4, atol=2e-4)
     np.testing.assert_allclose(tg, jg, rtol=2e-3, atol=2e-3)
     for name in ("weight", "gamma", "beta"):
-        np.testing.assert_allclose(getattr(t, name).grad().numpy(),
+        np.testing.assert_allclose(getattr(t, name).grad().asnumpy(),
                                    getattr(j, name).grad().asnumpy(),
                                    rtol=2e-3, atol=2e-3, err_msg=name)
     assert_params_close(j, t, dict(rtol=1e-5, atol=1e-5),
@@ -269,7 +269,7 @@ def map_unfused_to_fused(plain, fused):
     configuration (BottleneckV1: body = conv, bn, relu, conv3x3, bn,
     relu, conv1x1, bn; fused = conv1, f2, f3, bn3)."""
     def copy(dst, src, transpose=None):
-        v = src.data().detach()
+        v = src.tensor().detach()
         dst.set_data(v.permute(*transpose) if transpose else v)
 
     def bn(dst, src):
@@ -317,6 +317,6 @@ def test_fused_resnet_matches_unfused_in_the_port():
     np.testing.assert_allclose(outs[1][1].numpy(), outs[0][1].numpy(),
                                **NET_TOL)
     np.testing.assert_allclose(
-        fused.features[4][0].f2.running_mean.data().numpy(),
-        plain.features[4][0].body[1].running_mean.data().numpy(),
+        fused.features[4][0].f2.running_mean.data().asnumpy(),
+        plain.features[4][0].body[1].running_mean.data().asnumpy(),
         rtol=1e-5, atol=1e-5)

@@ -111,8 +111,8 @@ def test_three_steps_match_the_jax_train_step():
     for a, b in zip(sorted(tres._strip(got.keys()).items()),
                     sorted(tres._strip(want.keys()).items())):
         assert a[0] == b[0]
-        np.testing.assert_allclose(got[a[1]].data().detach().numpy(),
-                                   want[b[1]].data().detach().numpy(),
+        np.testing.assert_allclose(got[a[1]].tensor().detach().numpy(),
+                                   want[b[1]].tensor().detach().numpy(),
                                    **TOL, err_msg=a[0])
 
 
@@ -129,7 +129,7 @@ def test_bf16_step_keeps_f32_masters_and_bf16_params():
         assert torch.equal(t, s[-1].to(torch.bfloat16))
     assert all(t.dtype == torch.bfloat16 for t in step._aux)
     step.sync_params_to_net()
-    assert net.output.weight.data().dtype == torch.bfloat16
+    assert net.output.weight.tensor().dtype == torch.bfloat16
 
 
 def test_skip_nonfinite_leaves_state_and_aborts_after_budget():
