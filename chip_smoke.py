@@ -15,7 +15,7 @@ random weights from a seed:
 - LLM serving at the width of ``bench.py llm`` on an accelerator (vocab
   4096, 4 layers, 8 heads x 64, d_ff 2048; 64 slots, 512 pages x 64
   tokens; buckets (1, 2, 4) x (32, 64); 64 new tokens; prompts of 4-60
-  tokens);
+  tokens), fused and disaggregated (``prefill_workers``);
 - the ResNet-50 v1 training step as ``bench.py``'s ``bench_resnet`` runs
   it (NHWC, ``fused=True``, bf16 cast with f32 master weights, SGD 0.1 /
   0.9 / 1e-4, batch 256 of 224x224x3, 1000 classes), full width and
@@ -43,10 +43,10 @@ Phases, each of which fails the run (each prints its wall time):
    ``nd.FusedNormReluConv`` on [256, 56, 56, 64] -> 64, 3x3, bf16,
    forward and ``backward()`` under ``record()``: one launch of each
    fused kernel, counted from 0, and every output and gradient held
-   against the plain versions at phase 6's tolerances; (c) one
+   against the plain versions at phase 7's tolerances; (c) one
    ``gluon.Trainer`` step against one ``TrainStep(capture=False)`` step
    of fused ResNet-50, f32, batch 32, SGD 0.1 / 0.9 / 1e-4, from the
-   same parameters, every parameter held leaf by leaf as in 7 (the
+   same parameters, every parameter held leaf by leaf as in 8 (the
    floor: the Trainer step on the host CPU);
 4. serving: the paged attention kernel against its plain version at
    three cases — path (the serving config, 64 slots x 2 pages), long (64
@@ -81,16 +81,32 @@ Phases, each of which fails the run (each prints its wall time):
    successor's ``submit_resume`` of the exports, and a journal restore
    on a fresh server (both token-exact).  Every server's graphs equal
    its census, and every path counts its kernel launches from 0;
-6. each fused-conv kernel (forward, dX, dW) against its plain version at
+6. disaggregated serving: the serve phase's traffic through captured
+   servers with 1 and 2 prefill workers (graphs = census = grid + 2
+   after start and after the traffic, the handoff path taken, the pool
+   whole and nothing in flight after the drain, the tokens equal to the
+   fused server's or held teacher-forced with the reason printed,
+   tokens/s beside the fused server's, the paged kernel's launches
+   counted from 0), then through one started with ``warmup=False`` and
+   2 workers (their graphs captured by the workers while the decode
+   loop runs; the same tokens); the long-prompt stall, fused against
+   1 worker: length buckets (64, 2048), 56 of the serve prompts
+   decoding when 8 prompts of 1900-2040 tokens arrive, the gaps between
+   decode steps while those are in flight (p50, p99, max, from the
+   port profiler's host spans) and the bystanders' tokens/s, every long
+   output and 8 bystanders held teacher-forced; ``fleet.handoff`` armed
+   with a seated bystander (the doomed request fails, the bystander
+   completes, a fresh request is served);
+7. each fused-conv kernel (forward, dX, dW) against its plain version at
    the eight ResNet-50 shapes (N = 8) and the other cases the op takes,
    in f32 and bf16, dX launched twice for the same bits;
-7. full-width ResNet-50 (f32, batch 8): forward and backward through
+8. full-width ResNet-50 (f32, batch 8): forward and backward through
    the kernels against the same through the plain versions on the
    card, from the same parameters — loss, every gradient, running
    statistics — leaf by leaf, within a multiple of the noise floor that
    the plain versions on the card show against the same net on the
    host CPU;
-8. the ResNet training run: warm-up and timed steps at batch 256
+9. the ResNet training run: warm-up and timed steps at batch 256
    through the captured step (loss finite and falling over the run,
    params finite, 32 launches of each kernel per step) and one step
    under ``torch.profiler``, then the same through the eager step
@@ -98,24 +114,24 @@ Phases, each of which fails the run (each prints its wall time):
    with cuDNN's deterministic algorithms, every loss and tensor the same
    bits; then ``fused=False`` (cuDNN convs) from the same parameters as
    the yardstick (the two first losses agree);
-9. each fused-conv kernel at the eight shapes at N = 256, bf16: held
+10. each fused-conv kernel at the eight shapes at N = 256, bf16: held
    against its plain version, then timed (CUDA events, L2 flushed)
    beside its bound, its plain version and the cuDNN call for the conv
    alone, with its achieved TFLOP/s; summed over a step's 32 launches;
    dX launched twice, its outputs (dscale, dshift among them) the same
    bits; before it, ``nvcc -Xptxas -v``'s registers and spills of the
    tensor-core kernels beside their shared memory;
-10. each flash-attention kernel (forward, dQ, dK/dV, the dropout seed
+11. each flash-attention kernel (forward, dQ, dK/dV, the dropout seed
    read from device memory) against its plain version summed in f64:
    BERT-base's shape at dropout 0 and 0.1,
    causal, S = 512, S = 200 causal (bf16 and f32), B*H = 37, D = 128,
    f32; in every bf16 case each backward kernel's error from the
    unrounded f64 sums within 2x the plain version's in f32, and a
    second launch giving the same bits;
-11. full-width BERT-base (f32, batch 8, dropout 0): forward and backward
+12. full-width BERT-base (f32, batch 8, dropout 0): forward and backward
    through the kernels against the plain versions on the card — loss,
-   the four outputs, every gradient — leaf by leaf, as in 7;
-12. the BERT training run: 2 warm-up and 10 timed steps through the
+   the four outputs, every gradient — leaf by leaf, as in 8;
+13. the BERT training run: 2 warm-up and 10 timed steps through the
     captured step (loss finite and falling, params finite, 12 launches
     of each flash kernel per step) and one step under
     ``torch.profiler``, then the same through the eager step from the
@@ -125,7 +141,7 @@ Phases, each of which fails the run (each prints its wall time):
     ``attention_impl="dense"`` from the same parameters as the
     yardstick (the first losses agree within 2%); tokens/s and peak
     memory of both;
-13. each flash kernel at BERT-base's shape, bf16, dropout 0.1, timed
+14. each flash kernel at BERT-base's shape, bf16, dropout 0.1, timed
     beside its bound, its plain version and
     ``scaled_dot_product_attention`` (forward; backward for dQ + dK/dV
     together), with its achieved TFLOP/s; summed over a step's 12
@@ -140,6 +156,7 @@ package beside it, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import os
 import re
@@ -170,6 +187,11 @@ LOGIT_ATOL, LOGIT_RTOL = 1e-4, 1e-4
 SPEC_K, SPEC_WINDOW = 3, 16
 PREFIX_REQUESTS, PREFIX_LENGTHS = 256, (32, 64, 192)
 RESUME_REQUESTS = 64
+# disaggregated serving: the long-prompt stall (length buckets, bystanders
+# decoding, long prompts of 1900-2040 tokens arriving among them)
+STALL_LENGTHS, STALL_BYSTANDERS, STALL_LONG = (64, 2048), 56, 8
+STALL_LONG_TOKENS = (1900, 2041)
+STALL_CALM = 16                  # decode steps of the bystanders alone
 REPLACES = {"paged_decode_attention":
             "mxnet_tpu/ops/pallas/paged_attention.py:31",
             "fused_conv_fwd": "mxnet_tpu/ops/pallas/fused_conv.py:100",
@@ -782,18 +804,22 @@ def count_launches(fn):
 
 
 def feature_server(torch, params, cfg, name, capture=None,
-                   lengths=LENGTH_BUCKETS, n_requests=N_REQUESTS, **kw):
+                   lengths=LENGTH_BUCKETS, n_requests=N_REQUESTS,
+                   warmup=True, **kw):
     """A started ``GenerationServer`` at the serve phase's width (captured
     steps by default, eager with ``capture=False``), its graphs checked
-    against its census."""
+    against its census (none yet with ``warmup=False``)."""
     from mxnet_tpu_torch.serving import BucketSpec, GenerationServer
 
     srv = GenerationServer(
         params, cfg, buckets=BucketSpec(batch=BATCH_BUCKETS, length=lengths),
         n_slots=SLOTS, n_pages=N_PAGES, page_size=PAGE_SIZE,
         max_new_tokens=MAX_NEW, max_queue=n_requests, seed=0,
-        device=DEVICE, capture=capture, name=name, **kw).start()
-    expect_graphs(srv, capture, name)
+        device=DEVICE, capture=capture, name=name, **kw).start(warmup)
+    if warmup:
+        expect_graphs(srv, capture, name)
+    else:
+        expect(srv.graph_count() == 0, f"{name}: graphs before traffic")
     return srv
 
 
@@ -1139,6 +1165,255 @@ def handoff_and_resume(torch, params, cfg, prompts, ref, jpath):
         log(f"resume [{label}]: {len(got)} exported sequences (with "
             f"{sum(len(x.out) for x in exported)} tokens generated before "
             f"the drain) complete with the uninterrupted run's tokens")
+
+
+# --------------------------------------------------- disaggregated serving --
+def expect_disaggregated(srv, what):
+    """After a disaggregated server's traffic and drain: its graphs
+    still equal its census (grid + handoff + decode), the handoff path
+    ran, every page is back and no group is in flight."""
+    grid = len(srv.buckets.batch) * len(srv.buckets.length)
+    expect(srv.census() == grid + 2, f"{what}: census {srv.census()}")
+    expect_graphs(srv, None, f"{what} after the run")
+    st, h = srv.stats, srv.healthz()
+    expect(st["handoffs"] >= 1, f"{what}: no handoff ran")
+    expect(srv.alloc.free_count() == srv.alloc.allocatable,
+           f"{what}: pages left after drain")
+    expect(h["prefill_inflight"] == 0 and h["prefill_workers"] >= 1,
+           f"{what}: health {h}")
+
+
+def same_or_teacher_forced(torch, params, cfg, prompts, outs, ref, what):
+    """How many of ``outs`` equal ``ref`` token for token; where any
+    differs, every output is held to the teacher-forced argmax and the
+    reason is printed."""
+    same = sum(np.array_equal(a, b) for a, b in zip(outs, ref))
+    if same < len(ref):
+        log(f"{what}: {len(ref) - same} of {len(ref)} outputs differ from "
+            f"the fused server's (a prefill group's batch bucket follows "
+            f"the traffic, and another GEMM shape may sum in another "
+            f"order); held teacher-forced instead")
+        teacher_forced(torch, params, cfg, prompts, outs, what,
+                       n=len(prompts))
+    return same
+
+
+def serve_disaggregated(torch, params, cfg, plain):
+    """The serve phase's traffic through captured disaggregated servers
+    with 1 and 2 prefill workers (graphs = census = grid + 2 after start
+    and after the traffic; tokens against the fused server's), then
+    through one started with ``warmup=False`` and 2 workers, whose
+    prefill graphs the workers capture while the decode loop runs."""
+    prompts = plain["prompts"]
+    res = {}
+    for workers in (1, 2):
+        what = f"disaggregated [{workers} worker{'s' * (workers > 1)}]"
+        srv = feature_server(torch, params, cfg, f"ChipSmokeDisagg-w{workers}",
+                             prefill_workers=workers)
+        (outs, dt), launches = count_launches(
+            lambda: run_requests(srv, prompts))
+        expect_disaggregated(srv, what)
+        st = srv.stats
+        expect(launches >= st["decode_steps"] * LAYERS > 0,
+               f"{what}: {launches} kernel launches")
+        same = same_or_teacher_forced(torch, params, cfg, prompts, outs,
+                                      plain["outs"], what)
+        n_tok = sum(map(len, outs))
+        log(f"{what}, captured: {N_REQUESTS} requests, {n_tok} tokens in "
+            f"{dt:.3f} s = {n_tok / dt:.1f} tokens/s (fused "
+            f"{plain['tokens_per_s']:.1f}); graphs = census {srv.census()}; "
+            f"prefills {st['prefills']}, handoffs {st['handoffs']}, decode "
+            f"steps {st['decode_steps']} (fused {plain['decode_steps']}); "
+            f"kernel launches {launches}; {same} of {N_REQUESTS} outputs "
+            f"equal the fused server's")
+        res[workers] = {"launches": launches, "tokens_per_s": n_tok / dt,
+                        "same": same}
+    srv = feature_server(torch, params, cfg, "ChipSmokeDisagg-lazy",
+                         warmup=False, prefill_workers=2)
+    (outs, dt), launches = count_launches(lambda: run_requests(srv, prompts))
+    graphs = srv.graph_count()
+    on_card = DEVICE == "cuda"
+    expect(3 * on_card <= graphs <= srv.census() * on_card,
+           f"lazy: {graphs} graphs, census {srv.census()}")
+    expect(launches >= srv.stats["decode_steps"] * LAYERS > 0,
+           f"lazy: {launches} kernel launches")
+    same = same_or_teacher_forced(torch, params, cfg, prompts, outs,
+                                  plain["outs"], "disaggregated [lazy]")
+    log(f"disaggregated [2 workers, start(warmup=False)]: {graphs} graphs "
+        f"captured under traffic (census {srv.census()}: the buckets the "
+        f"traffic used, the handoff and the decode graph), prefills "
+        f"{srv.stats['prefills']}, handoffs {srv.stats['handoffs']}; "
+        f"kernel launches {launches}; {same} of {N_REQUESTS} outputs "
+        f"equal the fused server's")
+    return res
+
+
+def stall_prompts():
+    """The stall phase's traffic: ``STALL_BYSTANDERS`` of the serve
+    phase's prompts and ``STALL_LONG`` prompts of 1900-2040 random
+    tokens from ``RandomState(3)``."""
+    rng = np.random.RandomState(3)
+    longs = [rng.randint(0, VOCAB, size=int(rng.randint(*STALL_LONG_TOKENS)))
+             .astype(np.int32) for _ in range(STALL_LONG)]
+    return serve_prompts()[:STALL_BYSTANDERS], longs
+
+
+def stall_run(torch, params, cfg, workers, bystanders, longs, root):
+    """One stall run: the bystanders seated and decoding alone for
+    STALL_CALM steps, then the long prompts submitted; the decode
+    loop's steps and the prefill and handoff spans read from the port's
+    profiler (host clock, no device sync).  Returns the gaps between
+    the starts of consecutive decode steps that overlap the time the
+    long prompts are in flight (from their submit to the end of the
+    last long prefill, fused, or handoff), the same over the STALL_CALM
+    steps before, and the bystanders' tokens/s, over their whole run
+    and from the long prompts' submit to the last bystander's
+    result."""
+    from mxnet_tpu_torch import profiler
+
+    name = f"ChipSmokeStall-w{workers}"
+    srv = feature_server(torch, params, cfg, name, lengths=STALL_LENGTHS,
+                         n_requests=STALL_BYSTANDERS + STALL_LONG,
+                         prefill_workers=workers)
+    with tempfile.TemporaryDirectory(dir=root, prefix=".smoke-") as tdir:
+        trace = os.path.join(tdir, "stall.json")
+        profiler.set_config(filename=trace)
+        profiler.start()
+        try:
+            t0 = time.perf_counter()
+            reqs = [srv.submit(p) for p in bystanders]
+            limit = time.monotonic() + 120
+            while srv.healthz()["active_slots"] < len(bystanders) \
+                    and time.monotonic() < limit:
+                time.sleep(0.001)
+            expect(srv.healthz()["active_slots"] == len(bystanders),
+                   f"stall [{workers}]: bystanders not all seated")
+            calm_end = srv.stats["decode_steps"] + STALL_CALM
+            while srv.stats["decode_steps"] < calm_end \
+                    and time.monotonic() < limit:
+                time.sleep(0.0002)
+            t_sub = time.perf_counter() * 1e6
+            before = srv.stats["tokens_out"]         # all bystanders'
+            long_reqs = [srv.submit(p) for p in longs]
+            outs = [r.result(timeout=600) for r in reqs]
+            t_last = time.perf_counter()
+            dt = t_last - t0
+            long_outs = [r.result(timeout=600) for r in long_reqs]
+        finally:
+            profiler.stop()
+            expect(srv.drain(60), f"{name} did not drain")
+        profiler.dump()
+        with open(trace) as f:
+            events = json.load(f)["traceEvents"]
+    profiler.set_config()
+    st = srv.stats
+    expect(st["completed"] == len(bystanders) + len(longs)
+           and st["failed"] == 0 and st["preempted"] == 0,
+           f"stall [{workers}]: stats {st}")
+    expect(all(len(o) == MAX_NEW for o in outs + long_outs),
+           f"stall [{workers}]: a wrong token count")
+    if workers:
+        expect_disaggregated(srv, f"stall [{workers}]")
+    spans = [e for e in events if e.get("ph") == "X"]
+    starts = sorted(e["ts"] for e in spans if e["name"] == f"{name}.decode")
+    last = "handoff" if workers else "prefill"
+    ends = [e["ts"] + e["dur"] for e in spans
+            if e["name"] == f"{name}.{last}" and e["ts"] >= t_sub]
+    prefills = [e["dur"] / 1e3 for e in spans
+                if e["name"] == f"{name}.prefill" and e["ts"] >= t_sub]
+    expect(ends and prefills, f"stall [{workers}]: no long prefill seen")
+    t_end = max(ends)
+    gaps = [(b - a) / 1e3 for a, b in zip(starts, starts[1:])
+            if b >= t_sub and a <= t_end]
+    calm = [(b - a) / 1e3 for a, b in zip(starts, starts[1:])
+            if b < t_sub][-STALL_CALM:]
+    expect(gaps and len(calm) == STALL_CALM,
+           f"stall [{workers}]: {len(gaps)} decode steps in the window, "
+           f"{len(calm)} before it")
+    n_tok = sum(map(len, outs))
+    return {"gaps": gaps, "calm": calm, "window_ms": (t_end - t_sub) / 1e3,
+            "prefill_ms": prefills, "bystander_tps": n_tok / dt,
+            "bystander_tps_after": (n_tok - before)
+            / (t_last - t_sub / 1e6), "outs": outs, "long_outs": long_outs}
+
+
+def long_prompt_stall(torch, params, cfg, root):
+    """The stall a long prompt puts on in-flight decodes, fused
+    (``prefill_workers=0``) against disaggregated (1 worker): the same
+    model and slots, length buckets STALL_LENGTHS, batch buckets (1, 2,
+    4), STALL_BYSTANDERS bystanders decoding when STALL_LONG prompts of
+    1900-2040 tokens arrive.  Logs the decode-step gaps (p50, p99, max)
+    while the long prompts are in flight and the bystanders' tokens/s;
+    every output is held teacher-forced.  A measurement, not a claim."""
+    bystanders, longs = stall_prompts()
+    res = {}
+    for workers in (0, 1):
+        r = res[workers] = stall_run(torch, params, cfg, workers, bystanders,
+                                     longs, root)
+        g, c = np.asarray(r["gaps"]), np.asarray(r["calm"])
+        log(f"stall [{'fused' if not workers else '1 worker'}]: "
+            f"{len(bystanders)} bystanders decoding, {len(longs)} prompts of "
+            f"{min(map(len, longs))}-{max(map(len, longs))} tokens in "
+            f"flight for {r['window_ms']:.3f} ms: {len(g)} decode-step gaps "
+            f"p50 {np.percentile(g, 50):.3f} / p99 "
+            f"{np.percentile(g, 99):.3f} / max {g.max():.3f} ms (the "
+            f"{STALL_CALM} before: p50 {np.percentile(c, 50):.3f}, max "
+            f"{c.max():.3f} ms); long prefill steps "
+            f"{', '.join(f'{x:.3f}' for x in r['prefill_ms'])} ms; "
+            f"bystanders {r['bystander_tps']:.1f} tokens/s, "
+            f"{r['bystander_tps_after']:.1f} after the long prompts' submit")
+        teacher_forced(torch, params, cfg, longs, r["long_outs"],
+                       f"stall [{workers}] long prompts", n=len(longs))
+        teacher_forced(torch, params, cfg, bystanders, r["outs"],
+                       f"stall [{workers}] bystanders", n=8)
+    same = sum(np.array_equal(a, b) for a, b in
+               zip(res[0]["outs"] + res[0]["long_outs"],
+                   res[1]["outs"] + res[1]["long_outs"]))
+    log(f"stall: {same} of {len(bystanders) + len(longs)} outputs equal "
+        f"between fused and disaggregated")
+    return res
+
+
+def handoff_fault(torch, params, cfg, plain):
+    """``fleet.handoff`` armed with a seated bystander (one worker): the
+    doomed request fails explicitly, the bystander completes with its
+    full token count, and a fresh request is served after."""
+    from mxnet_tpu_torch import fault
+
+    prompts = plain["prompts"]
+    srv = feature_server(torch, params, cfg, "ChipSmokeHandoffFault",
+                         prefill_workers=1)
+    try:
+        bystander = srv.submit(prompts[0])
+        limit = time.monotonic() + 60
+        while srv.stats["handoffs"] < 1 and time.monotonic() < limit:
+            time.sleep(0.001)
+        expect(srv.stats["handoffs"] == 1, "handoff fault: bystander not "
+               "seated")
+        with fault.inject("fleet.handoff", RuntimeError("wire lost")) as h:
+            err = srv.submit(prompts[1]).exception(timeout=600)
+        expect(isinstance(err, RuntimeError) and "wire lost" in str(err)
+               and h.fired >= 1, f"handoff fault: the doomed request got "
+               f"{err!r}")
+        out = bystander.result(timeout=600)
+        fresh = srv.submit(prompts[2]).result(timeout=600)
+        expect(len(out) == MAX_NEW and len(fresh) == MAX_NEW,
+               "handoff fault: a wrong token count")
+        expect_graphs(srv, None, "handoff fault")
+    finally:
+        expect(srv.drain(60), "handoff fault: server did not drain")
+    expect(srv.alloc.free_count() == srv.alloc.allocatable,
+           "handoff fault: pages left after drain")
+    same = [np.array_equal(a, b) for a, b in
+            zip((out, fresh), (plain["outs"][0], plain["outs"][2]))]
+    if not all(same):
+        teacher_forced(torch, params, cfg, [prompts[0], prompts[2]],
+                       [out, fresh], "handoff fault")
+    log(f"handoff fault: fleet.handoff failed its group explicitly "
+        f"({type(err).__name__}: {err}); the seated bystander completed "
+        f"with {len(out)} tokens, a fresh request after with {len(fresh)} "
+        f"(equal to the fused server's: {same}); stats failed "
+        f"{srv.stats['failed']}, completed {srv.stats['completed']}")
 
 
 # ---------------------------------------------------------------- training --
@@ -2519,7 +2794,14 @@ def main():
                             spec_k=SPEC_K, spec_window=SPEC_WINDOW)
             paths["salvage"] = serve_salvage_resume(torch, params, cfg,
                                                     served, root)["launches"]
+        with phase("disaggregated serving"):
+            disagg = serve_disaggregated(torch, params, cfg, served)
+            paths["disaggregated"] = disagg[1]["launches"]
+            paths["disaggregated 2 workers"] = disagg[2]["launches"]
+            long_prompt_stall(torch, params, cfg, root)
+            handoff_fault(torch, params, cfg, served)
             del params
+            gc.collect()
             torch.cuda.empty_cache()
         with phase("fused conv vs plain"):
             fused_vs_plain(torch)

@@ -205,7 +205,6 @@ class _Call(ctypes.Structure):
 
 _SMS = {}
 _PLANS = {}
-_MAX_PLANS = 64
 
 
 def _sm_count(device):
@@ -224,8 +223,10 @@ def _plan(q, k_pages, v_pages, page_tables, lengths, device, stream):
     graph bakes the plan's pointers in, so the plan of the capturing
     stream must exist before the capture: making one during it raises.
     A graph's replays use the plan of the stream it was captured on, so
-    they must not overlap other launches with that plan (the port's
-    steps run one at a time).
+    they must not overlap other launches with that plan (each graph is
+    captured on a stream it owns, ``graphs.owned_stream``).  A plan
+    lives as long as its stream's user: when a freed graph's stream is
+    reclaimed, ``drop_plans`` drops the plans made on it.
     Returns ``(workspace pointer, counters pointer, _Call pointer)``."""
     key = (q.shape, k_pages.shape, v_pages.shape, page_tables.shape,
            lengths.shape, device, stream)
@@ -251,11 +252,16 @@ def _plan(q, k_pages, v_pages, page_tables, lengths, device, stream):
                      pages_per_seq, part.heads_per_chunk,
                      part.stage_positions, part.span, part.n_split,
                      _scale(head_dim))
-        if len(_PLANS) >= _MAX_PLANS:
-            _PLANS.clear()
         plan = _PLANS[key] = (ws.data_ptr(), counters.data_ptr(),
                               ctypes.addressof(call), (ws, counters, call))
     return plan
+
+
+def drop_plans(stream):
+    """Drop the launch plans made on ``stream`` (a raw stream pointer),
+    whose graph is freed and whose replays have finished."""
+    for key in [k for k in list(_PLANS) if k[-1] == stream]:
+        _PLANS.pop(key, None)
 
 
 def _paged_decode_attention_cuda(q, k_pages, v_pages, page_tables,

@@ -34,7 +34,8 @@ leave the in-flight batch at every decode step.
   prefill bucket's step run as CUDA graphs (``graphs.GraphCache``), the
   port's counterpart of the JAX server's jitted programs: captured at
   ``start()`` (one prefill graph per (batch, length) bucket plus the
-  decode graph, plus the verify graph with a draft: ``census()``;
+  decode graph, plus the handoff graph when disaggregated and the
+  verify graph with a draft: ``census()``;
   ``graph_count()`` counts those held) over static device buffers.  A
   step call writes its slot arrays into one pinned host buffer, copies
   it to the device with one non-blocking copy, replays, and copies the
@@ -49,6 +50,25 @@ leave the in-flight batch at every decode step.
   preempts the youngest sequence back onto the queue with its tokens
   kept; it resumes by re-prefilling prompt + generated and continues the
   same stream.
+- **Disaggregated prefill** — with ``prefill_workers >= 1`` prefill
+  runs on a group of worker threads through pool-free steps
+  (``build_prefill_kv_step``: the first token and the prompt's K/V,
+  no pool argument) while the decode loop keeps stepping; a finished
+  prefill hands its K/V payload and first token to the loop, which
+  scatters any mix of payloads into the pools with one fixed-shape
+  step (``build_handoff_step``) and seats the sequences.  A long
+  prompt no longer stalls the in-flight decodes for its prefill, and a
+  prefill-side failure cannot touch the pools.  Two stream roles on
+  the card: each worker replays its prefill graphs on a CUDA stream of
+  its own (``graphs.owned_stream``: no graph and no other worker uses
+  it; the graph of a bucket is shared by the workers, one at a
+  time: a lock per bucket from filling its inputs until its outputs
+  are copied out, on the worker's stream, and the first tokens read
+  back); the decode loop's stream is the only one that writes the
+  pools (handoff, decode and verify graphs).  A payload is read by the
+  loop's stream only after the worker's read-back synchronised it, and
+  is marked used on that stream (``record_stream``) before it is
+  freed.
 - **Salvage, snapshots and the journal** — a failed step requeues its
   sequences with their tokens (``salvage_retries`` per sequence; past
   it the error carries the partial tokens and a ``SequenceSnapshot``);
@@ -66,17 +86,19 @@ threefry-2x32 bits computed in int64 tensors, so seeded samples are the
 JAX server's tokens and preemption, salvage and resume repeat them.
 
 Left for later slices (constructor arguments absent here): tensor
-parallelism and disaggregated prefill.
+parallelism.
 
 Fault points ``generate.prefill`` / ``generate.decode`` /
 ``generate.evict`` / ``generate.resume`` / ``generate.salvage`` /
-``generate.journal`` fire where the JAX server fires them.
+``generate.journal`` / ``fleet.handoff`` fire where the JAX server
+fires them.
 """
 from __future__ import annotations
 
 import collections
 import json
 import os
+import queue
 import threading
 import time
 
@@ -87,12 +109,13 @@ from .. import fault as _fault
 from .. import profiler as _profiler
 from .. import telemetry as _telemetry
 from ..context import resolve_device
-from ..graphs import GraphCache
+from ..graphs import GraphCache, owned_stream, release_stream
 from ..gluon.model_zoo.causal_lm import (decode_hidden, lm_logits,
                                          prefill_forward, verify_logits,
                                          window_logits)
 from ..ops.paged_attention import (dense_decode_attention,
-                                   paged_decode_attention)
+                                   paged_decode_attention,
+                                   paged_decode_attention_reference)
 from .admission import (CircuitOpenError, DeadlineExceededError,
                         RejectedError, Request, ServerClosedError,
                         TenantQoS, TokenBucket)
@@ -101,6 +124,7 @@ from .breaker import CircuitBreaker
 
 __all__ = ["PageAllocator", "PoolExhaustedError", "GenerationServer",
            "SequenceSnapshot", "build_decode_step", "build_prefill_step",
+           "build_prefill_kv_step", "build_handoff_step",
            "build_dense_decode_step", "build_verify_step", "decode_logits",
            "prefix_admission_plan"]
 
@@ -479,21 +503,80 @@ def build_prefill_step(config, page_size):
 
     def prefill_step(params, k_pool, v_pool, tokens, lengths, active,
                      tables, seeds, temps, topks):
-        b, L = tokens.shape
         logits, k_all, v_all = prefill_forward(params, config, tokens,
                                                lengths)
-        pos = torch.arange(L, device=tokens.device)
-        valid = (pos[None, :] < lengths[:, None]) & active[:, None]
-        blk = (pos // page_size).clamp(0, tables.shape[1] - 1)
-        page = torch.where(valid, tables.long()[:, blk], 0)     # [b, L]
-        off = (pos % page_size)[None, :].expand(b, L)
-        for layer in range(config.n_layers):
-            k_pool[layer, page, off] = k_all[layer]
-            v_pool[layer, page, off] = v_all[layer]
+        _scatter_prompt_kv(k_pool, v_pool, k_all, v_all, lengths, active,
+                           tables, page_size)
         first = _sample_tokens(logits, seeds, lengths, temps, topks)
         return first, k_pool, v_pool
 
     return prefill_step
+
+
+def _scatter_prompt_kv(k_pool, v_pool, k_all, v_all, lengths, active,
+                       tables, page_size):
+    """Write prompt K/V ``[n_layers, b, L, H, D]`` into the pools by page
+    table, in place: row ``i``'s position ``p`` goes to page
+    ``tables[i, p // page_size]``; inactive rows and positions past
+    ``lengths`` sink to page 0 (the only place duplicate writes land); a
+    block index past the table is clamped, as a JAX gather clamps it."""
+    b, L = k_all.shape[1], k_all.shape[2]
+    pos = torch.arange(L, device=k_all.device)
+    valid = (pos[None, :] < lengths[:, None]) & active[:, None]
+    blk = (pos // page_size).clamp(0, tables.shape[1] - 1)
+    page = torch.where(valid, tables.long()[:, blk], 0)         # [b, L]
+    off = (pos % page_size)[None, :].expand(b, L)
+    for layer in range(k_all.shape[0]):
+        k_pool[layer, page, off] = k_all[layer]
+        v_pool[layer, page, off] = v_all[layer]
+
+
+def build_prefill_kv_step(config):
+    """The disaggregated prefill step (one per ``(batch, length)``
+    bucket): the whole-prompt forward returning the first sampled token
+    and the prompt's K/V, with NO pool argument, so a prefill worker can
+    run it beside the decode loop's step and a failed prefill cannot
+    touch the pools.  Attention is dense-causal, as in the fused prefill
+    step.  The K/V is the payload ``build_handoff_step`` scatters.
+
+    Signature: ``(params, tokens[b, L], lengths[b], seeds[b], temps[b],
+    topks[b])`` → ``(first[b] int32, k_all, v_all)``, K/V stacked
+    ``[n_layers, b, L, heads, head_dim]`` float32 and zero past
+    ``lengths``."""
+
+    def prefill_kv_step(params, tokens, lengths, seeds, temps, topks):
+        logits, k_all, v_all = prefill_forward(params, config, tokens,
+                                               lengths)
+        first = _sample_tokens(logits, seeds, lengths, temps, topks)
+        L = tokens.shape[1]
+        valid = (torch.arange(L, device=tokens.device)[None, :]
+                 < lengths[:, None])[None, :, :, None, None]
+        zero = torch.zeros((), dtype=k_all.dtype, device=k_all.device)
+        return first, torch.where(valid, k_all, zero), \
+            torch.where(valid, v_all, zero)
+
+    return prefill_kv_step
+
+
+def build_handoff_step(config, page_size):
+    """The one handoff step of a disaggregated server: scatter a batch of
+    prefilled sequences' K/V (``[n_layers, B, L, H, D]``, a FIXED
+    ``(B, L)`` staging shape) into the pools by page table, in place.
+    Inactive lanes and positions past ``lengths`` sink to page 0.  The
+    shapes are configuration constants, so however sequences are
+    re-packed across handoffs it is one step (one graph on the card).
+
+    Signature: ``(k_pool, v_pool, k_all, v_all, lengths[B], active[B],
+    tables[B, P])`` → ``(k_pool, v_pool)``."""
+    del config                # the shapes come from the payload
+
+    def handoff_step(k_pool, v_pool, k_all, v_all, lengths, active,
+                     tables):
+        _scatter_prompt_kv(k_pool, v_pool, k_all, v_all, lengths, active,
+                           tables, page_size)
+        return k_pool, v_pool
+
+    return handoff_step
 
 
 def build_dense_decode_step(config, max_ctx):
@@ -665,6 +748,25 @@ def build_verify_step(config, draft_cfg, page_size, spec_k, window,
     return verify_step
 
 
+def _decode_attention(impl, device, name):
+    """The decode and verify steps' paged attention for the JAX server's
+    ``attention_impl``: None → ``ops.paged_decode_attention`` (the
+    hand-written kernel on the card, its plain version on the CPU);
+    ``"pallas"`` → the same, and only on the card; ``"jnp"`` → the plain
+    version on any device.  Returns the ``attention`` argument of
+    ``build_decode_step`` (None for the default)."""
+    if impl not in (None, "jnp", "pallas"):
+        raise ValueError(f"{name}: attention_impl={impl!r} (expected None, "
+                         f"'jnp', or 'pallas')")
+    if impl == "jnp":
+        return paged_decode_attention_reference
+    if impl == "pallas" and device.type != "cuda":
+        raise ValueError(f"{name}: attention_impl='pallas' is the "
+                         f"hand-written kernel, which needs the card, not "
+                         f"{device}")
+    return None
+
+
 def prefix_admission_plan(n_pages, page_size, prompt_len, max_new,
                           shared_prefix_len):
     """Worst-case-fit admission arithmetic under prefix sharing (the
@@ -814,8 +916,9 @@ class GenerationServer:
     """Continuous-batching autoregressive generation server.
 
     Lifecycle: construct → ``start()`` (allocates the pools on the
-    device and warms up every prefill bucket, the decode step and, with
-    a draft, the verify step) → ``submit()``/``__call__`` → ``drain()``
+    device and warms up every prefill bucket, the handoff step when
+    disaggregated, the decode step and, with a draft, the verify step)
+    → ``submit()``/``__call__`` → ``drain()``
     or ``serve_forever()``.  ``submit`` returns a ``Request`` future
     resolving to the generated token ids (``np.int32``, EOS excluded) or
     an explicit error.
@@ -828,17 +931,24 @@ class GenerationServer:
     captured CUDA graphs unless ``capture=False``; ``capture=True`` on
     the CPU raises.
 
-    The JAX server's arguments, as it defines them: ``draft`` /
-    ``draft_config`` / ``spec_k`` / ``spec_window`` (speculative
-    decoding), ``qos`` (a ``TenantQoS``: priority classes, per-tenant
-    buckets, ``healthz()["classes"]``), ``salvage_retries`` (per
-    sequence, for step failures), ``journal`` / ``journal_every`` (the
-    decode journal's path and snapshot period), ``memory_report`` (the
-    ``mem_*`` gauges of ``telemetry()``).
+    The JAX server's arguments, as it defines them: ``attention_impl``
+    (the decode and verify steps' paged attention: None, the
+    hand-written kernel on the card and its plain version on the CPU;
+    ``"pallas"``, the kernel, which needs the card; ``"jnp"``, the plain
+    version on any device), ``prefill_workers`` (disaggregated prefill,
+    see the module's doc), ``draft`` / ``draft_config`` / ``spec_k`` /
+    ``spec_window`` (speculative decoding), ``qos`` (a ``TenantQoS``:
+    priority classes, per-tenant buckets, ``healthz()["classes"]``),
+    ``salvage_retries`` (per sequence, for step failures), ``journal`` /
+    ``journal_every`` (the decode journal's path and snapshot period),
+    ``memory_report`` (the ``mem_*`` gauges of ``telemetry()``).
 
     One decode loop thread owns all device state (pools, slot arrays,
     allocator traffic, the prefix index); client threads touch only the
     admission deque, the lock-guarded stats and ``Request`` futures.
+    Prefill workers (``prefill_workers``) touch the sequences of the
+    group they hold, their bucket's step inputs and the handoff queue,
+    never the pools, the allocator or the slot arrays.
 
     Profiler series: ``<name>::tokens_out``, ``<name>::page_occupancy``
     (percent of allocatable pages held), ``<name>::preempted``,
@@ -852,7 +962,8 @@ class GenerationServer:
                  n_pages=64, page_size=16, max_context=None,
                  max_queue=128, rate=None, burst=None, breaker=None,
                  default_deadline=None, max_new_tokens=32, eos_id=None,
-                 seed=0, qos=None, draft=None, draft_config=None,
+                 seed=0, attention_impl=None, prefill_workers=0,
+                 qos=None, draft=None, draft_config=None,
                  spec_k=3, spec_window=16, salvage_retries=2,
                  journal=None, journal_every=8, memory_report=None,
                  device="cuda", capture=None, name="GenerationServer"):
@@ -860,6 +971,10 @@ class GenerationServer:
         if self.device.type != "cuda" and capture:
             raise ValueError(f"{name}: capture=True needs the card, not "
                              f"{self.device}; pass capture=None or False")
+        attention = _decode_attention(attention_impl, self.device, name)
+        self._n_prefill_workers = int(prefill_workers)
+        if self._n_prefill_workers < 0:
+            raise ValueError(f"{name}: prefill_workers must be >= 0")
         self._graphs = GraphCache(self.device) \
             if self.device.type == "cuda" and capture is not False else None
         self.config = config
@@ -911,13 +1026,20 @@ class GenerationServer:
         self._max_queue = int(max_queue)
 
         self._params = self._on_device(params)
-        self._decode = build_decode_step(config, self.alloc.page_size)
-        self._prefill = build_prefill_step(config, self.alloc.page_size)
+        self._decode = build_decode_step(config, self.alloc.page_size,
+                                         attention=attention)
+        if self._n_prefill_workers > 0:
+            # disaggregated: the pool-free prefill grid + ONE handoff
+            self._prefill = build_prefill_kv_step(config)
+            self._handoff = build_handoff_step(config, self.alloc.page_size)
+        else:
+            self._prefill = build_prefill_step(config, self.alloc.page_size)
+            self._handoff = None
         if draft is not None:
             self._draft_params = self._on_device(draft)
             self._verify = build_verify_step(
                 config, draft_config, self.alloc.page_size, self._spec_k,
-                self._spec_window)
+                self._spec_window, attention=attention)
         else:
             self._draft_params = None
             self._verify = None
@@ -946,6 +1068,21 @@ class GenerationServer:
             (self.n_slots, self._spec_k + 2), self.device) \
             if self._verify is not None else None
         self._prefill_io = {}         # (batch, length) -> (_Staged, out)
+        # a bucket's step inputs and outputs are shared by the prefill
+        # workers: one user at a time, from filling to copying out
+        self._prefill_locks = {(b, L): threading.Lock()
+                               for b in self.buckets.batch
+                               for L in self.buckets.length}
+        # the handoff step's arguments: the K/V staging buffers (made
+        # with the pools) and one staging buffer of the rest; the event
+        # marks the last upload of its host half
+        self._hand_k = self._hand_v = None
+        B = self.buckets.max_batch
+        self._handoff_in = _Staged(
+            [("lengths", (B,), np.int32), ("active", (B,), np.bool_),
+             ("tables", (B, self.pages_per_seq), np.int32)],
+            self.device) if self._handoff is not None else None
+        self._handoff_done = None
         d = self._decode_in.host
         self._tokens, self._lengths = d["tokens"], d["lengths"]
         self._active, self._tables = d["active"], d["tables"]
@@ -973,7 +1110,7 @@ class GenerationServer:
         self._stats = {"admitted": 0, "completed": 0, "failed": 0,
                        "expired": 0, "rejected": 0, "retired": 0,
                        "preempted": 0, "tokens_out": 0, "prefills": 0,
-                       "decode_steps": 0, "active_slots": 0,
+                       "handoffs": 0, "decode_steps": 0, "active_slots": 0,
                        "verify_steps": 0, "spec_proposed": 0,
                        "spec_accepted": 0, "cow_faults": 0,
                        "pages_charged": 0, "pages_shared_mapped": 0,
@@ -985,9 +1122,25 @@ class GenerationServer:
         self._ready = threading.Event()
         self._draining = threading.Event()
         self._stop = threading.Event()
+        self._loop_exited = threading.Event()
         self._started = threading.Event()
         self._thread = threading.Thread(target=self._loop, name=name,
                                         daemon=True)
+        # disaggregated plumbing: the prefill group's work queue (bounded
+        # — the decode loop is its only producer and checks full() first,
+        # so put_nowait cannot race), the handoff queue (workers → decode
+        # loop), the flight registry (groups a worker holds, swept on
+        # loop exit so a dying worker never strands its group) and the
+        # decode-loop-private backlog of payloads waiting for slots/pages
+        self._prefill_q = queue.Queue(
+            maxsize=max(2, 2 * self._n_prefill_workers))
+        self._handoff_q = queue.Queue()
+        self._prefill_flight = {}          # id(group) -> group, _lock-guarded
+        self._handoff_backlog = []         # decode-loop-private
+        self._prefill_threads = [
+            threading.Thread(target=self._prefill_worker,
+                             name=f"{name}-prefill-w{i}", daemon=True)
+            for i in range(self._n_prefill_workers)]
         self._c_tokens = _profiler.Counter(None, f"{name}::tokens_out")
         self._c_pages = _profiler.Counter(None, f"{name}::page_occupancy")
         self._c_preempted = _profiler.Counter(None, f"{name}::preempted")
@@ -1008,12 +1161,15 @@ class GenerationServer:
     # ------------------------------------------------------------ lifecycle --
     def start(self, warmup=True):
         """Allocate the zeroed pools on the device and (by default) run
-        every prefill bucket shape, the decode step and (with a draft)
-        the verify step once with inert all-inactive arguments (writes
-        sink to page 0, the allocator is untouched) before readiness
-        flips — on the card this also builds and loads the attention
-        kernel, makes its launch plans and captures every step's graph
-        (``graph_count() == census()`` after it)."""
+        every prefill bucket shape, the handoff step (disaggregated),
+        the decode step and (with a draft) the verify step once with
+        inert all-inactive arguments (writes sink to page 0, the
+        allocator is untouched) before readiness flips — on the card
+        this also builds and loads the attention kernel, makes its
+        launch plans and captures every step's graph (``graph_count()
+        == census()`` after it).  ``warmup=False`` captures each graph
+        at its first call instead, a prefill bucket's on the worker
+        that first runs it."""
         if self._draining.is_set():
             raise ServerClosedError(f"{self._name}: already drained")
         c, npg, psz = self.config, self.alloc.n_pages, self.alloc.page_size
@@ -1022,22 +1178,38 @@ class GenerationServer:
                                    device=self.device)
         self._v_pool = torch.zeros(shape, dtype=torch.float32,
                                    device=self.device)
+        if self._handoff is not None:
+            shape = (c.n_layers, self.buckets.max_batch,
+                     max(self.buckets.length), c.n_heads, c.head_dim)
+            self._hand_k = torch.zeros(shape, dtype=torch.float32,
+                                       device=self.device)
+            self._hand_v = torch.zeros(shape, dtype=torch.float32,
+                                       device=self.device)
         if warmup:
             for b in self.buckets.batch:
                 for L in self.buckets.length:
+                    zeros = np.zeros((b,), np.int32)
+                    if self._handoff is not None:
+                        self._run_prefill_kv(
+                            np.zeros((b, L), np.int32), zeros,
+                            np.zeros((b,), np.int64),
+                            np.zeros((b,), np.float32), zeros)
+                        continue
                     self._run_prefill(
-                        np.zeros((b, L), np.int32),
-                        np.zeros((b,), np.int32),
+                        np.zeros((b, L), np.int32), zeros,
                         np.zeros((b,), bool),
                         np.zeros((b, self.pages_per_seq), np.int32),
                         np.zeros((b,), np.int64),
-                        np.zeros((b,), np.float32),
-                        np.zeros((b,), np.int32))
+                        np.zeros((b,), np.float32), zeros)
+            if self._handoff is not None:
+                self._run_handoff([])
             self._run_decode()
             if self._verify is not None:
                 self._run_verify()
         self._started.set()
         self._thread.start()
+        for t in self._prefill_threads:
+            t.start()
         self._ready.set()
         return self
 
@@ -1052,12 +1224,14 @@ class GenerationServer:
 
     def census(self):
         """The step programs the server runs: one prefill graph per
-        (batch, length) bucket plus THE decode graph, plus THE verify
-        graph with a draft, as the JAX server's ``census()``.
-        ``graph_count()`` equals it after ``start()`` on the card,
-        forever."""
+        (batch, length) bucket plus THE decode graph, plus THE handoff
+        graph when disaggregated (``prefill_workers >= 1``: the workers
+        share a bucket's graph) and THE verify graph with a draft, as
+        the JAX server's ``census()``.  ``graph_count()`` equals it after
+        ``start()`` on the card, forever."""
         grid = len(self.buckets.batch) * len(self.buckets.length)
-        return grid + 1 + (1 if self._verify is not None else 0)
+        return grid + 1 + (1 if self._handoff is not None else 0) \
+            + (1 if self._verify is not None else 0)
 
     def graph_count(self):
         """CUDA graphs captured so far (the JAX server's
@@ -1391,12 +1565,16 @@ class GenerationServer:
 
     def _step_fields(self, rows, length=None):
         """The staged arguments of a step over ``rows`` slots (decode
-        and verify) or a ``(rows, length)`` prefill bucket.  ``cow``
-        holds the decode step's two copy-on-write lanes (src, dst)."""
+        and verify) or a ``(rows, length)`` prefill bucket (the pool-free
+        step of a disaggregated server takes no ``active``/``tables``).
+        ``cow`` holds the decode step's two copy-on-write lanes (src,
+        dst)."""
+        pool = [("active", (rows,), np.bool_),
+                ("tables", (rows, self.pages_per_seq), np.int32)]
+        if length is not None and self._handoff is not None:
+            pool = []
         fields = [("tokens", (rows,) if length is None else (rows, length),
-                   np.int32), ("lengths", (rows,), np.int32),
-                  ("active", (rows,), np.bool_),
-                  ("tables", (rows, self.pages_per_seq), np.int32),
+                   np.int32), ("lengths", (rows,), np.int32)] + pool + [
                   ("seeds", (rows,), np.int64),
                   ("temps", (rows,), np.float32),
                   ("topks", (rows,), np.int32)]
@@ -1407,15 +1585,18 @@ class GenerationServer:
                            ("nvalid", (rows,), np.int32)]
         return fields
 
-    def _run_step(self, key, body, out):
-        """Run ``body()`` — a step reading the staged device arguments,
-        returning its int32 tokens — through its graph (captured at its
-        first call, which runs it eagerly first) or eagerly, and copy
-        the tokens into the pinned ``out``; returns them on the host
-        after the one sync of the step."""
+    def _run_graph(self, key, body):
+        """``body()`` — a step reading the staged device arguments —
+        through its graph (captured at its first call, which runs it
+        eagerly first) or eagerly, on the current stream."""
         with torch.no_grad():
-            tok = body() if self._graphs is None \
+            return body() if self._graphs is None \
                 else self._graphs.run(key, body)
+
+    def _read_back(self, tok, out):
+        """Copy a step's int32 tokens into the pinned ``out`` and return
+        them on the host after the one sync of the step (on the current
+        stream: all of its earlier work is done too)."""
         out.copy_(tok, non_blocking=True)
         if self.device.type == "cuda":
             done = torch.cuda.Event()
@@ -1423,17 +1604,25 @@ class GenerationServer:
             done.synchronize()       # the token read-back: the step's sync
         return out.numpy().copy()
 
-    def _run_prefill(self, tokens, lengths, active, tables, seeds, temps,
-                     topks):
-        """One prefill step (pools updated in place); returns the
-        first sampled tokens on the host."""
-        b, L = tokens.shape
+    def _run_step(self, key, body, out):
+        """``body()`` — returning its int32 tokens — through
+        ``_run_graph``; returns the tokens on the host."""
+        return self._read_back(self._run_graph(key, body), out)
+
+    def _prefill_staging(self, b, L):
         io = self._prefill_io.get((b, L))
         if io is None:
             io = self._prefill_io[(b, L)] = (
                 _Staged(self._step_fields(b, L), self.device),
                 _host_tokens(b, self.device))
-        staged, out = io
+        return io
+
+    def _run_prefill(self, tokens, lengths, active, tables, seeds, temps,
+                     topks):
+        """One prefill step (pools updated in place); returns the
+        first sampled tokens on the host."""
+        b, L = tokens.shape
+        staged, out = self._prefill_staging(b, L)
         h = staged.host
         for name, arr in (("tokens", tokens), ("lengths", lengths),
                           ("active", active), ("tables", tables),
@@ -1449,6 +1638,70 @@ class GenerationServer:
                 d["lengths"], d["active"], d["tables"], d["seeds"],
                 d["temps"], d["topks"])[0]
         return self._run_step(("prefill", b, L), body, out)
+
+    def _run_prefill_kv(self, tokens, lengths, seeds, temps, topks):
+        """One POOL-FREE prefill step (disaggregated; any prefill worker,
+        on its own stream).  Holds the bucket's lock from filling its
+        inputs until its outputs are copied out and the first tokens
+        read back — the next user of the bucket overwrites both.
+        Returns the first tokens on the host and, per row with a
+        positive length, its K/V ``[n_layers, lengths[i], H, D]``, a
+        copy on this stream that the read-back's sync completed."""
+        b, L = tokens.shape
+        with self._prefill_locks[(b, L)]:
+            staged, out = self._prefill_staging(b, L)
+            h = staged.host
+            for name, arr in (("tokens", tokens), ("lengths", lengths),
+                              ("seeds", seeds), ("temps", temps),
+                              ("topks", topks)):
+                h[name][...] = arr
+            staged.upload()
+            d = staged.dev
+
+            def body():
+                return self._prefill(self._params, d["tokens"],
+                                     d["lengths"], d["seeds"], d["temps"],
+                                     d["topks"])
+            first, k_all, v_all = self._run_graph(("prefill", b, L), body)
+            payload = [(k_all[:, i, :n].clone(), v_all[:, i, :n].clone())
+                       for i, n in enumerate(int(n) for n in lengths)
+                       if n > 0]
+            return self._read_back(first, out), payload
+
+    def _run_handoff(self, entries):
+        """One handoff step (decode loop): ``entries`` are ``(table row,
+        k, v)`` per lane, at most ``buckets.max_batch``; each payload is
+        copied into the K/V staging buffers on this stream, marked used
+        here before it is freed, and the step scatters every lane into
+        the pools (the rest sink to page 0)."""
+        if self._handoff_done is not None:
+            self._handoff_done.synchronize()  # last upload read the host
+        h = self._handoff_in.host
+        h["lengths"][:] = 0
+        h["active"][:] = False
+        h["tables"][:] = 0
+        for j, (row, k_seq, v_seq) in enumerate(entries):
+            n = k_seq.shape[1]
+            self._hand_k[:, j, :n].copy_(k_seq, non_blocking=True)
+            self._hand_v[:, j, :n].copy_(v_seq, non_blocking=True)
+            if self.device.type == "cuda":
+                stream = torch.cuda.current_stream(self.device)
+                k_seq.record_stream(stream)
+                v_seq.record_stream(stream)
+            h["lengths"][j] = n
+            h["active"][j] = True
+            h["tables"][j] = row
+        self._handoff_in.upload()
+        d = self._handoff_in.dev
+
+        def body():
+            self._handoff(self._k_pool, self._v_pool, self._hand_k,
+                          self._hand_v, d["lengths"], d["active"],
+                          d["tables"])
+        self._run_graph(("handoff",), body)
+        if self.device.type == "cuda":
+            self._handoff_done = torch.cuda.Event()
+            self._handoff_done.record()
 
     def _run_decode(self):
         """One decode step over the full slot grid (pools updated in
@@ -1480,6 +1733,21 @@ class GenerationServer:
         both = self._run_step(("verify",), body, self._verify_out)
         return both[:, :-1], both[:, -1]
 
+    def _pipeline_idle(self):
+        """True when the disaggregated prefill pipeline holds no work
+        (always in fused mode).  Flight is checked FIRST: a group stays
+        in ``_prefill_flight`` until after its payloads are on the
+        handoff queue, so checking the queues first races a worker
+        finishing between the two checks, and the stale verdict would
+        let a drain strand a prefilled sequence."""
+        if self._handoff is None:
+            return True
+        with self._lock:
+            if self._prefill_flight:
+                return False
+        return not self._handoff_backlog and self._handoff_q.empty() \
+            and self._prefill_q.empty()
+
     def _loop(self):
         try:
             if self.device.type == "cuda":
@@ -1491,7 +1759,7 @@ class GenerationServer:
                     self._export_all()
                     return
                 if self._stop.is_set() and not self._seqs \
-                        and not self._pending:
+                        and not self._pending and self._pipeline_idle():
                     return
                 worked = self._retire_expired()
                 if self._draining.is_set() and self.breaker.engaged():
@@ -1506,7 +1774,11 @@ class GenerationServer:
                         f"{self._name}: circuit open during drain — "
                         f"fast-failing accepted work"))
                     return
-                worked = self._admit() or worked
+                if self._handoff is not None:
+                    worked = self._drain_handoffs() or worked
+                    worked = self._dispatch_prefill() or worked
+                else:
+                    worked = self._admit() or worked
                 if self._seqs:
                     if self._verify is not None:
                         self._verify_once()
@@ -1518,6 +1790,21 @@ class GenerationServer:
         finally:
             with self._admit_lock:
                 self._stop.set()
+            # only now may the prefill group stand down: drain() sets
+            # _stop while the loop still feeds queued work through the
+            # workers, so they key off _loop_exited, set strictly after
+            # the loop stopped producing.  They stop BEFORE the residue
+            # sweep (a worker mid-prefill could otherwise stage its
+            # payload after the sweep and strand its client); the
+            # sentinels are a fast path, the timed get the guarantee.
+            self._loop_exited.set()
+            for _ in self._prefill_threads:
+                try:
+                    self._prefill_q.put_nowait(None)
+                except queue.Full:
+                    break
+            for t in self._prefill_threads:
+                t.join(timeout=30)
             self._fail_residue()
 
     # ---- prefix sharing ----
@@ -1747,13 +2034,17 @@ class GenerationServer:
         full = np.concatenate([seq.prompt, np.asarray(seq.out, np.int32)])
         return full[:self._prefill_len(seq)]
 
-    def _take_prefill_group(self):
+    def _take_prefill_group(self, need_resources=True):
         """Pop one same-length-bucket group of queued sequences, highest
-        QoS priority first (FIFO by admission stamp within a class),
-        capped by free slots and budgeted against free pages — charging
-        only the pages the prefix index cannot map.  Returns [] when
-        nothing can start."""
-        limit = min(len(self._free_slots()), self.buckets.max_batch)
+        QoS priority first (FIFO by admission stamp within a class).
+        With ``need_resources`` (the fused path) the group is capped by
+        free slots and budgeted against free pages — charging only the
+        pages the prefix index cannot map; the disaggregated path
+        prefills ahead of seats (its flow control is the bounded prefill
+        queue).  Returns [] when nothing can start."""
+        limit = self.buckets.max_batch
+        if need_resources:
+            limit = min(len(self._free_slots()), limit)
         if limit == 0:
             return []
         with self._admit_lock:
@@ -1768,11 +2059,12 @@ class GenerationServer:
                     break
                 if self._bucket_len(self._prefill_len(seq)) != bucket:
                     continue
-                need = self.alloc.pages_for(self._prefill_len(seq)) \
-                    - len(self._match_prefix(self._prefill_tokens(seq)))
-                if need > budget:
-                    break   # keep order: don't starve the big one
-                budget -= need
+                if need_resources:
+                    need = self.alloc.pages_for(self._prefill_len(seq)) \
+                        - len(self._match_prefix(self._prefill_tokens(seq)))
+                    if need > budget:
+                        break   # keep order: don't starve the big one
+                    budget -= need
                 group.append(seq)
             for seq in group:
                 self._pending.remove(seq)
@@ -1794,6 +2086,210 @@ class GenerationServer:
             self._prefill_group(group)
             if cautious:
                 return worked
+
+    # ---- disaggregated prefill group ----
+    def _dispatch_prefill(self):
+        """Feed queued sequences to the prefill workers (the bounded
+        queue is the flow control; only the decode loop produces, so
+        ``full()`` then ``put_nowait`` cannot race).  ``_admit``'s
+        breaker stance: nothing while engaged, a single trial group
+        while cautious."""
+        if self.breaker.engaged():
+            return False
+        cautious = self.breaker.state_code() != 0
+        worked = False
+        while not self._prefill_q.full() \
+                and len(self._handoff_backlog) <= self.n_slots:
+            group = self._take_prefill_group(need_resources=False)
+            if not group:
+                return worked
+            for seq in group:          # queue ends at dispatch; prefill
+                if seq.req.trace is not None:   # covers the worker leg
+                    _telemetry.end_span(seq.req, "queue")
+                    _telemetry.open_span(seq.req, "prefill")
+            with self._lock:
+                self._prefill_flight[id(group)] = group
+            self._prefill_q.put_nowait(group)
+            worked = True
+            if cautious:
+                return worked
+        return worked
+
+    def _prefill_worker(self):
+        """One prefill worker: pull a group, run the pool-free prefill on
+        this thread's own stream, put the payloads on the handoff queue.
+        Never touches the pools, the allocator or the slot arrays."""
+        if self.device.type != "cuda":
+            self._serve_prefill_queue()
+            return
+        torch.cuda.set_device(self.device)
+        own = owned_stream(self.device)
+        try:
+            with torch.cuda.stream(own):
+                self._serve_prefill_queue()
+        finally:
+            release_stream(own.device, own)
+
+    def _serve_prefill_queue(self):
+        """The worker's loop, until its sentinel or the loop's exit."""
+        while True:
+            try:
+                group = self._prefill_q.get(timeout=self._IDLE_TICK * 4)
+            except queue.Empty:
+                # not _stop: drain() sets it while the loop still
+                # dispatches queued work through this group
+                if self._loop_exited.is_set():
+                    return
+                continue
+            if group is None:          # drain sentinel, one per worker
+                return
+            try:
+                self._do_prefill_kv(group)
+            finally:
+                with self._lock:
+                    self._prefill_flight.pop(id(group), None)
+
+    def _do_prefill_kv(self, group):
+        """Run one group through the pool-free prefill and hand off its
+        per-sequence payloads.  Resumed members run prompt + generated
+        through the same buckets.  A failure resolves the whole group
+        explicitly (the breaker sees it; resumed members are salvaged
+        against their budget); the pools are untouched either way."""
+        k = len(group)
+        bucket = self._bucket_len(max(self._prefill_len(s) for s in group))
+        b = self.buckets.batch_bucket(k)
+        tokens = np.zeros((b, bucket), np.int32)
+        lengths = np.zeros((b,), np.int32)
+        seeds = np.zeros((b,), np.int64)
+        temps = np.zeros((b,), np.float32)
+        topks = np.zeros((b,), np.int32)
+        pspans = None
+        worker = threading.current_thread().name
+        for i, seq in enumerate(group):
+            ptoks = self._prefill_tokens(seq)
+            n = ptoks.shape[0]
+            tokens[i, :n] = ptoks
+            lengths[i] = n
+            seeds[i] = seq.seed
+            temps[i] = seq.temp
+            topks[i] = seq.top_k
+            if seq.req.trace is not None:
+                sp = _telemetry.get_span(seq.req, "prefill")
+                if sp is not None:
+                    sp.attrs["worker"] = worker     # who ran the prefill
+                    if pspans is None:
+                        pspans = []
+                    pspans.append(sp)
+        if pspans is not None:
+            _telemetry.push_current(pspans)
+        try:
+            _fault.fire("generate.prefill")
+            if any(s.out for s in group):
+                _fault.fire("generate.resume")
+            with _profiler.scope(f"{self._name}.prefill", cat="serving"):
+                first, payload = self._run_prefill_kv(tokens, lengths, seeds,
+                                                      temps, topks)
+        except Exception as exc:    # noqa: BLE001 — resolved per sequence
+            self.breaker.record_failure()
+            self._note_step_failure(exc)
+            err = _fault.with_context(exc, f"{self._name} prefill of {k}")
+            for seq in group:
+                if seq.out:
+                    self._requeue_salvaged(seq, err)
+                else:
+                    self._retire(seq, err, stat="failed")
+            return
+        finally:
+            if pspans is not None:
+                _telemetry.pop_current()
+        self.breaker.record_success()
+        self._bump("prefills")
+        for i, seq in enumerate(group):
+            if seq.req.trace is not None:   # handoff wait + scatter next
+                _telemetry.end_span(seq.req, "prefill")
+                _telemetry.open_span(seq.req, "handoff")
+            self._handoff_q.put((seq, int(first[i])) + payload[i])
+
+    def _drain_handoffs(self):
+        """Seat prefilled sequences: pack every seatable payload (a free
+        slot and pages, deadline not passed) into ONE fixed-shape
+        handoff batch, scatter it into the pools, seat the sequences.
+        Payloads that cannot seat yet stay in the backlog for the next
+        tick — slots free every step as sequences retire."""
+        backlog = self._handoff_backlog
+        self._handoff_backlog = []
+        while True:
+            try:
+                backlog.append(self._handoff_q.get_nowait())
+            except queue.Empty:
+                break
+        if not backlog:
+            return False
+        worked = False
+        batch, still = [], []
+        now = time.monotonic()
+        free_slots = self._free_slots()
+        budget = self.alloc.free_count()
+        for entry in backlog:
+            seq = entry[0]
+            if seq.req.expired(now):
+                self._retire(seq, DeadlineExceededError(
+                    "deadline exceeded before the prefilled sequence "
+                    "reached a decode slot — pages never held",
+                    tokens_generated=len(seq.out),
+                    partial_tokens=[int(t) for t in seq.out]),
+                    stat="expired")
+                worked = True
+                continue
+            need = self.alloc.pages_for(self._prefill_len(seq)) \
+                - len(self._match_prefix(self._prefill_tokens(seq)))
+            if len(batch) >= min(len(free_slots), self.buckets.max_batch) \
+                    or need > budget:
+                still.append(entry)
+                continue
+            budget -= need
+            batch.append(entry)
+        self._handoff_backlog = still
+        if not batch:
+            return worked
+        hspans = None
+        for entry in batch:
+            if entry[0].req.trace is not None:
+                sp = _telemetry.get_span(entry[0].req, "handoff")
+                if sp is not None:
+                    if hspans is None:
+                        hspans = []
+                    hspans.append(sp)
+        if hspans is not None:
+            _telemetry.push_current(hspans)
+        try:
+            _fault.fire("fleet.handoff")
+            lanes = []
+            for seq, _tok, k_seq, v_seq in batch:
+                self._map_pages(seq)
+                lanes.append((self._scatter_table_row(seq), k_seq, v_seq))
+            with _profiler.scope(f"{self._name}.handoff", cat="serving"):
+                self._run_handoff(lanes)
+        except Exception as exc:    # noqa: BLE001 — resolved per sequence
+            self.breaker.record_failure()
+            self._note_step_failure(exc)
+            err = _fault.with_context(
+                exc, f"{self._name} handoff of {len(batch)}")
+            for seq, _tok, _k, _v in batch:
+                if seq.out:
+                    self._requeue_salvaged(seq, err)
+                else:
+                    self._retire(seq, err, stat="failed")
+            return True
+        finally:
+            if hspans is not None:
+                _telemetry.pop_current()
+        self._bump("handoffs")
+        slots = self._free_slots()
+        for j, (seq, tok, _k, _v) in enumerate(batch):
+            self._seat(seq, slots[j], tok)
+        self._note_occupancy()
+        return True
 
     def _prefill_group(self, group):
         """Prefill one bucket-aligned group and seat it in decode slots.
@@ -1885,6 +2381,7 @@ class GenerationServer:
         recorded ``full[H]``, recorded tokens past ``H`` replay one per
         step, and only then does sampling continue."""
         if seq.req.trace is not None:
+            _telemetry.end_span(seq.req, "handoff")   # no-op when fused
             _telemetry.open_span(seq.req, "decode", slot=slot)
         seq.cached = seq.prompt.shape[0]
         seq.ran = True
@@ -2076,6 +2573,7 @@ class GenerationServer:
         self._journal_event("gen_snapshot", rid=seq.rid, out=list(seq.out))
         if seq.req.trace is not None:
             _telemetry.end_span(seq.req, "prefill")
+            _telemetry.end_span(seq.req, "handoff")
             _telemetry.span_event(seq.req, "salvage",
                                   tokens_salvaged=len(seq.out),
                                   retry=seq.salvage)
@@ -2237,7 +2735,9 @@ class GenerationServer:
 
     def _export_all(self):
         """Handoff-drain sweep: every accepted sequence still alive —
-        seated or queued — exports instead of finishing."""
+        seated or queued — exports instead of finishing.  The
+        disaggregated pipeline's residue is swept by ``_fail_residue``,
+        which exports it the same way in handoff mode."""
         for seq in list(self._seqs.values()):
             self._retire(seq, self._export_error(seq), stat="failed")
         with self._admit_lock:
@@ -2262,12 +2762,34 @@ class GenerationServer:
     def _fail_residue(self):
         """Loop-exit sweep (a clean drain leaves nothing; a crashed loop
         may): every accepted-but-unresolved sequence gets an explicit
-        terminal error (an export in handoff mode)."""
+        terminal error (an export in handoff mode) — wherever it was
+        parked, the disaggregated prefill queue, flight, handoff queue
+        and backlog included (the caller joined the workers first, so
+        these have no producer)."""
         residue = list(self._seqs.values())
         self._seqs = {}
         with self._admit_lock:
             residue += list(self._pending)
             self._pending.clear()
+        while True:
+            try:
+                item = self._prefill_q.get_nowait()
+            except queue.Empty:
+                break
+            if item is not None:
+                residue += list(item)
+        while True:
+            try:
+                residue.append(self._handoff_q.get_nowait()[0])
+            except queue.Empty:
+                break
+        residue += [entry[0] for entry in self._handoff_backlog]
+        self._handoff_backlog = []
+        with self._lock:
+            flight = list(self._prefill_flight.values())
+            self._prefill_flight = {}
+        for group in flight:
+            residue += list(group)
         for seq in residue:
             if seq.slot is not None:
                 seq.slot = None
@@ -2298,8 +2820,10 @@ class GenerationServer:
     def healthz(self):
         """Router-rankable snapshot (the JAX server's keys, minus those
         of the features not ported): breaker state, queue depth,
-        in-flight and seated counts, page gauges, per-class SLO rows
-        (``classes``), last error.  Non-blocking."""
+        in-flight and seated counts, page gauges, the disaggregation
+        gauges (``prefill_workers``, ``prefill_inflight``: groups a
+        worker holds), per-class SLO rows (``classes``), last error.
+        Non-blocking."""
         with self._admit_lock:
             depth = len(self._pending)
         with self._lock:
@@ -2308,6 +2832,7 @@ class GenerationServer:
                          - s["expired"])
             active = s["active_slots"]
             last = self._last_error
+            prefill_flight = len(self._prefill_flight)
         return {"alive": self.alive(), "ready": self.ready(),
                 "draining": self._draining.is_set(),
                 "breaker": self.breaker.state,
@@ -2319,6 +2844,8 @@ class GenerationServer:
                 "total_pages": self.alloc.allocatable,
                 "pages_shared": self.alloc.shared_pages(),
                 "speculative": int(self._verify is not None),
+                "prefill_workers": self._n_prefill_workers,
+                "prefill_inflight": prefill_flight,
                 "device": str(self.device),
                 "classes": self._qos.snapshot(),
                 "last_error": None if last is None else
@@ -2370,6 +2897,8 @@ class GenerationServer:
                       else 0,
                   "resume_prefill_pages_remapped":
                       counters.get("resume_pages_remapped", 0),
+                  "prefill_workers": h["prefill_workers"],
+                  "prefill_inflight": h["prefill_inflight"],
                   "ready": int(h["ready"]), "alive": int(h["alive"]),
                   "draining": int(h["draining"])}
         gauges.update(_telemetry.compile_gauges(self._name))

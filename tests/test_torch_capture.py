@@ -147,7 +147,9 @@ def test_multi_update_matches_jax_functional_opt(name, kw, dtype):
     topt = optimizer.create(name, **kw)
     jw = [jnp.asarray(w).astype(dtype) for w in w0]
     js = [jfo.state_template(jopt, w) for w in jw]
-    tw = [torch.from_numpy(w).to(getattr(torch, dtype)) for w in w0]
+    # copies: jnp.asarray aliases a 64-byte-aligned array on the CPU,
+    # and the in-place updates would then move the reference's too
+    tw = [torch.tensor(w, dtype=getattr(torch, dtype)) for w in w0]
     ts = [tfo.state_template(topt, w) for w in tw]
     for t, gs in enumerate(grads, 1):
         for k in range(3):
@@ -590,3 +592,89 @@ def test_captured_flash_step_counts_launches_and_draws_new_masks():
                 for k in before}
     assert launched == dict.fromkeys(("fwd", "dq", "dkv"), 2 * 3)
     assert step.graph_count() == 1 and len(set(losses)) == 3
+
+
+# ---------------------------------------------------------- owned streams --
+class _FakeStream:
+    def __init__(self, ptr):
+        self.cuda_stream, self.device = ptr, torch.device("cuda", 0)
+
+
+def _fake_streams(monkeypatch):
+    """``graphs``'s stream bookkeeping on the CPU: streams made by a
+    counter, device syncs counted, the module's lists fresh."""
+    made, syncs = [], []
+
+    def create(device):
+        made.append(_FakeStream(0x1000 + len(made)))
+        return made[-1]
+    monkeypatch.setattr(graphs, "_create_stream", create)
+    monkeypatch.setattr(graphs, "_idle", {})
+    monkeypatch.setattr(graphs, "_released", [])
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda device=None: syncs.append(device))
+    return made, syncs
+
+
+def test_owned_streams_have_no_cap_and_are_reused_after_a_sync(
+        monkeypatch):
+    """More streams than torch's pool of 32 holds, every one distinct;
+    streams given back are handed out again only after one device sync,
+    and the paged kernel's launch plans made on them are dropped then."""
+    from mxnet_tpu_torch.ops import paged_attention as tpa
+    made, syncs = _fake_streams(monkeypatch)
+    held = [graphs.owned_stream("cuda:0") for _ in range(40)]
+    assert len({s.cuda_stream for s in held}) == 40 and not syncs
+    monkeypatch.setattr(tpa, "_PLANS", {("shapes", 0, held[3].cuda_stream):
+                                        "plan", ("shapes", 0, 1): "other"})
+    for s in held[:4]:
+        graphs.release_stream(s.device, s)
+    again = [graphs.owned_stream("cuda:0") for _ in range(5)]
+    assert len(syncs) == 1 and syncs[0] == torch.device("cuda", 0)
+    assert {id(s) for s in again[:4]} == {id(s) for s in held[:4]}
+    assert again[4] is made[-1] and len(made) == 41
+    assert tpa._PLANS == {("shapes", 0, 1): "other"}
+
+
+def test_a_freed_step_graph_gives_its_stream_back(monkeypatch):
+    """A ``StepGraph`` holds its stream while it lives; freeing it gives
+    the stream back (no CUDA call in the finaliser), and the next graph
+    takes it after the sync."""
+    made, syncs = _fake_streams(monkeypatch)
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", lambda: object())
+    g = graphs.StepGraph("cuda:0")
+    first = g.stream
+    assert graphs.StepGraph("cuda:0").stream is not first  # g still lives
+    del g
+    gc.collect()
+    assert [s for _, s in graphs._released][-1] is first and not syncs
+    assert graphs.StepGraph("cuda:0").stream in made[:2]
+    assert len(syncs) == 1
+
+
+@gpu
+def test_graph_cache_captures_more_graphs_than_the_stream_pool_holds():
+    """40 keys in one cache (torch's pool has 32 streams a priority):
+    each graph on a stream of its own, each replay its key's result
+    through a cuBLAS product; a new cache after the first is freed
+    reuses the freed graphs' streams."""
+    _needs_card()
+    rng = np.random.RandomState(23)
+    w = torch.from_numpy(rng.randn(256, 256).astype(np.float32)).cuda()
+    x = torch.zeros(64, 256, device="cuda")
+    cache = graphs.GraphCache("cuda")
+    for rep in range(2):
+        for k in range(40):
+            x.fill_(float(k))
+            out = cache.run(k, lambda k=k: (x @ w) * (k + 1))
+            ref = (torch.full((64, 256), float(k), device="cuda") @ w) \
+                * (k + 1)
+            torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-3)
+    streams = {g.stream.cuda_stream for g, _ in cache.held.values()}
+    assert len(cache) == 40 and len(streams) == 40
+    del cache
+    gc.collect()
+    second = graphs.GraphCache("cuda")
+    second.run("again", lambda: x @ w)
+    (g, _), = second.held.values()
+    assert g.stream.cuda_stream in streams

@@ -53,7 +53,9 @@ def test_lamb_pure_update_matches_jax(dtype, bounds):
     topt = optimizer.create("lamb", **LAMB, **bounds)
     jw = jnp.asarray(w0).astype(dtype)
     jstate = jfo.state_template(jopt, jw)
-    tw = torch.from_numpy(w0).to(getattr(torch, dtype))
+    # a copy: jnp.asarray aliases a 64-byte-aligned w0 on the CPU, and
+    # the in-place update would then move the reference's weights too
+    tw = torch.tensor(w0, dtype=getattr(torch, dtype))
     tstate = tfo.state_template(topt, tw)
     assert len(tstate) == len(jstate) == (3 if dtype == "bfloat16" else 2)
     for t, g in enumerate(grads, 1):

@@ -76,6 +76,26 @@ def test_nd_without_a_card_raises():
     assert tmx.nd.array([1.0], ctx=tmx.cpu()).context == tmx.cpu()
 
 
+def test_one_hot_takes_a_positional_depth():
+    """A deliberate superset: ``nd.one_hot(idx, 6)`` with a positional
+    depth works in the port and equals ``depth=6``; the JAX package's
+    ``invoke`` traces the positional depth and ``jax.nn.one_hot`` then
+    raises.  With ``depth=6`` both packages agree."""
+    import jax
+
+    idx = np.asarray([0, 2, 5, 1], np.int32)
+    t = tmx.nd.array(idx, ctx=tmx.cpu())
+    positional = tmx.nd.one_hot(t, 6).asnumpy()
+    keyword = tmx.nd.one_hot(t, depth=6).asnumpy()
+    np.testing.assert_array_equal(positional, keyword)
+    np.testing.assert_array_equal(positional, np.eye(6, dtype=np.float32)[idx])
+    j = jmx.nd.array(idx)
+    np.testing.assert_array_equal(jmx.nd.one_hot(j, depth=6).asnumpy(),
+                                  keyword)
+    with pytest.raises(jax.errors.ConcretizationTypeError):
+        jmx.nd.one_hot(j, 6)
+
+
 # ------------------------------------------------------------------ cases --
 def _rng(name):
     return np.random.RandomState(zlib.crc32(name.encode()))

@@ -233,8 +233,7 @@ def test_exposition_keys_equal_the_jax_servers_and_memory_gauges():
         pay = srv.telemetry()
         jpay = jsrv.telemetry()
         missing = set(jpay["counters"]) - set(pay["counters"])
-        # the disaggregated-prefill counter is the one not ported
-        assert missing == {"handoffs"}, missing
+        assert missing == set(), missing
         for key in ("pages_shared", "pages_cow_faults",
                     "bytes_saved_by_sharing", "spec_k",
                     "resume_prefill_pages_remapped", "mem_argument_bytes",
