@@ -12,6 +12,11 @@ random weights from a seed:
   MNIST-shaped ``RandomState`` data), ``nd.FusedNormReluConv`` at
   ResNet-50's first-stage 3x3 and one ``gluon.Trainer`` step of
   ResNet-50;
+- ``hybridize()`` (BASELINE config 2): ``resnet50_v1(fused=True,
+  layout="NHWC")`` cast to bf16 as ``bench_resnet`` casts it, with
+  ``net.hybridize()``, trained by ``gluon.Trainer`` (SGD 0.1 / 0.9 /
+  1e-4, batch 256 of 224x224x3, 1000 classes) through its captured
+  forward and backward graphs, and the MLP above hybridized;
 - LLM serving at the width of ``bench.py llm`` on an accelerator (vocab
   4096, 4 layers, 8 heads x 64, d_ff 2048; 64 slots, 512 pages x 64
   tokens; buckets (1, 2, 4) x (32, 64); 64 new tokens; prompts of 4-60
@@ -48,6 +53,20 @@ Phases, each of which fails the run (each prints its wall time):
    of fused ResNet-50, f32, batch 32, SGD 0.1 / 0.9 / 1e-4, from the
    same parameters, every parameter held leaf by leaf as in 8 (the
    floor: the Trainer step on the host CPU);
+3b. hybridize: (a) the MLP loop of 3(a) with ``net.hybridize()`` — 5
+   steps held against the eager loop from the same parameters (the same
+   bound as 3(a)), then 2 warm-up and 50 timed steps, twice, in turns
+   with the eager loop's (eager, hybridized, hybridized, eager), a
+   profiled step and the units held (one: a forward and a backward
+   graph), beside 3(a)'s eager figures; (b) the hybridized bf16 ResNet-50 under
+   ``gluon.Trainer``: 2 warm-up and 10 timed steps (the loss falls; 32
+   launches of each fused kernel a step, those of the timed steps all
+   from replayed graphs), a profiled step, peak memory; then 3 replayed
+   steps and 3 eager ones (``hybridize(active=False)``) from the same
+   parameters, whether every parameter and running statistic is the
+   same bits printed, and each held leaf by leaf at 8's noise floors
+   once 8 has run; its ms/step is printed beside 9's captured
+   ``TrainStep``;
 4. serving: the paged attention kernel against its plain version at
    three cases — path (the serving config, 64 slots x 2 pages), long (64
    slots x 32 pages) and few-long (4 slots of ~16k tokens among 60 idle
@@ -227,6 +246,9 @@ SGD_KW = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}
 DEVICE = "cuda"
 TRAIN_BATCH, CHECK_BATCH, KERNEL_CHECK_BATCH = 256, 8, 8
 WARMUP_STEPS, TIMED_STEPS = 2, 5
+# the hybridized gluon.Trainer path (BASELINE config 2): timed steps, and
+# steps replayed against eager ones from the same parameters
+HYBRID_STEPS, HYBRID_CHECK_STEPS = 10, 3
 FUSED = ("fwd", "dx", "dw")
 # per stage: (bottleneck blocks, spatial size of the fused convs, C/4, C)
 RESNET50_STAGES = ((3, 56, 64, 256), (4, 28, 128, 512), (6, 14, 256, 1024),
@@ -1649,17 +1671,20 @@ def model_check(torch):
         for n, p in params]
     log(f"model check: loss kernel {float(kernel[0]):.7f}, plain "
         f"{float(plain[0]):.7f}, host {float(on_host[0]):.7f}")
-    hold_leaves(torch, kinds, kernel, plain, on_host,
-                f"resnet50_v1 f32, batch {CHECK_BATCH}")
+    return hold_leaves(torch, kinds, kernel, plain, on_host,
+                       f"resnet50_v1 f32, batch {CHECK_BATCH}")
 
 
-def hold_leaves(torch, kinds, kernel, plain, on_host, what):
+def hold_leaves(torch, kinds, kernel, plain, on_host, what, floors=None):
     """Hold the kernel route's leaves against the plain route's, leaf by
     leaf: ``kinds`` lists ``(name, kind)`` per leaf.  A leaf's relative
     L2 error may be at most MODEL_FLOOR_FACTOR times the larger of its
     own noise floor (plain on the card against the host), the median
     floor of its kind and MODEL_MIN_FLOOR; the max abs error over the
-    leaf's largest magnitude is printed beside it."""
+    leaf's largest magnitude is printed beside it.  With ``floors``
+    (``{kind: floor}``, an earlier check's medians) in place of
+    ``on_host`` (None), a leaf's floor is its kind's there.  Returns
+    the median floor of each kind."""
     def errs(a, b):
         """relative L2 error of a against b, and max abs error over b's
         largest magnitude"""
@@ -1668,29 +1693,34 @@ def hold_leaves(torch, kinds, kernel, plain, on_host, what):
                 float(d.abs().max() / b.abs().max().clamp_min(1e-300)))
 
     rows = {}
-    for (n, kind), k, pl, h in zip(kinds, kernel, plain, on_host):
+    for i, ((n, kind), k, pl) in enumerate(zip(kinds, kernel, plain)):
         expect(bool(torch.isfinite(k).all()),
                f"model check: the kernel route's {n} is not finite")
-        rows.setdefault(kind, []).append((n,) + errs(k, pl) + errs(pl, h))
-    bad = []
+        floor = errs(pl, on_host[i]) if floors is None \
+            else (floors[kind], float("nan"))
+        rows.setdefault(kind, []).append((n,) + errs(k, pl) + floor)
+    bad, medians = [], {}
+    source = "plain vs host" if floors is None else "of the model check"
     for kind, rs in rows.items():
-        floor = float(np.median([r[3] for r in rs]))
+        floor = medians[kind] = float(np.median([r[3] for r in rs]))
         ratio = [(r[1] / max(r[3], floor, MODEL_MIN_FLOOR), r[0]) for r in rs]
         worst = max(rs, key=lambda r: r[1])
         worst_max = max(rs, key=lambda r: r[2])
         log(f"model check [{kind}: {len(rs)}, {what}]: relative L2 error "
             f"kernel vs plain median "
             f"{np.median([r[1] for r in rs]):.3e}, worst {worst[1]:.3e} "
-            f"({worst[0]}); floor plain vs host median {floor:.3e}, worst "
+            f"({worst[0]}); floor {source} median {floor:.3e}, worst "
             f"{max(r[3] for r in rs):.3e}; worst error/floor "
             f"{max(ratio)[0]:.3f} ({max(ratio)[1]}); max abs error over "
             f"scale, kernel vs plain worst {worst_max[2]:.3e} "
-            f"({worst_max[0]}), plain vs host worst "
-            f"{max(r[4] for r in rs):.3e}")
+            f"({worst_max[0]})" + ("" if floors else
+                                   f", plain vs host worst "
+                                   f"{max(r[4] for r in rs):.3e}"))
         bad += [f"{name} {r:.2f}" for r, name in ratio
                 if r > MODEL_FLOOR_FACTOR]
     expect(not bad, f"model check: kernel route beyond {MODEL_FLOOR_FACTOR}x "
            f"the noise floor: {bad[:8]}")
+    return medians
 
 
 def training_nets(torch):
@@ -2569,17 +2599,11 @@ def imperative_mlp(torch):
            f"{means[-5:]})")
     expect(all(bool(torch.isfinite(p.tensor()).all()) for p in params),
            "imperative MLP: a parameter is not finite")
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t1 = time.perf_counter()
-        mlp_steps(mx, net, trainer, batches[-1:])
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t1) * 1e6
-    busy = print_profile(prof, wall_us, f"imperative MLP step, batch "
-                         f"{MLP_BATCH}")
+    busy = profile_mlp_step(torch, mx, net, trainer, batches[-1:],
+                            f"imperative MLP step, batch {MLP_BATCH}")
 
     a = mx.nd.ones(DISPATCH_SHAPE, ctx=card)
+
     for _ in range(10):
         mx.nd.add(a, a)
     torch.cuda.synchronize()
@@ -2596,6 +2620,20 @@ def imperative_mlp(torch):
         f"profiled step; nd.add on {list(DISPATCH_SHAPE)}: "
         f"{dispatch_us:.2f} host us a dispatch ({DISPATCH_CALLS} calls)")
     return {"ms_step": ms, "busy": busy, "dispatch_us": dispatch_us}
+
+
+def profile_mlp_step(torch, mx, net, trainer, batches, what):
+    """One MLP step under ``torch.profiler``: the device's busy share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        mlp_steps(mx, net, trainer, batches)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t1) * 1e6
+    return print_profile(prof, wall_us, what)
 
 
 def imperative_fused(torch):
@@ -2707,6 +2745,199 @@ def imperative_trainer_vs_step(torch):
     return launches
 
 
+# --------------------------------------------------------------- hybridize --
+def hybrid_mlp(torch, eager):
+    """(a) The MLP loop of 3(a) with ``net.hybridize()``: MLP_CHECK steps
+    held against the eager loop from the same parameters (mean losses
+    within MLP_LOSS_RTOL relative), then MLP_WARMUP + 2 x MLP_TIMED
+    timed steps in turns with the eager loop's (the loss must fall),
+    one profiled step and the units held, beside 3(a)'s eager figures
+    of this run (``eager``)."""
+    import mxnet_tpu_torch as mx
+
+    card = mx.gpu(0)
+    mx.random.seed(0)
+    x, y = mlp_data(MLP_WARMUP + MLP_TIMED + 1, MLP_BATCH)
+    batches = mlp_batches(mx, x, y, card)
+    start = [p.data().asnumpy() for p in mlp_net(mx, card)[2]]
+    runs = []
+    for hybridize in (False, True):
+        net, trainer, _ = mlp_net(mx, card, start)
+        if hybridize:
+            net.hybridize()
+        runs.append([float(v.mean().asscalar()) for v in
+                     mlp_steps(mx, net, trainer, batches[:MLP_CHECK])[0]])
+    rel = max(abs(a - b) / abs(b) for a, b in zip(runs[1], runs[0]))
+    log(f"hybridized MLP: {MLP_CHECK} steps, mean loss hybridized "
+        f"{runs[1]} vs eager {runs[0]}, max relative difference {rel:.3e}")
+    expect(rel <= MLP_LOSS_RTOL, f"hybridized MLP: losses differ from the "
+           f"eager loop's by {rel:.3e} relative (limit {MLP_LOSS_RTOL})")
+
+    # the eager loop and the hybridized one in turns (eager, hybridized,
+    # hybridized, eager): the host's own speed drifts between runs
+    loops = {}
+    for hybridize in (False, True):
+        net, trainer, params = mlp_net(mx, card, start)
+        if hybridize:
+            net.hybridize()
+        mlp_steps(mx, net, trainer, batches[:MLP_WARMUP])
+        loops[hybridize] = (net, trainer, params)
+    times = {False: [], True: []}
+    for hybridize in (False, True, True, False):
+        net, trainer, params = loops[hybridize]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses, acc = mlp_steps(mx, net, trainer,
+                                batches[MLP_WARMUP:MLP_WARMUP + MLP_TIMED])
+        torch.cuda.synchronize()
+        times[hybridize].append((time.perf_counter() - t0) * 1e3 / MLP_TIMED)
+        if hybridize and len(times[True]) == 1:
+            means = [float(v.mean().asscalar()) for v in losses]
+            first_acc = acc
+    ms, ms_eager = np.mean(times[True]), np.mean(times[False])
+    expect(all(np.isfinite(means)) and
+           np.mean(means[-5:]) < np.mean(means[:5]),
+           f"hybridized MLP: the loss did not fall ({means[:5]} ... "
+           f"{means[-5:]})")
+    net, trainer, params = loops[True]
+    expect(all(bool(torch.isfinite(p.tensor()).all()) for p in params),
+           "hybridized MLP: a parameter is not finite")
+    busy = profile_mlp_step(torch, mx, net, trainer, batches[-1:],
+                            f"hybridized MLP step, batch {MLP_BATCH}")
+    graphs = net.graph_count()
+    expect(graphs == 1, f"hybridized MLP: {graphs} units held, expected "
+           f"1 (the recording forward and backward)")
+    log(f"hybridized MLP (784-{'-'.join(map(str, MLP_UNITS))}, batch "
+        f"{MLP_BATCH}, SGD 0.1): {ms:.3f} ms/step "
+        f"({', '.join(f'{t:.3f}' for t in times[True])}) = "
+        f"{MLP_BATCH * 1e3 / ms:.1f} samples/s over 2 x {MLP_TIMED} steps, "
+        f"loss {np.mean(means[:5]):.4f} -> {np.mean(means[-5:]):.4f}, "
+        f"train accuracy {first_acc:.4f}; device busy {100 * busy:.1f}% of "
+        f"a profiled step; {graphs} unit held (a forward and a backward "
+        f"graph); the eager loop in turns with it {ms_eager:.3f} ms/step "
+        f"({', '.join(f'{t:.3f}' for t in times[False])}) = "
+        f"{ms_eager / ms:.3f}x; 3(a)'s eager run {eager['ms_step']:.3f} "
+        f"ms/step, busy {100 * eager['busy']:.1f}%")
+    return {"ms_step": ms, "ms_eager": ms_eager, "busy": busy,
+            "graphs": graphs}
+
+
+def hybrid_resnet(torch):
+    """(b) The path of BASELINE config 2: fused resnet50_v1, NHWC, bf16,
+    ``net.hybridize()`` and ``gluon.Trainer`` (SGD_KW), batch TRAIN_BATCH
+    of RandomState(0) inputs: WARMUP_STEPS + HYBRID_STEPS timed steps
+    (the loss falls; each fused kernel FUSED_PER_STEP times a step, the
+    timed ones all replayed), one profiled step, peak memory; then
+    HYBRID_CHECK_STEPS replayed steps and as many eager ones
+    (``hybridize(active=False)``) from the same parameters, whose
+    leaves ``hold_hybrid`` holds once the model check has its floors."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import fused_conv as fc
+
+    net = build_resnet50(torch, fused=True, dtype="bfloat16")
+    params = list(net.collect_params().items())
+    start = [p.tensor().detach().clone() for _, p in params]
+    rng = np.random.RandomState(0)
+    xh = rng.randn(TRAIN_BATCH, 224, 224, 3).astype(np.float32)
+    yh = rng.randint(0, 1000, (TRAIN_BATCH,)).astype(np.int32)
+    x = mx.nd.NDArray(torch.from_numpy(xh).to(DEVICE).to(torch.bfloat16))
+    y = mx.nd.NDArray(torch.from_numpy(yh).to(DEVICE))
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def fresh_trainer():
+        for (_, p), v in zip(params, start):
+            p.set_data(v)
+        return mx.gluon.Trainer(net.collect_params(), "sgd", dict(SGD_KW))
+
+    def run(trainer, steps):
+        losses = []
+        for _ in range(steps):
+            with mx.autograd.record():
+                loss = loss_fn(net(x), y)
+            loss.backward()
+            trainer.step(TRAIN_BATCH)
+            losses.append(loss.mean())
+        return losses
+
+    net.hybridize()
+    trainer = fresh_trainer()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fc.norm_relu_conv.launches = dict.fromkeys(FUSED, 0)  # main path starts
+    losses = run(trainer, WARMUP_STEPS)
+    torch.cuda.synchronize()
+    warm = dict(fc.norm_relu_conv.launches)
+    t0 = time.perf_counter()
+    losses += run(trainer, HYBRID_STEPS)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(fc.norm_relu_conv.launches)           # ... and ends here
+    replayed = {k: launches[k] - warm[k] for k in FUSED}
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(v.asscalar()) for v in losses]
+    what = f"hybridized fused resnet50_v1, bf16, batch {TRAIN_BATCH}"
+    expect(all(np.isfinite(losses)), f"{what}: loss not finite {losses}")
+    expect(losses[-1] < losses[0] and min(losses) < losses[0],
+           f"{what}: loss did not fall over the run {losses}")
+    expect(replayed == dict.fromkeys(FUSED, FUSED_PER_STEP * HYBRID_STEPS)
+           and launches == dict.fromkeys(
+               FUSED, FUSED_PER_STEP * (WARMUP_STEPS + HYBRID_STEPS)),
+           f"{what}: kernel launches {launches} ({replayed} replayed), "
+           f"expected {FUSED_PER_STEP} each a step")
+    expect(net.graph_count() == 1, f"{what}: {net.graph_count()} units")
+    img_s = TRAIN_BATCH * HYBRID_STEPS / dt
+    log(f"train [{what}, gluon.Trainer]: losses "
+        f"{[round(v, 4) for v in losses]}; {HYBRID_STEPS} timed steps in "
+        f"{dt:.3f} s = {1e3 * dt / HYBRID_STEPS:.1f} ms/step = "
+        f"{img_s:.1f} img/s; peak device memory {peak / 2**30:.2f} GiB; "
+        f"kernel launches {launches}, {replayed} of them replayed in the "
+        f"timed steps; 1 unit (a forward and a backward graph)")
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        run(trainer, 1)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t1) * 1e6
+    busy = print_profile(prof, wall_us, f"{what}, gluon.Trainer step")
+    del prof
+
+    leaves = []
+    for hybridized in (True, False):
+        if not hybridized:
+            net.hybridize(active=False)     # drops the graphs
+            gc.collect()
+            torch.cuda.empty_cache()
+        check = [float(v.asscalar())
+                 for v in run(fresh_trainer(), HYBRID_CHECK_STEPS)]
+        leaves.append((check, [p.tensor().detach().double().cpu()
+                               for _, p in params]))
+    (lh, hyb), (le, eag) = leaves
+    same = lh == le and all(torch.equal(a, b) for a, b in zip(hyb, eag))
+    log(f"train [{what}]: {HYBRID_CHECK_STEPS} replayed steps against as "
+        f"many eager ones from the same parameters: losses {lh} vs {le}; "
+        f"{len(hyb)} parameters and running statistics "
+        f"{'the same bits' if same else 'not the same bits'}")
+    kinds = [(n, "parameter" if p.grad_req != "null"
+              else "running statistic") for n, p in params]
+    return {"ms_step": 1e3 * dt / HYBRID_STEPS, "img_s": img_s,
+            "busy": busy, "peak": peak, "launches": launches,
+            "replayed": replayed, "same": same,
+            "leaves": (kinds, hyb, eag)}
+
+
+def hold_hybrid(torch, hybrid, floors):
+    """The hybridized ResNet-50's leaves after its check steps against
+    the eager ones, leaf by leaf, at the model check's noise floors
+    (``floors``; a parameter at the gradients' floor)."""
+    kinds, hyb, eag = hybrid.pop("leaves")
+    hold_leaves(torch, kinds, hyb, eag, None,
+                f"hybridized vs eager gluon.Trainer, resnet50_v1 bf16, "
+                f"batch {TRAIN_BATCH}, {HYBRID_CHECK_STEPS} steps",
+                floors={"parameter": floors["gradient"],
+                        "running statistic": floors["running statistic"]})
+
+
 class phase:
     """Print a phase's wall time on its own line when it ends."""
 
@@ -2748,9 +2979,14 @@ def main():
             # first: its backward is the first CUDA work of autograd's
             # worker thread, as in a fresh user script
             imperative = {"imperative nd": imperative_fused(torch)}
-            imperative_mlp(torch)
+            mlp_eager = imperative_mlp(torch)
             imperative["imperative Trainer"] = imperative_trainer_vs_step(
                 torch)
+            torch.cuda.empty_cache()
+        with phase("hybridize"):
+            hybrid = {"mlp": hybrid_mlp(torch, mlp_eager),
+                      "resnet": hybrid_resnet(torch)}
+            gc.collect()
             torch.cuda.empty_cache()
         with phase("serving"):
             rng = np.random.default_rng(0)
@@ -2806,7 +3042,7 @@ def main():
         with phase("fused conv vs plain"):
             fused_vs_plain(torch)
         with phase("ResNet model check"):
-            model_check(torch)
+            hold_hybrid(torch, hybrid["resnet"], model_check(torch))
         with phase("ResNet training"):
             fused_net, plain_net = training_nets(torch)
             trained, step, batch = train_run(torch, fused_net, True,
@@ -2830,6 +3066,16 @@ def main():
                 f"%) = {trained['img_s'] / eager['img_s']:.3f}x; losses "
                 f"{'the same bits' if same else 'differ'} (cuDNN's default "
                 f"algorithms)")
+            hr = hybrid["resnet"]
+            log(f"train: hybridized fused ResNet-50 under gluon.Trainer "
+                f"{hr['ms_step']:.1f} ms/step = {hr['img_s']:.1f} img/s "
+                f"(busy {100 * hr['busy']:.1f}%, peak "
+                f"{hr['peak'] / 2**30:.2f} GiB) vs the captured TrainStep "
+                f"{trained['ms_step']:.1f} ms/step (busy {100 * busy:.1f}%, "
+                f"peak {trained['peak'] / 2**30:.2f} GiB) = "
+                f"{trained['ms_step'] / hr['ms_step']:.3f}x, and the eager "
+                f"TrainStep {eager['ms_step']:.1f} ms/step = "
+                f"{eager['ms_step'] / hr['ms_step']:.3f}x")
             bit_check(torch, fused_net, batch)
             del batch, fused_net
             torch.cuda.empty_cache()
@@ -2921,7 +3167,9 @@ def main():
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "launches_by_path": {"train": trained["launches"][kern],
                                  **{k: v[kern]
-                                    for k, v in imperative.items()}}})
+                                    for k, v in imperative.items()},
+                                 "hybridize": hybrid["resnet"]["replayed"][
+                                     kern]}})
     for kern in FLASH:
         kname, t = f"flash_attention_{kern}", flash_times[kern]
         kernels["kernels"].append({

@@ -33,9 +33,10 @@ Ported so far:
   mxnet_tpu_torch as mx``.  ``nd.FusedNormReluConv`` on card arrays
   reaches the fused-conv kernels.
 
-On the card every step — ``parallel.TrainStep``, ``parallel.EvalStep``
-and the server's prefill and decode steps — runs as a captured CUDA
-graph (``graphs``), the counterpart of the JAX package's compiled
+On the card every step — ``parallel.TrainStep``, ``parallel.EvalStep``,
+the server's prefill and decode steps and a hybridized Gluon block's
+forward and backward (``HybridBlock.hybridize``) — runs as a captured
+CUDA graph (``graphs``), the counterpart of the JAX package's compiled
 programs; ``python -m mxnet_tpu_torch.bench {resnet,bert,llm}`` prints
 ``bench.py``'s line for each slice.
 

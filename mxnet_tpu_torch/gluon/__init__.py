@@ -2,9 +2,10 @@
 trainer, utilities and the model zoo."""
 from . import loss, model_zoo, nn, utils
 from .block import Block, HybridBlock, params_from_jax
-from .parameter import DeferredInitializationError, Parameter, ParameterDict
+from .parameter import (Constant, DeferredInitializationError, Parameter,
+                        ParameterDict)
 from .trainer import Trainer
 
-__all__ = ["Block", "HybridBlock", "Parameter", "ParameterDict",
+__all__ = ["Block", "HybridBlock", "Parameter", "ParameterDict", "Constant",
            "DeferredInitializationError", "Trainer", "params_from_jax",
            "loss", "model_zoo", "nn", "utils"]

@@ -22,19 +22,30 @@ captured graphs and the server keep passing tensors.
 so a file written by either package loads in the other;
 ``params_from_jax`` copies a JAX block's parameters in by full name.
 
-``hybridize()`` is accepted and does nothing here: the blocks always run
-eagerly.  The captured-graph counterpart (a CUDA graph of the step) is
-later work.
+``hybridize()`` makes every call of the outermost active block one
+unit, the port of the JAX package's CachedOp: on the card, captured CUDA
+graphs (``HybridBlock.hybridize`` says how); on the CPU, the same
+bodies run without capture.
+
+Hooks (``register_forward_hook``, ``register_forward_pre_hook``) fire on
+eager calls, as in the JAX package; ``summary`` prints the JAX
+package's table.
 """
 from __future__ import annotations
 
+import re
 import threading
+import weakref
 
+import numpy as np
 import torch
 
 from .. import autograd as _autograd
 from .. import ops as _ops
+from ..graphs import GraphCache, StepGraph
 from ..ndarray.ndarray import NDArray, _wrap_all
+from ..parallel.functional import functional_call, run_eagerly, \
+    running_eagerly
 from .parameter import DeferredInitializationError, Parameter, ParameterDict
 
 __all__ = ["Block", "HybridBlock", "params_from_jax"]
@@ -72,6 +83,23 @@ class _NameScope:
         _scope_stack().pop()
 
 
+class _HookHandle:
+    """A registered hook; ``detach()`` (or ``remove()``) unregisters it."""
+
+    __slots__ = ("_hooks", "_hook")
+
+    def __init__(self, hooks, hook):
+        self._hooks = hooks
+        self._hook = hook
+
+    def detach(self):
+        if self._hook is not None and self._hook in self._hooks:
+            self._hooks.remove(self._hook)
+        self._hook = None
+
+    remove = detach
+
+
 class Block(torch.nn.Module):
     """Base container: child blocks and prefix-scoped parameters."""
 
@@ -81,6 +109,8 @@ class Block(torch.nn.Module):
         self._scope_counters = {}
         self._params = ParameterDict(self._prefix, shared=params)
         self._reg_params = {}
+        self._gluon_hooks = []          # hook(block, args, out)
+        self._gluon_pre_hooks = []      # hook(block, args)
 
     def _alias(self):
         return type(self).__name__.lower()
@@ -100,6 +130,16 @@ class Block(torch.nn.Module):
     def register_child(self, block, name=None):
         self.add_module(name or str(len(self._modules)), block)
 
+    def register_forward_hook(self, hook):
+        """``hook(block, args, out)`` after each eager call."""
+        self._gluon_hooks.append(hook)
+        return _HookHandle(self._gluon_hooks, hook)
+
+    def register_forward_pre_hook(self, hook):
+        """``hook(block, args)`` before each eager call."""
+        self._gluon_pre_hooks.append(hook)
+        return _HookHandle(self._gluon_pre_hooks, hook)
+
     @property
     def prefix(self):
         return self._prefix
@@ -116,12 +156,16 @@ class Block(torch.nn.Module):
     def name_scope(self):
         return _NameScope(self)
 
-    def collect_params(self):
-        """This block's and its descendants' parameters."""
+    def collect_params(self, select=None):
+        """This block's and its descendants' parameters (those whose
+        names match the regular expression ``select``, if given)."""
         out = ParameterDict(self._params.prefix)
+        pattern = re.compile(select) if select else None
 
         def _add(block):
-            out._params.update(block._params.items())
+            for name, p in block._params.items():
+                if pattern is None or pattern.search(name):
+                    out._params[name] = p
             for c in block._children.values():
                 if c is not None:
                     _add(c)
@@ -140,19 +184,80 @@ class Block(torch.nn.Module):
         return self
 
     def hybridize(self, active=True, **kwargs):
-        """Accepted for API parity; the port runs blocks eagerly."""
+        """Hybridize the child blocks (a plain Block runs eagerly)."""
         for c in self._children.values():
             if c is not None:
                 c.hybridize(active, **kwargs)
 
     def __call__(self, *args):
+        for hook in self._gluon_pre_hooks:
+            hook(self, args)
         wrap = any(isinstance(a, NDArray) for a in args)
-        if wrap:
-            args = tuple(a._data if isinstance(a, NDArray) else a
-                         for a in args)
+        targs = tuple(a._data if isinstance(a, NDArray) else a
+                      for a in args) if wrap else args
         with torch.set_grad_enabled(_autograd.is_recording()):
-            out = super().__call__(*args)
-        return _wrap_all(out) if wrap else out
+            out = super().__call__(*targs)
+        if wrap:
+            out = _wrap_all(out)
+        for hook in self._gluon_hooks:
+            hook(self, args, out)
+        return out
+
+    def summary(self, *inputs):
+        """Print a table of the blocks (the JAX package's): with example
+        ``inputs``, one forward (eager, not recording, even when
+        hybridized) adds each block's output shape; without, the
+        parameter counts only."""
+        shapes = {}
+        if inputs:
+            handles = []
+
+            def _capture(blk, _args, out):
+                leaf = out[0] if isinstance(out, (tuple, list)) else out
+                if hasattr(leaf, "shape"):
+                    shapes[id(blk)] = tuple(leaf.shape)
+
+            def _hook_all(b):
+                handles.append(b.register_forward_hook(_capture))
+                for c in b._children.values():
+                    if c is not None:
+                        _hook_all(c)
+
+            _hook_all(self)
+            try:
+                with run_eagerly(), _autograd.pause():
+                    Block.__call__(self, *inputs)
+            finally:
+                for h in handles:
+                    h.detach()
+
+        rows = []
+
+        def _walk(b, depth):
+            n = sum(int(np.prod(p.shape)) for p in b._params.values()
+                    if p.shape is not None)
+            rows.append(("  " * depth + type(b).__name__, b.name, n,
+                         shapes.get(id(b), "")))
+            for c in b._children.values():
+                if c is not None:
+                    _walk(c, depth + 1)
+        _walk(self, 0)
+        total = sum(int(np.prod(p.shape))
+                    for p in self.collect_params().values()
+                    if p.shape is not None)
+        shp = bool(shapes)
+        hdr = f"{'Layer':<34}{'Name':<24}{'Params':>10}"
+        if shp:
+            hdr += f"  {'Output Shape'}"
+        lines = [hdr, "-" * (80 if shp else 68)]
+        for a, b, c, sh in rows:
+            line = f"{a:<34}{b:<24}{c:>10}"
+            if shp:
+                line += f"  {sh}"
+            lines.append(line)
+        lines += ["-" * (80 if shp else 68),
+                  f"{'Total params:':<58}{total:>10}"]
+        print("\n".join(lines))
 
     # ---------------------------------------------------------------- save --
     def _collect_params_with_prefix(self, prefix=""):
@@ -199,7 +304,70 @@ class Block(torch.nn.Module):
 
 
 class HybridBlock(Block):
-    """A block written as ``hybrid_forward(F, x, *args, **params)``."""
+    """A block written as ``hybrid_forward(F, x, *args, **params)`` (or
+    with its own ``forward``) that ``hybridize()`` runs as one unit."""
+
+    def __init__(self, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._active = False
+        self._cached = None
+
+    def hybridize(self, active=True, static_alloc=False, static_shape=False,
+                  **kwargs):
+        """Run every call of this block as one unit (the JAX package's
+        CachedOp; ``static_alloc``/``static_shape`` are accepted and
+        implied: a graph's buffers are static).  Recurses into the
+        children; ``active=False`` goes back to eager calls.
+
+        The unit is the block's whole call (``forward`` or
+        ``hybrid_forward``), run through ``parallel.functional_call``
+        over detached aliases of the parameters (the same storage, so
+        the optimizers' in-place updates are seen), with the running
+        statistics the forward replaced copied into the parameters' own
+        storage.  Calls are keyed by the inputs' structure, shapes,
+        dtypes and devices, ``autograd.is_training()`` and whether the
+        call records:
+
+        - not recording: the forward alone;
+        - recording: one autograd node (``_CachedFunction``) for the
+          whole block, whose backward computes the inputs' and the
+          trainable parameters' gradients from the node's own forward
+          and returns them, so the parameters' gradient buffers take
+          them by ``grad_req`` as in an eager call.  It differentiates
+          once: ``create_graph=True`` through it raises, and a second
+          backward of one call raises.
+
+        On the card (``graphs``): a key's first call runs eagerly on its
+        capture stream; the forward alone is then captured, and a
+        recording key's forward and backward are captured as a pair over
+        one memory pool after its first backward; later calls copy their
+        inputs into static buffers, replay, and return clones of the
+        static outputs.  A recording call made while an earlier replayed
+        call of its key still awaits its backward (whose activations the
+        replay would overwrite) runs eagerly on the capture stream.  A
+        capture that fails raises.  On the CPU the same bodies run
+        without capture.
+
+        Calls run the eager body inside another hybridized block's unit,
+        inside ``functional_call`` (the training steps) and during any
+        capture, as the JAX package does for traced arguments.  The
+        first call sizes deferred parameters with one eager dry run
+        (not recording).  A parameter whose tensor was rebound since
+        the graphs were made (``cast``, ``initialize(force_reinit=
+        True)``, ``reset_ctx``, an assignment to ``_data``) drops them:
+        each call checks every parameter's tensor by identity.
+        ``set_data`` copies in place and keeps them.  Forward hooks fire
+        when the body runs in Python: every CPU call, and on the card
+        its warm-up and capture (the JAX package: while tracing)."""
+        self._active = bool(active)
+        self._cached = None
+        super().hybridize(active, static_alloc=static_alloc,
+                          static_shape=static_shape, **kwargs)
+
+    def graph_count(self):
+        """Captured units held: one per key seen on the card (a
+        recording key's unit is a forward and a backward graph)."""
+        return 0 if self._cached is None else self._cached.graph_count()
 
     def infer_shape(self, *args):
         """Layer hook: fill the wildcard (0) dims of own parameters from
@@ -216,6 +384,25 @@ class HybridBlock(Block):
                 if p._deferred_init is not None:
                     p._finish_deferred_init()
 
+    def __call__(self, *args):
+        if not self._active or running_eagerly():
+            return super().__call__(*args)
+        wrap = any(isinstance(a, NDArray) for a in args)
+        targs = tuple(a._data if isinstance(a, NDArray) else a
+                      for a in args)
+        leaves, spec = _flatten(targs)
+        if any(t.is_cuda for t in leaves) and \
+                torch.cuda.is_current_stream_capturing():
+            return super().__call__(*args)
+        if self._cached is None or not self._cached.current():
+            if any(p._deferred_init is not None
+                   for p in self.collect_params().values()):
+                with run_eagerly(), _autograd.pause():
+                    super().__call__(*targs)
+            self._cached = _CachedOp(self)
+        out = self._cached(leaves, spec)
+        return _wrap_all(out) if wrap else out
+
     def forward(self, x, *args):
         try:
             params = {k: p.tensor() for k, p in self._reg_params.items()}
@@ -226,6 +413,295 @@ class HybridBlock(Block):
 
     def hybrid_forward(self, F, x, *args, **kwargs):
         raise NotImplementedError
+
+
+# ------------------------------------------------------------- hybridize --
+_TENSOR, _VALUE = "tensor", "value"
+
+
+def _flatten(tree):
+    """The tensors of a nested tuple/list ``tree``, and a hashable spec
+    of the rest (structure, each tensor's shape, dtype and device, other
+    leaves by value) that ``_unflatten`` rebuilds it from."""
+    leaves = []
+
+    def walk(x):
+        if isinstance(x, torch.Tensor):
+            leaves.append(x)
+            return (_TENSOR, tuple(x.shape), x.dtype, x.device)
+        if isinstance(x, (tuple, list)):
+            return (type(x), tuple(walk(v) for v in x))
+        return (_VALUE, x)
+    return leaves, walk(tree)
+
+
+def _unflatten(spec, leaves):
+    it = iter(leaves)
+
+    def build(s):
+        if s[0] == _TENSOR:
+            return next(it)
+        if s[0] == _VALUE:
+            return s[1]
+        return s[0](build(v) for v in s[1])
+    return build(spec)
+
+
+def _grads(outs, wrt, cts):
+    """Gradients of ``outs`` (those that carry a graph) against ``wrt``
+    seeded with ``cts``; None where one does not depend on them."""
+    keep = [(o, c) for o, c in zip(outs, cts) if o.requires_grad]
+    if not keep:
+        return [None] * len(wrt)
+    return list(torch.autograd.grad([o for o, _ in keep], wrt,
+                                    [c for _, c in keep],
+                                    allow_unused=True))
+
+
+class _Pair:
+    """A recording key's graphs on the card: the forward and, sharing
+    its memory pool, the backward, with their static buffers."""
+
+    def __init__(self, device):
+        self.fwd = StepGraph(device)
+        self.bwd = None
+        self.warmed = False             # a backward ran eagerly
+        self.gen = 0                    # forward replays so far
+        self.pending = None             # weakref: a replay awaiting backward
+
+    @property
+    def captured(self):
+        return self.bwd is not None
+
+    def busy(self):
+        return self.pending is not None and self.pending() is not None
+
+
+class _CachedOp:
+    """What a hybridized block runs as one unit: its parameters (sorted
+    by name, as the JAX CachedOp takes them) and, on the card, its
+    graphs by key."""
+
+    def __init__(self, block):
+        params = block.collect_params()
+        self.block = weakref.ref(block)
+        self.plist = [params[n] for n in sorted(params.keys())]
+        self.tensors = [p.tensor() for p in self.plist]
+        self.train = [i for i, t in enumerate(self.tensors)
+                      if t.requires_grad]
+        self.forward_graphs = None      # GraphCache of forward-only keys
+        self.statics = {}               # forward-only key -> input buffers
+        self.pairs = {}                 # recording key -> _Pair
+        self.out_specs = {}             # key -> output structure
+
+    def current(self):
+        """No parameter's tensor was rebound since these were made."""
+        return all(p._data is t for p, t in zip(self.plist, self.tensors))
+
+    def graph_count(self):
+        return len(self.forward_graphs or ()) + sum(
+            p.captured for p in self.pairs.values())
+
+    def aliases(self, trainable):
+        """Detached aliases of the parameters' tensors; the trainable
+        ones fresh leaves that record gradients when ``trainable``."""
+        out = [t.detach() for t in self.tensors]
+        if trainable:
+            for i in self.train:
+                out[i].requires_grad_(True)
+        return out
+
+    def body(self, key, leaves, spec, training, aliases):
+        """The block's forward over ``aliases``: what runs eagerly on the
+        CPU and in a card's warm-up, and what a card's graph holds.  Each
+        parameter the forward replaced (running statistics) has its new
+        value copied into its own storage.  Returns the output
+        tensors."""
+        out, mutated = functional_call(self.block(), self.plist, aliases,
+                                       _unflatten(spec, leaves), training)
+        with torch.no_grad():
+            for i, new in mutated:
+                aliases[i].copy_(new)
+        outs, self.out_specs[key] = _flatten(out)
+        return tuple(outs)
+
+    def __call__(self, leaves, spec):
+        training = _autograd.is_training()
+        wrt_in = tuple(j for j, x in enumerate(leaves) if x.requires_grad)
+        recording = _autograd.is_recording() and bool(self.train or wrt_in)
+        key = (spec, training, recording, wrt_in if recording else ())
+        device = (self.tensors or leaves or [torch.empty(0)])[0].device
+        if not recording:
+            if device.type == "cuda":
+                outs = self._forward_graph(key, leaves, spec, training,
+                                           device)
+            else:
+                outs = self.body(key, leaves, spec, training,
+                                 self.aliases(False))
+        else:
+            call = self._recording_call(key, leaves, spec, training, wrt_in,
+                                        device)
+            with torch.enable_grad():
+                outs = _CachedFunction.apply(
+                    call, *leaves, *[self.tensors[i] for i in self.train])
+        return _unflatten(self.out_specs[key], outs)
+
+    # ------------------------------------------------------- the card --
+    def _forward_graph(self, key, leaves, spec, training, device):
+        if self.forward_graphs is None:
+            self.forward_graphs = GraphCache(device)
+        static = self.statics.get(key)
+        if static is None:
+            static = self.statics[key] = [x.detach().clone() for x in leaves]
+        else:
+            for s, x in zip(static, leaves):
+                s.copy_(x)
+        aliases = self.aliases(False)
+        outs = self.forward_graphs.run(
+            key, lambda: self.body(key, static, spec, training, aliases))
+        return tuple(o.clone() for o in outs)
+
+    def _recording_call(self, key, leaves, spec, training, wrt_in, device):
+        if device.type != "cuda":
+            return _EagerCall(self, key, spec, training, wrt_in)
+        pair = self.pairs.get(key)
+        if pair is None:
+            pair = self.pairs[key] = _Pair(device)
+        if not pair.warmed or pair.busy():
+            return _EagerCall(self, key, spec, training, wrt_in, pair)
+        if not pair.captured:
+            self._capture_pair(pair, key, leaves, spec, training, wrt_in,
+                               device)
+        return _ReplayCall(self, pair, wrt_in)
+
+    def _capture_pair(self, pair, key, leaves, spec, training, wrt_in,
+                      device):
+        """Capture a recording key's forward, then its backward into the
+        forward's pool (capturing runs nothing: no statistic moves)."""
+        static_in = [x.detach().clone().requires_grad_(j in wrt_in)
+                     for j, x in enumerate(leaves)]
+        aliases = self.aliases(True)
+        wrt = [aliases[i] for i in self.train] + [static_in[j]
+                                                  for j in wrt_in]
+        outs = pair.fwd.capture(
+            lambda: self.body(key, static_in, spec, training, aliases))
+        cts = [torch.zeros_like(o) for o in outs]
+        bwd = StepGraph(device, pool_of=pair.fwd)
+        grads = bwd.capture(lambda: _grads(outs, wrt, cts))
+        pair.static_in, pair.cts, pair.grads = static_in, cts, grads
+        pair.outs = [o.detach() for o in outs]
+        pair.bwd = bwd
+
+
+def _expand(op, n_in, wrt_in, grads):
+    """The Function's gradients: one per input leaf (None where it takes
+    none), then one per trainable parameter."""
+    k = len(op.train)
+    by_input = dict(zip(wrt_in, grads[k:]))
+    return tuple(by_input.get(j) for j in range(n_in)) + tuple(grads[:k])
+
+
+class _EagerCall:
+    """A recording call run eagerly: every one on the CPU, and on the
+    card a key's calls until its first backward (on the pair's capture
+    stream: its warm-up) or while a replay awaits its backward."""
+
+    def __init__(self, op, key, spec, training, wrt_in, pair=None):
+        self.op, self.key, self.spec = op, key, spec
+        self.training, self.wrt_in, self.pair = training, wrt_in, pair
+        self.outs = None
+
+    def _run(self, fn):
+        if self.pair is None:
+            return fn()
+        out = self.pair.fwd.warm_up(fn)
+        main = torch.cuda.current_stream(self.pair.fwd.device)
+        for t in out:                   # made on the capture stream
+            if t is not None:
+                t.record_stream(main)
+        return out
+
+    def forward(self, tensors):
+        op = self.op
+        self.n_in = len(tensors) - len(op.train)
+        leaves = [x.detach().requires_grad_(j in self.wrt_in)
+                  for j, x in enumerate(tensors[:self.n_in])]
+        aliases = op.aliases(True)
+        self.wrt = [aliases[i] for i in op.train] + [leaves[j]
+                                                     for j in self.wrt_in]
+        with torch.enable_grad():
+            self.outs = self._run(lambda: op.body(
+                self.key, leaves, self.spec, self.training, aliases))
+        return tuple(o.detach() for o in self.outs)
+
+    def backward(self, cts):
+        if self.outs is None:
+            raise RuntimeError(
+                "backward through a hybridized block's recorded call runs "
+                "once; its graph was spent by an earlier backward")
+        outs, self.outs = self.outs, None
+        grads = self._run(lambda: tuple(_grads(outs, self.wrt, cts)))
+        if self.pair is not None:
+            self.pair.warmed = True
+        return _expand(self.op, self.n_in, self.wrt_in, grads)
+
+
+class _ReplayCall:
+    """A recording call through its key's captured pair."""
+
+    def __init__(self, op, pair, wrt_in):
+        self.op, self.pair, self.wrt_in = op, pair, wrt_in
+
+    def forward(self, tensors):
+        pair = self.pair
+        self.n_in = len(tensors) - len(self.op.train)
+        for s, x in zip(pair.static_in, tensors[:self.n_in]):
+            s.copy_(x)
+        pair.fwd.replay()
+        pair.gen += 1
+        self.gen = pair.gen
+        pair.pending = weakref.ref(self)
+        return tuple(o.clone() for o in pair.outs)
+
+    def backward(self, cts):
+        pair = self.pair
+        if pair.gen != self.gen:
+            raise RuntimeError(
+                "a hybridized block was called again with the same input "
+                "signature after this recorded call's backward, and the "
+                "replay overwrote the activations a second backward of it "
+                "needs")
+        if pair.pending is not None and pair.pending() is self:
+            pair.pending = None
+        for s, c in zip(pair.cts, cts):
+            s.copy_(c)
+        pair.bwd.replay()
+        grads = [None if g is None else g.clone() for g in pair.grads]
+        return _expand(self.op, self.n_in, self.wrt_in, grads)
+
+
+class _CachedFunction(torch.autograd.Function):
+    """One autograd node for a hybridized block's recorded call: its
+    inputs are the call's input tensors and the trainable parameters'
+    tensors, whose gradient hooks then fill their ``grad`` buffers."""
+
+    @staticmethod
+    def forward(ctx, call, *tensors):
+        outs = call.forward(tensors)
+        ctx.call = call
+        ctx.mark_non_differentiable(*[o for o in outs
+                                      if not o.is_floating_point()])
+        return outs
+
+    @staticmethod
+    def backward(ctx, *cts):
+        if torch.is_grad_enabled():
+            raise RuntimeError(
+                "a hybridized block differentiates once: its backward "
+                "records no graph, so create_graph=True (a higher-order "
+                "gradient) through it is not possible; call "
+                "hybridize(active=False) to run it eagerly")
+        return (None,) + ctx.call.backward(cts)
 
 
 def params_from_jax(block, arrays):

@@ -3,7 +3,7 @@
 Each loss is a ``HybridBlock`` over the registered ops (``F``), written
 as the JAX package writes it; ``forward`` returns the loss per sample
 (the mean over the other axes), weighted by ``weight`` and
-``sample_weight``.  ``CTCLoss`` comes with the LSTM slice.
+``sample_weight``.
 """
 from __future__ import annotations
 
@@ -15,7 +15,7 @@ __all__ = ["Loss", "L2Loss", "L1Loss", "SoftmaxCrossEntropyLoss",
            "SoftmaxCELoss", "SigmoidBinaryCrossEntropyLoss", "SigmoidBCELoss",
            "KLDivLoss", "HuberLoss", "HingeLoss", "SquaredHingeLoss",
            "LogisticLoss", "TripletLoss", "CosineEmbeddingLoss",
-           "PoissonNLLLoss"]
+           "PoissonNLLLoss", "CTCLoss"]
 
 
 def _apply_weighting(F, loss, weight=None, sample_weight=None):
@@ -273,3 +273,25 @@ class PoissonNLLLoss(Loss):
             loss = loss + stirling
         loss = _apply_weighting(F, loss, self._weight, sample_weight)
         return F.mean(loss)
+
+
+class CTCLoss(Loss):
+    """Connectionist temporal classification loss per sequence
+    (``CTCLoss`` op): ``pred`` unnormalised scores in ``layout`` (``NTC``
+    or ``TNC``), ``label`` in ``label_layout`` (``NT`` or ``TN``), blank
+    0, optional lengths."""
+
+    def __init__(self, layout="NTC", label_layout="NT", weight=None,
+                 **kwargs):
+        super().__init__(weight, 0, **kwargs)
+        self._layout = layout
+        self._label_layout = label_layout
+
+    def hybrid_forward(self, F, pred, label, pred_lengths=None,
+                       label_lengths=None, sample_weight=None):
+        if self._layout == "NTC":
+            pred = F.swapaxes(pred, dim1=0, dim2=1)
+        if self._label_layout == "TN":
+            label = F.swapaxes(label, dim1=0, dim2=1)
+        loss = F.CTCLoss(pred, label, pred_lengths, label_lengths)
+        return _apply_weighting(F, loss, self._weight, sample_weight)

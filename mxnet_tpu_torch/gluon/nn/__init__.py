@@ -1,4 +1,4 @@
-"""gluon.nn of the port: the layers the ResNet v1 family uses."""
+"""gluon.nn of the port: the layers of ``mxnet_tpu.gluon.nn``."""
 from ..block import Block, HybridBlock
 from .activations import *
 from .basic_layers import *

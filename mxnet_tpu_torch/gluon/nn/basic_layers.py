@@ -1,15 +1,47 @@
-"""Basic layers (the port of ``mxnet_tpu/gluon/nn/basic_layers.py``'s
-``HybridSequential``, ``Dense``, ``Dropout``, ``BatchNorm``, ``LayerNorm``
-and ``Embedding``)."""
+"""Basic layers (the port of ``mxnet_tpu/gluon/nn/basic_layers.py``):
+the containers, ``Dense``, ``Dropout``, the norms, ``Embedding``,
+``Flatten``, ``Identity`` and the lambdas."""
 from __future__ import annotations
 
 import math
 
 from ... import autograd as _autograd
-from ..block import HybridBlock
+from ...ndarray.ndarray import NDArray, _wrap_all
+from ..block import Block, HybridBlock
 
-__all__ = ["HybridSequential", "Dense", "Dropout", "BatchNorm", "LayerNorm",
-           "Embedding"]
+__all__ = ["Sequential", "HybridSequential", "Dense", "Dropout",
+           "BatchNorm", "SyncBatchNorm", "InstanceNorm", "LayerNorm",
+           "GroupNorm", "RMSNorm", "Embedding", "Flatten", "Lambda",
+           "HybridLambda", "Identity"]
+
+
+class Sequential(Block):
+    """Children run in the order they were added (a plain Block: it
+    runs eagerly; ``hybridize`` reaches its children)."""
+
+    def add(self, *blocks):
+        for b in blocks:
+            self.register_child(b)
+
+    def forward(self, x, *args):
+        for b in self._children.values():
+            x = b(x)
+        return x
+
+    def __len__(self):
+        return len(self._children)
+
+    def __getitem__(self, key):
+        vals = list(self._children.values())
+        if isinstance(key, slice):
+            net = type(self)(prefix=self._prefix)
+            for b in vals[key]:
+                net.add(b)
+            return net
+        return vals[key]
+
+    def __iter__(self):
+        return iter(self._children.values())
 
 
 class HybridSequential(HybridBlock):
@@ -132,6 +164,40 @@ class BatchNorm(HybridBlock):
         return out
 
 
+class SyncBatchNorm(BatchNorm):
+    """BatchNorm with statistics over every device's batch: on one card,
+    BatchNorm (``num_devices`` is accepted)."""
+
+    def __init__(self, in_channels=0, num_devices=None, **kwargs):
+        kwargs.setdefault("epsilon", 1e-5)
+        super().__init__(in_channels=in_channels, **kwargs)
+
+
+class InstanceNorm(HybridBlock):
+    """``InstanceNorm`` op over each sample's channel (axis 1)."""
+
+    def __init__(self, axis=1, epsilon=1e-5, center=True, scale=False,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._eps = epsilon
+        self.gamma = self.params.get("gamma", shape=(in_channels,),
+                                     init=gamma_initializer,
+                                     allow_deferred_init=True,
+                                     differentiable=scale)
+        self.beta = self.params.get("beta", shape=(in_channels,),
+                                    init=beta_initializer,
+                                    allow_deferred_init=True,
+                                    differentiable=center)
+
+    def infer_shape(self, x, *args):
+        self.gamma.shape = (x.shape[1],)
+        self.beta.shape = (x.shape[1],)
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.InstanceNorm(x, gamma, beta, eps=self._eps)
+
+
 class LayerNorm(HybridBlock):
     """``LayerNorm`` op over ``axis``; ``gamma`` and ``beta``."""
 
@@ -159,6 +225,52 @@ class LayerNorm(HybridBlock):
         return F.LayerNorm(x, gamma, beta, axis=self._axis, eps=self._eps)
 
 
+class GroupNorm(HybridBlock):
+    """``GroupNorm`` op: ``num_groups`` groups of the channels (axis
+    1)."""
+
+    def __init__(self, num_groups=1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._groups = num_groups
+        self._eps = epsilon
+        self.gamma = self.params.get("gamma", shape=(in_channels,),
+                                     init=gamma_initializer,
+                                     allow_deferred_init=True,
+                                     differentiable=scale)
+        self.beta = self.params.get("beta", shape=(in_channels,),
+                                    init=beta_initializer,
+                                    allow_deferred_init=True,
+                                    differentiable=center)
+
+    def infer_shape(self, x, *args):
+        self.gamma.shape = (x.shape[1],)
+        self.beta.shape = (x.shape[1],)
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.GroupNorm(x, gamma, beta, num_groups=self._groups,
+                           eps=self._eps)
+
+
+class RMSNorm(HybridBlock):
+    """``RMSNorm`` op over ``axis``; ``gamma``."""
+
+    def __init__(self, axis=-1, epsilon=1e-6, in_channels=0, prefix=None,
+                 params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._axis = axis
+        self._eps = epsilon
+        self.gamma = self.params.get("gamma", shape=(in_channels,),
+                                     init="ones", allow_deferred_init=True)
+
+    def infer_shape(self, x, *args):
+        self.gamma.shape = (x.shape[self._axis],)
+
+    def hybrid_forward(self, F, x, gamma):
+        return F.RMSNorm(x, gamma, axis=self._axis, eps=self._eps)
+
+
 class Embedding(HybridBlock):
     """``Embedding`` op; weight ``(input_dim, output_dim)``."""
 
@@ -180,3 +292,59 @@ class Embedding(HybridBlock):
     def hybrid_forward(self, F, x, weight):
         return F.Embedding(x, weight, input_dim=self._input_dim,
                            output_dim=self._output_dim)
+
+
+class Flatten(HybridBlock):
+    """``(N, ...)`` -> ``(N, prod(...))``."""
+
+    def infer_shape(self, *args):
+        pass
+
+    def hybrid_forward(self, F, x):
+        return F.flatten(x)
+
+
+class Identity(HybridBlock):
+    def infer_shape(self, *args):
+        pass
+
+    def hybrid_forward(self, F, x):
+        return x
+
+
+class Lambda(Block):
+    """A function of NDArrays as a block (a name: the ``nd`` function).
+    It sees NDArrays; the block returns tensors for tensors."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        if isinstance(function, str):
+            from ... import ndarray as ndmod
+            function = getattr(ndmod, function)
+        self._func = function
+
+    def forward(self, *args):
+        out = self._func(*_wrap_all(args))
+        if isinstance(out, NDArray):
+            return out._data
+        if isinstance(out, (tuple, list)):
+            return type(out)(o._data if isinstance(o, NDArray) else o
+                             for o in out)
+        return out
+
+
+class HybridLambda(HybridBlock):
+    """``function(F, *args)`` on tensors as a block (a name: the op)."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        if isinstance(function, str):
+            fname = function
+            function = lambda F, *args: getattr(F, fname)(*args)  # noqa: E731
+        self._func = function
+
+    def infer_shape(self, *args):
+        pass
+
+    def hybrid_forward(self, F, *args):
+        return self._func(F, *args)

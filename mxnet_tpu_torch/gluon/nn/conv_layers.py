@@ -1,37 +1,53 @@
 """Convolution and pooling layers (the port of
-``mxnet_tpu/gluon/nn/conv_layers.py``'s ``Conv2D``, ``MaxPool2D`` and
-``GlobalAvgPool2D``).  ``layout="NHWC"`` keeps the JAX package's
-channel-last convention: ``OHWI`` conv weights."""
+``mxnet_tpu/gluon/nn/conv_layers.py``): ``Conv1D``/``2D``/``3D``, their
+transposes, the max/average pools and their global forms in 1, 2 and 3
+dims, and ``ReflectionPad2D``.  A channel-last layout (``"NHWC"``) keeps
+the JAX package's convention: conv weights ``(O, *k, I)``, transposed
+conv weights ``(I, *k, O / groups)``; channel-first ``(O, I, *k)`` and
+``(I, O / groups, *k)``."""
 from __future__ import annotations
 
 from ..block import HybridBlock
 
-__all__ = ["Conv2D", "MaxPool2D", "GlobalAvgPool2D"]
+__all__ = ["Conv1D", "Conv2D", "Conv3D", "Conv1DTranspose", "Conv2DTranspose",
+           "Conv3DTranspose", "MaxPool1D", "MaxPool2D", "MaxPool3D",
+           "AvgPool1D", "AvgPool2D", "AvgPool3D", "GlobalMaxPool1D",
+           "GlobalMaxPool2D", "GlobalMaxPool3D", "GlobalAvgPool1D",
+           "GlobalAvgPool2D", "GlobalAvgPool3D", "ReflectionPad2D"]
 
 
 def _tup(v, n):
     return (v,) * n if isinstance(v, int) else tuple(v)
 
 
-class Conv2D(HybridBlock):
-    def __init__(self, channels, kernel_size, strides=(1, 1), padding=(0, 0),
-                 dilation=(1, 1), groups=1, layout="NCHW", activation=None,
+class _Conv(HybridBlock):
+    """``Convolution`` (or ``Deconvolution``) over ``len(kernel_size)``
+    spatial dims."""
+
+    def __init__(self, channels, kernel_size, strides, padding, dilation,
+                 groups, layout, in_channels=0, activation=None,
                  use_bias=True, weight_initializer=None,
-                 bias_initializer="zeros", in_channels=0, prefix=None,
-                 params=None):
+                 bias_initializer="zeros", op_name="Convolution", adj=None,
+                 prefix=None, params=None):
         super().__init__(prefix=prefix, params=params)
-        kernel_size = _tup(kernel_size, 2)
         self._channels = channels
         self._kwargs = {
-            "kernel": kernel_size, "stride": _tup(strides, 2),
-            "dilate": _tup(dilation, 2), "pad": _tup(padding, 2),
-            "num_filter": channels, "num_group": groups,
+            "kernel": kernel_size, "stride": strides, "dilate": dilation,
+            "pad": padding, "num_filter": channels, "num_group": groups,
             "no_bias": not use_bias, "layout": layout}
+        if adj is not None:
+            self._kwargs["adj"] = adj
+        self._op_name = op_name
         self._act_type = activation
-        self._chan_last = layout[-1] == "C"
+        self._chan_last = bool(layout) and layout[-1] == "C"
         cin = in_channels // groups if in_channels else 0
-        wshape = (channels,) + kernel_size + (cin,) if self._chan_last \
-            else (channels, cin) + kernel_size
+        cout = channels // groups if channels else 0
+        if op_name == "Convolution":
+            wshape = (channels,) + kernel_size + (cin,) if self._chan_last \
+                else (channels, cin) + kernel_size
+        else:
+            wshape = (in_channels,) + kernel_size + (cout,) \
+                if self._chan_last else (in_channels, cout) + kernel_size
         self.weight = self.params.get("weight", shape=wshape,
                                       init=weight_initializer,
                                       allow_deferred_init=True)
@@ -43,25 +59,108 @@ class Conv2D(HybridBlock):
     def infer_shape(self, x, *args):
         c = x.shape[-1] if self._chan_last else x.shape[1]
         w = list(self.weight.shape)
-        w[-1 if self._chan_last else 1] = c // self._kwargs["num_group"]
+        if self._op_name == "Convolution":
+            w[-1 if self._chan_last else 1] = c // self._kwargs["num_group"]
+        else:
+            w[0] = c
         self.weight.shape = tuple(w)
 
     def hybrid_forward(self, F, x, weight, bias=None):
-        out = F.Convolution(x, weight, bias, **self._kwargs)
+        out = getattr(F, self._op_name)(x, weight, bias, **self._kwargs)
         if self._act_type:
             out = F.Activation(out, act_type=self._act_type)
         return out
 
 
+class Conv1D(_Conv):
+    def __init__(self, channels, kernel_size, strides=1, padding=0,
+                 dilation=1, groups=1, layout="NCW", activation=None,
+                 use_bias=True, weight_initializer=None,
+                 bias_initializer="zeros", in_channels=0, **kwargs):
+        super().__init__(channels, _tup(kernel_size, 1), _tup(strides, 1),
+                         _tup(padding, 1), _tup(dilation, 1), groups, layout,
+                         in_channels, activation, use_bias,
+                         weight_initializer, bias_initializer, **kwargs)
+
+
+class Conv2D(_Conv):
+    def __init__(self, channels, kernel_size, strides=(1, 1), padding=(0, 0),
+                 dilation=(1, 1), groups=1, layout="NCHW", activation=None,
+                 use_bias=True, weight_initializer=None,
+                 bias_initializer="zeros", in_channels=0, **kwargs):
+        super().__init__(channels, _tup(kernel_size, 2), _tup(strides, 2),
+                         _tup(padding, 2), _tup(dilation, 2), groups, layout,
+                         in_channels, activation, use_bias,
+                         weight_initializer, bias_initializer, **kwargs)
+
+
+class Conv3D(_Conv):
+    def __init__(self, channels, kernel_size, strides=(1, 1, 1),
+                 padding=(0, 0, 0), dilation=(1, 1, 1), groups=1,
+                 layout="NCDHW", activation=None, use_bias=True,
+                 weight_initializer=None, bias_initializer="zeros",
+                 in_channels=0, **kwargs):
+        super().__init__(channels, _tup(kernel_size, 3), _tup(strides, 3),
+                         _tup(padding, 3), _tup(dilation, 3), groups, layout,
+                         in_channels, activation, use_bias,
+                         weight_initializer, bias_initializer, **kwargs)
+
+
+class _ConvTranspose(_Conv):
+    def __init__(self, channels, kernel_size, strides, padding,
+                 output_padding, dilation, groups, layout, in_channels=0,
+                 activation=None, use_bias=True, weight_initializer=None,
+                 bias_initializer="zeros", **kwargs):
+        super().__init__(channels, kernel_size, strides, padding, dilation,
+                         groups, layout, in_channels, activation, use_bias,
+                         weight_initializer, bias_initializer,
+                         op_name="Deconvolution", adj=output_padding,
+                         **kwargs)
+
+
+class Conv1DTranspose(_ConvTranspose):
+    def __init__(self, channels, kernel_size, strides=1, padding=0,
+                 output_padding=0, dilation=1, groups=1, layout="NCW",
+                 **kwargs):
+        super().__init__(channels, _tup(kernel_size, 1), _tup(strides, 1),
+                         _tup(padding, 1), _tup(output_padding, 1),
+                         _tup(dilation, 1), groups, layout, **kwargs)
+
+
+class Conv2DTranspose(_ConvTranspose):
+    def __init__(self, channels, kernel_size, strides=(1, 1), padding=(0, 0),
+                 output_padding=(0, 0), dilation=(1, 1), groups=1,
+                 layout="NCHW", **kwargs):
+        super().__init__(channels, _tup(kernel_size, 2), _tup(strides, 2),
+                         _tup(padding, 2), _tup(output_padding, 2),
+                         _tup(dilation, 2), groups, layout, **kwargs)
+
+
+class Conv3DTranspose(_ConvTranspose):
+    def __init__(self, channels, kernel_size, strides=(1, 1, 1),
+                 padding=(0, 0, 0), output_padding=(0, 0, 0),
+                 dilation=(1, 1, 1), groups=1, layout="NCDHW", **kwargs):
+        super().__init__(channels, _tup(kernel_size, 3), _tup(strides, 3),
+                         _tup(padding, 3), _tup(output_padding, 3),
+                         _tup(dilation, 3), groups, layout, **kwargs)
+
+
 class _Pooling(HybridBlock):
-    def __init__(self, pool_size, strides, padding, global_pool=False,
-                 pool_type="max", layout="NCHW", prefix=None, params=None):
+    """``Pooling`` op; ``ceil_mode`` rounds the output size up."""
+
+    def __init__(self, pool_size, strides, padding, ceil_mode=False,
+                 global_pool=False, pool_type="max", layout="NCHW",
+                 count_include_pad=None, prefix=None, params=None):
         super().__init__(prefix=prefix, params=params)
         self._kwargs = {
             "kernel": pool_size,
             "stride": pool_size if strides is None else strides,
             "pad": padding, "pool_type": pool_type,
-            "global_pool": global_pool, "layout": layout}
+            "global_pool": global_pool,
+            "pooling_convention": "full" if ceil_mode else "valid",
+            "layout": layout}
+        if count_include_pad is not None:
+            self._kwargs["count_include_pad"] = count_include_pad
 
     def infer_shape(self, *args):
         pass
@@ -70,15 +169,108 @@ class _Pooling(HybridBlock):
         return F.Pooling(x, **self._kwargs)
 
 
+def _strides(strides, n):
+    return None if strides is None else _tup(strides, n)
+
+
+class MaxPool1D(_Pooling):
+    def __init__(self, pool_size=2, strides=None, padding=0, layout="NCW",
+                 ceil_mode=False, **kwargs):
+        super().__init__(_tup(pool_size, 1), _strides(strides, 1),
+                         _tup(padding, 1), ceil_mode, False, "max", layout,
+                         **kwargs)
+
+
 class MaxPool2D(_Pooling):
     def __init__(self, pool_size=(2, 2), strides=None, padding=0,
-                 layout="NCHW", **kwargs):
-        super().__init__(_tup(pool_size, 2),
-                         None if strides is None else _tup(strides, 2),
-                         _tup(padding, 2), False, "max", layout, **kwargs)
-
-
-class GlobalAvgPool2D(_Pooling):
-    def __init__(self, layout="NCHW", **kwargs):
-        super().__init__((1, 1), None, (0, 0), True, "avg", layout,
+                 layout="NCHW", ceil_mode=False, **kwargs):
+        super().__init__(_tup(pool_size, 2), _strides(strides, 2),
+                         _tup(padding, 2), ceil_mode, False, "max", layout,
                          **kwargs)
+
+
+class MaxPool3D(_Pooling):
+    def __init__(self, pool_size=(2, 2, 2), strides=None, padding=0,
+                 layout="NCDHW", ceil_mode=False, **kwargs):
+        super().__init__(_tup(pool_size, 3), _strides(strides, 3),
+                         _tup(padding, 3), ceil_mode, False, "max", layout,
+                         **kwargs)
+
+
+class AvgPool1D(_Pooling):
+    def __init__(self, pool_size=2, strides=None, padding=0, layout="NCW",
+                 ceil_mode=False, count_include_pad=True, **kwargs):
+        super().__init__(_tup(pool_size, 1), _strides(strides, 1),
+                         _tup(padding, 1), ceil_mode, False, "avg", layout,
+                         count_include_pad, **kwargs)
+
+
+class AvgPool2D(_Pooling):
+    def __init__(self, pool_size=(2, 2), strides=None, padding=0,
+                 layout="NCHW", ceil_mode=False, count_include_pad=True,
+                 **kwargs):
+        super().__init__(_tup(pool_size, 2), _strides(strides, 2),
+                         _tup(padding, 2), ceil_mode, False, "avg", layout,
+                         count_include_pad, **kwargs)
+
+
+class AvgPool3D(_Pooling):
+    def __init__(self, pool_size=(2, 2, 2), strides=None, padding=0,
+                 layout="NCDHW", ceil_mode=False, count_include_pad=True,
+                 **kwargs):
+        super().__init__(_tup(pool_size, 3), _strides(strides, 3),
+                         _tup(padding, 3), ceil_mode, False, "avg", layout,
+                         count_include_pad, **kwargs)
+
+
+class _GlobalPool(_Pooling):
+    def __init__(self, n, pool_type, layout, **kwargs):
+        super().__init__((1,) * n, None, (0,) * n, True, True, pool_type,
+                         layout, **kwargs)
+
+
+class GlobalMaxPool1D(_GlobalPool):
+    def __init__(self, layout="NCW", **kwargs):
+        super().__init__(1, "max", layout, **kwargs)
+
+
+class GlobalMaxPool2D(_GlobalPool):
+    def __init__(self, layout="NCHW", **kwargs):
+        super().__init__(2, "max", layout, **kwargs)
+
+
+class GlobalMaxPool3D(_GlobalPool):
+    def __init__(self, layout="NCDHW", **kwargs):
+        super().__init__(3, "max", layout, **kwargs)
+
+
+class GlobalAvgPool1D(_GlobalPool):
+    def __init__(self, layout="NCW", **kwargs):
+        super().__init__(1, "avg", layout, **kwargs)
+
+
+class GlobalAvgPool2D(_GlobalPool):
+    def __init__(self, layout="NCHW", **kwargs):
+        super().__init__(2, "avg", layout, **kwargs)
+
+
+class GlobalAvgPool3D(_GlobalPool):
+    def __init__(self, layout="NCDHW", **kwargs):
+        super().__init__(3, "avg", layout, **kwargs)
+
+
+class ReflectionPad2D(HybridBlock):
+    """``pad`` op in reflect mode; ``padding`` an int (each side of the
+    two spatial dims of NCHW) or the op's ``pad_width``."""
+
+    def __init__(self, padding=0, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        if isinstance(padding, int):
+            padding = (0, 0, 0, 0, padding, padding, padding, padding)
+        self._padding = tuple(padding)
+
+    def infer_shape(self, *args):
+        pass
+
+    def hybrid_forward(self, F, x):
+        return F.pad(x, mode="reflect", pad_width=self._padding)

@@ -12,6 +12,11 @@ leaves its gradient in ``grad()``.  Running statistics are created with
 
 ``data()`` is the NDArray; ``tensor()`` is its ``torch.Tensor``, what
 the blocks' ``hybrid_forward`` and the port's training steps take.
+
+``set_data`` writes in place; ``initialize(force_reinit=True)``,
+``cast``, ``reset_ctx`` and a ``grad_req`` change give the parameter a
+new tensor (a hybridized block then drops its graphs).  ``Constant`` is
+a parameter with a fixed value and no gradient.
 """
 from __future__ import annotations
 
@@ -21,10 +26,11 @@ import torch
 from .. import autograd as _autograd
 from .. import initializer as init_mod
 from ..base import MXNetError, dtype_torch
-from ..context import resolve_device
+from ..context import context_of, resolve_device
 from ..ndarray.ndarray import NDArray, tensor_from_numpy
 
-__all__ = ["Parameter", "ParameterDict", "DeferredInitializationError"]
+__all__ = ["Parameter", "ParameterDict", "Constant",
+           "DeferredInitializationError"]
 
 
 class DeferredInitializationError(MXNetError):
@@ -144,6 +150,9 @@ class Parameter:
         """The data as a ``torch.Tensor`` (the leaf itself)."""
         return self.data()._data
 
+    def list_data(self):
+        return [self.data()]
+
     def set_data(self, data):
         """Replace the values (an NDArray, tensor or numpy array), cast
         to this parameter's dtype, in place; the shape must match."""
@@ -173,10 +182,29 @@ class Parameter:
             d._grad = NDArray(torch.zeros_like(d._data))
         return d._grad
 
+    def list_grad(self):
+        return [self.grad()]
+
     def zero_grad(self):
         if self._nd is not None and self._nd._grad is not None:
             g = self._nd._grad
             g._data = torch.zeros_like(g._data)
+
+    def list_ctx(self):
+        """The context the data lives on (none before initialisation)."""
+        return [] if self._nd is None else [context_of(self._nd._data
+                                                       .device)]
+
+    def reset_ctx(self, ctx):
+        """Move the data (or a pending deferred initialisation) to
+        ``ctx``; the gradient starts again at zeros."""
+        device = resolve_device(ctx)
+        if self._nd is not None:
+            if self._nd._data.device != device:
+                self._adopt(self._nd._data.detach().to(device))
+        elif self._deferred_init is not None:
+            init, _, default_init = self._deferred_init
+            self._deferred_init = (init, device, default_init)
 
     def cast(self, dtype):
         """Change the dtype (``net.cast("bfloat16")``: bf16 compute, with
@@ -188,6 +216,23 @@ class Parameter:
     def __repr__(self):
         return f"Parameter {self.name} (shape={self.shape}, " \
                f"dtype={self.dtype})"
+
+
+class Constant(Parameter):
+    """A parameter holding a fixed value (``grad_req='null'``)."""
+
+    def __init__(self, name, value):
+        if not isinstance(value, np.ndarray):
+            value = np.asarray(value.asnumpy() if isinstance(value, NDArray)
+                               else value)
+        self.value = value
+        super().__init__(name, grad_req="null", shape=value.shape,
+                         dtype=value.dtype.name,
+                         init=init_mod.Constant(0))
+
+    def _finish_init(self, init, device, default_init):
+        self._adopt(tensor_from_numpy(self.value).to(device))
+        self._deferred_init = None
 
 
 class ParameterDict:
@@ -235,11 +280,30 @@ class ParameterDict:
         self._params[full] = p
         return p
 
+    def get_constant(self, name, value=None):
+        """Create or retrieve the ``Constant`` ``prefix + name``."""
+        full = self._prefix + name
+        if full not in self._params:
+            self._params[full] = Constant(full, value)
+        return self._params[full]
+
+    def update(self, other):
+        """Add ``other``'s parameters; a name held by another parameter
+        raises."""
+        for k, v in other.items():
+            if k in self._params and self._params[k] is not v:
+                raise ValueError(f"duplicate parameter name '{k}'")
+            self._params[k] = v
+
     def initialize(self, init=None, ctx=None, verbose=False,
                    force_reinit=False):
         for p in self._params.values():
             p.initialize(init=None, ctx=ctx, default_init=init,
                          force_reinit=force_reinit)
+
+    def reset_ctx(self, ctx):
+        for p in self._params.values():
+            p.reset_ctx(ctx)
 
     def zero_grad(self):
         for p in self._params.values():

@@ -21,6 +21,13 @@ is captured on (its capture stream):
   outputs, the graph's static outputs;
 - ``replay()`` launches the graph on the current stream.
 
+A forward and a backward graph form a pair (a hybridized block under
+``autograd.record()``): the backward graph is made with
+``StepGraph(device, pool_of=forward)``, so it is captured on the
+forward graph's stream into the forward graph's memory pool, where the
+activations the forward saved for it live.  Capture the forward first;
+the backward then reads what each forward replay leaves there.
+
 The hand-written kernels count their launches on the host, in their
 Python wrappers, which a replay never runs.  So ``capture`` notes how
 many launches of each kernel the captured body made (and takes them
@@ -178,15 +185,21 @@ def release_stream(device, stream):
 class StepGraph:
     """One captured step on one CUDA device (see the module's doc)."""
 
-    def __init__(self, device):
+    def __init__(self, device, pool_of=None):
+        """``pool_of``: the forward ``StepGraph`` of a pair, whose capture
+        stream and memory pool this (backward) graph shares."""
         self.device = torch.device(device)
         if self.device.type != "cuda":
             raise ValueError(f"a CUDA graph needs a CUDA device, got "
                              f"{self.device}")
         self.graph = torch.cuda.CUDAGraph()
-        self.stream = owned_stream(self.device)
-        weakref.finalize(self, release_stream, self.stream.device,
-                         self.stream)
+        self._pool_of = pool_of
+        if pool_of is None:
+            self.stream = owned_stream(self.device)
+            weakref.finalize(self, release_stream, self.stream.device,
+                             self.stream)
+        else:
+            self.stream = pool_of.stream
         self.launches = {}            # kernel launches per replay
 
     def warm_up(self, fn):
@@ -217,8 +230,10 @@ class StepGraph:
                 before = launch_counts()
                 _window["replayed"] = {}
             try:
+                pool = None if self._pool_of is None \
+                    else self._pool_of.graph.pool()
                 with torch.cuda.device(self.device), torch.cuda.graph(
-                        self.graph, stream=self.stream,
+                        self.graph, pool=pool, stream=self.stream,
                         capture_error_mode="thread_local"):
                     out = fn()
             finally:

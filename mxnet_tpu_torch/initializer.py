@@ -17,8 +17,9 @@ import torch
 
 from .base import dtype_torch
 
-__all__ = ["Initializer", "Zero", "One", "Uniform", "Xavier", "TruncNorm",
-           "register", "create", "seed"]
+__all__ = ["Initializer", "Zero", "One", "Constant", "Uniform", "Normal",
+           "Xavier", "MSRAPrelu", "TruncNorm", "Orthogonal", "LSTMBias",
+           "Bilinear", "register", "create", "seed"]
 
 _REGISTRY = {}
 _GEN = torch.Generator().manual_seed(0)
@@ -82,6 +83,21 @@ class One(Initializer):
         return torch.ones(shape, dtype=dtype_torch(dtype))
 
 
+@register
+class Constant(Initializer):
+    """Every element ``value``, whatever the parameter's name."""
+
+    def __init__(self, value=0.0):
+        super().__init__(value=value)
+        self.value = value
+
+    def init_array(self, shape, dtype="float32"):
+        return torch.full(shape, self.value, dtype=dtype_torch(dtype))
+
+    def __call__(self, name, shape, dtype="float32"):
+        return self.init_array(shape, dtype)
+
+
 def _uniform(shape, scale):
     return (torch.rand(shape, generator=_GEN) * 2.0 - 1.0) * scale
 
@@ -96,6 +112,19 @@ class Uniform(Initializer):
 
     def init_array(self, shape, dtype="float32"):
         return _uniform(shape, self.scale).to(dtype_torch(dtype))
+
+
+@register
+class Normal(Initializer):
+    """N(0, sigma**2)."""
+
+    def __init__(self, sigma=0.01):
+        super().__init__(sigma=sigma)
+        self.sigma = sigma
+
+    def init_array(self, shape, dtype="float32"):
+        return (torch.randn(shape, generator=_GEN) * self.sigma).to(
+            dtype_torch(dtype))
 
 
 def _fan(shape):
@@ -134,6 +163,16 @@ class Xavier(Initializer):
 
 
 @register
+class MSRAPrelu(Xavier):
+    """He initialisation for a PReLU of negative slope ``slope``:
+    gaussian Xavier with magnitude ``2 / (1 + slope**2)``."""
+
+    def __init__(self, factor_type="avg", slope=0.25):
+        super().__init__("gaussian", factor_type, 2.0 / (1 + slope ** 2))
+        self._kwargs = {"factor_type": factor_type, "slope": slope}
+
+
+@register
 class TruncNorm(Initializer):
     """Normal(mean, stdev) truncated at +-2 stdev (BERT's init), drawn by
     inverting the normal CDF on a uniform between the two cut points,
@@ -151,3 +190,60 @@ class TruncNorm(Initializer):
             * (hi - lo)
         x = (math.sqrt(2.0) * torch.erfinv(2.0 * u - 1.0)).clamp(-2.0, 2.0)
         return (x.float() * self.stdev + self.mean).to(dtype_torch(dtype))
+
+
+@register
+class Orthogonal(Initializer):
+    """``scale`` times an orthonormal matrix (the SVD factor of a draw,
+    uniform in [-1, 1] or normal, of shape ``(shape[0], prod(rest))``),
+    reshaped to ``shape``."""
+
+    def __init__(self, scale=1.414, rand_type="uniform"):
+        super().__init__(scale=scale, rand_type=rand_type)
+        self.scale = scale
+        self.rand_type = rand_type
+
+    def init_array(self, shape, dtype="float32"):
+        nout = shape[0]
+        nin = math.prod(shape[1:]) if len(shape) > 1 else 1
+        if self.rand_type == "uniform":
+            tmp = _uniform((nout, nin), 1.0)
+        else:
+            tmp = torch.randn((nout, nin), generator=_GEN)
+        u, _, v = torch.linalg.svd(tmp, full_matrices=False)
+        q = u if tuple(u.shape) == (nout, nin) else v
+        return (self.scale * q.reshape(shape)).to(dtype_torch(dtype))
+
+
+@register
+class LSTMBias(Initializer):
+    """Zeros, with the forget gate's quarter (gate order i, f, g, o) at
+    ``forget_bias``, whatever the parameter's name."""
+
+    def __init__(self, forget_bias=1.0):
+        super().__init__(forget_bias=forget_bias)
+        self.forget_bias = forget_bias
+
+    def __call__(self, name, shape, dtype="float32"):
+        b = torch.zeros(shape, dtype=dtype_torch(dtype))
+        n = shape[0] // 4
+        b[n:2 * n] = self.forget_bias
+        return b
+
+    def init_array(self, shape, dtype="float32"):
+        return self("", shape, dtype)
+
+
+@register
+class Bilinear(Initializer):
+    """Bilinear upsampling kernels for a deconvolution weight (the last
+    two dims the kernel's)."""
+
+    def init_array(self, shape, dtype="float32"):
+        f = math.ceil(shape[3] / 2.0)
+        c = (2 * f - 1 - f % 2) / (2.0 * f)
+        i = torch.arange(math.prod(shape), dtype=torch.float64)
+        x = i % shape[3]
+        y = (i // shape[3]) % shape[2]
+        w = (1 - (x / f - c).abs()) * (1 - (y / f - c).abs())
+        return w.reshape(shape).to(dtype_torch(dtype))

@@ -1,6 +1,7 @@
-"""Optimizers (the port of ``mxnet_tpu/optimizer/optimizer.py``'s
-``Optimizer``, ``SGD``, ``NAG``, ``Adam``, ``AdamW``, ``RMSProp``,
-``AdaGrad``, ``LAMB`` and ``create``).
+"""Optimizers (the port of ``mxnet_tpu/optimizer/optimizer.py``):
+``Optimizer``, ``SGD``, ``NAG``, ``Adam``, ``AdamW``, ``Adamax``,
+``Nadam``, ``LAMB``, ``LARS``, ``RMSProp``, ``AdaGrad``, ``AdaDelta``,
+``Ftrl``, ``Signum``, ``SGLD``, ``register`` and ``create``.
 
 An optimizer holds the hyperparameters and the multi-precision rule,
 and two ways to apply them:
@@ -10,7 +11,8 @@ and two ways to apply them:
   (``ops/optimizer_ops.py``) and writes the results into the weight and
   state arrays in place;
 - fused, in ``parallel.TrainStep``, which runs
-  ``parallel.functional_opt``'s multi-tensor rules (SGD and LAMB).
+  ``parallel.functional_opt``'s multi-tensor rules (those of the JAX
+  step: SGD, NAG, Adam, AdamW, LAMB, LARS, RMSProp, AdaGrad, Signum).
 
 ``multi_precision=None`` (the default) keeps f32 master weights for
 float16/bfloat16 parameters, as in the JAX package.
@@ -21,11 +23,13 @@ import math
 
 import torch
 
+from .. import random as _random
 from ..base import dtype_torch
 from ..ndarray.ndarray import NDArray, invoke
 
-__all__ = ["Optimizer", "SGD", "NAG", "Adam", "AdamW", "RMSProp", "AdaGrad",
-           "LAMB", "create", "register"]
+__all__ = ["Optimizer", "SGD", "NAG", "Adam", "AdamW", "Adamax", "Nadam",
+           "RMSProp", "AdaGrad", "AdaDelta", "Ftrl", "Signum", "SGLD",
+           "LAMB", "LARS", "create", "register"]
 
 _REGISTRY = {}
 
@@ -57,6 +61,12 @@ def _writeback(outs, *targets):
 
 def _zeros(weight):
     return NDArray(torch.zeros_like(weight._data.detach()))
+
+
+def _assign(target, value):
+    """Write ``value`` into the live array ``target``, in place."""
+    with torch.no_grad():
+        target._data.copy_(value)
 
 
 class Optimizer:
@@ -247,6 +257,75 @@ class AdamW(Adam):
 
 
 @register
+class Adamax(Optimizer):
+    """Adam with the infinity norm: ``u = max(beta2 * u, |g|)``, the
+    step ``lr / (1 - beta1**t) * m / (u + 1e-8)``."""
+
+    def __init__(self, learning_rate=0.002, beta1=0.9, beta2=0.999,
+                 **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1, self.beta2 = beta1, beta2
+
+    def create_state(self, index, weight):
+        return (_zeros(weight), _zeros(weight))
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        t = self._index_update_count[index]
+        lr_t = lr / (1.0 - self.beta1 ** t)
+        m, u = state
+        w = weight._data.detach()
+        g = grad._data * self.rescale_grad + wd * w
+        if self.clip_gradient is not None:
+            g = g.clamp(-self.clip_gradient, self.clip_gradient)
+        _assign(m, self.beta1 * m._data + (1 - self.beta1) * g)
+        _assign(u, torch.maximum(self.beta2 * u._data, g.abs()))
+        _assign(weight, w - lr_t * m._data / (u._data + 1e-8))
+
+
+@register
+class Nadam(Optimizer):
+    """Adam with Nesterov momentum and the momentum schedule of Dozat
+    (``schedule_decay``); the schedule's running product is the
+    optimizer's, as in the JAX package."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, schedule_decay=0.004, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
+        self.schedule_decay = schedule_decay
+        self.m_schedule = 1.0
+
+    def create_state(self, index, weight):
+        return (_zeros(weight), _zeros(weight))
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        t = self._index_update_count[index]
+        w = weight._data.detach()
+        g = grad._data * self.rescale_grad + wd * w
+        if self.clip_gradient is not None:
+            g = g.clamp(-self.clip_gradient, self.clip_gradient)
+        momentum_t = self.beta1 * (1.0 - 0.5 * 0.96 ** (
+            t * self.schedule_decay))
+        momentum_t_1 = self.beta1 * (1.0 - 0.5 * 0.96 ** (
+            (t + 1) * self.schedule_decay))
+        self.m_schedule = self.m_schedule * momentum_t
+        m_schedule_next = self.m_schedule * momentum_t_1
+        m, v = state
+        _assign(m, self.beta1 * m._data + (1.0 - self.beta1) * g)
+        _assign(v, self.beta2 * v._data + (1.0 - self.beta2) * g * g)
+        g_prime = g / (1.0 - self.m_schedule)
+        m_prime = m._data / (1.0 - m_schedule_next)
+        v_prime = v._data / (1.0 - self.beta2 ** t)
+        m_bar = (1.0 - momentum_t) * g_prime + momentum_t_1 * m_prime
+        _assign(weight, w - lr * m_bar / (torch.sqrt(v_prime)
+                                          + self.epsilon))
+
+
+@register
 class RMSProp(Optimizer):
     """RMSProp, plain or centred (``rmsprop_update``,
     ``rmspropalex_update``)."""
@@ -295,6 +374,125 @@ class AdaGrad(Optimizer):
         _writeback(invoke("adagrad_update", weight, grad, state,
                           **self._kw(index, epsilon=self.float_stable_eps)),
                    weight, state)
+
+
+@register
+class AdaDelta(Optimizer):
+    """AdaDelta (``adadelta_update``); no learning rate."""
+
+    def __init__(self, learning_rate=1.0, rho=0.90, epsilon=1e-5, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.rho, self.epsilon = rho, epsilon
+
+    def create_state(self, index, weight):
+        return (_zeros(weight), _zeros(weight))
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        acc_g, acc_delta = state
+        kw = self._kw(index, rho=self.rho, epsilon=self.epsilon)
+        del kw["lr"]
+        _writeback(invoke("adadelta_update", weight, grad, acc_g, acc_delta,
+                          **kw), weight, acc_g, acc_delta)
+
+
+@register
+class Ftrl(Optimizer):
+    """Follow the regularised leader (``ftrl_update``)."""
+
+    def __init__(self, lamda1=0.01, learning_rate=0.1, beta=1, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.lamda1 = lamda1
+        self.beta = beta
+
+    def create_state(self, index, weight):
+        return (_zeros(weight), _zeros(weight))
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        z, n = state
+        _writeback(invoke("ftrl_update", weight, grad, z, n,
+                          **self._kw(index, lamda1=self.lamda1,
+                                     beta=self.beta)), weight, z, n)
+
+
+@register
+class Signum(Optimizer):
+    """signSGD, or with ``momentum`` Signum (``signsgd_update``,
+    ``signum_update``); ``wd_lh`` decays the weight by ``lr * wd_lh``."""
+
+    def __init__(self, learning_rate=0.01, momentum=0.9, wd_lh=0.0,
+                 **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.momentum = momentum
+        self.wd_lh = wd_lh
+
+    def create_state(self, index, weight):
+        return _zeros(weight) if self.momentum != 0.0 else None
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        kw = self._kw(index)
+        if state is not None:
+            _writeback(invoke("signum_update", weight, grad, state,
+                              momentum=self.momentum, wd_lh=self.wd_lh,
+                              **kw), weight, state)
+        else:
+            _writeback(invoke("signsgd_update", weight, grad, **kw), weight)
+
+
+@register
+class SGLD(Optimizer):
+    """Stochastic gradient Langevin dynamics: ``w - lr / 2 * g +
+    sqrt(lr) * noise``, the standard normal noise drawn from the
+    weight's device stream (``random.generator``)."""
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        w = weight._data.detach()
+        g = grad._data * self.rescale_grad + wd * w
+        if self.clip_gradient is not None:
+            g = g.clamp(-self.clip_gradient, self.clip_gradient)
+        noise = torch.randn(w.shape, generator=_random.generator(w.device),
+                            device=w.device).to(w.dtype)
+        _assign(weight, w - lr / 2 * g + math.sqrt(lr) * noise)
+
+
+@register
+class LARS(Optimizer):
+    """Layer-wise adaptive rate scaling: the step scaled by the trust
+    ratio ``eta * ||w|| / (||g|| + wd * ||w|| + epsilon)`` (1 where a
+    norm is 0), with optional momentum."""
+
+    def __init__(self, momentum=0.0, eta=0.001, epsilon=1e-8, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = momentum
+        self.eta = eta
+        self.epsilon = epsilon
+
+    def create_state(self, index, weight):
+        return _zeros(weight) if self.momentum != 0.0 else None
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        w = weight._data.detach()
+        g = grad._data * self.rescale_grad
+        if self.clip_gradient is not None:
+            g = g.clamp(-self.clip_gradient, self.clip_gradient)
+        w_norm = torch.linalg.vector_norm(w.float())
+        g_norm = torch.linalg.vector_norm(g.float())
+        trust = torch.where((w_norm > 0) & (g_norm > 0),
+                            self.eta * w_norm / (g_norm + wd * w_norm
+                                                 + self.epsilon),
+                            torch.ones_like(w_norm))
+        g = g + wd * w
+        if state is not None:
+            _assign(state, self.momentum * state._data + trust * lr * g)
+            _assign(weight, w - state._data)
+        else:
+            _assign(weight, w - trust * lr * g)
 
 
 @register

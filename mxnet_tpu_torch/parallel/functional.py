@@ -4,13 +4,39 @@
 ``functional_call`` runs a block's forward with other tensors swapped in
 for its parameters and reports which auxiliary parameters (BatchNorm
 running statistics) the forward replaced — the state a training step
-owns and writes back itself.
+owns and writes back itself.  Inside it a hybridized block runs its
+eager body (``run_eagerly``): the training steps capture the whole step
+themselves, and a hybridized block's own body is one such call, so no
+capture ever nests in another.
 """
 from __future__ import annotations
 
+import contextlib
+import threading
+
 from .. import autograd as _autograd
 
-__all__ = ["param_names_and_values", "trainable_split", "functional_call"]
+__all__ = ["param_names_and_values", "trainable_split", "functional_call",
+           "run_eagerly", "running_eagerly"]
+
+_eager = threading.local()
+
+
+@contextlib.contextmanager
+def run_eagerly():
+    """Inside, every call of a hybridized block on this thread runs its
+    eager body (``HybridBlock.hybridize``), as the JAX package does for
+    a block called with traced arguments."""
+    _eager.depth = getattr(_eager, "depth", 0) + 1
+    try:
+        yield
+    finally:
+        _eager.depth -= 1
+
+
+def running_eagerly():
+    """True inside ``run_eagerly`` on this thread."""
+    return getattr(_eager, "depth", 0) > 0
 
 
 def param_names_and_values(block):
@@ -39,7 +65,8 @@ def functional_call(block, plist, tensors, inputs, training):
     try:
         for p, t in zip(plist, tensors):
             p._data = t
-        out = block(*inputs)
+        with run_eagerly():
+            out = block(*inputs)
         mutated = [(i, p._data) for i, (p, t) in enumerate(zip(plist,
                                                                tensors))
                    if p._data is not t]

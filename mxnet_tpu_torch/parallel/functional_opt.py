@@ -1,5 +1,6 @@
 """Optimizer updates for the training step (the port of
-``mxnet_tpu/parallel/functional_opt.py``'s SGD and LAMB rules).
+``mxnet_tpu/parallel/functional_opt.py``: SGD, NAG, Adam, AdamW, LAMB,
+LARS, RMSProp (plain and centred), AdaGrad and Signum).
 
 The JAX functions are pure: ``(w, g, state, t) -> (w', state')``.  Here
 the update writes **in place** into the step's tensors (called under
@@ -18,7 +19,8 @@ Two forms of each rule:
   learning rate may be 0-d device tensors, so a captured step reads
   their current values on every replay (``1 - beta**t`` is computed on
   the device in f32, as the JAX rule does); ``lr_mult``/``wd_mult`` are
-  per-tensor constants.  With ``finite`` (a 0-d bool tensor) every
+  per-tensor constants; LARS's trust ratio per tensor from
+  ``torch._foreach_norm`` too.  With ``finite`` (a 0-d bool tensor) every
   weight and state keeps its old value where it is False — the JAX
   step's all-finite guard as a select, without a branch or a sync.
 - ``pure_update`` — one tensor at a time, the oracle the multi-tensor
@@ -43,11 +45,11 @@ def _bias_correction(beta, t, device):
 
 
 # ------------------------------------------------------------ per tensor --
-def _prep(opt, w, g, wd):
+def _prep(opt, w, g, wd, decoupled=False):
     g = g * opt.rescale_grad
     if opt.clip_gradient is not None:
         g = g.clamp(-opt.clip_gradient, opt.clip_gradient)
-    return g + wd * w
+    return g if decoupled else g + wd * w
 
 
 def _sgd(opt, w, g, state, t, lr, wd):
@@ -58,6 +60,81 @@ def _sgd(opt, w, g, state, t, lr, wd):
     (mom,) = state
     mom.mul_(opt.momentum).sub_(lr * g)
     w.add_(mom)
+
+
+def _nag(opt, w, g, state, t, lr, wd):
+    g = _prep(opt, w, g, wd)
+    (mom,) = state
+    mom.mul_(opt.momentum).sub_(lr * g)
+    w.add_(opt.momentum * mom).sub_(lr * g)
+
+
+def _adam(opt, w, g, state, t, lr, wd, decoupled=False):
+    g = _prep(opt, w, g, wd, decoupled)
+    m, v = state
+    m.mul_(opt.beta1).add_((1 - opt.beta1) * g)
+    v.mul_(opt.beta2).add_((1 - opt.beta2) * g * g)
+    lr_t = lr * torch.sqrt(_bias_correction(opt.beta2, t, m.device)) \
+        / _bias_correction(opt.beta1, t, m.device)
+    upd = lr_t * m / (torch.sqrt(v) + opt.epsilon)
+    if decoupled:
+        upd = upd + lr * wd * w
+    w.sub_(upd)
+
+
+def _adamw(opt, w, g, state, t, lr, wd):
+    _adam(opt, w, g, state, t, lr, wd, decoupled=True)
+
+
+def _lars(opt, w, g, state, t, lr, wd):
+    g = g * opt.rescale_grad
+    if opt.clip_gradient is not None:
+        g = g.clamp(-opt.clip_gradient, opt.clip_gradient)
+    w_norm = torch.linalg.vector_norm(w.float())
+    g_norm = torch.linalg.vector_norm(g.float())
+    trust = torch.where((w_norm > 0) & (g_norm > 0),
+                        opt.eta * w_norm / (g_norm + wd * w_norm
+                                            + opt.epsilon),
+                        torch.ones_like(w_norm))
+    g = g + wd * w
+    if state:
+        (mom,) = state
+        mom.mul_(opt.momentum).add_(trust * lr * g)
+        w.sub_(mom)
+    else:
+        w.sub_(trust * lr * g)
+
+
+def _rmsprop(opt, w, g, state, t, lr, wd):
+    g = _prep(opt, w, g, wd)
+    n = state[0]
+    n.mul_(opt.rho).add_((1 - opt.rho) * g * g)
+    if opt.centered:
+        _, mg, delta = state
+        mg.mul_(opt.rho).add_((1 - opt.rho) * g)
+        delta.mul_(opt.momentum).sub_(
+            lr * g / torch.sqrt(n - mg * mg + opt.epsilon))
+        w.add_(delta)
+    else:
+        w.sub_(lr * g / (torch.sqrt(n) + opt.epsilon))
+
+
+def _adagrad(opt, w, g, state, t, lr, wd):
+    g = _prep(opt, w, g, wd)
+    (hist,) = state
+    hist.add_(g * g)
+    w.sub_(lr * g / (torch.sqrt(hist) + opt.float_stable_eps))
+
+
+def _signum(opt, w, g, state, t, lr, wd):
+    g = _prep(opt, w, g, wd)
+    decay = 1.0 - lr * opt.wd_lh
+    if state:
+        (mom,) = state
+        mom.mul_(opt.momentum).sub_((1 - opt.momentum) * g)
+        w.mul_(decay).add_(lr * torch.sign(mom))
+    else:
+        w.mul_(decay).sub_(lr * torch.sign(g))
 
 
 def _lamb(opt, w, g, state, t, lr, wd):
@@ -83,7 +160,9 @@ def _lamb(opt, w, g, state, t, lr, wd):
     w.sub_(lr * trust * upd.to(w.dtype))
 
 
-_DISPATCH = {"SGD": _sgd, "LAMB": _lamb}
+_DISPATCH = {"SGD": _sgd, "NAG": _nag, "Adam": _adam, "AdamW": _adamw,
+             "LAMB": _lamb, "LARS": _lars, "RMSProp": _rmsprop,
+             "AdaGrad": _adagrad, "Signum": _signum}
 
 
 def _is_mp(opt, dtype):
@@ -120,9 +199,15 @@ def _scaled_multi(opt, gs):
     return gs
 
 
-def _sgd_multi(opt, ws, gs, states, bc, lr, wd):
+def _prep_multi(opt, ws, gs, wd, decoupled=False):
     gs = _scaled_multi(opt, gs)
-    torch._foreach_add_(gs, torch._foreach_mul(ws, wd))
+    if not decoupled:
+        torch._foreach_add_(gs, torch._foreach_mul(ws, wd))
+    return gs
+
+
+def _sgd_multi(opt, ws, gs, states, bc, lr, wd):
+    gs = _prep_multi(opt, ws, gs, wd)
     step = torch._foreach_mul(gs, lr)
     if opt.momentum == 0.0:
         torch._foreach_sub_(ws, step)
@@ -131,6 +216,110 @@ def _sgd_multi(opt, ws, gs, states, bc, lr, wd):
     torch._foreach_mul_(moms, opt.momentum)
     torch._foreach_sub_(moms, step)
     torch._foreach_add_(ws, moms)
+
+
+def _nag_multi(opt, ws, gs, states, bc, lr, wd):
+    gs = _prep_multi(opt, ws, gs, wd)
+    step = torch._foreach_mul(gs, lr)
+    moms = [s[0] for s in states]
+    torch._foreach_mul_(moms, opt.momentum)
+    torch._foreach_sub_(moms, step)
+    torch._foreach_add_(ws, torch._foreach_mul(moms, opt.momentum))
+    torch._foreach_sub_(ws, step)
+
+
+def _adam_multi(opt, ws, gs, states, bc, lr, wd, decoupled=False):
+    gs = _prep_multi(opt, ws, gs, wd, decoupled)
+    ms, vs = [s[0] for s in states], [s[1] for s in states]
+    torch._foreach_mul_(ms, opt.beta1)
+    torch._foreach_add_(ms, torch._foreach_mul(gs, 1 - opt.beta1))
+    torch._foreach_mul_(vs, opt.beta2)
+    g2 = torch._foreach_mul(gs, 1 - opt.beta2)
+    torch._foreach_mul_(g2, gs)
+    torch._foreach_add_(vs, g2)
+    lr_t = lr * torch.sqrt(bc[1]) / bc[0]
+    den = torch._foreach_sqrt(vs)
+    torch._foreach_add_(den, opt.epsilon)
+    upd = torch._foreach_mul(ms, lr_t)
+    torch._foreach_div_(upd, den)
+    if decoupled:
+        torch._foreach_add_(upd, torch._foreach_mul(ws, lr * wd))
+    torch._foreach_sub_(ws, upd)
+
+
+def _adamw_multi(opt, ws, gs, states, bc, lr, wd):
+    _adam_multi(opt, ws, gs, states, bc, lr, wd, decoupled=True)
+
+
+def _lars_multi(opt, ws, gs, states, bc, lr, wd):
+    gs = _scaled_multi(opt, gs)
+    wn = torch.stack(torch._foreach_norm([w.float() for w in ws]))
+    gn = torch.stack(torch._foreach_norm([g.float() for g in gs]))
+    trust = torch.where((wn > 0) & (gn > 0),
+                        opt.eta * wn / (gn + wd * wn + opt.epsilon),
+                        torch.ones_like(wn))
+    torch._foreach_add_(gs, torch._foreach_mul(ws, wd))
+    step = torch._foreach_mul(gs, list((trust * lr).unbind(0)))
+    if states[0]:
+        moms = [s[0] for s in states]
+        torch._foreach_mul_(moms, opt.momentum)
+        torch._foreach_add_(moms, step)
+        torch._foreach_sub_(ws, moms)
+    else:
+        torch._foreach_sub_(ws, step)
+
+
+def _rmsprop_multi(opt, ws, gs, states, bc, lr, wd):
+    gs = _prep_multi(opt, ws, gs, wd)
+    ns = [s[0] for s in states]
+    torch._foreach_mul_(ns, opt.rho)
+    g2 = torch._foreach_mul(gs, 1 - opt.rho)
+    torch._foreach_mul_(g2, gs)
+    torch._foreach_add_(ns, g2)
+    step = torch._foreach_mul(gs, lr)
+    if opt.centered:
+        mgs, deltas = [s[1] for s in states], [s[2] for s in states]
+        torch._foreach_mul_(mgs, opt.rho)
+        torch._foreach_add_(mgs, torch._foreach_mul(gs, 1 - opt.rho))
+        den = torch._foreach_sub(ns, torch._foreach_mul(mgs, mgs))
+        torch._foreach_add_(den, opt.epsilon)
+        torch._foreach_sqrt_(den)
+        torch._foreach_div_(step, den)
+        torch._foreach_mul_(deltas, opt.momentum)
+        torch._foreach_sub_(deltas, step)
+        torch._foreach_add_(ws, deltas)
+    else:
+        den = torch._foreach_sqrt(ns)
+        torch._foreach_add_(den, opt.epsilon)
+        torch._foreach_div_(step, den)
+        torch._foreach_sub_(ws, step)
+
+
+def _adagrad_multi(opt, ws, gs, states, bc, lr, wd):
+    gs = _prep_multi(opt, ws, gs, wd)
+    hists = [s[0] for s in states]
+    torch._foreach_add_(hists, torch._foreach_mul(gs, gs))
+    den = torch._foreach_sqrt(hists)
+    torch._foreach_add_(den, opt.float_stable_eps)
+    step = torch._foreach_mul(gs, lr)
+    torch._foreach_div_(step, den)
+    torch._foreach_sub_(ws, step)
+
+
+def _signum_multi(opt, ws, gs, states, bc, lr, wd):
+    gs = _prep_multi(opt, ws, gs, wd)
+    torch._foreach_mul_(ws, 1.0 - lr * opt.wd_lh)
+    if states[0]:
+        moms = [s[0] for s in states]
+        torch._foreach_mul_(moms, opt.momentum)
+        torch._foreach_sub_(moms, torch._foreach_mul(gs, 1 - opt.momentum))
+        step = torch._foreach_sign(moms)
+        torch._foreach_mul_(step, lr)
+        torch._foreach_add_(ws, step)
+    else:
+        step = torch._foreach_sign(gs)
+        torch._foreach_mul_(step, lr)
+        torch._foreach_sub_(ws, step)
 
 
 def _lamb_multi(opt, ws, gs, states, bc, lr, wd):
@@ -163,7 +352,10 @@ def _lamb_multi(opt, ws, gs, states, bc, lr, wd):
         [u.to(w.dtype) for u, w in zip(upd, ws)], list(scale)))
 
 
-_MULTI = {"SGD": _sgd_multi, "LAMB": _lamb_multi}
+_MULTI = {"SGD": _sgd_multi, "NAG": _nag_multi, "Adam": _adam_multi,
+          "AdamW": _adamw_multi, "LAMB": _lamb_multi, "LARS": _lars_multi,
+          "RMSProp": _rmsprop_multi, "AdaGrad": _adagrad_multi,
+          "Signum": _signum_multi}
 
 
 def multi_update(opt, ws, gs, states, t, lr, lr_mults, wd_mults,
@@ -180,7 +372,9 @@ def multi_update(opt, ws, gs, states, t, lr, lr_mults, wd_mults,
         return
     device = ws[0].device
     bc = None
-    if type(opt).__name__ == "LAMB" and opt.bias_correction:
+    name = type(opt).__name__
+    if name in ("Adam", "AdamW") or (name == "LAMB" and
+                                     opt.bias_correction):
         bc = (_bias_correction(opt.beta1, t, device),
               _bias_correction(opt.beta2, t, device))
     groups = {}
@@ -207,16 +401,21 @@ def multi_update(opt, ws, gs, states, t, lr, lr_mults, wd_mults,
 
 
 def state_template(opt, weight):
-    """Zero state tuple for one weight: SGD's momentum (when used) or
-    the Adam family's (m, v), then the f32 master weight for
-    half-precision weights."""
+    """Zero state tuple for one weight, in the JAX step's layout: the
+    momentum of SGD, LARS and Signum (when used) and of NAG; the Adam
+    family's (m, v); RMSProp's n (and, centred, mean g and delta);
+    AdaGrad's history — then the f32 master weight for half-precision
+    weights."""
     mp = _is_mp(opt, weight.dtype)
     base = weight.detach().float() if mp else weight.detach()
     name = type(opt).__name__
-    if name == "SGD":
-        s = (torch.zeros_like(base),) if opt.momentum != 0.0 else ()
-    elif name in ("Adam", "AdamW", "LAMB"):
-        s = (torch.zeros_like(base), torch.zeros_like(base))
-    else:
-        raise NotImplementedError(name)
+    n = {"NAG": 1, "Adam": 2, "AdamW": 2, "LAMB": 2, "AdaGrad": 1,
+         "RMSProp": 3 if getattr(opt, "centered", False) else 1}.get(name)
+    if name in ("SGD", "LARS", "Signum"):
+        n = 1 if opt.momentum != 0.0 else 0
+    if n is None:
+        raise NotImplementedError(
+            f"the port's train step has no update rule for {name} "
+            f"(ported: {sorted(_MULTI)})")
+    s = tuple(torch.zeros_like(base) for _ in range(n))
     return s + (base.clone(),) if mp else s

@@ -18,8 +18,11 @@ masked_positions)`` and ``label = (mlm_labels, mlm_weights,
 nsp_labels)``.
 
 The step owns copies of the net's parameters (made at the first call).
-Each call runs the forward in training mode, the loss averaged over the
-batch (in f32), the backward, the optimizer update at step count
+Each call runs the forward in training mode, the loss reduced over the
+batch in f32 (``loss_reduce``: ``"mean"``, the default, or ``"sum"``;
+``"none"`` sums too, as in the JAX step), the backward, the optimizer
+update (any rule of the JAX step's: SGD, NAG, Adam, AdamW, LAMB, LARS,
+RMSProp, AdaGrad, Signum) at step count
 ``t = num_update + 1`` from f32 master weights for half-precision
 parameters (with each parameter's ``lr_mult``/``wd_mult``;
 ``functional_opt.multi_update``), and the write-back of the BatchNorm
@@ -48,8 +51,16 @@ the JAX step does; the host reads the flag once after the step (one
 sync), counts the skip and raises ``NonFiniteAbortError`` after
 ``nonfinite_budget`` consecutive ones.
 
-Not ported yet: a device mesh (data parallelism), gradient compression,
-batch donation and the prefetching feed.
+The net's own calls inside the step run eagerly even when it is
+hybridized (``functional_call``): the step is the captured unit, and
+no capture nests in another.
+
+``donate_batch`` is accepted: without XLA's buffer donation there is
+nothing to donate (a captured step copies the batch into its static
+buffers either way).
+
+Not ported yet: a device mesh (data parallelism), gradient compression
+and the prefetching feed.
 """
 from __future__ import annotations
 
@@ -59,7 +70,7 @@ import torch
 from .. import autograd as _autograd
 from ..graphs import GraphCache
 from .functional import (functional_call, param_names_and_values,
-                         trainable_split)
+                         run_eagerly, trainable_split)
 from .functional_opt import multi_update, state_template
 
 __all__ = ["TrainStep", "EvalStep", "NonFiniteAbortError"]
@@ -124,7 +135,7 @@ def _build_deferred(net, data_args):
     """Deferred shapes need only the feature dims: a batch-1 forward."""
     if any(p._deferred_init is not None
            for p in net.collect_params().values()):
-        with _autograd.pause():
+        with run_eagerly(), _autograd.pause():
             net(*(a if a is None else a[:1] for a in data_args))
 
 
@@ -146,11 +157,16 @@ class TrainStep:
     """``step(data, label)`` -> the loss, updating the step's params."""
 
     def __init__(self, net, loss_fn, optimizer, mesh=None,
+                 loss_reduce="mean", donate_batch=False,
                  skip_nonfinite=False, nonfinite_budget=10, capture=None):
         if mesh is not None:
             raise NotImplementedError("the port's TrainStep runs on one "
                                       "device; a mesh is not ported yet")
+        if loss_reduce not in ("mean", "sum", "none"):
+            raise ValueError(f"loss_reduce={loss_reduce!r}: 'mean', 'sum' "
+                             f"or 'none'")
         self.net = net
+        self._loss_reduce = loss_reduce
         self.loss_fn = loss_fn
         self.optimizer = optimizer
         self._skip_nonfinite = bool(skip_nonfinite)
@@ -209,7 +225,9 @@ class TrainStep:
         with _autograd.record(train_mode=True):
             out, mutated = functional_call(self.net, self._plist, tensors,
                                            data_args, training=True)
-            loss = self.loss_fn(out, label).mean().float()
+            loss = self.loss_fn(out, label)
+            loss = (loss.mean() if self._loss_reduce == "mean"
+                    else loss.sum()).float()
         grads = torch.autograd.grad(loss, self._train)
         loss = loss.detach()
         with torch.no_grad():

@@ -14,6 +14,19 @@ through three updates.
 Also: a bf16-cast step keeps f32 master weights and bf16 parameters;
 ``skip_nonfinite``; and the entry points raise without a card unless
 given the CPU.
+
+The update rules the JAX step has beyond SGD and LAMB (NAG, Adam, AdamW,
+LARS, RMSProp plain and centred, AdaGrad, Signum): each, as the step's
+``multi_update`` and as the per-tensor ``pure_update``, takes three
+steps over three weights (per-weight lr/wd multipliers) against the
+JAX ``pure_update``: f32 weights and every state within rtol 1e-5 /
+atol 1e-6; bf16 weights with f32 masters: the masters and states
+within the same, the bf16 weights within one bf16 rounding step
+(2**-7 relative) of the JAX ones, each the master rounded.
+``loss_reduce`` ``"sum"`` and ``"none"``: three SGD steps of an MLP
+against the JAX step, losses and parameters within 1e-4.  On the card
+(``gpu``): each rule's captured ``TrainStep`` against ``pure_update`` on
+the host from the same gradients.
 """
 import gc
 import jax
@@ -21,14 +34,18 @@ import numpy as np
 import pytest
 import torch
 
+import jax.numpy as jnp
+
 import mxnet_tpu as mx
 from mxnet_tpu import autograd as jag
 from mxnet_tpu import gluon as jgluon
 from mxnet_tpu import parallel as jparallel
 from mxnet_tpu.gluon.model_zoo.vision import resnet as jres
+from mxnet_tpu.parallel import functional_opt as jfo
 from mxnet_tpu_torch import autograd as tag
 from mxnet_tpu_torch import context, gluon, optimizer, parallel
 from mxnet_tpu_torch.gluon.model_zoo.vision import resnet as tres
+from mxnet_tpu_torch.parallel import functional_opt as tfo
 from test_torch_resnet import SMALL, map_unfused_to_fused
 
 TOL = dict(rtol=1e-3, atol=1e-3)
@@ -152,6 +169,124 @@ def test_skip_nonfinite_leaves_state_and_aborts_after_budget():
     assert step.consecutive_skips == 0
 
 
+# ---------------------------------------------------------- update rules --
+RULES = [("nag", dict(learning_rate=0.1, momentum=0.9, wd=1e-4)),
+         ("adam", dict(learning_rate=1e-2, wd=1e-3)),
+         ("adamw", dict(learning_rate=1e-2, wd=1e-2, clip_gradient=1.0)),
+         ("lars", dict(learning_rate=0.1, momentum=0.9, eta=0.01,
+                       wd=1e-4)),
+         ("rmsprop", dict(learning_rate=1e-3, wd=1e-4)),
+         ("rmsprop", dict(learning_rate=1e-3, centered=True,
+                          rescale_grad=0.5)),
+         ("adagrad", dict(learning_rate=0.1, wd=1e-4, clip_gradient=0.5)),
+         ("signum", dict(learning_rate=0.01, wd=1e-4, wd_lh=0.01))]
+RULE_IDS = ["nag", "adam", "adamw", "lars", "rmsprop", "rmsprop_centered",
+            "adagrad", "signum"]
+SHAPES = [(7, 5), (3,), (4, 2, 3)]
+LR_MULTS, WD_MULTS = [1.0, 2.0, 1.0], [1.0, 0.0, 1.0]
+RULE_TOL = dict(rtol=1e-5, atol=1e-6)
+
+
+def _rule_steps(topt, tw, ts, grads, form):
+    """Three port updates of weights ``tw`` (states ``ts``) in place."""
+    lr = topt.lr
+    for t, gs in enumerate(grads, 1):
+        gs = [torch.from_numpy(g).to(tw[0].dtype) for g in gs]
+        with torch.no_grad():
+            if form == "multi":
+                tfo.multi_update(topt, tw, gs, ts,
+                                 torch.tensor(t, dtype=torch.int32),
+                                 torch.tensor(lr), LR_MULTS, WD_MULTS)
+            else:
+                for k in range(len(tw)):
+                    tfo.pure_update(topt, tw[k], gs[k], ts[k], t,
+                                    lr * LR_MULTS[k], topt.wd * WD_MULTS[k])
+
+
+@pytest.mark.parametrize("form", ["multi", "pure"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name,kw", RULES, ids=RULE_IDS)
+def test_update_rules_match_jax_pure_update(name, kw, dtype, form):
+    rng = np.random.RandomState(3)
+    w0 = [rng.randn(*s).astype(np.float32) for s in SHAPES]
+    grads = [[rng.randn(*s).astype(np.float32) for s in SHAPES]
+             for _ in range(3)]
+    jopt = mx.optimizer.create(name, **kw)
+    topt = optimizer.create(name, **kw)
+    jw = [jnp.asarray(w).astype(dtype) for w in w0]
+    js = [jfo.state_template(jopt, w) for w in jw]
+    # copies: the port updates in place, and jnp.asarray may alias w0
+    tw = [torch.tensor(w, dtype=getattr(torch, dtype)) for w in w0]
+    ts = [tfo.state_template(topt, w) for w in tw]
+    assert [len(s) for s in ts] == [len(s) for s in js]
+    for t, gs in enumerate(grads, 1):
+        for k in range(3):
+            jw[k], js[k] = jfo.pure_update(
+                jopt, jw[k], jnp.asarray(gs[k]).astype(dtype), js[k],
+                jnp.int32(t), jopt.lr * LR_MULTS[k], jopt.wd * WD_MULTS[k])
+    _rule_steps(topt, tw, ts, grads, form)
+    for sa, sb in zip(ts, js):
+        for a, b in zip(sa, sb):
+            np.testing.assert_allclose(a.float().numpy(),
+                                       np.asarray(b.astype(jnp.float32)),
+                                       **RULE_TOL)
+    for a, b in zip(tw, jw):
+        want = np.asarray(b.astype(jnp.float32))
+        if dtype == "float32":
+            np.testing.assert_allclose(a.numpy(), want, **RULE_TOL)
+        else:
+            np.testing.assert_allclose(a.float().numpy(), want,
+                                       rtol=2 ** -7, atol=1e-6)
+    if dtype == "bfloat16":
+        assert all(w.dtype == torch.bfloat16 and torch.equal(
+            w, s[-1].to(torch.bfloat16)) for w, s in zip(tw, ts))
+    assert not np.allclose(tw[0].float().numpy(), w0[0])
+
+
+def _mlp_pair():
+    jnet = jgluon.nn.HybridSequential(prefix="r_")
+    with jnet.name_scope():
+        jnet.add(jgluon.nn.Dense(16, activation="relu", in_units=12),
+                 jgluon.nn.Dense(5, in_units=16))
+    jnet.initialize()
+    tnet = gluon.nn.HybridSequential(prefix="r_")
+    with tnet.name_scope():
+        tnet.add(gluon.nn.Dense(16, activation="relu", in_units=12),
+                 gluon.nn.Dense(5, in_units=16))
+    tnet.initialize(ctx="cpu")
+    gluon.params_from_jax(tnet, {k: p.data().asnumpy() for k, p in
+                                 jnet.collect_params().items()})
+    return jnet, tnet
+
+
+@pytest.mark.parametrize("reduce", ["sum", "none"])
+def test_loss_reduce_matches_the_jax_train_step(reduce):
+    rng = np.random.RandomState(5)
+    x = rng.randn(8, 12).astype(np.float32)
+    y = rng.randint(0, 5, 8).astype(np.int32)
+    jnet, tnet = _mlp_pair()
+    mesh = jparallel.make_mesh(dp=1, devices=jax.devices()[:1])
+    jstep = jparallel.TrainStep(jnet, jgluon.loss.SoftmaxCrossEntropyLoss(),
+                                mx.optimizer.create("sgd", **SGD), mesh=mesh,
+                                loss_reduce=reduce, donate_batch=False)
+    tstep = parallel.TrainStep(tnet, gluon.loss.SoftmaxCrossEntropyLoss(),
+                               optimizer.create("sgd", **SGD),
+                               loss_reduce=reduce, donate_batch=True)
+    jl = [float(jstep(x, y).asnumpy()) for _ in range(3)]
+    tl = [float(tstep(x, y)) for _ in range(3)]
+    np.testing.assert_allclose(tl, jl, rtol=1e-4, atol=1e-4)
+    jstep.sync_params_to_net()
+    tstep.sync_params_to_net()
+    for (k, p), q in zip(tnet.collect_params().items(),
+                         jnet.collect_params().values()):
+        np.testing.assert_allclose(p.tensor().detach().numpy(),
+                                   q.data().asnumpy(), rtol=1e-4, atol=1e-4,
+                                   err_msg=k)
+    with pytest.raises(ValueError, match="loss_reduce"):
+        parallel.TrainStep(tnet, gluon.loss.SoftmaxCrossEntropyLoss(),
+                           optimizer.create("sgd"), loss_reduce="max")
+
+
 def test_entry_points_need_a_card_unless_given_the_cpu():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default context is valid here")
@@ -209,3 +344,54 @@ def test_card_train_step_matches_cpu_train_step():
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], **TOL)
     for k in ("fwd", "dx", "dw"):
         assert norm_relu_conv.launches[k] - before[k] == 8 * 3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,kw", RULES, ids=RULE_IDS)
+def test_card_train_step_rules_match_pure_update_on_the_host(name, kw):
+    """Each rule in a captured bf16 TrainStep on the card, three steps
+    of an MLP: the step's f32 masters against ``pure_update`` on the host
+    fed the same gradients (each step's, computed on the card from the
+    step's own weights), within rtol 1e-5 / atol 1e-6."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run with -m gpu on the card)")
+    rng = np.random.RandomState(6)
+    x = torch.from_numpy(rng.randn(8, 12).astype(np.float32)).cuda()
+    y = torch.from_numpy(rng.randint(0, 5, 8).astype(np.int32)).cuda()
+    _, net = _mlp_pair()
+    for p in net.collect_params().values():
+        p.reset_ctx("cuda")
+    net.cast("bfloat16")
+    opt = optimizer.create(name, **kw)
+    step = parallel.TrainStep(net, gluon.loss.SoftmaxCrossEntropyLoss(),
+                              opt)
+    host_opt = optimizer.create(name, **kw)
+    host_w = host_s = None
+    for t in range(1, 4):
+        if host_w is None:
+            step._build((x.bfloat16(),), x.device)
+            host_w = [w.detach().cpu().clone() for w in step._train]
+            host_s = [tfo.state_template(host_opt, w) for w in host_w]
+        # the step's weights as fresh leaves: an autograd node made for
+        # the step's own leaves on this stream must not reach its capture
+        leaves = [w.detach().clone().requires_grad_(True)
+                  for w in step._train]
+        tensors = [None] * len(step._plist)
+        for i, w in zip(step._train_idx, leaves):
+            tensors[i] = w
+        for i, a in zip(step._aux_idx, step._aux):
+            tensors[i] = a.clone()
+        with tag.record(train_mode=True):
+            out, _ = parallel.functional_call(net, step._plist, tensors,
+                                              (x.bfloat16(),), True)
+            loss = gluon.loss.SoftmaxCrossEntropyLoss()(out, y).mean()
+        grads = torch.autograd.grad(loss.float(), leaves)
+        with torch.no_grad():
+            for k, (w, g) in enumerate(zip(host_w, grads)):
+                tfo.pure_update(host_opt, w, g.cpu(), host_s[k], t,
+                                host_opt.lr, host_opt.wd)
+        step(x.bfloat16(), y)
+    assert step.graph_count() == 1
+    for k, (a, b) in enumerate(zip(step._states, host_s)):
+        for u, v in zip(a, b):
+            torch.testing.assert_close(u.cpu(), v, rtol=1e-5, atol=1e-6)

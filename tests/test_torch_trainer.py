@@ -3,11 +3,18 @@ package's, on the Gluon MLP of ``examples/train_mnist_mlp.py``.
 
 - The example's own ``_run`` body runs on both packages (the port on
   ``mx.cpu()``) over the same seeded MNIST-shaped batches from the same
-  initial parameters: 3 training steps, the losses of every step and
-  the final parameters equal within rtol/atol 1e-4.
+  initial parameters, eager and hybridized (``--hybridize``): 3
+  training steps, the losses of every step and the final parameters
+  equal within rtol/atol 1e-4.
 - An MLP 784 -> 32 -> 10 takes 3 ``Trainer.step``s under SGD with
-  momentum, NAG, Adam, AdamW, RMSProp, AdaGrad and LAMB: losses and
-  parameters within 1e-4 of the JAX package's.
+  momentum, NAG, Adam, AdamW, RMSProp, AdaGrad and LAMB, and 5 under
+  Adamax, Nadam, LARS, AdaDelta, Ftrl, Signum and signSGD: losses and
+  parameters within 1e-4 of the JAX package's.  SGLD draws its noise
+  from the port's generator: its deterministic part (the update with
+  the noise, drawn again from the same generator state, taken off)
+  equals the JAX formula within 1e-6, and its noise, the port's and the
+  JAX package's alike, is standard normal (mean within 5 standard
+  errors of 0, standard deviation within 3% of 1 over 20000 draws).
 - ``save_parameters`` written by either package loads in the other, and
   ``save_states``/``load_states`` round-trip (and cross the packages).
 """
@@ -18,6 +25,7 @@ import types
 
 import numpy as np
 import pytest
+import torch
 
 import mxnet_tpu as jmx
 import mxnet_tpu_torch as tmx
@@ -42,7 +50,7 @@ def _batches(n, batch, seed=0):
              rng.randint(0, 10, batch).astype(np.int32)) for _ in range(n)]
 
 
-def _run_example(pkg, batches, start=None):
+def _run_example(pkg, batches, start=None, hybridize=False):
     """``_run`` of the example with ``pkg`` as ``mx``: returns the loss
     of every step, the initial and the final parameters (in layer
     order).  With ``start``, the net's parameters are set from it when
@@ -79,17 +87,20 @@ def _run_example(pkg, batches, start=None):
         loss=types.SimpleNamespace(SoftmaxCrossEntropyLoss=Loss))
     data = [(pkg.nd.array(x), pkg.nd.array(y, dtype="int32"))
             for x, y in batches]
-    args = argparse.Namespace(epochs=1, lr=0.1, hybridize=False)
+    args = argparse.Namespace(epochs=1, lr=0.1, hybridize=hybridize)
     example._run(args, data, data[:1])
     return (seen["losses"], seen["start"],
             [p.data().asnumpy() for p in seen["params"]])
 
 
-def test_example_run_matches_jax(capsys):
+@pytest.mark.parametrize("hybridize", [False, True])
+def test_example_run_matches_jax(capsys, hybridize):
     batches = _batches(3, 64)
-    j_losses, j_start, j_end = _run_example(jmx, batches)
+    j_losses, j_start, j_end = _run_example(jmx, batches,
+                                            hybridize=hybridize)
     with tmx.cpu():
-        t_losses, t_start, t_end = _run_example(tmx, batches, start=j_start)
+        t_losses, t_start, t_end = _run_example(tmx, batches, start=j_start,
+                                                hybridize=hybridize)
     assert "epoch 0: train_acc=" in capsys.readouterr().out
     assert len(t_losses) == len(j_losses) == 3
     for t, j in zip(t_losses, j_losses):
@@ -164,6 +175,74 @@ def test_trainer_steps_match_jax(name):
         assert kt == kj
         np.testing.assert_allclose(t.data().asnumpy(), j.data().asnumpy(),
                                    **TOL, err_msg=kt)
+
+
+NEW_OPTIMIZERS = {
+    "adamax": ("adamax", {"learning_rate": 0.01, "wd": 1e-3}),
+    "nadam": ("nadam", {"learning_rate": 0.01, "wd": 1e-3}),
+    "lars": ("lars", {"learning_rate": 0.1, "momentum": 0.9, "eta": 0.01,
+                      "wd": 1e-3}),
+    "adadelta": ("adadelta", {"wd": 1e-3, "clip_gradient": 0.05}),
+    "ftrl": ("ftrl", {"learning_rate": 0.1, "lamda1": 1e-3, "wd": 1e-3}),
+    "signum": ("signum", {"learning_rate": 0.01, "wd": 1e-3,
+                          "wd_lh": 1e-2}),
+    "signsgd": ("signum", {"learning_rate": 0.01, "momentum": 0.0}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(NEW_OPTIMIZERS))
+def test_more_optimizers_match_jax_over_five_steps(name):
+    batches = _batches(5, 16, seed=12)
+    start = _start(seed=13)
+    jnet, _, j_losses = _train(jmx, NEW_OPTIMIZERS[name], start, 5, batches)
+    with tmx.cpu():
+        tnet, trainer, t_losses = _train(tmx, NEW_OPTIMIZERS[name], start, 5,
+                                         batches)
+    assert type(trainer.optimizer).__name__.lower() == \
+        NEW_OPTIMIZERS[name][0]
+    for t, j in zip(t_losses, j_losses):
+        np.testing.assert_allclose(t, j, **TOL)
+    for (kt, t), (kj, j) in zip(tnet.collect_params().items(),
+                                jnet.collect_params().items()):
+        np.testing.assert_allclose(t.data().asnumpy(), j.data().asnumpy(),
+                                   **TOL, err_msg=kt)
+    assert not np.allclose(tnet.collect_params()[
+        "mlp_dense0_weight"].data().asnumpy(), start[0])
+
+
+def _sgld_noise(pkg, w0, g, lr, wd, seed):
+    """One SGLD step of ``pkg`` from ``w0`` with gradient ``g``: the new
+    weight and its standardised noise ``(w1 - drift) / sqrt(lr)``."""
+    opt = pkg.optimizer.create("sgld", learning_rate=lr, wd=wd)
+    pkg.random.seed(seed)
+    w = pkg.nd.array(w0)
+    opt.update(0, w, pkg.nd.array(g), opt.create_state(0, w))
+    w1 = w.asnumpy().astype(np.float64)
+    drift = w0 - lr / 2 * (g + wd * w0)
+    return w1, (w1 - drift) / np.sqrt(lr)
+
+
+def test_sgld_noise_is_standard_normal_around_the_jax_drift():
+    rng = np.random.RandomState(14)
+    w0 = rng.randn(200, 100).astype(np.float32)
+    g = rng.randn(200, 100).astype(np.float32)
+    lr, wd = 1e-2, 1e-3
+    _, jnoise = _sgld_noise(jmx, w0, g, lr, wd, seed=1)
+    with tmx.cpu():
+        w1, noise = _sgld_noise(tmx, w0, g, lr, wd, seed=1)
+        tmx.random.seed(1)
+        again = tmx.random.generator("cpu")
+        drawn = torch.randn(w0.shape, generator=again).numpy()
+        trainer = tmx.gluon.Trainer(_mlp(tmx).collect_params(), "sgld",
+                                    {"learning_rate": lr})
+    assert type(trainer.optimizer).__name__ == "SGLD"
+    np.testing.assert_allclose(w1 - np.sqrt(lr) * drawn,
+                               w0 - lr / 2 * (g + wd * w0),
+                               rtol=1e-6, atol=1e-6)
+    for z in (noise, jnoise):
+        assert abs(z.mean()) < 5 / np.sqrt(z.size)
+        assert abs(z.std() - 1) < 0.03
+    assert not np.allclose(noise, jnoise)
 
 
 def test_params_from_jax_by_full_name():
