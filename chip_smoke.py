@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's four paths end to end on the first CUDA device, with
+Drives the port's five paths end to end on the first CUDA device, with
 random weights from a seed:
 
 - the imperative API: the Gluon MLP loop of
@@ -17,6 +17,12 @@ random weights from a seed:
   ``net.hybridize()``, trained by ``gluon.Trainer`` (SGD 0.1 / 0.9 /
   1e-4, batch 256 of 224x224x3, 1000 classes) through its captured
   forward and backward graphs, and the MLP above hybridized;
+- the input pipeline: ``examples/train_mnist_mlp.py``'s ``main()`` as
+  written (``gluon.data.DataLoader`` over the synthetic MNIST with
+  ``ToTensor``), and packed RecordIO records through the
+  ``io.ImageRecordIter`` of ``examples/train_resnet_fused.py --rec`` and
+  ``parallel.DevicePrefetcher`` into the captured bf16 ``TrainStep`` of
+  ``resnet50_v1(fused=True, layout="NHWC")`` at batch 256 of 224x224x3;
 - LLM serving at the width of ``bench.py llm`` on an accelerator (vocab
   4096, 4 layers, 8 heads x 64, d_ff 2048; 64 slots, 512 pages x 64
   tokens; buckets (1, 2, 4) x (32, 64); 64 new tokens; prompts of 4-60
@@ -44,7 +50,8 @@ Phases, each of which fails the run (each prints its wall time):
    host from the same parameters (mean losses within 1e-4 relative),
    then 2 warm-up and 50 timed steps (the loss falls), one step under
    ``torch.profiler`` (busy share) and the host time of one ``nd.add``
-   dispatch on [256, 128] over 1000 calls; (b)
+   dispatch on [256, 128] over 1000 calls, with ``storage``'s
+   accounting on and off in turns; (b)
    ``nd.FusedNormReluConv`` on [256, 56, 56, 64] -> 64, 3x3, bf16,
    forward and ``backward()`` under ``record()``: one launch of each
    fused kernel, counted from 0, and every output and gradient held
@@ -67,6 +74,37 @@ Phases, each of which fails the run (each prints its wall time):
    same bits printed, and each held leaf by leaf at 8's noise floors
    once 8 has run; its ms/step is printed beside 9's captured
    ``TrainStep``;
+3c. input pipeline: (a) the host natives built from ``src/`` with
+   ``g++`` (build seconds; ``librecordio`` and ``libstoragepool`` must
+   load, ``libimagedecode``'s status printed with the compiler's reason);
+   (b) ``examples/train_mnist_mlp.py``'s ``main()`` as written with the
+   port bound as ``mx``: 3 epochs at batch 256 over the synthetic MNIST
+   through ``DataLoader`` with ``ToTensor`` (the last val_acc at least
+   0.95), one epoch with ``--hybridize``, one with two forked workers,
+   and the first batch of two workers the same bits as none's; (c) 1024
+   raw records of 256x256x3 from ``RandomState(0)`` (10 classes) through
+   ``MXIndexedRecordIO`` into a temporary directory, read by the
+   ``ImageRecordIter`` of ``examples/train_resnet_fused.py --rec``
+   (batch 256): the first batch the same bits as a numpy recomputation
+   from its seed, a held batch unchanged after two more ``next()``, the
+   iterator's own img/s; (d) the captured bf16 fused ResNet-50
+   ``TrainStep`` (9's settings) fed by the example's loop body (NHWC
+   transpose and bf16 cast on the card) through
+   ``DevicePrefetcher(depth=2)``: 2 warm-up and 20 timed steps (loss
+   finite, 32 replayed launches of each fused kernel a step), a profiled
+   step, the wait split; then the same through ``DataLoader(pin_memory=
+   True)`` over host images; its img/s is printed in 9 beside the
+   resident batch's; (e) batches filled with their index through the
+   prefetcher into a captured step returning their sum, depth 1 and 3,
+   a consumer that sleeps and one that does not: every step sees its own
+   index; (f) ``nd.flash_attention`` at BERT-base's shape, forward and
+   backward under ``record()`` (one launch of each flash kernel, held
+   against the plain versions), ``nd.paged_decode_attention`` at the
+   serving config (one launch, the same bits as
+   ``ops.paged_decode_attention``, within ATOL/RTOL of the plain
+   version) and ``nd.image_resize``/
+   ``image_to_tensor``/``image_normalize`` card vs host (uint8 within 1,
+   float32 within 1e-5);
 4. serving: the paged attention kernel against its plain version at
    three cases — path (the serving config, 64 slots x 2 pages), long (64
    slots x 32 pages) and few-long (4 slots of ~16k tokens among 60 idle
@@ -249,6 +287,9 @@ WARMUP_STEPS, TIMED_STEPS = 2, 5
 # the hybridized gluon.Trainer path (BASELINE config 2): timed steps, and
 # steps replayed against eager ones from the same parameters
 HYBRID_STEPS, HYBRID_CHECK_STEPS = 10, 3
+ACCOUNTING_STEPS = 3       # a turn of the accounting's on/off turns
+ACCOUNTING_ROUNDS = 3      # rounds of the turns on, off, off, on
+PROFILE_TRIES = 2          # profiler sessions a profiled region may take
 FUSED = ("fwd", "dx", "dw")
 # per stage: (bottleneck blocks, spatial size of the fused convs, C/4, C)
 RESNET50_STAGES = ((3, 56, 64, 256), (4, 28, 128, 512), (6, 14, 256, 1024),
@@ -274,6 +315,14 @@ FLASH_SEED = 1234567
 # round to bf16, half an ulp of the largest values; the kernel's split
 # products and tensor-core sums add ~2^-16 of them)
 BWD_ERR_FACTOR = 2.0
+# the input pipeline: examples/train_mnist_mlp.py's main() (synthetic
+# MNIST), raw records for the example's ImageRecordIter, the fed step
+MNIST_EPOCHS, MNIST_MIN_ACC, MNIST_SHUFFLE_SEED = 3, 0.95, 0
+REC_COUNT, REC_HW, REC_CLASSES, REC_BATCH = 1024, 256, 10, 256
+REC_RATE_BATCHES = 8             # batches timed for the iterator alone
+FED_STEPS = 20                   # timed steps of the fed ResNet-50
+STREAM_BATCH, STREAM_STEPS, STREAM_SLEEP_S = (64, 3, 224, 224), 16, 0.02
+IMAGE_F32_ATOL = 1e-5            # image ops, card vs host, on [0, 1]
 # model check: kernel route vs plain route, per leaf, in units of the
 # plain-on-card vs plain-on-host noise floor (floors under a few f32
 # ulps are raised to MODEL_MIN_FLOOR)
@@ -713,8 +762,6 @@ def profile_serving(torch, params, cfg, n_requests=64, capture=None,
     decode step, the device's busy and idle share (kernel time summed
     over the wall time), and the kernels that take the most device
     time.  Returns ``(ms per decode step, busy share)``."""
-    from torch.profiler import ProfilerActivity, profile
-
     from mxnet_tpu_torch.serving import BucketSpec, GenerationServer
 
     how = f"{what}, {'eager' if capture is False else 'captured'}"
@@ -728,17 +775,17 @@ def profile_serving(torch, params, cfg, n_requests=64, capture=None,
         max_new_tokens=MAX_NEW, max_queue=n_requests, seed=1,
         device="cuda", capture=capture,
         name=f"ChipSmokeProfile-{how}", **kw).start()
+
+    def serve():                    # the server's counts in this session
+        s0 = {k: srv.stats[k] for k in ("decode_steps", "prefills")}
+        for r in [srv.submit(p) for p in prompts]:
+            r.result(timeout=600)
+        return {k: srv.stats[k] - s0[k] for k in s0}
+
     try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for r in [srv.submit(p) for p in prompts]:
-                r.result(timeout=600)
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
+        prof, wall_us, st = profiled(torch, serve, how)
     finally:
         expect(srv.drain(60), "profiled server did not drain")
-    st = srv.stats
     per_step = wall_us / 1e3 / max(st['decode_steps'], 1)
     log(f"profile [{how}]: {n_requests} requests, "
         f"{st['decode_steps']} decode steps, {st['prefills']} prefills in "
@@ -786,30 +833,77 @@ def serve_without_syncs(torch, params, cfg, n_requests=16):
         f"the token read-back; tokens equal the eager server's")
 
 
+def device_us(e):
+    """The device time of one profiler event, across torch versions."""
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0))
+
+
+def device_rows(prof):
+    """The profile's device events (kernels and copies) that took time."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and device_us(e) > 0]
+
+
+def profiled(torch, fn, what):
+    """``fn()`` under ``torch.profiler`` (host and CUDA activity), the
+    device synchronised before and after.  Returns ``(prof, wall_us,
+    fn's result)``.  A session that comes back without a single device
+    event (the card's profiler has returned one such session among many
+    runs) is logged and ``fn`` is profiled once more; ``print_profile``
+    then fails the run if that one too saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for attempt in range(PROFILE_TRIES):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        if device_rows(prof) or attempt == PROFILE_TRIES - 1:
+            return prof, wall_us, out
+        log(f"profile [{what}]: the session saw no device event "
+            f"({len(prof.key_averages())} host events in "
+            f"{wall_us / 1e3:.3f} ms); profiling it once more")
+
+
+def warm_profiler(torch):
+    """One profiled matmul on the card before any measured session, so
+    that the profiler's first start (CUPTI's set-up) is not inside one;
+    logs how many device events it saw."""
+    from torch.profiler import ProfilerActivity, profile
+
+    a = torch.ones(256, 256, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        (a @ a).sum().item()
+        torch.cuda.synchronize()
+    log(f"profiler warm-up: {len(device_rows(prof))} kinds of device "
+        f"event seen")
+
+
 def print_profile(prof, wall_us, what):
     """The device's busy and idle share of ``wall_us`` (the time of the
     device's own events — kernels and copies — summed; the host ops that
     launched them are left out, or their device time would count twice),
     how many device events ran, and the 12 that take the most device
     time."""
-    from torch.autograd import DeviceType
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
-    rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
-    busy_us = sum(dev_us(e) for e in rows)
+    rows = device_rows(prof)
+    busy_us = sum(device_us(e) for e in rows)
     expect(busy_us > 0, "the profiler saw no device time")
     busy = busy_us / wall_us
     log(f"profile [{what}]: wall {wall_us / 1e3:.3f} ms, device busy "
         f"{busy_us / 1e3:.3f} ms = {100 * busy_us / wall_us:.1f}% of wall, "
         f"idle {100 - 100 * busy_us / wall_us:.1f}%; "
         f"{sum(e.count for e in rows)} device events")
-    for e in sorted(rows, key=dev_us, reverse=True)[:12]:
-        log(f"profile:   {dev_us(e) / 1e3:9.3f} ms  "
-            f"{100 * dev_us(e) / busy_us:5.1f}%  x{e.count:<6d} "
+    for e in sorted(rows, key=device_us, reverse=True)[:12]:
+        log(f"profile:   {device_us(e) / 1e3:9.3f} ms  "
+            f"{100 * device_us(e) / busy_us:5.1f}%  x{e.count:<6d} "
             f"{e.key[:90]}")
     return busy
 
@@ -2074,15 +2168,7 @@ def time_fused(torch):
 def profile_step(torch, step, batch, what):
     """One more training step under ``torch.profiler``: the device's
     busy share of the step's wall time and the top kernels."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step(*batch)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
+    prof, wall_us, _ = profiled(torch, lambda: step(*batch), what)
     return print_profile(prof, wall_us, what)
 
 
@@ -2599,40 +2685,94 @@ def imperative_mlp(torch):
            f"{means[-5:]})")
     expect(all(bool(torch.isfinite(p.tensor()).all()) for p in params),
            "imperative MLP: a parameter is not finite")
+    acct = accounting_turns(torch, lambda: mlp_steps(
+        mx, net, trainer, batches[MLP_WARMUP:MLP_WARMUP + MLP_TIMED]),
+        MLP_TIMED)
+    log_accounting(f"imperative MLP, {MLP_TIMED} steps a turn", acct)
     busy = profile_mlp_step(torch, mx, net, trainer, batches[-1:],
                             f"imperative MLP step, batch {MLP_BATCH}")
 
-    a = mx.nd.ones(DISPATCH_SHAPE, ctx=card)
-
-    for _ in range(10):
-        mx.nd.add(a, a)
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    for _ in range(DISPATCH_CALLS):
-        mx.nd.add(a, a)
-    dispatch_us = (time.perf_counter() - t2) * 1e6 / DISPATCH_CALLS
-    torch.cuda.synchronize()
+    dispatch = dispatch_times(torch, mx, card)
+    dispatch_us = dispatch["on"]
     log(f"imperative MLP (784-{'-'.join(map(str, MLP_UNITS))}, batch "
         f"{MLP_BATCH}, SGD 0.1): {ms:.3f} ms/step = "
         f"{MLP_BATCH * 1e3 / ms:.1f} samples/s over {MLP_TIMED} steps, "
         f"loss {np.mean(means[:5]):.4f} -> {np.mean(means[-5:]):.4f}, "
         f"train accuracy {acc:.4f}; device busy {100 * busy:.1f}% of a "
         f"profiled step; nd.add on {list(DISPATCH_SHAPE)}: "
-        f"{dispatch_us:.2f} host us a dispatch ({DISPATCH_CALLS} calls)")
-    return {"ms_step": ms, "busy": busy, "dispatch_us": dispatch_us}
+        f"{dispatch_us:.2f} host us a dispatch ({DISPATCH_CALLS} calls) "
+        f"with the storage accounting on, {dispatch['off']:.2f} with it "
+        f"off (timed in turns: on, off, off, on): the accounting costs "
+        f"{dispatch_us - dispatch['off']:.2f} us a dispatch")
+    return {"ms_step": ms, "busy": busy, "dispatch_us": dispatch_us,
+            "dispatch_off_us": dispatch["off"], "accounting": acct}
+
+
+def dispatch_times(torch, mx, card):
+    """Host us of one ``nd.add`` on DISPATCH_SHAPE over DISPATCH_CALLS
+    calls, with ``storage``'s accounting on and off (each NDArray made
+    registers its storage), timed in turns on, off, off, on."""
+    from mxnet_tpu_torch import storage
+
+    a = mx.nd.ones(DISPATCH_SHAPE, ctx=card)
+    for _ in range(10):
+        mx.nd.add(a, a)
+    times = {"on": [], "off": []}
+    was_on = storage._enabled
+    try:
+        for turn in ("on", "off", "off", "on"):
+            storage.set_accounting(turn == "on")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(DISPATCH_CALLS):
+                mx.nd.add(a, a)
+            times[turn].append((time.perf_counter() - t0) * 1e6
+                               / DISPATCH_CALLS)
+            torch.cuda.synchronize()
+    finally:
+        storage.set_accounting(was_on)
+    return {k: float(np.mean(v)) for k, v in times.items()}
+
+
+def accounting_turns(torch, run, steps):
+    """ms a step of ``run()`` (which takes ``steps`` steps) with
+    ``storage``'s accounting on and off, timed in ACCOUNTING_ROUNDS
+    rounds of turns on, off, off, on: what the accounting costs end to
+    end.  Returns each side's times."""
+    from mxnet_tpu_torch import storage
+
+    times = {"on": [], "off": []}
+    was_on = storage._enabled
+    try:
+        for turn in ("on", "off", "off", "on") * ACCOUNTING_ROUNDS:
+            storage.set_accounting(turn == "on")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            times[turn].append((time.perf_counter() - t0) * 1e3 / steps)
+    finally:
+        storage.set_accounting(was_on)
+    return times
+
+
+def log_accounting(what, times):
+    """One line: each side's median and range, and the difference of
+    the medians against the spread of the off side's own turns."""
+    on, off = (float(np.median(times[k])) for k in ("on", "off"))
+    spread = max(times["off"]) - min(times["off"])
+    log(f"{what}: storage accounting on {on:.3f} ms/step (median of "
+        f"{len(times['on'])}, {min(times['on']):.3f}..{max(times['on']):.3f}"
+        f"), off {off:.3f} ({min(times['off']):.3f}..{max(times['off']):.3f}"
+        f"), in turns on, off, off, on: the medians differ by "
+        f"{on - off:+.3f} ms a step ({100 * (on / off - 1):+.1f}%) against "
+        f"a spread of {spread:.3f} among the off turns")
 
 
 def profile_mlp_step(torch, mx, net, trainer, batches, what):
     """One MLP step under ``torch.profiler``: the device's busy share."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t1 = time.perf_counter()
-        mlp_steps(mx, net, trainer, batches)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t1) * 1e6
+    prof, wall_us, _ = profiled(
+        torch, lambda: mlp_steps(mx, net, trainer, batches), what)
     return print_profile(prof, wall_us, what)
 
 
@@ -2802,6 +2942,10 @@ def hybrid_mlp(torch, eager):
     net, trainer, params = loops[True]
     expect(all(bool(torch.isfinite(p.tensor()).all()) for p in params),
            "hybridized MLP: a parameter is not finite")
+    acct = accounting_turns(torch, lambda: mlp_steps(
+        mx, net, trainer, batches[MLP_WARMUP:MLP_WARMUP + MLP_TIMED]),
+        MLP_TIMED)
+    log_accounting(f"hybridized MLP, {MLP_TIMED} steps a turn", acct)
     busy = profile_mlp_step(torch, mx, net, trainer, batches[-1:],
                             f"hybridized MLP step, batch {MLP_BATCH}")
     graphs = net.graph_count()
@@ -2819,7 +2963,7 @@ def hybrid_mlp(torch, eager):
         f"{ms_eager / ms:.3f}x; 3(a)'s eager run {eager['ms_step']:.3f} "
         f"ms/step, busy {100 * eager['busy']:.1f}%")
     return {"ms_step": ms, "ms_eager": ms_eager, "busy": busy,
-            "graphs": graphs}
+            "graphs": graphs, "accounting": acct}
 
 
 def hybrid_resnet(torch):
@@ -2892,13 +3036,12 @@ def hybrid_resnet(torch):
         f"{img_s:.1f} img/s; peak device memory {peak / 2**30:.2f} GiB; "
         f"kernel launches {launches}, {replayed} of them replayed in the "
         f"timed steps; 1 unit (a forward and a backward graph)")
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t1 = time.perf_counter()
-        run(trainer, 1)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t1) * 1e6
+    acct = accounting_turns(torch, lambda: run(trainer, ACCOUNTING_STEPS),
+                            ACCOUNTING_STEPS)
+    log_accounting(f"train [{what}, gluon.Trainer], {ACCOUNTING_STEPS} "
+                   f"steps a turn", acct)
+    prof, wall_us, _ = profiled(torch, lambda: run(trainer, 1),
+                                f"{what}, gluon.Trainer step")
     busy = print_profile(prof, wall_us, f"{what}, gluon.Trainer step")
     del prof
 
@@ -2922,7 +3065,7 @@ def hybrid_resnet(torch):
               else "running statistic") for n, p in params]
     return {"ms_step": 1e3 * dt / HYBRID_STEPS, "img_s": img_s,
             "busy": busy, "peak": peak, "launches": launches,
-            "replayed": replayed, "same": same,
+            "replayed": replayed, "same": same, "accounting": acct,
             "leaves": (kinds, hyb, eag)}
 
 
@@ -2936,6 +3079,528 @@ def hold_hybrid(torch, hybrid, floors):
                 f"batch {TRAIN_BATCH}, {HYBRID_CHECK_STEPS} steps",
                 floors={"parameter": floors["gradient"],
                         "running statistic": floors["running statistic"]})
+
+
+# ---------------------------------------------------------- input pipeline --
+def natives():
+    """(a) The host natives built from ``src/`` (``g++`` into
+    ``mxnet_tpu_torch/_build/``): build seconds and which loaded.
+    ``librecordio`` and ``libstoragepool`` are required; the JPEG
+    decoder needs libjpeg's headers, and its status is printed with the
+    compiler's reason when it did not build."""
+    from mxnet_tpu_torch import base, recordio, storage
+    from mxnet_tpu_torch import io as mio
+
+    t0 = time.perf_counter()
+    live = {"librecordio": recordio.native(),
+            "libstoragepool": storage.pool_info()["native"],
+            "libimagedecode": mio._native_decoder() is not None}
+    dt = time.perf_counter() - t0
+    status = base.native_status()
+    for name, ok in live.items():
+        st = status.get(name, {})
+        log(f"natives: {name} {'loaded' if ok else 'NOT loaded'} "
+            f"({st.get('seconds', 0.0):.2f} s)"
+            + ("" if ok else f": {st.get('error')}"))
+    log(f"natives: built and loaded in {dt:.2f} s")
+    expect(live["librecordio"] and live["libstoragepool"],
+           f"natives: librecordio and libstoragepool must load on the "
+           f"card machine: {status}")
+    return live
+
+
+@contextlib.contextmanager
+def port_as_mxnet(argv, env=None):
+    """The port bound as ``mxnet_tpu`` while an example is imported and
+    run (so ``import mxnet_tpu as mx`` in it binds the port and nothing
+    of the JAX package loads), with ``sys.argv`` = ``argv`` and the
+    environment updated by ``env``; both restored after."""
+    import mxnet_tpu_torch
+
+    saved = sys.modules.get("mxnet_tpu")
+    old_argv, old_env = sys.argv, {k: os.environ.get(k) for k in env or {}}
+    sys.modules["mxnet_tpu"] = mxnet_tpu_torch
+    sys.argv = argv
+    os.environ.update(env or {})
+    try:
+        yield
+    finally:
+        sys.argv = old_argv
+        for k, v in old_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        if saved is None:
+            sys.modules.pop("mxnet_tpu", None)
+        else:
+            sys.modules["mxnet_tpu"] = saved
+
+
+def run_example(root, name, args, env=None):
+    """``examples/<name>.py``'s ``main()`` as written, with the port as
+    ``mx``; returns what it printed (also logged)."""
+    import importlib.util
+    import io as _io
+
+    path = os.path.join(root, "examples", f"{name}.py")
+    out = _io.StringIO()
+    with port_as_mxnet([path] + args, env):
+        spec = importlib.util.spec_from_file_location(f"_{name}", path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        expect(mod.mx.__name__ == "mxnet_tpu_torch",
+               f"{name}: mx is {mod.mx.__name__}, not the port")
+        with contextlib.redirect_stdout(out):
+            mod.main()
+    text = out.getvalue()
+    for line in text.splitlines():
+        log(f"example {name} {' '.join(args)}: {line}")
+    return text
+
+
+def mnist_example(torch, root):
+    """(b) ``examples/train_mnist_mlp.py``'s ``main()`` as written:
+    MNIST_EPOCHS epochs at batch 256 over the synthetic MNIST through
+    ``DataLoader`` with ``ToTensor`` (last val_acc at least
+    MNIST_MIN_ACC); one epoch with ``--hybridize``; one epoch with two
+    forked workers (``MXNET_CPU_WORKER_NTHREADS=2``), and the first
+    shuffled batch of two workers against that of none (the same
+    bits).  The initializers and the shuffle are seeded first."""
+    import mxnet_tpu_torch as mx
+
+    mx.random.seed(0)               # the initializers' stream
+    np.random.seed(MNIST_SHUFFLE_SEED)  # the DataLoader's shuffle
+    text = run_example(root, "train_mnist_mlp",
+                       ["--epochs", str(MNIST_EPOCHS), "--batch-size", "256"])
+    accs = [float(v) for v in re.findall(r"val_acc=([0-9.]+)", text)]
+    expect(len(accs) == MNIST_EPOCHS and accs[-1] >= MNIST_MIN_ACC,
+           f"MNIST example: val_acc {accs}, the last must be at least "
+           f"{MNIST_MIN_ACC}")
+    hyb = run_example(root, "train_mnist_mlp",
+                      ["--epochs", "1", "--hybridize"])
+    workers = run_example(root, "train_mnist_mlp", ["--epochs", "1"],
+                          env={"MXNET_CPU_WORKER_NTHREADS": "2"})
+    data = mx.gluon.data
+    ds = data.vision.MNIST(train=True).transform_first(
+        data.vision.transforms.ToTensor())
+    first = []
+    for n in (0, 2):
+        np.random.seed(MNIST_SHUFFLE_SEED)
+        with data.DataLoader(ds, batch_size=256, shuffle=True,
+                             num_workers=n) as loader:
+            x, y = next(iter(loader))
+            expect(x.context == mx.gpu(0), f"DataLoader(num_workers={n}) "
+                   f"gave a batch on {x.context}")
+            first.append((x.asnumpy(), y.asnumpy()))
+    same = all(np.array_equal(a, b) for a, b in zip(*first))
+    expect(same, "DataLoader: the first batch of 2 workers differs from "
+           "that of 0 workers")
+    log(f"MNIST example: val_acc {accs} over {MNIST_EPOCHS} epochs; "
+        f"hybridized epoch {re.findall(r'val_acc=[0-9.]+ time=[0-9.]+s', hyb)}"
+        f"; 2 workers {re.findall(r'val_acc=[0-9.]+ time=[0-9.]+s', workers)};"
+        f" the first batch of 2 forked workers the same bits as 0 workers'")
+    return accs
+
+
+def write_records(torch, path):
+    """REC_COUNT raw records of REC_HW x REC_HW x 3 uint8 from
+    RandomState(0), labels of REC_CLASSES classes, through
+    ``MXIndexedRecordIO``; returns ``{key: (image, label)}``."""
+    from mxnet_tpu_torch import recordio
+
+    rng = np.random.RandomState(0)
+    recs = {}
+    t0 = time.perf_counter()
+    w = recordio.MXIndexedRecordIO(path + ".idx", path + ".rec", "w")
+    expect(w.route == "native", "records: the writer is not native")
+    for i in range(REC_COUNT):
+        img = rng.randint(0, 256, (REC_HW, REC_HW, 3)).astype(np.uint8)
+        label = float(rng.randint(0, REC_CLASSES))
+        w.write_idx(i, recordio.pack_img(recordio.IRHeader(0, label, i, 0),
+                                         img, img_fmt=".raw"))
+        recs[i] = (img, label)
+    w.close()
+    size = os.path.getsize(path + ".rec")
+    log(f"records: {REC_COUNT} raw {REC_HW}x{REC_HW}x3 records, "
+        f"{size / 1e6:.1f} MB, written in {time.perf_counter() - t0:.2f} s")
+    return recs
+
+
+def record_iter(path):
+    """``ImageRecordIter`` with ``examples/train_resnet_fused.py``'s
+    ``--rec`` arguments (batch REC_BATCH)."""
+    from mxnet_tpu_torch import io as mio
+
+    return mio.ImageRecordIter(
+        path + ".rec", data_shape=(3, 224, 224), batch_size=REC_BATCH,
+        shuffle=True, rand_crop=True, rand_mirror=True, resize=256,
+        preprocess_threads=os.cpu_count() or 1,
+        mean_r=123.7, mean_g=116.3, mean_b=103.5,
+        std_r=58.4, std_g=57.1, std_b=57.4)
+
+
+def expected_first_batch(recs, it):
+    """The iterator's first batch recomputed in plain numpy from its
+    seed (0) and the records: the shuffle, then per image a crop offset
+    and a mirror coin from the draws of the route the iterator took
+    (native: one RandomState per batch; worker processes: one per image;
+    in-process: the iterator's own), then (x - mean) / std."""
+    c, h, w = it._shape
+    rng = np.random.RandomState(0)
+    order = list(range(REC_COUNT))
+    rng.shuffle(order)
+    keys = order[:REC_BATCH]
+    if it._native is not None:
+        draws = [np.random.RandomState(rng.randint(2 ** 31))] * REC_BATCH
+    elif it._pool is not None:
+        draws = [np.random.RandomState(s)
+                 for s in rng.randint(0, 2 ** 31, size=REC_BATCH)]
+    else:
+        draws = [rng] * REC_BATCH
+    out = np.empty((REC_BATCH, c, h, w), np.float32)
+    for i, (k, r) in enumerate(zip(keys, draws)):
+        img = recs[k][0]
+        y0 = r.randint(0, REC_HW - h + 1)
+        x0 = r.randint(0, REC_HW - w + 1)
+        img = img[y0:y0 + h, x0:x0 + w]
+        if r.rand() < 0.5:
+            img = img[:, ::-1]
+        out[i] = img.transpose(2, 0, 1)
+    mean = np.array([123.7, 116.3, 103.5], np.float32).reshape(1, 3, 1, 1)
+    std = np.array([58.4, 57.1, 57.4], np.float32).reshape(1, 3, 1, 1)
+    out -= mean
+    out /= std
+    return out, np.array([recs[k][1] for k in keys], np.float32)
+
+
+def record_checks(torch, recs, path):
+    """(c) The example's ``ImageRecordIter`` on the card: the first batch
+    against ``expected_first_batch`` (the same bits), a held batch
+    unchanged after two more ``next()`` (its pinned staging buffer is
+    recycled only after its copy), then the iterator alone, host
+    img/s over REC_RATE_BATCHES batches."""
+    it = record_iter(path)
+    route = ("native decode thread" if it._native is not None else
+             "worker processes" if it._pool is not None else "in-process")
+    b = it.next()
+    x, y = b.data[0], b.label[0]
+    expect(x.context.device_type == "gpu", f"records: batch on {x.context}")
+    want_x, want_y = expected_first_batch(recs, it)
+    snap = x.asnumpy().copy()
+    expect(np.array_equal(snap, want_x) and np.array_equal(y.asnumpy(),
+                                                           want_y),
+           f"records: the first batch differs from its numpy recomputation "
+           f"(max abs err {float(np.abs(snap - want_x).max()):.3e})")
+    it.next()
+    it.next()
+    torch.cuda.synchronize()
+    expect(np.array_equal(x.asnumpy(), snap),
+           "records: a held batch changed after two more next() calls")
+    it.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n = 0
+    while n < REC_RATE_BATCHES:
+        try:
+            it.next()
+            n += 1
+        except StopIteration:
+            it.reset()
+    torch.cuda.synchronize()
+    rate = n * REC_BATCH / (time.perf_counter() - t0)
+    it.close()
+    log(f"records: ImageRecordIter ({route}, preprocess_threads "
+        f"{os.cpu_count()}) first batch the same bits as its numpy "
+        f"recomputation; a held batch survives two more next(); the "
+        f"iterator alone {rate:.1f} img/s on the host ({n} batches of "
+        f"{REC_BATCH}, to the card)")
+    return {"route": route, "img_s": rate}
+
+
+def fed_steps(torch, step, feed, steps):
+    """``steps`` steps of ``step`` over ``feed``; returns the seconds
+    (synchronised) and the losses."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [step(*next(feed)) for _ in range(steps)]
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, [float(v) for v in losses]
+
+
+def fed_run(torch, step, source, what):
+    """WARMUP_STEPS + FED_STEPS steps of ``step`` fed by ``source``
+    through ``DevicePrefetcher(depth=2)``, the kernels' launches counted
+    from 0, then one profiled step; the timed steps' wait split."""
+    from mxnet_tpu_torch import parallel
+    from mxnet_tpu_torch.ops.fused_conv import norm_relu_conv
+
+    norm_relu_conv.launches = dict.fromkeys(FUSED, 0)   # main path starts
+    with parallel.DevicePrefetcher(source, depth=2) as pf:
+        feed = iter(pf)
+        _, losses = fed_steps(torch, step, feed, WARMUP_STEPS)
+        warm = dict(norm_relu_conv.launches)
+        expect(step.graph_count() == 1,
+               f"{what}: {step.graph_count()} graphs after the warm-up")
+        w0 = {k: pf.stats[k] for k in ("producer_wait_s", "consumer_wait_s")}
+        dt, timed = fed_steps(torch, step, feed, FED_STEPS)
+        waits = {k: pf.stats[k] - w0[k] for k in w0}
+        launches = dict(norm_relu_conv.launches)        # ... and ends here
+        prof, wall_us, _ = profiled(torch, lambda: step(*next(feed)),
+                                    f"{what}, one step")
+        busy = print_profile(prof, wall_us, f"{what}, one step")
+        del prof
+    losses += timed
+    replayed = {k: launches[k] - warm[k] for k in FUSED}
+    expect(all(np.isfinite(losses)), f"{what}: loss not finite {losses}")
+    expect(replayed == dict.fromkeys(FUSED, FUSED_PER_STEP * FED_STEPS)
+           and step.graph_count() == 1,
+           f"{what}: kernel launches {launches} ({replayed} in the timed "
+           f"steps), expected {FUSED_PER_STEP} of each a step, replayed")
+    img_s = TRAIN_BATCH * FED_STEPS / dt
+    pace = ("the feed" if waits["consumer_wait_s"]
+            > waits["producer_wait_s"] else "the step")
+    log(f"fed [{what}]: losses {[round(v, 4) for v in losses]}; "
+        f"{FED_STEPS} timed steps in {dt:.3f} s = {1e3 * dt / FED_STEPS:.1f}"
+        f" ms/step = {img_s:.1f} img/s; busy {100 * busy:.1f}%; waits over "
+        f"the timed steps: producer {waits['producer_wait_s']:.3f} s, "
+        f"consumer {waits['consumer_wait_s']:.3f} s "
+        f"({pace} sets the pace); launches {launches}, {replayed} replayed "
+        f"in the timed steps")
+    return {"img_s": img_s, "ms_step": 1e3 * dt / FED_STEPS, "busy": busy,
+            "launches": launches, **waits}
+
+
+def fed_resnet(torch, path):
+    """(d) The captured bf16 fused ResNet-50 ``TrainStep`` (phase 9's
+    settings) fed by the example's ``--rec`` loop body — the iterator
+    above, the NHWC transpose and the bf16 cast on the card — through
+    ``DevicePrefetcher(depth=2)``; then the same steps fed by
+    ``DataLoader(pin_memory=True)`` over an ``ArrayDataset`` of host
+    images (the shape of ``bench resnet --feed prefetch``)."""
+    import itertools
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon, optimizer, parallel
+
+    net = build_resnet50(torch, fused=True, dtype="bfloat16")
+
+    def new_step():
+        return parallel.TrainStep(net, gluon.loss.SoftmaxCrossEntropyLoss(),
+                                  optimizer.create("sgd", **SGD_KW))
+
+    it = record_iter(path)
+
+    def batches():                  # examples/train_resnet_fused.py's loop
+        while True:
+            for b in it:
+                x = b.data[0].transpose((0, 2, 3, 1)).astype("bfloat16")
+                yield x, b.label[0]
+            it.reset()
+
+    n = WARMUP_STEPS + FED_STEPS + PROFILE_TRIES
+    rec = fed_run(torch, new_step(), itertools.islice(batches(), n),
+                  f"fused resnet50_v1 bf16, batch {TRAIN_BATCH}, fed by "
+                  f"ImageRecordIter")
+    it.close()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    rng = np.random.RandomState(0)
+    xs = rng.randn(2 * TRAIN_BATCH, 224, 224, 3).astype(np.float32)
+    ys = rng.randint(0, 1000, (2 * TRAIN_BATCH,)).astype(np.int32)
+    loader = gluon.data.DataLoader(gluon.data.ArrayDataset(xs, ys),
+                                   batch_size=TRAIN_BATCH, pin_memory=True,
+                                   last_batch="discard")
+
+    def loaded():
+        while True:
+            for x, y in loader:
+                yield x.astype("bfloat16"), y
+
+    step = new_step()
+    feed = itertools.islice(loaded(), n)
+    from mxnet_tpu_torch.ops.fused_conv import norm_relu_conv
+    norm_relu_conv.launches = dict.fromkeys(FUSED, 0)
+    _, losses = fed_steps(torch, step, feed, WARMUP_STEPS)
+    dt, timed = fed_steps(torch, step, feed, FED_STEPS)
+    launches = dict(norm_relu_conv.launches)
+    loader.close()
+    expect(all(np.isfinite(losses + timed)) and step.graph_count() == 1
+           and launches == dict.fromkeys(
+               FUSED, FUSED_PER_STEP * (WARMUP_STEPS + FED_STEPS)),
+           f"DataLoader(pin_memory=True) feed: losses {losses + timed}, "
+           f"launches {launches}, {step.graph_count()} graphs")
+    dl = {"img_s": TRAIN_BATCH * FED_STEPS / dt,
+          "ms_step": 1e3 * dt / FED_STEPS}
+    log(f"fed [fused resnet50_v1 bf16, batch {TRAIN_BATCH}, DataLoader("
+        f"pin_memory=True) over host float32 images, cast on the card]: "
+        f"{FED_STEPS} timed steps = {dl['ms_step']:.1f} ms/step = "
+        f"{dl['img_s']:.1f} img/s; launches {launches}")
+    del step, net, xs, loader
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec, dl
+
+
+def prefetch_streams(torch):
+    """(e) Batches filled with their own index through
+    ``DevicePrefetcher`` into a captured step that returns the batch's
+    sum (copied into the graph's static input on the current stream, as
+    ``TrainStep`` does), at depth 1 and 3, with a consumer that does not
+    wait and one that sleeps: every step sees exactly its own index."""
+    from mxnet_tpu_torch import parallel
+    from mxnet_tpu_torch.graphs import GraphCache
+
+    dev = torch.device(DEVICE)
+    shape = STREAM_BATCH
+    numel = int(np.prod(shape))
+    static = torch.zeros(shape, device=dev)
+    graphs = GraphCache(dev)
+
+    def source():
+        for i in range(STREAM_STEPS):
+            yield (torch.full(shape, float(i)),)    # a host batch
+
+    for depth in (1, 3):
+        for sleep in (0.0, STREAM_SLEEP_S):
+            seen = []
+            with parallel.DevicePrefetcher(source(), depth=depth) as pf:
+                for (x,) in pf:
+                    static.copy_(x._data)
+                    out = graphs.run("sum", lambda: static.double().sum())
+                    seen.append(out.clone())
+                    if sleep:
+                        time.sleep(sleep)
+                stats = dict(pf.stats)
+            got = [float(v) / numel for v in seen]
+            expect(got == [float(i) for i in range(STREAM_STEPS)],
+                   f"prefetch streams (depth {depth}, sleep {sleep}): steps "
+                   f"saw {got}")
+            log(f"prefetch streams: depth {depth}, consumer sleep "
+                f"{1e3 * sleep:.0f} ms: {STREAM_STEPS} batches of "
+                f"{list(shape)} each seen whole by its captured step; waits "
+                f"producer {stats['producer_wait_s']:.3f} s, consumer "
+                f"{stats['consumer_wait_s']:.3f} s")
+
+
+def nd_names(torch):
+    """(f) The new ``nd.`` names on card NDArrays: ``nd.flash_attention``
+    at BERT-base's shape, forward and ``backward()`` under ``record()``
+    (one launch of each flash kernel, counted from 0; outputs and
+    gradients held against the plain versions as in phase 11);
+    ``nd.paged_decode_attention`` at the serving config (one launch, the
+    same bits as ``ops.paged_decode_attention``, and within ATOL/RTOL of
+    the plain version on the active slots); ``nd.image_resize``,
+    ``image_to_tensor`` and ``image_normalize`` against the host."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import paged_decode_attention
+    from mxnet_tpu_torch.ops.paged_attention import (
+        paged_decode_attention as paged,
+        paged_decode_attention_reference as paged_reference)
+
+    fa = flash_module()
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    b, s, h, d = BERT_BATCH, BERT_SEQ, BERT_HEADS, BERT_HEAD_DIM
+    q, k, v, do = (torch.randn(b, s, h * d, generator=gen, device=DEVICE)
+                   .bfloat16() for _ in range(4))
+
+    def run():
+        args = [mx.nd.NDArray(t.clone()) for t in (q, k, v)]
+        for a in args:
+            a.attach_grad()
+        with mx.autograd.record():
+            out = mx.nd.flash_attention(*args, heads=h)
+        out.backward(mx.nd.NDArray(do))
+        return [out._data.detach()] + [a.grad._data for a in args]
+
+    fa.flash_attention.launches = dict.fromkeys(FLASH, 0)
+    got = run()
+    torch.cuda.synchronize()
+    flash = dict(fa.flash_attention.launches)
+    expect(flash == dict.fromkeys(FLASH, 1),
+           f"nd.flash_attention launched {flash}, expected one of each")
+    with plain_versions(fa):
+        want = run()
+    expect(fa.flash_attention.launches == flash,
+           "nd.flash_attention: the plain route launched kernels")
+    what = f"nd.flash_attention ({b}, {s}, {h}x{d}) bf16"
+    err = {nm: check_outputs(torch, what, nm, [g], [p])
+           for nm, g, p in zip(("out", "dq", "dk", "dv"), got, want)}
+    log(f"nd names [{what}]: launches {flash}; max abs err vs the plain "
+        f"versions " + ", ".join(f"{n} {e:.3e}" for n, e in err.items()))
+
+    rng = np.random.default_rng(6)
+    ins = paged_inputs(torch, rng, SLOTS, 2, serving_lengths(rng, SLOTS))
+    paged.launches = 0
+    out = mx.nd.paged_decode_attention(*[mx.nd.NDArray(t) for t in ins])
+    torch.cuda.synchronize()
+    n_paged = paged.launches
+    ref = paged_decode_attention(*ins)
+    plain = paged_reference(*ins)
+    paged.launches = n_paged              # the comparisons are not the path
+    act = ins[-1] > 0
+    err = (out._data[act] - plain[act]).abs()
+    max_err = float(err.max())
+    within = bool((err <= ATOL + RTOL * plain[act].abs()).all())
+    expect(n_paged == 1 and torch.equal(out._data, ref) and within,
+           f"nd.paged_decode_attention: {n_paged} launches, same bits "
+           f"{torch.equal(out._data, ref)}, max abs err vs plain "
+           f"{max_err:.3e}")
+    log(f"nd names [nd.paged_decode_attention, {SLOTS} slots x 2 pages]: "
+        f"1 launch, the same bits as ops.paged_decode_attention, max abs "
+        f"err vs the plain version {max_err:.3e} on {int(act.sum())} "
+        f"active slots (atol {ATOL}, rtol {RTOL})")
+
+    img = np.random.RandomState(7).randint(0, 256, (2, 96, 80, 3)) \
+        .astype(np.uint8)
+    worst = {}
+    for ctx in (mx.gpu(0), mx.cpu()):
+        with ctx:
+            x = mx.nd.array(img, dtype="uint8")
+            xf = mx.nd.array(img.astype(np.float32) / 255.0)
+            res = {"resize u8 down": mx.nd.image_resize(x, size=(56, 48)),
+                   "resize u8 up": mx.nd.image_resize(x, size=(120, 130)),
+                   "resize f32 down": mx.nd.image_resize(xf, size=(56, 48)),
+                   "resize keep_ratio": mx.nd.image_resize(
+                       xf, size=64, keep_ratio=True),
+                   "resize nearest": mx.nd.image_resize(x, size=(50, 70),
+                                                        interp=0),
+                   "to_tensor": mx.nd.image_to_tensor(x),
+                   "normalize": mx.nd.image_normalize(
+                       mx.nd.image_to_tensor(x), mean=(0.485, 0.456, 0.406),
+                       std=(0.229, 0.224, 0.225))}
+        for key, val in res.items():
+            worst.setdefault(key, []).append(val.asnumpy())
+    for key, (card, host) in worst.items():
+        err = float(np.abs(card.astype(np.float64) - host).max())
+        limit = 1.0 if card.dtype == np.uint8 else IMAGE_F32_ATOL
+        expect(card.shape == host.shape and err <= limit,
+               f"nd.{key}: card vs host max abs err {err} (limit {limit})")
+        worst[key] = err
+    log("nd names [image ops, card vs host]: max abs err "
+        + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+        + f" (uint8 within 1, float32 within {IMAGE_F32_ATOL})")
+    return {"flash": flash, "paged": n_paged}
+
+
+def input_pipeline(torch, root):
+    """The "input pipeline" phase, (a)-(f) above."""
+    figures = {"natives": natives()}
+    t0 = time.perf_counter()
+    figures["mnist"] = mnist_example(torch, root)
+    log(f"MNIST example: {time.perf_counter() - t0:.1f} s in all")
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "records")
+        recs = write_records(torch, path)
+        figures["records"] = record_checks(torch, recs, path)
+        del recs
+        figures["fed"], figures["loader"] = fed_resnet(torch, path)
+    prefetch_streams(torch)
+    figures["nd"] = nd_names(torch)
+    return figures
 
 
 class phase:
@@ -2975,6 +3640,7 @@ def main():
         name, count, smi_line = card_report(torch)
         with phase("build"):
             build_kernels()
+            warm_profiler(torch)
         with phase("imperative"):
             # first: its backward is the first CUDA work of autograd's
             # worker thread, as in a fresh user script
@@ -2986,6 +3652,10 @@ def main():
         with phase("hybridize"):
             hybrid = {"mlp": hybrid_mlp(torch, mlp_eager),
                       "resnet": hybrid_resnet(torch)}
+            gc.collect()
+            torch.cuda.empty_cache()
+        with phase("input pipeline"):
+            pipeline = input_pipeline(torch, root)
             gc.collect()
             torch.cuda.empty_cache()
         with phase("serving"):
@@ -3030,6 +3700,7 @@ def main():
                             spec_k=SPEC_K, spec_window=SPEC_WINDOW)
             paths["salvage"] = serve_salvage_resume(torch, params, cfg,
                                                     served, root)["launches"]
+            paths["nd"] = pipeline["nd"]["paged"]
         with phase("disaggregated serving"):
             disagg = serve_disaggregated(torch, params, cfg, served)
             paths["disaggregated"] = disagg[1]["launches"]
@@ -3076,6 +3747,19 @@ def main():
                 f"{trained['ms_step'] / hr['ms_step']:.3f}x, and the eager "
                 f"TrainStep {eager['ms_step']:.1f} ms/step = "
                 f"{eager['ms_step'] / hr['ms_step']:.3f}x")
+            fed, loader = pipeline["fed"], pipeline["loader"]
+            log(f"train: fused ResNet-50 fed by ImageRecordIter through "
+                f"DevicePrefetcher {fed['ms_step']:.1f} ms/step = "
+                f"{fed['img_s']:.1f} img/s (busy {100 * fed['busy']:.1f}%; "
+                f"waits producer {fed['producer_wait_s']:.3f} s, consumer "
+                f"{fed['consumer_wait_s']:.3f} s) vs the batch already on "
+                f"the card {trained['ms_step']:.1f} ms/step = "
+                f"{trained['img_s']:.1f} img/s (busy {100 * busy:.1f}%) = "
+                f"{fed['img_s'] / trained['img_s']:.3f}x; the iterator "
+                f"alone {pipeline['records']['img_s']:.1f} img/s "
+                f"({pipeline['records']['route']}); DataLoader(pin_memory="
+                f"True) over host images {loader['ms_step']:.1f} ms/step = "
+                f"{loader['img_s']:.1f} img/s")
             bit_check(torch, fused_net, batch)
             del batch, fused_net
             torch.cuda.empty_cache()
@@ -3169,7 +3853,9 @@ def main():
                                  **{k: v[kern]
                                     for k, v in imperative.items()},
                                  "hybridize": hybrid["resnet"]["replayed"][
-                                     kern]}})
+                                     kern],
+                                 "input pipeline":
+                                     pipeline["fed"]["launches"][kern]}})
     for kern in FLASH:
         kname, t = f"flash_attention_{kern}", flash_times[kern]
         kernels["kernels"].append({
@@ -3177,7 +3863,9 @@ def main():
             "replaces": REPLACES[kname], "launches": bert["launches"][kern],
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "launches_by_path": {"train": bert["launches"][kern],
+                                 "nd": pipeline["nd"]["flash"][kern]}})
     print(json.dumps(kernels), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {

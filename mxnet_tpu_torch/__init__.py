@@ -33,6 +33,17 @@ Ported so far:
   mxnet_tpu_torch as mx``.  ``nd.FusedNormReluConv`` on card arrays
   reaches the fused-conv kernels.
 
+The input pipeline: ``gluon.data`` (datasets, samplers, the
+``DataLoader`` with host workers, the vision datasets and transforms),
+``io`` (``NDArrayIter``, ``CSVIter``, ``MNISTIter``, ``ImageRecordIter``,
+``PrefetchingIter``), ``recordio`` (files byte-identical to the JAX
+package's), ``image`` and ``parallel.DevicePrefetcher`` (pinned staging
+and a copy stream of its own); the host natives of ``src/`` (RecordIO,
+the staging pool, the JPEG decoder) build with ``g++`` at first use
+into ``mxnet_tpu_torch/_build/`` (``base.load_native_lib``).  ``config``
+holds the ``MXNET_*`` knobs, ``storage`` the accounting of NDArray bytes
+and the host staging pool.
+
 On the card every step — ``parallel.TrainStep``, ``parallel.EvalStep``,
 the server's prefill and decode steps and a hybridized Gluon block's
 forward and backward (``HybridBlock.hybridize``) — runs as a captured
@@ -40,20 +51,27 @@ CUDA graph (``graphs``), the counterpart of the JAX package's compiled
 programs; ``python -m mxnet_tpu_torch.bench {resnet,bert,llm}`` prints
 ``bench.py``'s line for each slice.
 
-Exports: ``nd`` (``ndarray``), ``autograd``, ``engine``, ``gluon``,
-``init`` (``initializer``), ``metric``, ``optimizer``, ``parallel``,
-``random``, ``Context``/``cpu``/``gpu``/``current_context``,
-``num_gpus`` and ``gpu_memory_info``.
+Exports: ``nd`` (``ndarray``), ``autograd``, ``config``, ``engine``,
+``gluon``, ``image``, ``init`` (``initializer``), ``io``, ``metric``,
+``optimizer``, ``parallel``, ``profiler``, ``random``, ``recordio``,
+``storage``,
+``Context``/``cpu``/``gpu``/``current_context``, ``num_gpus`` and
+``gpu_memory_info``.
 """
-from . import (autograd, context, engine, gluon, initializer, lr_scheduler,
-               metric, ndarray, optimizer, parallel, random)
+from . import base, config, storage
+from . import (autograd, context, engine, gluon, image, initializer, io,
+               lr_scheduler, metric, ndarray, optimizer, parallel, profiler,
+               random, recordio)
 from .context import (Context, cpu, current_context, gpu, gpu_memory_info,
                       num_gpus, resolve_device)
 
 nd = ndarray
 init = initializer
 
-__all__ = ["autograd", "context", "engine", "gluon", "initializer", "init",
-           "lr_scheduler", "metric", "nd", "ndarray", "optimizer",
-           "parallel", "random", "Context", "cpu", "gpu", "current_context",
+config._apply_startup()
+
+__all__ = ["autograd", "base", "config", "context", "engine", "gluon",
+           "image", "initializer", "init", "io", "lr_scheduler", "metric",
+           "nd", "ndarray", "optimizer", "parallel", "profiler", "random",
+           "recordio", "storage", "Context", "cpu", "gpu", "current_context",
            "num_gpus", "gpu_memory_info", "resolve_device"]

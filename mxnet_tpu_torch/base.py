@@ -1,14 +1,40 @@
 """Small shared helpers of the port: dtype names, the framework's error
-type and the numeric types (the port of ``mxnet_tpu/base.py``'s
-``MXNetError``, ``dtype_np``, ``dtype_name``, ``string_types`` and
-``numeric_types``)."""
+type, the numeric types and the build of the host natives (the port of
+``mxnet_tpu/base.py``'s ``MXNetError``, ``dtype_np``, ``dtype_name``,
+``string_types``, ``numeric_types`` and ``load_native_lib``).
+
+The host natives are the repo's C++ sources in ``src/``:
+``recordio.cc`` (``librecordio``, the RecordIO reader and writer),
+``storage_pool.cc`` (``libstoragepool``, the host staging pool) and
+``image_decode.cc`` (``libimagedecode``, the batch JPEG decoder).
+``load_native_lib`` compiles one of them with ``g++`` at its first use
+(never at import) into ``mxnet_tpu_torch/_build/``, beside the CUDA
+kernels, under a name that hashes the source and the flags, and loads it
+with ``ctypes``.  It writes through a temporary file and ``os.replace``,
+so processes building at once never see half a library.  The JAX
+package builds the same sources with ``make -C src`` into its own
+``_lib/``; the port never writes there.  Where no compiler or no header
+is found the load fails, ``native_status()`` says why, and each caller
+runs its pure-Python twin and says so (``recordio.native()``,
+``storage.pool_info()["native"]``).
+"""
 from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
 __all__ = ["MXNetError", "dtype_torch", "dtype_np", "dtype_name",
-           "string_types", "numeric_types"]
+           "string_types", "numeric_types", "load_native_lib",
+           "native_status", "NATIVE_LIBS"]
 
 
 class MXNetError(RuntimeError):
@@ -63,3 +89,79 @@ def dtype_np(dtype):
                             "package, which is not installed") from None
         return np.dtype(ml_dtypes.bfloat16)
     return np.dtype(name)
+
+
+# ------------------------------------------------------------ host natives --
+SRC_DIR = Path(__file__).resolve().parents[1] / "src"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+# src/Makefile's flags, per source
+CXX_FLAGS = ("-O2", "-fPIC", "-shared", "-std=c++17")
+NATIVE_LIBS = {"librecordio": ("recordio.cc", ()),
+               "libstoragepool": ("storage_pool.cc", ()),
+               "libimagedecode": ("image_decode.cc", ("-ljpeg", "-lpthread"))}
+
+_native_lock = threading.Lock()
+_native = {}          # name -> CDLL or None, failures included
+_native_info = {}     # name -> {"loaded", "path", "seconds", "error"}
+
+
+def _native_path(name):
+    source, libs = NATIVE_LIBS[name]
+    src = SRC_DIR / source
+    h = hashlib.sha256(src.read_bytes())
+    h.update(" ".join(CXX_FLAGS + libs).encode())
+    return src, libs, BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def _build_native(name):
+    """Compile ``name`` unless built; returns its path.  Raises
+    ``RuntimeError`` with the compiler's words when it fails."""
+    src, libs, out = _native_path(name)
+    if out.exists():
+        return out
+    cxx = os.environ.get("CXX") or shutil.which("g++")
+    if not cxx:
+        raise RuntimeError("no C++ compiler (g++) found")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+    res = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(src), *libs],
+                         capture_output=True, text=True, timeout=300)
+    if res.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"{cxx} failed for src/{src.name} (exit "
+                           f"{res.returncode}): {res.stderr.strip()}")
+    os.replace(tmp, out)       # atomic: a reader never sees half a file
+    return out
+
+
+def load_native_lib(name):
+    """The ``ctypes.CDLL`` of host native ``name`` (a key of
+    ``NATIVE_LIBS``), built first if needed, or None when it cannot be
+    built or loaded (``native_status()[name]["error"]`` says why).  The
+    outcome is kept, so a failed build is not retried per call."""
+    with _native_lock:
+        if name in _native:
+            return _native[name]
+        t0 = time.perf_counter()
+        info = {"loaded": False, "path": None, "error": None}
+        lib = None
+        try:
+            if not (SRC_DIR / NATIVE_LIBS[name][0]).is_file():
+                raise RuntimeError(f"source src/{NATIVE_LIBS[name][0]} "
+                                   f"not found")
+            path = _build_native(name)
+            lib = ctypes.CDLL(str(path))
+            info.update(loaded=True, path=str(path))
+        except (RuntimeError, OSError, subprocess.SubprocessError) as exc:
+            info["error"] = str(exc)
+        info["seconds"] = time.perf_counter() - t0
+        _native[name], _native_info[name] = lib, info
+        return lib
+
+
+def native_status():
+    """What each host native's load gave so far: ``{name: {"loaded",
+    "path", "seconds", "error"}}`` (names not asked for yet are
+    absent)."""
+    with _native_lock:
+        return {k: dict(v) for k, v in _native_info.items()}

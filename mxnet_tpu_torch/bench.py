@@ -1,6 +1,7 @@
 """The port's bench entry point: one JSON line per model.
 
     python -m mxnet_tpu_torch.bench resnet           # on the card
+    python -m mxnet_tpu_torch.bench resnet --feed prefetch
     python -m mxnet_tpu_torch.bench bert [--model bert_24_1024_16]
     python -m mxnet_tpu_torch.bench llm [--prefix]
     python -m mxnet_tpu_torch.bench llm --device cpu # plain versions, small
@@ -11,7 +12,14 @@ The settings are those of the repo's ``bench.py`` (``bench_resnet``,
 - ``resnet``: ``resnet50_v1`` NHWC with ``fused=True``, cast to bf16
   (f32 master weights), SGD 0.1 / 0.9 / 1e-4 through
   ``parallel.TrainStep``, batch 256 of ``RandomState(0)`` 224x224x3
-  images, 2 warm-up steps (the first captures the graph) and 20 timed;
+  images, 2 warm-up steps (the first captures the graph) and 20 timed.
+  ``--feed prefetch`` is ``bench.py``'s ``MXTPU_BENCH_FEED=prefetch``:
+  every step takes a fresh host batch (a bf16 CPU tensor and the int32
+  labels) through ``parallel.DevicePrefetcher(depth=2)`` — pinned
+  staging and a copy stream of its own — into a ``TrainStep`` made with
+  ``donate_batch=True``, so the line measures the input pipeline's
+  hand-off as well as the step; it adds ``producer_wait_s`` and
+  ``consumer_wait_s`` (which side waited: the step or the feed);
 - ``bert``: ``BERTModel`` (``bert_12_768_12`` by default, vocab 30522)
   with ``attention_impl="flash"`` and dropout 0.1, cast to bf16,
   masked-LM + NSP loss, LAMB 1e-3 / wd 0.01, batch 64 x 128 with 20
@@ -108,8 +116,36 @@ def _line(kind, value, unit, device, metric=None, **extra):
             **_device_fields(device)}
 
 
-def bench_resnet(device="cuda", iters=None):
-    """ResNet-50 v1 training throughput, images/s on one card."""
+def _time_fed_steps(step, device, batch, iters):
+    """``_time_steps`` with each batch a host batch through a
+    ``DevicePrefetcher`` (depth 2); returns the seconds, every loss and
+    the timed run's wait split."""
+    from .parallel import DevicePrefetcher
+
+    def host_batches(n):
+        for _ in range(n):
+            yield batch
+
+    with DevicePrefetcher(host_batches(WARMUP), step=step) as feed:
+        losses = [float(step(d, l)) for d, l in feed]
+    _sync(device)
+    t0 = time.perf_counter()
+    with DevicePrefetcher(host_batches(iters), step=step, depth=2) as feed:
+        timed = [step(d, l) for d, l in feed]
+        _sync(device)
+        dt = time.perf_counter() - t0
+        waits = {k: round(feed.stats[k], 6)
+                 for k in ("producer_wait_s", "consumer_wait_s")}
+    losses += [float(v) for v in timed]
+    if not all(np.isfinite(losses)):
+        raise RuntimeError(f"bench: a loss is not finite: {losses}")
+    return dt, losses, waits
+
+
+def bench_resnet(device="cuda", iters=None, feed="device"):
+    """ResNet-50 v1 training throughput, images/s on one card; ``feed``
+    ``"device"`` (the batch already on the device) or ``"prefetch"``
+    (fresh host batches through ``DevicePrefetcher``)."""
     from . import gluon
     from .gluon.model_zoo.vision import resnet50_v1
 
@@ -119,20 +155,27 @@ def bench_resnet(device="cuda", iters=None):
     net = resnet50_v1(layout="NHWC", fused=True)
     net.initialize(ctx=device)
     net.cast("bfloat16")
+    if feed not in ("device", "prefetch"):
+        raise ValueError(f"feed={feed!r}: 'device' or 'prefetch'")
     step = parallel.TrainStep(
         net, gluon.loss.SoftmaxCrossEntropyLoss(),
-        optimizer.create("sgd", learning_rate=0.1, momentum=0.9, wd=1e-4))
+        optimizer.create("sgd", learning_rate=0.1, momentum=0.9, wd=1e-4),
+        donate_batch=feed == "prefetch")
     rng = np.random.RandomState(0)
     x = torch.from_numpy(rng.randn(batch, 224, 224, 3).astype(np.float32)) \
-        .to(device).to(torch.bfloat16)
-    y = torch.from_numpy(rng.randint(0, 1000, (batch,)).astype(np.int32)) \
-        .to(device)
+        .to(torch.bfloat16)
+    y = torch.from_numpy(rng.randint(0, 1000, (batch,)).astype(np.int32))
     if _on_card(device):
         torch.cuda.reset_peak_memory_stats(device)
-    dt, losses = _time_steps(step, device, (x, y), iters)
+    waits = {}
+    if feed == "prefetch":
+        dt, losses, waits = _time_fed_steps(step, device, (x, y), iters)
+    else:
+        dt, losses = _time_steps(step, device,
+                                 (x.to(device), y.to(device)), iters)
     img_s = batch * iters / dt
     return _line("resnet", img_s, "img/s", device, model="resnet50_v1",
-                 batch=batch, steps=iters,
+                 batch=batch, steps=iters, feed=feed, **waits,
                  ms_per_step=round(1e3 * dt / iters, 3),
                  graphs=step.graph_count(), first_loss=losses[0],
                  last_loss=losses[-1])
@@ -268,10 +311,14 @@ def main(argv=None, **overrides):
                     help="timed steps (default: bench.py's)")
     ap.add_argument("--prefix", action="store_true",
                     help="llm: bench.py's shared-prefix traffic")
+    ap.add_argument("--feed", default="device", choices=("device",
+                                                         "prefetch"),
+                    help="resnet: the batch on the device, or fresh host "
+                         "batches through DevicePrefetcher")
     args = ap.parse_args(argv)
     for name in args.models:
         if name == "resnet":
-            line = bench_resnet(args.device, args.steps)
+            line = bench_resnet(args.device, args.steps, args.feed)
         elif name == "bert":
             line = bench_bert(args.device, args.model, args.steps)
         else:

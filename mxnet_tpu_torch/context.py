@@ -96,10 +96,17 @@ class Context:
     def memory_info(self):
         """The allocator's statistics of this device
         (``torch.cuda.memory_stats``: ``allocated_bytes.all.current``,
-        ``reserved_bytes.all.peak``, ...); empty on the host."""
-        if self.device.type != "cuda":
-            return {}
-        return dict(torch.cuda.memory_stats(self.device))
+        ``reserved_bytes.all.peak``, ...; none on the host), and the
+        framework's own: ``framework_live_bytes`` and
+        ``framework_peak_bytes``, the bytes of this device's NDArrays
+        (``storage``'s accounting)."""
+        from . import storage
+        out = dict(torch.cuda.memory_stats(self.device)) \
+            if self.device.type == "cuda" else {}
+        st = storage.stats(str(self))
+        out["framework_live_bytes"] = st["live_bytes"]
+        out["framework_peak_bytes"] = st["peak_bytes"]
+        return out
 
     @classmethod
     def default_ctx(cls):

@@ -1,6 +1,7 @@
 """Gluon API of the port: blocks, parameters, layers, losses, the
-trainer, utilities and the model zoo."""
-from . import loss, model_zoo, nn, utils
+trainer, utilities, the model zoo and ``data`` (datasets, samplers, the
+DataLoader, vision datasets and transforms)."""
+from . import data, loss, model_zoo, nn, utils
 from .block import Block, HybridBlock, params_from_jax
 from .parameter import (Constant, DeferredInitializationError, Parameter,
                         ParameterDict)
@@ -8,4 +9,4 @@ from .trainer import Trainer
 
 __all__ = ["Block", "HybridBlock", "Parameter", "ParameterDict", "Constant",
            "DeferredInitializationError", "Trainer", "params_from_jax",
-           "loss", "model_zoo", "nn", "utils"]
+           "data", "loss", "model_zoo", "nn", "utils"]

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from .. import autograd as _autograd
+from .. import storage as _storage
 from ..base import dtype_np, dtype_torch
 from ..context import context_of, resolve_device
 from ..ops.registry import OPS
@@ -130,6 +131,7 @@ class NDArray:
         self._grad = None
         self._grad_req = "null"
         self._epoch = None
+        _storage.on_create(self)      # the storage manager's accounting
 
     # ------------------------------------------------------------ basics --
     @property

@@ -12,6 +12,14 @@ reference does, where SDPA's ``-inf`` masking would give NaN.
 ``flash_attention`` reshapes to ``(B*H, S, D)`` (batch major, head
 minor, contiguous) and calls ``ops.flash_attention``'s kernels.
 
+Both are registered ops (``nd.multi_head_attention``,
+``nd.flash_attention``), beside the rest of the JAX module's names: the
+reference's interleaved self-attention pair
+(``interleaved_matmul_selfatt_qk``/``_valatt`` over ``(S, B, H*3*D)``
+projections) and ``div_sqrt_dim``.  ``ring_attention`` and
+``ulysses_attention`` run over a device mesh in the JAX package; they
+are registered here and raise ``NotImplementedError`` (ROADMAP A15).
+
 Both drop attention probabilities in training mode only: the dense op
 through the ``Dropout`` op (its mask from ``random.generator`` of the
 data's device), the flash op inside its kernels from a seed the device's
@@ -27,12 +35,67 @@ from .. import autograd as _autograd
 from .. import random as _random
 from .flash_attention import flash_attention as _flash_bhsd
 from .nn import Dropout
+from .registry import register_op
 
 __all__ = ["multi_head_attention", "flash_attention"]
 
 _NEG = -1e30
 
 
+def _split_interleaved(qkv, heads):
+    """``(S, B, H*3*D)`` -> three ``(B*H, S, D)`` tensors, the
+    reference's layout."""
+    s, b, hd3 = qkv.shape
+    d = hd3 // (heads * 3)
+    x = qkv.reshape(s, b, heads, 3, d)
+    return tuple(x[:, :, :, i, :].permute(1, 2, 0, 3).reshape(b * heads, s, d)
+                 for i in range(3))
+
+
+@register_op("interleaved_matmul_selfatt_qk",
+             aliases=("_contrib_interleaved_matmul_selfatt_qk",))
+def _selfatt_qk(queries_keys_values, heads=1):
+    """``(1/sqrt(D)) Q K^T`` -> ``(B*H, S, S)``."""
+    q, k, _ = _split_interleaved(queries_keys_values, heads)
+    scale = 1.0 / torch.sqrt(torch.tensor(q.shape[-1], dtype=q.dtype,
+                                          device=q.device))
+    return torch.matmul(q * scale, k.transpose(-1, -2))
+
+
+@register_op("interleaved_matmul_selfatt_valatt",
+             aliases=("_contrib_interleaved_matmul_selfatt_valatt",))
+def _selfatt_valatt(queries_keys_values, attention, heads=1):
+    """``attention @ V`` -> ``(S, B, H*D)``."""
+    _, _, v = _split_interleaved(queries_keys_values, heads)
+    s, b = queries_keys_values.shape[0], queries_keys_values.shape[1]
+    d = v.shape[-1]
+    out = torch.matmul(attention, v).reshape(b, heads, s, d)
+    return out.permute(2, 0, 1, 3).reshape(s, b, heads * d)
+
+
+@register_op("div_sqrt_dim", aliases=("_contrib_div_sqrt_dim",))
+def _div_sqrt_dim(x):
+    return x / torch.sqrt(torch.tensor(x.shape[-1], dtype=x.dtype,
+                                       device=x.device))
+
+
+def _mesh_attention(name):
+    def op(q, k, v, heads=1, causal=False, axis="sp", batch_axis="dp",
+           dropout=0.0, training=None):
+        raise NotImplementedError(
+            f"{name} runs over a device mesh, which the port does not have "
+            f"yet (ROADMAP A15)")
+    op.__name__ = op.__qualname__ = name
+    op.__doc__ = (f"Sequence-parallel attention over a device mesh in the "
+                  f"JAX package; raises here (ROADMAP A15).")
+    return register_op(name)(op)
+
+
+_mesh_attention("ring_attention")
+_mesh_attention("ulysses_attention")
+
+
+@register_op("multi_head_attention", needs_rng=True)
 def multi_head_attention(q, k, v, mask=None, heads=1, causal=False,
                          dropout=0.0, training=None):
     """Attention over ``(B, S, H*D)`` projections.
@@ -69,6 +132,7 @@ def multi_head_attention(q, k, v, mask=None, heads=1, causal=False,
     return out.permute(0, 2, 1, 3).reshape(b, sq, hd)
 
 
+@register_op("flash_attention")
 def flash_attention(q, k, v, heads=1, causal=False, block_q=128,
                     block_k=128, dropout=0.0, training=None):
     """Flash attention over ``(B, S, H*D)`` projections through the

@@ -40,6 +40,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .registry import register_op
+
 __all__ = ["paged_decode_attention", "paged_decode_attention_reference",
            "dense_decode_attention"]
 
@@ -319,6 +321,25 @@ def paged_decode_attention(q, k_pages, v_pages, page_tables, lengths):
 paged_decode_attention.launches = 0
 
 
+@register_op("paged_decode_attention")
+def _paged_decode_attention_op(q, k_pages, v_pages, page_tables, lengths,
+                               impl=None):
+    """The registered op (``nd.paged_decode_attention``), with the JAX
+    op's ``impl``: None — the kernel on CUDA tensors, the plain version
+    on CPU ones (``paged_decode_attention``); ``"jnp"`` — the plain
+    version; ``"pallas"`` — the kernel, CUDA tensors only."""
+    args = (q, k_pages, v_pages, page_tables, lengths)
+    if impl is None:
+        return paged_decode_attention(*args)
+    if impl == "jnp":
+        return paged_decode_attention_reference(*args)
+    if impl == "pallas":
+        return _paged_decode_attention_cuda(*args)
+    raise ValueError(f"paged_decode_attention: impl={impl!r} (expected "
+                     f"None, 'jnp', or 'pallas')")
+
+
+@register_op("dense_decode_attention")
 def dense_decode_attention(q, k_cache, v_cache, lengths):
     """The dense max-length-cache reference: every slot owns a
     ``[max_ctx, H, D]`` stripe of ``[slots, max_ctx, H, D]`` caches.

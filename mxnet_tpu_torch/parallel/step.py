@@ -10,8 +10,9 @@ Usage, as with the JAX package::
     step.sync_params_to_net()  # the step's parameters into the net
     out = parallel.EvalStep(net)(x)   # inference forward
 
-``data`` and ``label`` may each be one tensor or a tuple/list of them
-(``None`` leaves pass through): the net is called as ``net(*data)`` and
+``data`` and ``label`` may each be one tensor (or NDArray, or numpy
+array) or a tuple/list of them (``None`` leaves pass through): the net
+is called as ``net(*data)`` and
 the loss as ``loss_fn(out, label)``, a one-element label tuple unwrapped
 — e.g. BERT pretraining with ``data = (tokens, token_types, None,
 masked_positions)`` and ``label = (mlm_labels, mlm_weights,
@@ -59,8 +60,8 @@ no capture nests in another.
 nothing to donate (a captured step copies the batch into its static
 buffers either way).
 
-Not ported yet: a device mesh (data parallelism), gradient compression
-and the prefetching feed.
+Not ported yet: a device mesh (data parallelism) and gradient
+compression.  The prefetching feed is ``parallel.DevicePrefetcher``.
 """
 from __future__ import annotations
 
@@ -82,17 +83,18 @@ class NonFiniteAbortError(RuntimeError):
 
 # ------------------------------------------------------ batch structure --
 def _coerce(value, device):
-    """A tensor (or numpy array) on ``device``; tuples and lists leaf by
-    leaf, ``None`` as it is."""
+    """A tensor (an NDArray's, or a numpy array) on ``device``; tuples
+    and lists leaf by leaf, ``None`` as it is."""
     if value is None:
         return None
     if isinstance(value, (tuple, list)):
         return tuple(_coerce(v, device) for v in value)
     if isinstance(value, np.ndarray):
         value = torch.from_numpy(np.ascontiguousarray(value))
+    value = getattr(value, "_data", value)          # an NDArray's tensor
     if not isinstance(value, torch.Tensor):
-        raise TypeError(f"the step takes torch tensors or numpy arrays, "
-                        f"got {type(value).__name__}")
+        raise TypeError(f"the step takes NDArrays, torch tensors or numpy "
+                        f"arrays, got {type(value).__name__}")
     return value.to(device)
 
 

@@ -371,7 +371,8 @@ def _scaled_block(pkg):
             super().__init__(**kwargs)
             self.scale = self.params.get_constant(
                 "scale", np.array([1.0, -2.0, 0.5], np.float32))
-            self.dense = pkg.gluon.nn.Dense(3, in_units=4)
+            with self.name_scope():
+                self.dense = pkg.gluon.nn.Dense(3, in_units=4)
 
         def hybrid_forward(self, F, x, scale):
             return F.broadcast_mul(self.dense(x), scale)

@@ -249,7 +249,11 @@ def test_linalg_and_contrib_namespaces():
     assert set(n for n in dir(nd.linalg) if not n.startswith("_")) == \
         {"gemm", "gemm2", "potrf", "trsm", "syrk", "extractdiag",
          "sumlogdiag"}
-    assert not [n for n in dir(nd.contrib) if not n.startswith("_")]
+    contrib = {n for n in dir(nd.contrib) if not n.startswith("_")}
+    assert contrib == {"div_sqrt_dim", "interleaved_matmul_selfatt_qk",
+                       "interleaved_matmul_selfatt_valatt",
+                       "multi_head_attention"}       # the attention ops
+    assert contrib <= set(dir(jmx.nd.contrib))
     _same(nd.add_n(ta, ta, ta), jmx.nd.add_n(ja, ja, ja))
     _same(nd.concat(ta, ta, dim=2), jmx.nd.concat(ja, ja, dim=2))
     _same(nd.stack(ta, ta, axis=1), jmx.nd.stack(ja, ja, axis=1))
