@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's five paths end to end on the first CUDA device, with
+Drives the port's six paths end to end on the first CUDA device, with
 random weights from a seed:
 
 - the imperative API: the Gluon MLP loop of
@@ -30,7 +30,9 @@ random weights from a seed:
 - the ResNet-50 v1 training step as ``bench.py``'s ``bench_resnet`` runs
   it (NHWC, ``fused=True``, bf16 cast with f32 master weights, SGD 0.1 /
   0.9 / 1e-4, batch 256 of 224x224x3, 1000 classes), full width and
-  depth;
+  depth, and the same step checkpointed, killed and resumed: in place
+  in one process, and as ``mxnet_tpu_torch/elastic_worker.py`` under
+  ``elastic.Supervisor`` (10 steps deep);
 - the BERT-base pretraining step as ``bench_bert`` runs it (vocab 30522,
   12 layers, 768 units, 12 heads, hidden 3072, dropout 0.1, masked-LM +
   NSP loss, bf16 cast with f32 master weights, LAMB 1e-3 / wd 0.01,
@@ -171,6 +173,22 @@ Phases, each of which fails the run (each prints its wall time):
    with cuDNN's deterministic algorithms, every loss and tensor the same
    bits; then ``fused=False`` (cuDNN convs) from the same parameters as
    the yardstick (the two first losses agree);
+9b. resume, under cuDNN's deterministic algorithms: (a) the captured
+   bf16 ResNet-50 step of ``elastic_worker`` takes 6 steps, saved at 3
+   and 6; the step-3 snapshot loaded into the same captured step and 3
+   more steps give steps 4-6's losses and every tensor the same bits,
+   no tensor the graph holds rebound (``load_train_step`` timed);
+   (b) 10 steps in turns with and without an async snapshot: the
+   stall per snapshot against a plain step, the writer's serialize +
+   fsync + commit ms and MB/s; (c) the worker under
+   ``Supervisor(n=1, platform="gpu", devices_per_worker=1)`` to step 10
+   uninterrupted, then again with a watcher thread that SIGKILLs
+   attempt 0 (heartbeat step >= 5, step 4 committed) and SIGTERMs
+   attempt 1 (step >= 7; it snapshots and exits 43): every printed loss
+   and the final snapshot's digests the uninterrupted run's bits,
+   every retained snapshot verified, the event log's order, 32
+   launches of each fused kernel a step, each worker's spawn to first
+   step;
 10. each fused-conv kernel at the eight shapes at N = 256, bf16: held
    against its plain version, then timed (CUDA events, L2 flushed)
    beside its bound, its plain version and the cuDNN call for the conv
@@ -327,6 +345,18 @@ IMAGE_F32_ATOL = 1e-5            # image ops, card vs host, on [0, 1]
 # plain-on-card vs plain-on-host noise floor (floors under a few f32
 # ulps are raised to MODEL_MIN_FLOOR)
 MODEL_FLOOR_FACTOR, MODEL_MIN_FLOOR = 3.0, 1e-6
+# resume: elastic_worker's net (bench_resnet's step), the supervised
+# run's target and snapshot cadence, the in-process snapshots, the turns
+# of steps with and without an async snapshot, the supervised worker's
+# pause between steps (room for the watcher's signals), when the watcher
+# SIGKILLs attempt 0 (heartbeat step, committed step) and SIGTERMs
+# attempt 1 (heartbeat step)
+RESUME_NET, RESUME_TARGET, RESUME_EVERY = "resnet50_fused", 10, 2
+RESUME_SAVED = (3, 6)
+RESUME_TURNS = 10
+RESUME_STEP_SLEEP = 0.5
+RESUME_KILL, RESUME_TERM = (5, 4), 7
+RESUME_TIMEOUT_S = 300           # a supervised run's limit
 
 
 def log(msg):
@@ -3603,6 +3633,338 @@ def input_pipeline(torch, root):
     return figures
 
 
+# ------------------------------------------------------------------ resume --
+def resume_state(step):
+    """Copies of every tensor a snapshot holds, and the step count."""
+    from mxnet_tpu_torch.parallel import checkpoint as ck
+
+    return [t.detach().clone() for _, t in ck._entries(step)] \
+        + [step._t.clone()]
+
+
+def resume_in_process(torch, tmp):
+    """(a) The captured bf16 ResNet-50 step of ``elastic_worker``: 6
+    steps, snapshots at 3 and 6, the step-3 snapshot loaded into the same
+    captured step, 3 more steps: their losses and every tensor the bits
+    of steps 4-6, no tensor the graph holds rebound.  Returns the step,
+    its batch function and the figures."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import elastic_worker, gluon, parallel
+    from mxnet_tpu_torch.ops.fused_conv import norm_relu_conv
+    from mxnet_tpu_torch.parallel import checkpoint as ck
+
+    device = torch.device(DEVICE)
+    net, opt, size, shape, classes, dtype = \
+        elastic_worker.NETS[RESUME_NET](mx, device)
+    step = parallel.TrainStep(net, gluon.loss.SoftmaxCrossEntropyLoss(),
+                              opt)
+
+    def batch(n):
+        return elastic_worker.batch(torch, n, size, shape, classes, dtype,
+                                    device)
+
+    first, last = RESUME_SAVED
+    norm_relu_conv.launches = dict.fromkeys(FUSED, 0)  # main path starts
+    losses, paths = {}, {}
+    for n in range(last):
+        losses[n + 1] = float(step(*batch(n)))
+        if step._num_update in RESUME_SAVED:
+            paths[step._num_update] = os.path.join(
+                tmp, f"ckpt-{step._num_update:08d}.npz")
+            ck.save_train_step(step, paths[step._num_update])
+    after = resume_state(step)
+    held = [t.data_ptr() for _, t in ck._entries(step)] \
+        + [step._t.data_ptr()]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ck.load_train_step(step, paths[first])
+    torch.cuda.synchronize()
+    load_ms = 1e3 * (time.perf_counter() - t0)
+    expect(step._num_update == first and int(step._t) == first,
+           f"resume: the load left num_update {step._num_update}")
+    again = {n + 1: float(step(*batch(n))) for n in range(first, last)}
+    launches = dict(norm_relu_conv.launches)           # ... and ends here
+    now = resume_state(step)
+    same = all(torch.equal(a, b) for a, b in zip(after, now))
+    expect([t.data_ptr() for _, t in ck._entries(step)]
+           + [step._t.data_ptr()] == held,
+           "resume: the load rebound a tensor the captured graph holds")
+    expect(again == {n: losses[n] for n in again} and same,
+           f"resume: the captured step after loading the step-{first} "
+           f"snapshot gave losses {again} against {losses}; every tensor "
+           f"{'the same bits' if same else 'NOT the same bits'}")
+    ran = last + last - first
+    expect(launches == dict.fromkeys(FUSED, FUSED_PER_STEP * ran)
+           and step.graph_count() == (1 if DEVICE == "cuda" else 0),
+           f"resume: launches {launches} over {ran} steps, "
+           f"{step.graph_count()} graphs")
+    nbytes = sum(t.numel() * t.element_size() for _, t in ck._entries(step))
+    log(f"resume [in process, {RESUME_NET}, cuDNN deterministic]: losses "
+        f"{losses}; the step-{first} snapshot loaded into the captured step "
+        f"in {load_ms:.1f} ms, then steps {sorted(again)} replayed the same "
+        f"bits (losses and {len(now)} tensors), none rebound; launches "
+        f"{launches}")
+    return step, batch, {"load_ms": load_ms, "launches": launches,
+                         "bytes": nbytes}
+
+
+def resume_stall(torch, step, batch, tmp):
+    """(b) ``RESUME_TURNS`` steps in turns (plain, snapshot, snapshot,
+    plain, ...), each synchronised, the writer drained before each turn:
+    the step loop's stall per async snapshot (the host's ``save()`` and
+    the copies the next replay waits for) against a plain step; the
+    writer's serialize + fsync + commit ms a snapshot."""
+    from mxnet_tpu_torch.parallel import checkpoint as ck
+
+    writes = []
+    real = ck._write_payload
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        total = real(*a, **kw)
+        writes.append((time.perf_counter() - t0, total))
+        return total
+
+    snap = ck.AsyncSnapshotter()
+    ck._write_payload = timed
+    try:
+        expect(snap.save(step, os.path.join(tmp, "warm.npz")),
+               "resume: the first async snapshot was skipped")
+        expect(snap.wait_until_finished(timeout=600), "resume: no drain")
+        staging = snap._spare[0]         # the buffer every turn reuses
+        pinned = (staging._handle._pinned.numel()
+                  if staging._handle is not None else 0)
+        del writes[:]
+        times = {"plain": [], "snapshot": []}
+        host = []
+        for turn in range(RESUME_TURNS):
+            kind = "snapshot" if turn % 4 in (1, 2) else "plain"
+            expect(snap.wait_until_finished(timeout=600),
+                   "resume: the writer did not drain")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(*batch(step._num_update))
+            if kind == "snapshot":
+                t1 = time.perf_counter()
+                expect(snap.save(step, os.path.join(
+                    tmp, f"turn-{turn:02d}.npz")),
+                    "resume: an async snapshot was skipped")
+                host.append(time.perf_counter() - t1)
+            torch.cuda.synchronize()
+            times[kind].append(time.perf_counter() - t0)
+        expect(snap.wait_until_finished(timeout=600), "resume: no drain")
+        errors = snap.errors
+    finally:
+        ck._write_payload = real
+        snap.close(timeout=600)
+    expect(not errors, f"resume: the async writer failed: {errors}")
+    for name in sorted(os.listdir(tmp)):
+        if name.startswith("turn-"):
+            ck.verify_checkpoint(os.path.join(tmp, name))
+    plain_ms = 1e3 * float(np.mean(times["plain"]))
+    snap_ms = 1e3 * float(np.mean(times["snapshot"]))
+    write_s = float(np.mean([w for w, _ in writes]))
+    total = writes[0][1]
+    fig = {"plain_ms": plain_ms, "snapshot_ms": snap_ms,
+           "stall_ms": snap_ms - plain_ms,
+           "host_ms": 1e3 * float(np.mean(host)),
+           "write_ms": 1e3 * write_s, "write_mb_s": total / write_s / 1e6,
+           "bytes": total, "writes": len(writes), "pinned": pinned}
+    log(f"resume [async snapshots, {RESUME_TURNS} steps in turns]: step "
+        f"{plain_ms:.1f} ms plain, {snap_ms:.1f} ms with a snapshot: stall "
+        f"{fig['stall_ms']:.1f} ms a snapshot (save() itself "
+        f"{fig['host_ms']:.2f} ms on the host); the writer's serialize + "
+        f"fsync + commit {fig['write_ms']:.1f} ms = "
+        f"{fig['write_mb_s']:.1f} MB/s over {len(writes)} writes of "
+        f"{total} bytes; {pinned} bytes of pinned staging, reused")
+    return fig
+
+
+def worker_lines(path):
+    """The ``[worker] {...}`` records of a supervised worker's log, one
+    list per attempt."""
+    attempts = []
+    with open(path) as f:
+        for line in f:
+            i = line.find("[worker] ")
+            if i < 0:
+                continue
+            rec = json.loads(line[i + len("[worker] "):])
+            if "resumed_at" in rec:
+                attempts.append([])
+            attempts[-1].append(rec)
+    return attempts
+
+
+def resume_watch(hb, ckd, stop, acted):
+    """SIGKILL attempt 0 once its heartbeat reads step >= RESUME_KILL[0]
+    and a snapshot >= RESUME_KILL[1] is committed; SIGTERM attempt 1 at
+    step >= RESUME_TERM (it snapshots and exits preempted)."""
+    import signal
+
+    from mxnet_tpu_torch import elastic
+
+    while not stop.is_set() and len(acted) < 2:
+        rec = elastic.read_heartbeats(hb).get(0)
+        if rec is not None:
+            at, done = rec["global_step"], \
+                elastic.latest_committed_step(ckd) or 0
+            if (rec["attempt"], len(acted)) == (0, 0) \
+                    and at >= RESUME_KILL[0] and done >= RESUME_KILL[1]:
+                os.kill(rec["pid"], signal.SIGKILL)
+                acted.append(("SIGKILL", 0, at, done))
+            elif (rec["attempt"], len(acted)) == (1, 1) \
+                    and at >= RESUME_TERM:
+                os.kill(rec["pid"], signal.SIGTERM)
+                acted.append(("SIGTERM", 1, at, done))
+        stop.wait(0.02)
+
+
+def supervised(root, tmp, name, faults):
+    """``elastic_worker`` under ``elastic.Supervisor(n=1, platform="gpu",
+    devices_per_worker=1)`` to ``RESUME_TARGET``, with the watcher's
+    signals when ``faults``.  Returns the run's records."""
+    import threading
+
+    from mxnet_tpu_torch import elastic
+
+    d = os.path.join(tmp, name)
+    ckd, hb, logd = (os.path.join(d, k) for k in ("ckpt", "hb", "logs"))
+    ev = os.path.join(d, "events.jsonl")
+    cmd = [sys.executable, "-m", "mxnet_tpu_torch.elastic_worker",
+           "--device", DEVICE, "--net", RESUME_NET, "--target-step",
+           str(RESUME_TARGET), "--ckpt-dir", ckd, "--every",
+           str(RESUME_EVERY)]
+    if faults:
+        cmd += ["--step-sleep", str(RESUME_STEP_SLEEP)]
+    path = os.pathsep.join(filter(None, (root,
+                                         os.environ.get("PYTHONPATH"))))
+    sup = elastic.Supervisor(
+        cmd, 1, platform="gpu", devices_per_worker=1, max_restarts=3,
+        backoff_base=0.1, graceful_secs=120, heartbeat_dir=hb, log_dir=logd,
+        event_log=ev, progress_dir=ckd, extra_env={"PYTHONPATH": path})
+    stop, acted = threading.Event(), []
+    watcher = threading.Thread(target=resume_watch,
+                               args=(hb, ckd, stop, acted), daemon=True)
+    if faults:
+        watcher.start()
+    timer = threading.Timer(RESUME_TIMEOUT_S, sup.request_stop)
+    timer.start()
+    try:
+        rc = sup.run()
+    finally:
+        timer.cancel()
+        stop.set()
+        if faults:
+            watcher.join(timeout=10)
+    with open(ev) as f:
+        events = [json.loads(x) for x in f]
+    expect(rc == 0 and events[-1]["event"] == "done",
+           f"resume [{name}]: the supervisor returned {rc}, last event "
+           f"{events[-1]}")
+    return {"events": events, "acted": acted, "ckpt": ckd,
+            "attempts": worker_lines(os.path.join(logd, "r0.log"))}
+
+
+def resume_supervised(torch, root, tmp, smi_line):
+    """(c) The uninterrupted reference worker, then the same worker
+    SIGKILLed (attempt 0) and SIGTERMed (attempt 1, exits preempted after
+    its snapshot) under the supervisor: every step's loss and the final
+    snapshot's digests the reference's bits, every retained snapshot
+    verified, the event log in order."""
+    from mxnet_tpu_torch.parallel import checkpoint as ck
+
+    ref = supervised(root, tmp, "reference", False)
+    ref_losses = {r["num_update"]: r["loss"]
+                  for r in ref["attempts"][0] if "num_update" in r}
+    expect(sorted(ref_losses) == list(range(1, RESUME_TARGET + 1)),
+           f"resume: the reference printed steps {sorted(ref_losses)}")
+    last = os.path.join(ref["ckpt"], f"ckpt-{RESUME_TARGET:08d}.npz")
+    ref_digests = ck.verify_checkpoint(last)["digests"]
+
+    run = supervised(root, tmp, "faults", True)
+    kinds = [e["event"] for e in run["events"]]
+    exits = [e["status"] for e in run["events"]
+             if e["event"] == "worker-exit"]
+    expect([a[0] for a in run["acted"]] == ["SIGKILL", "SIGTERM"]
+           and exits == ["killed:SIGKILL", "preempted", "ok"]
+           and [k for k in kinds if k in ("spawn", "worker-exit",
+                                          "restart", "done")]
+           == ["spawn", "worker-exit", "restart"] * 2
+           + ["spawn", "worker-exit", "done"],
+           f"resume: signals {run['acted']}, exits {exits}, events {kinds}")
+    steps = [r for a in run["attempts"] for r in a if "num_update" in r]
+    differ = [r for r in steps if r["loss"] != ref_losses[r["num_update"]]]
+    expect(not differ and {r["num_update"] for r in steps}
+           == set(ref_losses),
+           f"resume: steps whose loss is not the reference's bits: "
+           f"{differ}")
+    retained = ck.list_checkpoints(run["ckpt"])
+    for _, path in retained:
+        ck.verify_checkpoint(path)
+    digests = ck.verify_checkpoint(dict(retained)[RESUME_TARGET])["digests"]
+    expect(digests == ref_digests, "resume: the final snapshot's digests "
+           "differ from the uninterrupted reference's")
+    spawns = [e["ts"] for e in ref["events"] if e["event"] == "spawn"] \
+        + [e["ts"] for e in run["events"] if e["event"] == "spawn"]
+    firsts = [next(r["wall"] for r in a if "num_update" in r)
+              for a in ref["attempts"] + run["attempts"]]
+    startup = [f - s for s, f in zip(spawns, firsts)]
+    ends = [a[-1] for a in ref["attempts"] + run["attempts"]
+            if "steps" in a[-1]]            # the SIGKILLed one has none
+    expect(len(ends) == 3, f"resume: {len(ends)} workers reported their "
+           f"launches, expected 3 (the reference, attempts 1 and 2)")
+    replayed = []
+    for e in ends:
+        got = {k: e["launches"].get(f"fused_conv_{k}", 0) for k in FUSED}
+        expect(got == dict.fromkeys(FUSED, FUSED_PER_STEP * e["steps"]),
+               f"resume: a worker ran {e['steps']} steps and launched "
+               f"{got}")
+        replayed.append(FUSED_PER_STEP * (e["steps"] - 1))  # the first
+    resumed = [a[0]["resumed_at"] for a in run["attempts"]]   # is eager
+    log(f"resume [supervised, {RESUME_NET}, target {RESUME_TARGET}, every "
+        f"{RESUME_EVERY}, keep 2]: reference rc 0; with faults "
+        f"{run['acted']} (signal, attempt, heartbeat step, committed "
+        f"step), exits {exits}, resumed at {resumed}; {len(steps)} steps "
+        f"printed, every loss the reference's bits; the final snapshot's "
+        f"{len(digests)} digests the reference's; {len(retained)} retained "
+        f"snapshots verified; events {kinds}")
+    log(f"resume [workers]: spawn to first step "
+        f"{[round(s, 2) for s in startup]} s (reference, then attempts 0-2)"
+        f"; fused-conv launches of each kernel under replay {replayed} "
+        f"(the reference, attempts 1 and 2; {FUSED_PER_STEP} a step, the "
+        f"first step of each attempt runs eagerly); {smi_line}")
+    return {"startup_s": startup, "replayed": replayed, "exits": exits,
+            "acted": run["acted"], "resumed": resumed}
+
+
+def resume_phase(torch, root, smi_line):
+    """Checkpoints and the runtime around training, cuDNN deterministic
+    throughout: (a) in place in a captured step, (b) the async snapshot's
+    stall, (c) the supervised kill and resume."""
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_resume_") \
+                as tmp:
+            step, batch, inproc = resume_in_process(torch, tmp)
+            stall = resume_stall(torch, step, batch, tmp)
+            del step, batch
+            gc.collect()
+            torch.cuda.empty_cache()
+            sup = resume_supervised(torch, root, tmp, smi_line)
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    log(f"resume: snapshot {stall['bytes']} bytes ({inproc['bytes']} in "
+        f"the step's tensors); stall {stall['stall_ms']:.1f} ms a snapshot "
+        f"against a {stall['plain_ms']:.1f} ms step; writer "
+        f"{stall['write_ms']:.1f} ms = {stall['write_mb_s']:.1f} MB/s; "
+        f"load_train_step {inproc['load_ms']:.1f} ms; worker start-up "
+        f"{[round(s, 2) for s in sup['startup_s']]} s; {smi_line}")
+    return {**inproc, **{f"stall_{k}": v for k, v in stall.items()}, **sup}
+
+
+
 class phase:
     """Print a phase's wall time on its own line when it ends."""
 
@@ -3772,6 +4134,11 @@ def main():
                 f"{unfused['img_s']:.1f} img/s ({unfused['ms_step']:.1f} "
                 f"ms/step) = {trained['img_s'] / unfused['img_s']:.3f}x")
             torch.cuda.empty_cache()
+        with phase("resume"):
+            gc.collect()
+            torch.cuda.empty_cache()
+            resumed = resume_phase(torch, root, smi_line)
+            torch.cuda.empty_cache()
         with phase("fused conv timing"):
             fused_times = time_fused(torch)
             torch.cuda.empty_cache()
@@ -3855,7 +4222,8 @@ def main():
                                  "hybridize": hybrid["resnet"]["replayed"][
                                      kern],
                                  "input pipeline":
-                                     pipeline["fed"]["launches"][kern]}})
+                                     pipeline["fed"]["launches"][kern],
+                                 "resume": resumed["launches"][kern]}})
     for kern in FLASH:
         kname, t = f"flash_attention_{kern}", flash_times[kern]
         kernels["kernels"].append({

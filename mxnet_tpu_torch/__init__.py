@@ -51,7 +51,9 @@ CUDA graph (``graphs``), the counterpart of the JAX package's compiled
 programs; ``python -m mxnet_tpu_torch.bench {resnet,bert,llm}`` prints
 ``bench.py``'s line for each slice.
 
-Exports: ``nd`` (``ndarray``), ``autograd``, ``config``, ``engine``,
+Exports: ``nd`` (``ndarray``), ``autograd``, ``config``, ``elastic``
+(heartbeats and the gang supervisor; ``parallel.checkpoint`` the
+snapshots they resume from), ``engine``,
 ``gluon``, ``image``, ``init`` (``initializer``), ``io``, ``metric``,
 ``optimizer``, ``parallel``, ``profiler``, ``random``, ``recordio``,
 ``storage``,
@@ -59,9 +61,9 @@ Exports: ``nd`` (``ndarray``), ``autograd``, ``config``, ``engine``,
 ``gpu_memory_info``.
 """
 from . import base, config, storage
-from . import (autograd, context, engine, gluon, image, initializer, io,
-               lr_scheduler, metric, ndarray, optimizer, parallel, profiler,
-               random, recordio)
+from . import (autograd, context, elastic, engine, gluon, image, initializer,
+               io, lr_scheduler, metric, ndarray, optimizer, parallel,
+               profiler, random, recordio)
 from .context import (Context, cpu, current_context, gpu, gpu_memory_info,
                       num_gpus, resolve_device)
 
@@ -70,7 +72,8 @@ init = initializer
 
 config._apply_startup()
 
-__all__ = ["autograd", "base", "config", "context", "engine", "gluon",
+__all__ = ["autograd", "base", "config", "context", "elastic", "engine",
+           "gluon",
            "image", "initializer", "init", "io", "lr_scheduler", "metric",
            "nd", "ndarray", "optimizer", "parallel", "profiler", "random",
            "recordio", "storage", "Context", "cpu", "gpu", "current_context",

@@ -84,11 +84,22 @@ def tensor_from_numpy(a):
     return torch.from_numpy(a)
 
 
+# Set by ``profiler.set_state("run")``: None keeps the dispatch free of
+# any profiler cost but this read.
+_PROF = None
+
+
 def invoke(op_name: str, *args, out=None, **kwargs):
-    """Dispatch registered op ``op_name`` on NDArrays (and scalars)."""
+    """Dispatch registered op ``op_name`` on NDArrays (and scalars); a
+    span per call while the profiler records."""
     fn = OPS.get(op_name)
     if fn is None:
         raise ValueError(f"unknown operator '{op_name}'")
+    prof = _PROF
+    if prof is not None and prof.ACTIVE:
+        t0 = prof._now_us()
+    else:
+        prof = None
     raw = [a._data if isinstance(a, NDArray) else _raw(a) for a in args]
     if kwargs:
         kwargs = {k: v for k, v in kwargs.items()
@@ -107,13 +118,17 @@ def invoke(op_name: str, *args, out=None, **kwargs):
         first = res[0]
     else:
         res = first = _wrap(res)
-    if out is None:
-        return res
-    if first._epoch is None:
-        out._rebind(first._data)
-    else:       # recorded: ``out`` must hold the tensor the graph knows
-        out._data, out._epoch = first._data, first._epoch
-    return (out,) + res[1:] if isinstance(res, tuple) else out
+    if out is not None:
+        if first._epoch is None:
+            out._rebind(first._data)
+        else:   # recorded: ``out`` must hold the tensor the graph knows
+            out._data, out._epoch = first._data, first._epoch
+        res = (out,) + res[1:] if isinstance(res, tuple) else out
+    if prof is not None:
+        if prof.want_sync() and first._data.is_cuda:
+            torch.cuda.synchronize(first._data.device)
+        prof.record_span(op_name, t0, prof._now_us())
+    return res
 
 
 class NDArray:

@@ -49,8 +49,22 @@ raises: there is no fallback.
 finite) and selects every new value — parameters, optimizer state,
 running statistics and ``t`` — against its old one without a branch, as
 the JAX step does; the host reads the flag once after the step (one
-sync), counts the skip and raises ``NonFiniteAbortError`` after
-``nonfinite_budget`` consecutive ones.
+sync), counts the skip (also in the ``TrainStep::nonfinite_skips``
+profiler counter) and raises ``NonFiniteAbortError`` after
+``nonfinite_budget`` consecutive ones — after draining every queued
+asynchronous snapshot (``checkpoint.flush_pending``), so the last good
+state is on disk when a supervisor looks at the wreck.
+
+The runtime around training: ``heartbeat=`` takes an
+``elastic.Heartbeat``, stamped with ``compile_in_progress=True`` before a
+signature's first (capturing) call and with the step count and the
+call's host milliseconds after every step (no added sync);
+``parallel.checkpoint`` (``CheckpointManager``, ``save_train_step``,
+``load_train_step``, ``resume_latest``) snapshots the step's tensors and
+loads them back in place, into the tensors a captured graph holds.
+While the profiler or telemetry records, each call is a
+``TrainStep.step`` span carrying the ``DevicePrefetcher`` consumer wait
+accrued since the last one (``feed_wait_ms``).
 
 The net's own calls inside the step run eagerly even when it is
 hybridized (``functional_call``): the step is the captured unit, and
@@ -61,24 +75,27 @@ nothing to donate (a captured step copies the batch into its static
 buffers either way).
 
 Not ported yet: a device mesh (data parallelism) and gradient
-compression.  The prefetching feed is ``parallel.DevicePrefetcher``.
+compression (ROADMAP A15).  The prefetching feed is
+``parallel.DevicePrefetcher``.
 """
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
 
 from .. import autograd as _autograd
+from .. import profiler as _profiler
+from .. import telemetry as _telemetry
+from ..elastic import NonFiniteAbortError
+from ..fault import fire as _fire
 from ..graphs import GraphCache
 from .functional import (functional_call, param_names_and_values,
                          run_eagerly, trainable_split)
 from .functional_opt import multi_update, state_template
 
 __all__ = ["TrainStep", "EvalStep", "NonFiniteAbortError"]
-
-
-class NonFiniteAbortError(RuntimeError):
-    """Too many consecutive non-finite steps."""
 
 
 # ------------------------------------------------------ batch structure --
@@ -154,13 +171,29 @@ def _through_graphs(graphs, statics, body, args):
     return tuple(None if o is None else o.clone() for o in out)
 
 
+def _finish_trace(tr, error=None):
+    """Export a step's trace on a failing path (the flight recorder's
+    bundle then holds the step that died); never raises."""
+    if tr is None:
+        return
+    try:
+        if error is not None:
+            cls = error if isinstance(error, type) else type(error)
+            tr.root.attrs["error"] = cls.__name__
+        tr.root.end()
+        tr.finish()
+    except Exception:   # noqa: BLE001 — tracing never worsens a death
+        pass
+
+
 # ------------------------------------------------------------ train step --
 class TrainStep:
     """``step(data, label)`` -> the loss, updating the step's params."""
 
     def __init__(self, net, loss_fn, optimizer, mesh=None,
                  loss_reduce="mean", donate_batch=False,
-                 skip_nonfinite=False, nonfinite_budget=10, capture=None):
+                 skip_nonfinite=False, nonfinite_budget=10, capture=None,
+                 heartbeat=None):
         if mesh is not None:
             raise NotImplementedError("the port's TrainStep runs on one "
                                       "device; a mesh is not ported yet")
@@ -174,10 +207,15 @@ class TrainStep:
         self._skip_nonfinite = bool(skip_nonfinite)
         self._nonfinite_budget = nonfinite_budget
         self._capture = capture
+        self._heartbeat = heartbeat
         self.skipped_steps = 0
         self.consecutive_skips = 0
+        self._skip_counter = _profiler.Counter(
+            None, "TrainStep::nonfinite_skips")
         self._built = False
         self._num_update = optimizer.begin_num_update
+        # the DevicePrefetcher consumer wait read at the last traced step
+        self._feed_wait_seen = None
 
     # --------------------------------------------------------------- build --
     def _build(self, data_args, device):
@@ -259,46 +297,119 @@ class TrainStep:
         return self.step(data, label)
 
     def step(self, data, label):
+        with _profiler.scope("TrainStep.step", cat="step"):
+            return self._step(data, label)
+
+    def _step(self, data, label):
+        _fire("step")
+        t_wall = time.perf_counter()
+        tr = _telemetry.maybe_trace("step", server="TrainStep") \
+            if _telemetry.ACTIVE else None
+        sp = None if tr is None else tr.open("h2d", parent=tr.root)
         device = _device_of(self.net)
         data, label = _coerce(data, device), _coerce(label, device)
         data_args = data if isinstance(data, tuple) else (data,)
         if isinstance(label, tuple) and len(label) == 1:
             label = label[0]
+        if sp is not None:
+            sp.end()
+        if self._heartbeat is not None and self._first_call(data_args,
+                                                             label):
+            # before the capturing call, so a supervisor's watchdog can
+            # tell a long first call from a hung step
+            self._heartbeat.beat(self._num_update, phase="train",
+                                 compile_in_progress=True)
         if not self._built:
             self._build(data_args, device)
         lr = self._base_lr()
         if lr != self._lr_value:
             self._lr.fill_(lr)
             self._lr_value = lr
-        if self._graphs is None:
-            loss, finite = self._body(data_args, label)
-        else:
-            loss, finite = _through_graphs(self._graphs, self._static,
-                                           self._body, (data_args, label))
+        sp = None if tr is None else tr.open("compute", parent=tr.root)
+        try:
+            if self._graphs is None:
+                loss, finite = self._body(data_args, label)
+            else:
+                loss, finite = _through_graphs(self._graphs, self._static,
+                                               self._body, (data_args,
+                                                            label))
+        except BaseException as exc:
+            _finish_trace(tr, error=exc)
+            raise
+        if sp is not None:
+            sp.end()
         if finite is not None and not bool(finite):   # the one sync
-            self._skip(loss)
-            return loss
-        self._num_update += 1
-        self.consecutive_skips = 0
-        self.optimizer.num_update = self._num_update
+            self._skip(loss, tr)
+        else:
+            self._num_update += 1
+            self.consecutive_skips = 0
+            self.optimizer.num_update = self._num_update
+            self._trace_done(tr)
+        if self._heartbeat is not None:
+            self._heartbeat.beat(self._num_update, last_step_ms=(
+                time.perf_counter() - t_wall) * 1e3)
         return loss
+
+    def _first_call(self, data_args, label):
+        """Whether this call runs a signature for the first time (on the
+        card: the call that captures its graph)."""
+        if not self._built:
+            return True
+        return self._graphs is not None and \
+            _signature((data_args, label)) not in self._graphs.held
+
+    def _trace_done(self, tr):
+        """Close a step's trace with the feed wait accrued since the last
+        traced step (an attribute and a histogram: the wait came before
+        this step's window opened)."""
+        if tr is None:
+            return
+        try:
+            w = _profiler.counter_value("DevicePrefetcher::consumer_wait_ms")
+            if w is not None:
+                seen = self._feed_wait_seen
+                delta = 0.0 if seen is None else max(0.0, w - seen)
+                self._feed_wait_seen = w
+                tr.root.attrs["feed_wait_ms"] = round(delta, 3)
+                _telemetry.registry().histogram(
+                    "TrainStep::feed_wait_ms",
+                    _telemetry.SPAN_MS_BUCKETS).observe(delta)
+            tr.root.attrs["num_update"] = int(self._num_update)
+            tr.root.end()
+            tr.finish()
+        except Exception:   # noqa: BLE001 — tracing never fails a step
+            pass
 
     def graph_count(self):
         """CUDA graphs held: one per input signature seen on the card
         (0 when the step runs eagerly)."""
         return len(self._graphs) if self._built and self._graphs else 0
 
-    def _skip(self, loss):
+    def _skip(self, loss, tr):
+        """Count a non-finite step; past the budget, export the step's
+        trace, trip the flight recorder, let queued snapshots commit and
+        raise ``NonFiniteAbortError``.  Closes ``tr`` when it raises."""
         self.skipped_steps += 1
         self.consecutive_skips += 1
+        self._skip_counter.increment()
         budget = self._nonfinite_budget
-        if budget is not None and self.consecutive_skips >= budget:
-            raise NonFiniteAbortError(
-                f"TrainStep: {self.consecutive_skips} consecutive non-finite "
-                f"updates (budget {budget}) at num_update="
-                f"{self._num_update}; last loss={float(loss)}. "
-                f"Params and optimizer state are unchanged since the last "
-                f"finite step")
+        if budget is None or self.consecutive_skips < budget:
+            self._trace_done(tr)
+            return
+        _finish_trace(tr, error=NonFiniteAbortError)
+        _telemetry.flight_trip("nonfinite-abort", step=int(self._num_update),
+                               consecutive_skips=self.consecutive_skips)
+        try:
+            from .checkpoint import flush_pending
+            flush_pending(timeout=60.0)
+        except Exception:  # noqa: BLE001 — the abort verdict must not be
+            pass           # masked by a flush
+        raise NonFiniteAbortError(
+            f"TrainStep: {self.consecutive_skips} consecutive non-finite "
+            f"updates (budget {budget}) at num_update="
+            f"{self._num_update}; last loss={float(loss)}. "
+            f"Params and optimizer state are unchanged since the last "
+            f"finite step")
 
     # ---------------------------------------------------------------- sync --
     def sync_params_to_net(self):
