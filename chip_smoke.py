@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's six paths end to end on the first CUDA device, with
+Drives the port's eight paths end to end on the first CUDA device, with
 random weights from a seed:
 
 - the imperative API: the Gluon MLP loop of
@@ -39,7 +39,18 @@ random weights from a seed:
   batch 64 x 128 with 20 masked positions of ``RandomState(0)`` data),
   full width and depth, with ``attention_impl="flash"``.  Every row is
   full length, so ``valid_length`` is None (the same function as
-  bench_bert's ``valid_length = 128``; the flash path takes no mask).
+  bench_bert's ``valid_length = 128``; the flash path takes no mask);
+- the LSTM language model as ``bench_lstm`` trains it (BASELINE config
+  3: ``rnn_lm``, vocab 10000, embed 650, 2 LSTM layers of 650, dropout
+  0.5, bf16 cast, SGD at 20 / batch, batch 64 x bptt 35 of
+  ``RandomState(0)`` ids) and ``examples/word_language_model.py``'s
+  ``main()`` as written;
+- SSD-512 as ``bench_ssd`` trains it (BASELINE config 5:
+  ``ssd_512_resnet50_v1(classes=20)``, bf16 cast, ``MultiBoxTarget`` and
+  ``SSDMultiBoxLoss`` in the loss, SGD 1e-3 / 0.9 / 5e-4, batch 16 of
+  3x512x512 images with 1-3 boxes each), full width and depth.  Neither
+  of these two paths reaches a hand-written kernel: the JAX package has
+  no Pallas kernel on them (the recurrence is cuDNN's RNN).
 
 Phases, each of which fails the run (each prints its wall time):
 
@@ -222,7 +233,33 @@ Phases, each of which fails the run (each prints its wall time):
     together), with its achieved TFLOP/s; summed over a step's 12
     launches; before it, ``nvcc -Xptxas -v``'s registers and spills of
     the tensor-core forward, dQ and dK/dV kernels beside their shared
-    memory.
+    memory;
+15. the LSTM language model: (a) the ``RNN`` op at the path's shape (T
+    35, N 64, 650 -> 650; LSTM at 2 layers, GRU at 1) against its plain
+    per-step version (``ops.rnn.rnn_reference``, the JAX cells), every
+    output and the gradients of the data, the states and the packed
+    parameter: f32 with TF32 off within ``RNN_F32_TOL`` of each leaf's
+    scale (with the TF32 flag as it stands, printed), bf16 against the
+    f32 op within
+    ``RNN_BF16_FACTOR`` x the plain version's own bf16 error; (b) one
+    forward and backward of the op per dtype under ``torch.profiler``:
+    the kernels that carry it by name, and the copies (cuDNN compacting
+    the packed views); (c) ``bench_lstm``'s step, 2 warm-up and 20 timed
+    steps, captured and eager in turns (captured, eager, eager,
+    captured) from the same parameters and seed, a profiled step of
+    each, peak memory, the losses the same bits or held within 2%; (d)
+    a captured step at learning rate 0: the first call eager, then 3
+    replays with 3 different losses (new dropout masks); (e)
+    ``examples/word_language_model.py``'s ``main()`` with ``--epochs 1
+    --max-tokens 56000`` on its synthetic corpus: a finite perplexity;
+16. SSD-512: (a) ``MultiBoxPrior`` at the net's seven feature maps,
+    ``MultiBoxTarget`` (labels with two rows claiming one anchor behind
+    padding rows, an f32 ``cls_pred`` rounded to halves: tied scores)
+    and ``MultiBoxDetection`` on the card against the same calls on the
+    host: classes and masks equal, boxes within ``MULTIBOX_ATOL``; (b)
+    ``bench_ssd``'s step, 2 warm-up and 10 timed steps, captured and
+    eager in turns as in 15(c); (c) one ``detect()`` of the net's
+    outputs on the card against the host.
 
 Prints one JSON ``kernels`` line, then the card line, then as the last
 line ``{"ok": true, "device": {...}}``.  Without a card, or without the
@@ -357,6 +394,33 @@ RESUME_TURNS = 10
 RESUME_STEP_SLEEP = 0.5
 RESUME_KILL, RESUME_TERM = (5, 4), 7
 RESUME_TIMEOUT_S = 300           # a supervised run's limit
+# the LSTM language model (bench.py bench_lstm's settings): vocab, embed
+# = hidden, layers, dropout, batch x bptt, steps; the RNN op against its
+# plain per-step version at that shape: f32 (TF32 off) within these
+# shares of each leaf's scale (outputs, gradients: 35 steps of sums in
+# another order), bf16 within a factor of the plain version's own bf16
+# error; the word-language-model example's arguments
+LSTM_VOCAB, LSTM_UNITS, LSTM_LAYERS, LSTM_DROPOUT = 10000, 650, 2, 0.5
+LSTM_BATCH, LSTM_BPTT, LSTM_WARMUP, LSTM_TIMED = 64, 35, 2, 20
+RNN_F32_TOL = (1e-4, 1e-3)
+RNN_BF16_FACTOR, RNN_BF16_MIN_FLOOR = 3.0, 2 ** -9
+LM_EXAMPLE_ARGS = ["--epochs", "1", "--max-tokens", "56000"]
+# SSD-512 (bench.py bench_ssd's settings): batch, image side, classes,
+# steps; the multibox ops card vs host (f32, the same arithmetic)
+SSD_BATCH, SSD_SIZE, SSD_CLASSES, SSD_WARMUP, SSD_TIMED = 16, 512, 20, 2, 10
+MULTIBOX_ATOL = 1e-6
+# the SSD's parameters that bench_ssd's steps may leave as they were: a
+# BatchNorm scale starts at 1.0, where bf16's spacing (2^-8 below, 2^-7
+# above) rounds away a step at learning rate 1e-3 unless its gradient is
+# large; the last three scales (1x1 maps, anchors of 0.6-0.97) hold no
+# positive anchor for boxes of 0.1-0.4 and none mined as a hard
+# negative, so their heads and the down blocks that feed only them take
+# no gradient (also in f32, on the CPU)
+SSD_MAY_STAY = (r"batchnorm\d+_gamma$|^ssd\d+__predictorhead(8|9|1[0-3])_"
+                r"|^ssd\d+_(conv2d|batchnorm)([6-9]|1[01])_")
+# captured vs eager parameters, where two eager runs differ: within this
+# many times the eager runs' own gap
+RUN_GAP_FACTOR = 4.0
 
 
 def log(msg):
@@ -3143,13 +3207,19 @@ def natives():
 def port_as_mxnet(argv, env=None):
     """The port bound as ``mxnet_tpu`` while an example is imported and
     run (so ``import mxnet_tpu as mx`` in it binds the port and nothing
-    of the JAX package loads), with ``sys.argv`` = ``argv`` and the
-    environment updated by ``env``; both restored after."""
-    import mxnet_tpu_torch
+    of the JAX package loads), every loaded module of the port under its
+    ``mxnet_tpu.*`` name too (so ``from mxnet_tpu.gluon.model_zoo...
+    import`` finds the loaded module and loads no second copy), with
+    ``sys.argv`` = ``argv`` and the environment updated by ``env``; all
+    restored after."""
+    import mxnet_tpu_torch  # noqa: F401  (loads every module of the port)
 
-    saved = sys.modules.get("mxnet_tpu")
+    names = {"mxnet_tpu" + k[len("mxnet_tpu_torch"):]: m
+             for k, m in list(sys.modules.items())
+             if k == "mxnet_tpu_torch" or k.startswith("mxnet_tpu_torch.")}
+    saved = {k: sys.modules.get(k) for k in names}
     old_argv, old_env = sys.argv, {k: os.environ.get(k) for k in env or {}}
-    sys.modules["mxnet_tpu"] = mxnet_tpu_torch
+    sys.modules.update(names)
     sys.argv = argv
     os.environ.update(env or {})
     try:
@@ -3161,10 +3231,11 @@ def port_as_mxnet(argv, env=None):
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
-        if saved is None:
-            sys.modules.pop("mxnet_tpu", None)
-        else:
-            sys.modules["mxnet_tpu"] = saved
+        for k, m in saved.items():
+            if m is None:
+                sys.modules.pop(k, None)
+            else:
+                sys.modules[k] = m
 
 
 def run_example(root, name, args, env=None):
@@ -3964,6 +4035,496 @@ def resume_phase(torch, root, smi_line):
     return {**inproc, **{f"stall_{k}": v for k, v in stall.items()}, **sup}
 
 
+# ------------------------------------------------------- LSTM LM and SSD --
+def rel_err(got, want):
+    """``max |got - want|`` over ``max |want|`` (a leaf's scale)."""
+    g, w = got.double(), want.double()
+    return float((g - w).abs().max() / w.abs().max().clamp(min=1e-30))
+
+
+def rnn_leaves(torch, fn, args, cts):
+    """``fn(*args)``'s outputs and the gradients of ``sum(out * ct)``
+    for every input: the leaves of an RNN check, as float32."""
+    args = [a.detach().clone().requires_grad_(True) for a in args]
+    outs = fn(*args)
+    grads = torch.autograd.grad(outs, args, [c.to(o.dtype)
+                                             for o, c in zip(outs, cts)])
+    return [t.detach().float() for t in list(outs) + list(grads)]
+
+
+def rnn_inputs(torch, mode, layers, gen):
+    """The path's inputs (T 35, N 64, 650 -> 650): data, the packed
+    parameter (uniform in +-1/sqrt(H), as torch initialises an RNN),
+    the initial states and one cotangent per output."""
+    from mxnet_tpu_torch.ops.rnn import rnn_param_size
+
+    t, n, h = LSTM_BPTT, LSTM_BATCH, LSTM_UNITS
+    size = rnn_param_size(mode, h, h, layers, False)
+
+    def randn(*shape, scale=1.0):
+        return scale * torch.randn(*shape, generator=gen, device="cuda")
+    args = [randn(t, n, h), (torch.rand(size, generator=gen, device="cuda")
+                             * 2 - 1) / h ** 0.5,
+            randn(layers, n, h, scale=0.5)]
+    if mode == "lstm":
+        args.append(randn(layers, n, h, scale=0.5))
+    cts = [randn(t, n, h)] + [randn(layers, n, h) for _ in args[2:]]
+    return args, cts
+
+
+RNN_LEAVES = ("out", "h_n", "c_n", "d data", "d param", "d h0", "d c0")
+
+
+def rnn_vs_plain(torch, mode, layers, gen):
+    """The ``RNN`` op at the path's shape against its plain per-step
+    version (``rnn_reference``, the JAX cells step by step), every
+    output and the gradient of every input: in f32 with TF32 off on
+    both (within ``RNN_F32_TOL`` of each leaf's scale), with the TF32
+    flag as it stands printed; in bf16 against the f32 op from the same
+    bf16-rounded inputs, within ``RNN_BF16_FACTOR`` times the plain
+    version's own bf16 error (its noise floor, raised to
+    ``RNN_BF16_MIN_FLOOR``)."""
+    from mxnet_tpu_torch.ops.rnn import RNN, rnn_reference
+
+    kw = dict(state_size=LSTM_UNITS, num_layers=layers, mode=mode)
+    names = RNN_LEAVES if mode == "lstm" else tuple(
+        n for n in RNN_LEAVES if n not in ("c_n", "d c0"))
+    args, cts = rnn_inputs(torch, mode, layers, gen)
+
+    def op(*a):
+        return RNN(*a, training=True, **kw)
+
+    def plain(*a):
+        return rnn_reference(*a, **kw)
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        f32 = rnn_leaves(torch, op, args, cts)
+    want = rnn_leaves(torch, plain, args, cts)
+    tf32 = rnn_leaves(torch, op, args, cts)
+    errs = {n: rel_err(g, w) for n, g, w in zip(names, f32, want)}
+    what = f"{mode}, {layers} layer{'s' * (layers > 1)}"
+    log(f"rnn [{what}, f32, T {LSTM_BPTT} N {LSTM_BATCH} {LSTM_UNITS} -> "
+        f"{LSTM_UNITS}]: op vs its plain per-step version, max error / "
+        f"leaf scale {({n: f'{e:.2e}' for n, e in errs.items()})}; with "
+        f"cuDNN's TF32 flag as it stands "
+        f"({torch.backends.cudnn.allow_tf32}: the port turns it off once "
+        f"it resolves the card) "
+        f"{({n: f'{rel_err(g, w):.2e}' for n, g, w in zip(names, tf32,
+                                                          want)})}")
+    for n, e in errs.items():
+        tol = RNN_F32_TOL[0 if n in ("out", "h_n", "c_n") else 1]
+        expect(e <= tol, f"rnn {what} f32: {n} off by {e:.2e} of its "
+               f"scale (> {tol})")
+    low = [a.to(torch.bfloat16) for a in args]
+    ref = [a.float() for a in low]
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        want = rnn_leaves(torch, op, ref, cts)
+    got = rnn_leaves(torch, op, low, cts)
+    floor = rnn_leaves(torch, plain, low, cts)
+    report = {}
+    for n, g, f, w in zip(names, got, floor, want):
+        e, fl = rel_err(g, w), max(rel_err(f, w), RNN_BF16_MIN_FLOOR)
+        report[n] = f"{e:.2e} (floor {fl:.2e})"
+        expect(e <= RNN_BF16_FACTOR * fl, f"rnn {what} bf16: {n} off by "
+               f"{e:.2e} of its scale, over {RNN_BF16_FACTOR} x the plain "
+               f"version's {fl:.2e}")
+    log(f"rnn [{what}, bf16]: op vs the f32 op, max error / leaf scale "
+        f"(the plain per-step version's in bf16) {report}")
+    return args, cts
+
+
+def rnn_route(torch, mode, args, cts, dtype):
+    """One forward and backward of the op under the profiler: the
+    kernels that carry it, by name, and the device time of copies
+    (cuDNN compacting the packed views into its flat buffer)."""
+    from mxnet_tpu_torch.ops.rnn import RNN
+
+    args = [a.to(dtype) for a in args]
+    what = f"rnn route {mode}, {str(dtype)[6:]}, fwd + bwd"
+
+    def run():
+        return rnn_leaves(torch, lambda *a: RNN(
+            *a, training=True, state_size=LSTM_UNITS,
+            num_layers=LSTM_LAYERS, mode=mode), args, cts)
+    run()
+    prof, wall_us, _ = profiled(torch, run, what)
+    print_profile(prof, wall_us, what)
+    rows = device_rows(prof)
+    copies = [e for e in rows if "copy" in e.key.lower()
+              or "memcpy" in e.key.lower()]
+    log(f"{what}: {sum(e.count for e in copies)} copy events, "
+        f"{sum(device_us(e) for e in copies) / 1e3:.3f} ms of "
+        f"{sum(device_us(e) for e in rows) / 1e3:.3f} ms device time; "
+        f"kernels named cuDNN-RNN-like "
+        f"{sorted({e.key[:60] for e in rows if 'rnn' in e.key.lower()})}")
+
+
+def build_lm(torch):
+    """``bench_lstm``'s net: ``rnn_lm`` at its width, random weights from
+    a seed, cast to bf16."""
+    from mxnet_tpu_torch import random as mxrandom
+    from mxnet_tpu_torch.gluon.model_zoo.language_model import rnn_lm
+
+    mxrandom.seed(0)
+    net = rnn_lm(vocab_size=LSTM_VOCAB, embed_size=LSTM_UNITS,
+                 hidden_size=LSTM_UNITS, num_layers=LSTM_LAYERS,
+                 dropout=LSTM_DROPOUT)
+    net.initialize(ctx=DEVICE)
+    net.cast("bfloat16")
+    return net
+
+
+def lm_batch(torch):
+    rng = np.random.RandomState(0)
+    return tuple(torch.from_numpy(rng.randint(
+        0, LSTM_VOCAB, (LSTM_BPTT, LSTM_BATCH)).astype(np.int32)).to(DEVICE)
+        for _ in range(2))
+
+
+def lm_loss_fn(f32=False):
+    """``bench_lstm``'s loss; with ``f32`` the logits cast first: on
+    random ids the bf16 loss reads 9.1875 (ln 10000 = 9.21) whatever the
+    dropout masks or the parameters, so only the f32 loss can tell two
+    runs apart."""
+    from mxnet_tpu_torch import gluon
+
+    ce = gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def loss_fn(out, label):
+        out = out.float() if f32 else out
+        return ce(out.reshape((-1, LSTM_VOCAB)), label.reshape((-1,)))
+    return loss_fn
+
+
+def timed_run(torch, step, batch, warmup, steps, what, unit, per_step):
+    """``warmup`` then ``steps`` timed calls of ``step(*batch)``: losses,
+    ms/step, rate (``per_step`` units a step) and peak memory."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = [float(step(*batch)) for _ in range(warmup)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timed = [step(*batch) for _ in range(steps)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    losses += [float(v) for v in timed]
+    peak = torch.cuda.max_memory_allocated()
+    expect(all(np.isfinite(losses)), f"{what}: loss not finite {losses}")
+    expect(all(bool(torch.isfinite(t).all()) for t in step._train),
+           f"{what}: a parameter is not finite")
+    rate = per_step * steps / dt
+    log(f"train [{what}]: losses {[round(v, 4) for v in losses]}; {steps} "
+        f"timed steps in {dt:.3f} s = {1e3 * dt / steps:.2f} ms/step = "
+        f"{rate:.1f} {unit}; peak device memory {peak / 2**30:.2f} GiB; "
+        f"graphs {step.graph_count()}")
+    return {"ms_step": 1e3 * dt / steps, "rate": rate, "losses": losses,
+            "peak": peak}
+
+
+def tensors_gap(got, want):
+    """Largest ``|got - want|`` over ``want``'s largest magnitude, over
+    two lists of tensors."""
+    return max(float((g.float() - w.float()).abs().max())
+               / max(float(w.float().abs().max()), 1e-30)
+               for g, w in zip(got, want))
+
+
+def train_in_turns(torch, make_step, batch, warmup, steps, what, unit,
+                   per_step, may_stay=None):
+    """The captured step and the eager one (``capture=False``), each from
+    the net's parameters and the random stream's seed 0, in turns
+    (captured, eager, eager, captured); a profiled step of each.  Every
+    trainable tensor must have moved from the net's value, but those
+    whose names match the pattern ``may_stay``.  Where the two eager
+    runs end on the same bits, the first captured run must end on the
+    first eager run's parameters and losses, bit for bit; where they do
+    not (a kernel that is not deterministic), its parameters must lie
+    within ``RUN_GAP_FACTOR`` times the eager runs' own gap and its
+    losses are held by ``track_losses``.  Returns the runs and the busy
+    shares."""
+    from mxnet_tpu_torch import random as mxrandom
+
+    runs, busy = {"captured": [], "eager": []}, {}
+    ends = {"captured": [], "eager": []}
+    for kind in ("captured", "eager", "eager", "captured"):
+        mxrandom.seed(0)
+        step = make_step(None if kind == "captured" else False)
+        runs[kind].append(timed_run(torch, step, batch, warmup, steps,
+                                    f"{what}, {kind}", unit, per_step))
+        expect(step.graph_count() == (1 if kind == "captured" else 0),
+               f"{what} {kind}: {step.graph_count()} graphs")
+        ends[kind].append([t.detach().clone() for t in step._train])
+        if kind == "captured":
+            start = [step._plist[i].tensor() for i in step._train_idx]
+            still = [step._names[i] for i, t, s in zip(
+                step._train_idx, step._train, start) if torch.equal(t, s)]
+            stuck = [n for n in still
+                     if may_stay is None or not re.search(may_stay, n)]
+            expect(not stuck, f"{what}: {len(stuck)} of {len(start)} "
+                   f"parameters never moved ({stuck[:4]})")
+        if kind not in busy:
+            busy[kind] = profile_step(torch, step, batch,
+                                      f"train step ({what}, {kind})")
+        del step
+        gc.collect()
+        torch.cuda.empty_cache()
+    cap, eag = runs["captured"][0], runs["eager"][0]
+    same = cap["losses"] == eag["losses"]
+    eager_gap = tensors_gap(ends["eager"][1], ends["eager"][0])
+    gap = tensors_gap(ends["captured"][0], ends["eager"][0])
+    rest = f" (the rest match {may_stay!r})" if still else ""
+    log(f"train: {what}: after {warmup + steps} steps "
+        f"{len(start) - len(still)} of {len(start)} parameters moved{rest};"
+        f" the parameters' gap (max error / tensor scale) captured vs eager"
+        f" {gap:.3e}, eager vs eager {eager_gap:.3e}; losses captured vs "
+        f"eager {'the same bits' if same else 'differ'}")
+    if eager_gap == 0:
+        expect(gap == 0 and same, f"{what}: the eager runs repeat bit for "
+               f"bit but the captured run ends elsewhere (parameters "
+               f"{gap:.3e} apart, losses {'equal' if same else 'differ'})")
+    else:
+        expect(gap <= RUN_GAP_FACTOR * eager_gap, f"{what}: captured vs "
+               f"eager parameters {gap:.3e} apart, over {RUN_GAP_FACTOR} x "
+               f"the eager runs' own {eager_gap:.3e}")
+        if not same:
+            track_losses(cap["losses"], eag["losses"],
+                         f"captured vs eager {what}")
+    del ends
+    ms = {k: [round(r["ms_step"], 3) for r in v] for k, v in runs.items()}
+    log(f"train: {what} captured {ms['captured']} ms/step (busy "
+        f"{100 * busy['captured']:.1f}%) vs eager {ms['eager']} ms/step "
+        f"(busy {100 * busy['eager']:.1f}%), in turns = "
+        f"{np.mean(ms['eager']) / np.mean(ms['captured']):.3f}x")
+    return runs, busy
+
+
+def lm_dropout_replays(torch, net, batch, calls=4):
+    """A captured ``bench_lstm`` step at learning rate 0 (the parameters
+    never change): the first call eager, then replays, each drawing new
+    dropout masks (embedding, between the LSTM layers, output) from the
+    generator the graph registered, so the replays' losses all
+    differ."""
+    from mxnet_tpu_torch import optimizer, parallel
+
+    step = parallel.TrainStep(net, lm_loss_fn(f32=True), optimizer.create(
+        "sgd", learning_rate=0.0))
+    losses = [float(step(*batch)) for _ in range(calls)]
+    log(f"dropout under replay [rnn_lm 2x{LSTM_UNITS}, lr 0, f32 loss]: "
+        f"losses {losses} (the first eager, then {calls - 1} replays)")
+    expect(step.graph_count() == 1, "the lr-0 step holds no graph")
+    expect(len(set(losses[1:])) == calls - 1,
+           "replays repeated their dropout masks")
+
+
+def lm_example(torch, root):
+    """``examples/word_language_model.py``'s ``main()`` as written (the
+    eager imperative path: autograd, gluon.Trainer, clip_global_norm) on
+    the synthetic corpus: its perplexity must be finite."""
+    text = run_example(root, "word_language_model", LM_EXAMPLE_ARGS)
+    ppl = [float(m) for m in re.findall(r"ppl=([0-9.]+|inf|nan)", text)]
+    expect(len(ppl) == 1 and np.isfinite(ppl[0]),
+           f"word_language_model: perplexity {ppl}")
+    return ppl[0]
+
+
+def lstm_phase(torch, root):
+    """The LSTM language model (BASELINE config 3): (a) the RNN op at the
+    path's shape against its plain version (LSTM, 2 layers; GRU, 1
+    layer), (b) the route each dtype takes, (c) ``bench_lstm``'s step
+    captured against eager, (d) dropout under replay, (e) the
+    example."""
+    from mxnet_tpu_torch import optimizer, parallel
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    args, cts = rnn_vs_plain(torch, "lstm", LSTM_LAYERS, gen)
+    rnn_vs_plain(torch, "gru", 1, gen)
+    for dtype in (torch.float32, torch.bfloat16):
+        rnn_route(torch, "lstm", args, cts, dtype)
+    del args, cts
+    net = build_lm(torch)
+    batch = lm_batch(torch)
+
+    def make_step(capture):
+        return parallel.TrainStep(net, lm_loss_fn(f32=True), optimizer.create(
+            "sgd", learning_rate=20.0 / LSTM_BATCH), capture=capture)
+    runs, busy = train_in_turns(
+        torch, make_step, batch, LSTM_WARMUP, LSTM_TIMED,
+        f"rnn_lm 2x{LSTM_UNITS}, bf16, batch {LSTM_BATCH} x {LSTM_BPTT}",
+        "tokens/s", LSTM_BATCH * LSTM_BPTT)
+    lm_dropout_replays(torch, net, batch)
+    del net, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    ppl = lm_example(torch, root)
+    cap = runs["captured"][0]
+    log(f"lstm: bench_lstm's step captured {cap['ms_step']:.2f} ms/step = "
+        f"{cap['rate']:.1f} tokens/s (busy {100 * busy['captured']:.1f}%, "
+        f"peak {cap['peak'] / 2**30:.2f} GiB); the example's perplexity "
+        f"after one epoch {ppl:.1f}")
+
+
+def ssd_anchor_inputs(torch, device):
+    """Anchors of ``ssd_512_resnet50_v1``'s seven feature maps (16 ... 1
+    at a 512 input) made on ``device``."""
+    from mxnet_tpu_torch.gluon.model_zoo.ssd import _RATIOS, _SIZES
+    from mxnet_tpu_torch.ops import MultiBoxPrior
+
+    sides = [SSD_SIZE // 32 >> i if SSD_SIZE // 32 >> i else 1
+             for i in range(len(_SIZES))]
+    return torch.cat([MultiBoxPrior(torch.zeros(1, 1, s, s, device=device),
+                                    sizes=sz, ratios=r, clip=True)
+                      for s, sz, r in zip(sides, _SIZES, _RATIOS)], dim=1)
+
+
+def claimed_labels(torch, rng, anchor):
+    """bench_ssd's labels where every other image's rows 1 and 2 claim
+    row 0's best anchor: row 1 the same box and class, row 2 another
+    class and a box 0.001 smaller (JAX's scatter keeps the last row;
+    ``index_put_`` with repeated indices is undefined on the card), and
+    every fourth image's rows from 2 on padding.  Returns the labels and
+    the ``(image, anchor)`` pairs claimed three times."""
+    from mxnet_tpu_torch.bench import ssd_labels
+    from mxnet_tpu_torch.ops.multibox import box_iou_matrix
+
+    label = ssd_labels(rng, SSD_BATCH)
+    label[1::4, 2:] = -1.0
+    label[::2, 1] = label[::2, 0]
+    label[::2, 2] = label[::2, 0] + np.array(
+        [0, 0, 0, -0.001, -0.001], np.float32)
+    label[::2, 2, 0] = (label[::2, 0, 0] + 1) % SSD_CLASSES
+    claimed = []
+    for i in range(0, SSD_BATCH, 2):
+        iou = box_iou_matrix(anchor[0], torch.from_numpy(label[i, :3, 1:5]))
+        best = [int(b) for b in iou.argmax(dim=0)]
+        expect(len(set(best)) == 1 and best[0] > 0, f"claimed_labels: "
+               f"image {i}'s rows 0-2 have best anchors {best}")
+        claimed.append((i, best[0]))
+    return label, claimed
+
+
+def multibox_card_vs_host(torch):
+    """``MultiBoxPrior``, ``MultiBoxTarget`` and ``MultiBoxDetection`` on
+    the card against the same calls on the host at the path's anchor
+    count: bench_ssd's labels with three rows claiming one anchor
+    (``claimed_labels``) behind padding rows, an f32 ``cls_pred``
+    rounded to halves (tied scores); the targets' class and mask equal,
+    the claimed anchors holding the last row's class on both, the box
+    targets and the detections within ``MULTIBOX_ATOL``."""
+    from mxnet_tpu_torch.ops import MultiBoxDetection, MultiBoxTarget
+
+    anchor = ssd_anchor_inputs(torch, "cuda")
+    host_anchor = ssd_anchor_inputs(torch, "cpu")
+    expect(torch.allclose(anchor.cpu(), host_anchor, rtol=0,
+                          atol=MULTIBOX_ATOL), "MultiBoxPrior: card vs host")
+    a = anchor.shape[1]
+    rng = np.random.RandomState(3)
+    label, claimed = claimed_labels(torch, rng, host_anchor)
+    cls = np.round(rng.randn(SSD_BATCH, SSD_CLASSES + 1, a) * 2) / 2
+    cls = torch.from_numpy(cls.astype(np.float32))
+    label = torch.from_numpy(label)
+    kw = dict(overlap_threshold=0.5, negative_mining_ratio=3.0,
+              negative_mining_thresh=0.5)
+    card = [t.cpu() for t in MultiBoxTarget(anchor, label.cuda(),
+                                            cls.cuda(), **kw)]
+    host = MultiBoxTarget(host_anchor, label, cls, **kw)
+    expect(torch.equal(card[2], host[2]) and torch.equal(card[1], host[1]),
+           "MultiBoxTarget: class targets or masks differ card vs host")
+    for i, b in claimed:
+        want = label[i, 2, 0] + 1
+        expect(card[2][i, b] == want and host[2][i, b] == want,
+               f"MultiBoxTarget: image {i}'s anchor {b}, claimed by rows 0-2,"
+               f" holds class {float(card[2][i, b])} on the card and "
+               f"{float(host[2][i, b])} on the host, not the last row's "
+               f"{want}")
+    bt_err = float((card[0] - host[0]).abs().max())
+    expect(bt_err <= MULTIBOX_ATOL, f"MultiBoxTarget: box targets off by "
+           f"{bt_err}")
+    prob = torch.softmax(cls, dim=1)
+    loc = torch.from_numpy((rng.randn(SSD_BATCH, a * 4) * 0.5)
+                           .astype(np.float32))
+    det_card = MultiBoxDetection(prob.cuda(), loc.cuda(), anchor,
+                                 nms_topk=400).cpu()
+    det_host = MultiBoxDetection(prob, loc, host_anchor, nms_topk=400)
+    det_err = float((det_card - det_host).abs().max())
+    expect(det_err <= MULTIBOX_ATOL, f"MultiBoxDetection: off by {det_err}")
+    log(f"multibox [{a} anchors, batch {SSD_BATCH}, {SSD_CLASSES + 1} "
+        f"classes]: card vs host: MultiBoxTarget classes and masks equal, "
+        f"{len(claimed)} anchors claimed by three rows each holding the "
+        f"last row's class "
+        f"({int((host[2] > 0).sum())} positives, {int((host[2] == -1).sum())}"
+        f" ignored), box targets off by {bt_err:.2e}; MultiBoxDetection "
+        f"off by {det_err:.2e} ({int((det_host[..., 0] >= 0).sum())} "
+        f"detections kept)")
+    return a
+
+
+def build_ssd(torch):
+    """``bench_ssd``'s net: ``ssd_512_resnet50_v1(classes=20)``, random
+    weights from a seed, cast to bf16."""
+    from mxnet_tpu_torch import random as mxrandom
+    from mxnet_tpu_torch.gluon.model_zoo.ssd import ssd_512_resnet50_v1
+
+    mxrandom.seed(0)
+    net = ssd_512_resnet50_v1(classes=SSD_CLASSES)
+    net.initialize(ctx=DEVICE)
+    net.cast("bfloat16")
+    return net
+
+
+def ssd_batch(torch):
+    from mxnet_tpu_torch.bench import ssd_labels
+
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randn(SSD_BATCH, 3, SSD_SIZE, SSD_SIZE)
+                         .astype(np.float32)).to(torch.bfloat16)
+    return x.to(DEVICE), torch.from_numpy(ssd_labels(rng, SSD_BATCH)).to(
+        DEVICE)
+
+
+def ssd_detect(torch, net, x):
+    """One ``detect()`` of the net's outputs on the card against the same
+    call on the host (the outputs in f32 on both)."""
+    from mxnet_tpu_torch import autograd
+
+    with autograd.predict_mode():
+        outs = [o.float() for o in net(x)]
+    det = net.detect(*outs).cpu()
+    host = net.detect(*[o.cpu() for o in outs])
+    err = float((det - host).abs().max())
+    expect(det.shape == (SSD_BATCH, outs[2].shape[1], 6) and
+           bool(torch.isfinite(det).all()), f"detect: shape {det.shape}")
+    expect(err <= MULTIBOX_ATOL, f"detect: card vs host off by {err}")
+    log(f"detect [ssd_512_resnet50_v1, batch {SSD_BATCH}]: card vs host "
+        f"off by {err:.2e}; {int((host[..., 0] >= 0).sum())} detections "
+        f"kept")
+
+
+def ssd_phase(torch):
+    """SSD-512 (BASELINE config 5): (a) the multibox ops card vs host,
+    (b) ``bench_ssd``'s step captured against eager, (c) one
+    ``detect()`` card vs host."""
+    from mxnet_tpu_torch import optimizer, parallel
+    from mxnet_tpu_torch.bench import ssd_loss_fn
+
+    anchors = multibox_card_vs_host(torch)
+    net = build_ssd(torch)
+    batch = ssd_batch(torch)
+
+    def make_step(capture):
+        return parallel.TrainStep(net, ssd_loss_fn(), optimizer.create(
+            "sgd", learning_rate=1e-3, momentum=0.9, wd=5e-4),
+            capture=capture)
+    runs, busy = train_in_turns(
+        torch, make_step, batch, SSD_WARMUP, SSD_TIMED,
+        f"ssd_512_resnet50_v1, bf16, batch {SSD_BATCH} x 3 x {SSD_SIZE}"
+        f"^2, {anchors} anchors", "img/s", SSD_BATCH,
+        may_stay=SSD_MAY_STAY)
+    ssd_detect(torch, net, batch[0])
+    cap = runs["captured"][0]
+    log(f"ssd: bench_ssd's step captured {cap['ms_step']:.2f} ms/step = "
+        f"{cap['rate']:.1f} img/s (busy {100 * busy['captured']:.1f}%, peak "
+        f"{cap['peak'] / 2**30:.2f} GiB)")
+
+
 
 class phase:
     """Print a phase's wall time on its own line when it ends."""
@@ -4193,6 +4754,14 @@ def main():
             torch.cuda.empty_cache()
         with phase("flash timing"):
             flash_times = time_flash(torch, flash_err)
+            gc.collect()
+            torch.cuda.empty_cache()
+        with phase("LSTM LM"):
+            lstm_phase(torch, root)
+            gc.collect()
+            torch.cuda.empty_cache()
+        with phase("SSD"):
+            ssd_phase(torch)
     except SmokeError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

@@ -4,10 +4,13 @@
     python -m mxnet_tpu_torch.bench resnet --feed prefetch
     python -m mxnet_tpu_torch.bench bert [--model bert_24_1024_16]
     python -m mxnet_tpu_torch.bench llm [--prefix]
+    python -m mxnet_tpu_torch.bench lstm
+    python -m mxnet_tpu_torch.bench ssd
     python -m mxnet_tpu_torch.bench llm --device cpu # plain versions, small
 
 The settings are those of the repo's ``bench.py`` (``bench_resnet``,
-``bench_bert``, ``bench_llm``), run through the port's captured steps:
+``bench_bert``, ``bench_lstm``, ``bench_ssd``, ``bench_llm``), run
+through the port's captured steps:
 
 - ``resnet``: ``resnet50_v1`` NHWC with ``fused=True``, cast to bf16
   (f32 master weights), SGD 0.1 / 0.9 / 1e-4 through
@@ -26,6 +29,15 @@ The settings are those of the repo's ``bench.py`` (``bench_resnet``,
   masked positions, 2 warm-up and 20 timed steps.  Every row is full
   length, so ``valid_length`` is None — the same function as
   ``bench_bert``'s ``valid_length = 128``; the flash path takes no mask;
+- ``lstm``: ``rnn_lm`` (vocab 10000, embed 650, hidden 650, 2 LSTM
+  layers, dropout 0.5), cast to bf16, SGD at 20 / batch without
+  momentum, softmax cross-entropy over ``(-1, vocab)``, batch 64 x bptt
+  35 time-major int32 ids, 2 warm-up and 20 timed steps;
+- ``ssd``: ``ssd_512_resnet50_v1(classes=20)`` (NCHW), cast to bf16,
+  ``MultiBoxTarget`` (hard negatives 3:1) and ``SSDMultiBoxLoss``
+  inside the loss, SGD 1e-3 / 0.9 / 5e-4, batch 16 of 3x512x512 images
+  with 1-3 boxes each padded to 8 label rows, 2 warm-up and 10 timed
+  steps;
 - ``llm``: a ``GenerationServer`` (vocab 4096, 4 layers, 8 heads x 64,
   d_ff 2048; 64 slots, 512 pages x 64, buckets (1, 2, 4) x (32, 64),
   64 new tokens) answering 256 greedy requests of 4-60 random tokens.
@@ -39,7 +51,8 @@ The settings are those of the repo's ``bench.py`` (``bench_resnet``,
 
 On the CPU (``--device cpu``) it runs the plain versions at the sizes
 ``bench.py`` uses without an accelerator: batch 8 and 2 timed steps
-(resnet), batch 2 and 1 step (bert), and bench_llm's small server.
+(resnet, lstm), batch 2 and 1 step (bert; ssd at 128x128), and
+bench_llm's small server.
 
 Each line carries ``bench.py``'s keys — ``metric`` (its metric names),
 ``value``, ``unit`` (per card: ``img/s/gpu``, ``tokens/s/gpu``; a CPU
@@ -60,13 +73,17 @@ from . import optimizer, parallel
 from . import random as _random
 from .context import resolve_device
 
-__all__ = ["bench_resnet", "bench_bert", "bench_llm", "main"]
+__all__ = ["bench_resnet", "bench_bert", "bench_lstm", "bench_ssd",
+           "bench_llm", "ssd_labels", "ssd_loss_fn", "main"]
 
 # bench.py's metric names and baseline bars (its own copy)
 METRIC_NAMES = {"resnet": "resnet50_train_throughput",
                 "bert": "bert_base_pretrain_throughput",
+                "lstm": "lstm_lm_train_throughput",
+                "ssd": "ssd512_train_throughput",
                 "llm": "llm_decode_throughput"}
-BASELINE = {"resnet": 800.0, "bert": 3000.0, "llm": 1000.0}
+BASELINE = {"resnet": 800.0, "bert": 3000.0, "lstm": 30000.0, "ssd": 40.0,
+            "llm": 1000.0}
 WARMUP = 2
 BERT_MODELS = {"bert_12_768_12": dict(units=768, hidden_size=3072,
                                       num_layers=12, num_heads=12),
@@ -226,6 +243,102 @@ def bench_bert(device="cuda", model="bert_12_768_12", iters=None):
                  last_loss=losses[-1])
 
 
+def bench_lstm(device="cuda", iters=None):
+    """The PTB-medium LSTM language model's training throughput,
+    tokens/s on one card."""
+    from . import gluon
+    from .gluon.model_zoo.language_model import rnn_lm
+
+    device = resolve_device(device)
+    batch = 64 if _on_card(device) else 8
+    iters = iters or (20 if _on_card(device) else 2)
+    bptt, vocab = 35, 10000
+    _random.seed(0)
+    net = rnn_lm(vocab_size=vocab, embed_size=650, hidden_size=650,
+                 num_layers=2, dropout=0.5)
+    net.initialize(ctx=device)
+    net.cast("bfloat16")
+    ce = gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def loss_fn(out, label):
+        return ce(out.reshape((-1, vocab)), label.reshape((-1,)))
+
+    step = parallel.TrainStep(net, loss_fn, optimizer.create(
+        "sgd", learning_rate=20.0 / batch))
+    rng = np.random.RandomState(0)
+    x, y = (torch.from_numpy(rng.randint(0, vocab, (bptt, batch))
+                             .astype(np.int32)).to(device) for _ in range(2))
+    if _on_card(device):
+        torch.cuda.reset_peak_memory_stats(device)
+    dt, losses = _time_steps(step, device, (x, y), iters)
+    tok_s = batch * bptt * iters / dt
+    return _line("lstm", tok_s, "tokens/s", device, model="rnn_lm 2x650",
+                 batch=batch, bptt=bptt, steps=iters,
+                 ms_per_step=round(1e3 * dt / iters, 3),
+                 graphs=step.graph_count(), first_loss=losses[0],
+                 last_loss=losses[-1])
+
+
+def ssd_labels(rng, batch, rows=8, classes=20):
+    """``bench_ssd``'s labels: 1-3 boxes an image, ``[cls, x1, y1, x2,
+    y2]``, padded to ``rows`` rows of -1."""
+    label = np.full((batch, rows, 5), -1.0, np.float32)
+    for i in range(batch):
+        for j in range(rng.randint(1, 4)):
+            cls = rng.randint(0, classes)
+            x1, y1 = rng.uniform(0.05, 0.5, 2)
+            label[i, j] = [cls, x1, y1, x1 + rng.uniform(0.1, 0.4),
+                           y1 + rng.uniform(0.1, 0.4)]
+    return label
+
+
+def ssd_loss_fn():
+    """``bench_ssd``'s loss: ``MultiBoxTarget`` (hard negatives 3:1)
+    then ``SSDMultiBoxLoss``."""
+    from .gluon.model_zoo.ssd import SSDMultiBoxLoss
+    from .ops import MultiBoxTarget
+
+    box_loss = SSDMultiBoxLoss()
+
+    def loss_fn(out, label):
+        cls_pred, loc_pred, anchor = out
+        bt, bm, ct = MultiBoxTarget(anchor, label, cls_pred,
+                                    overlap_threshold=0.5,
+                                    negative_mining_ratio=3.0,
+                                    negative_mining_thresh=0.5)
+        return box_loss(cls_pred, loc_pred, ct, bt, bm)
+    return loss_fn
+
+
+def bench_ssd(device="cuda", iters=None):
+    """SSD-512 ResNet-50 training throughput, images/s on one card."""
+    from .gluon.model_zoo.ssd import ssd_512_resnet50_v1
+
+    device = resolve_device(device)
+    card = _on_card(device)
+    batch, size = (16, 512) if card else (2, 128)
+    iters = iters or (10 if card else 1)
+    _random.seed(0)
+    net = ssd_512_resnet50_v1(classes=20)
+    net.initialize(ctx=device)
+    net.cast("bfloat16")
+    step = parallel.TrainStep(net, ssd_loss_fn(), optimizer.create(
+        "sgd", learning_rate=1e-3, momentum=0.9, wd=5e-4))
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randn(batch, 3, size, size).astype(np.float32))
+    x = x.to(torch.bfloat16).to(device)
+    label = torch.from_numpy(ssd_labels(rng, batch)).to(device)
+    if card:
+        torch.cuda.reset_peak_memory_stats(device)
+    dt, losses = _time_steps(step, device, (x, label), iters)
+    img_s = batch * iters / dt
+    return _line("ssd", img_s, "img/s", device, model="ssd_512_resnet50_v1",
+                 batch=batch, image=size, steps=iters,
+                 ms_per_step=round(1e3 * dt / iters, 3),
+                 graphs=step.graph_count(), first_loss=losses[0],
+                 last_loss=losses[-1])
+
+
 def bench_llm(device="cuda", config=None, n_requests=None, prefix=False):
     """Continuous-batching decode throughput of a ``GenerationServer``,
     generated tokens/s on one card.  ``config`` (a ``CausalLMConfig``)
@@ -321,6 +434,10 @@ def main(argv=None, **overrides):
             line = bench_resnet(args.device, args.steps, args.feed)
         elif name == "bert":
             line = bench_bert(args.device, args.model, args.steps)
+        elif name == "lstm":
+            line = bench_lstm(args.device, args.steps)
+        elif name == "ssd":
+            line = bench_ssd(args.device, args.steps)
         else:
             line = bench_llm(args.device, prefix=args.prefix, **overrides)
         print(json.dumps(line), flush=True)

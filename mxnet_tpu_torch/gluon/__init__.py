@@ -1,7 +1,8 @@
 """Gluon API of the port: blocks, parameters, layers, losses, the
-trainer, utilities, the model zoo and ``data`` (datasets, samplers, the
+trainer, utilities, the recurrent layers and cells (``rnn``), the model
+zoo and ``data`` (datasets, samplers, the
 DataLoader, vision datasets and transforms)."""
-from . import data, loss, model_zoo, nn, utils
+from . import data, loss, model_zoo, nn, rnn, utils
 from .block import Block, HybridBlock, params_from_jax
 from .parameter import (Constant, DeferredInitializationError, Parameter,
                         ParameterDict)
@@ -9,4 +10,4 @@ from .trainer import Trainer
 
 __all__ = ["Block", "HybridBlock", "Parameter", "ParameterDict", "Constant",
            "DeferredInitializationError", "Trainer", "params_from_jax",
-           "data", "loss", "model_zoo", "nn", "utils"]
+           "data", "loss", "model_zoo", "nn", "rnn", "utils"]

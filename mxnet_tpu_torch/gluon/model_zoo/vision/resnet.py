@@ -1,12 +1,13 @@
-"""ResNet V1 (the port of ``mxnet_tpu/gluon/model_zoo/vision/resnet.py``'s
-``BasicBlockV1``, ``BottleneckV1``, ``ResNetV1`` and ``get_resnet``).
+"""ResNet V1 and V2 (the port of
+``mxnet_tpu/gluon/model_zoo/vision/resnet.py``: ``BasicBlockV1``,
+``BottleneckV1``, ``ResNetV1``, the pre-activation ``BasicBlockV2``,
+``BottleneckV2``, ``ResNetV2`` and ``get_resnet``).
 
 ``fused=True`` (NHWC only) folds each block's inner BN+ReLU pairs into
 the next conv through ``nn.NormReluConv2D``: in a bottleneck, bn1+relu
 into the 3x3 and bn2+relu into the closing 1x1 — the hand-written
 kernels on the card.  ``fused=False`` is the plain Conv2D/BatchNorm
-stack (cuDNN convs on the card), the yardstick.  The V2 (pre-activation)
-classes are not ported yet.
+stack (cuDNN convs on the card), the yardstick; V2 has no fused form.
 
 ``params_from_jax(net, arrays)`` loads a JAX net's parameters (name ->
 numpy) into a port net of the same configuration.
@@ -16,8 +17,10 @@ from __future__ import annotations
 from ... import nn
 from ...block import HybridBlock
 
-__all__ = ["ResNetV1", "BasicBlockV1", "BottleneckV1", "resnet18_v1",
-           "resnet34_v1", "resnet50_v1", "resnet101_v1", "resnet152_v1",
+__all__ = ["ResNetV1", "ResNetV2", "BasicBlockV1", "BasicBlockV2",
+           "BottleneckV1", "BottleneckV2", "resnet18_v1", "resnet34_v1",
+           "resnet50_v1", "resnet101_v1", "resnet152_v1", "resnet18_v2",
+           "resnet34_v2", "resnet50_v2", "resnet101_v2", "resnet152_v2",
            "get_resnet", "params_from_jax"]
 
 
@@ -109,6 +112,63 @@ class BottleneckV1(HybridBlock):
         return F.Activation(x + residual, act_type="relu")
 
 
+class BasicBlockV2(HybridBlock):
+    """Pre-activation: BN, ReLU, 3x3, BN, ReLU, 3x3; the shortcut (a 1x1
+    conv when downsampling) taken after the first ReLU."""
+
+    def __init__(self, channels, stride, downsample=False, in_channels=0,
+                 layout="NCHW", **kwargs):
+        super().__init__(**kwargs)
+        ax = _bn_axis(layout)
+        self.bn1 = nn.BatchNorm(axis=ax)
+        self.conv1 = _conv3x3(channels, stride, in_channels, layout)
+        self.bn2 = nn.BatchNorm(axis=ax)
+        self.conv2 = _conv3x3(channels, 1, channels, layout)
+        self.downsample = nn.Conv2D(
+            channels, 1, stride, use_bias=False, in_channels=in_channels,
+            layout=layout) if downsample else None
+
+    def forward(self, x):
+        from .... import ops as F
+        residual = x
+        x = F.Activation(self.bn1(x), act_type="relu")
+        if self.downsample:
+            residual = self.downsample(x)
+        x = F.Activation(self.bn2(self.conv1(x)), act_type="relu")
+        return self.conv2(x) + residual
+
+
+class BottleneckV2(HybridBlock):
+    """Pre-activation bottleneck: (BN, ReLU, conv) x 3, 1x1 -> 3x3 ->
+    1x1."""
+
+    def __init__(self, channels, stride, downsample=False, in_channels=0,
+                 layout="NCHW", **kwargs):
+        super().__init__(**kwargs)
+        ax = _bn_axis(layout)
+        self.bn1 = nn.BatchNorm(axis=ax)
+        self.conv1 = nn.Conv2D(channels // 4, kernel_size=1, strides=1,
+                               use_bias=False, layout=layout)
+        self.bn2 = nn.BatchNorm(axis=ax)
+        self.conv2 = _conv3x3(channels // 4, stride, channels // 4, layout)
+        self.bn3 = nn.BatchNorm(axis=ax)
+        self.conv3 = nn.Conv2D(channels, kernel_size=1, strides=1,
+                               use_bias=False, layout=layout)
+        self.downsample = nn.Conv2D(
+            channels, 1, stride, use_bias=False, in_channels=in_channels,
+            layout=layout) if downsample else None
+
+    def forward(self, x):
+        from .... import ops as F
+        residual = x
+        x = F.Activation(self.bn1(x), act_type="relu")
+        if self.downsample:
+            residual = self.downsample(x)
+        x = F.Activation(self.bn2(self.conv1(x)), act_type="relu")
+        x = F.Activation(self.bn3(self.conv2(x)), act_type="relu")
+        return self.conv3(x) + residual
+
+
 def _downsample(channels, stride, in_channels, layout, ax):
     ds = nn.HybridSequential(prefix="")
     ds.add(nn.Conv2D(channels, kernel_size=1, strides=stride,
@@ -163,6 +223,48 @@ class ResNetV1(HybridBlock):
         return self.output(self.features(x))
 
 
+class ResNetV2(HybridBlock):
+    """A BN on the input (no scale, no shift), the stem, four stages of
+    pre-activation blocks, BN and ReLU, global average pool, flatten,
+    dense classifier."""
+
+    def __init__(self, block, layers, channels, classes=1000,
+                 thumbnail=False, layout="NCHW", **kwargs):
+        super().__init__(**kwargs)
+        assert len(layers) == len(channels) - 1
+        self._layout = layout
+        ax = _bn_axis(layout)
+        with self.name_scope():
+            self.features = nn.HybridSequential(prefix="")
+            self.features.add(nn.BatchNorm(axis=ax, scale=False,
+                                           center=False))
+            if thumbnail:
+                self.features.add(_conv3x3(channels[0], 1, 0, layout))
+            else:
+                self.features.add(nn.Conv2D(channels[0], 7, 2, 3,
+                                            use_bias=False, layout=layout))
+                self.features.add(nn.BatchNorm(axis=ax))
+                self.features.add(nn.Activation("relu"))
+                self.features.add(nn.MaxPool2D(3, 2, 1, layout=layout))
+            in_channels = channels[0]
+            for i, num_layer in enumerate(layers):
+                stride = 1 if i == 0 else 2
+                self.features.add(self._make_layer(
+                    block, num_layer, channels[i + 1], stride, i + 1,
+                    in_channels=in_channels, layout=layout))
+                in_channels = channels[i + 1]
+            self.features.add(nn.BatchNorm(axis=ax))
+            self.features.add(nn.Activation("relu"))
+            self.features.add(nn.GlobalAvgPool2D(layout=layout))
+            self.features.add(nn.Flatten())
+            self.output = nn.Dense(classes, in_units=in_channels)
+
+    _make_layer = ResNetV1._make_layer
+
+    def forward(self, x):
+        return self.output(self.features(x))
+
+
 resnet_spec = {
     18: ("basic_block", [2, 2, 2, 2], [64, 64, 128, 256, 512]),
     34: ("basic_block", [3, 4, 6, 3], [64, 64, 128, 256, 512]),
@@ -170,18 +272,26 @@ resnet_spec = {
     101: ("bottle_neck", [3, 4, 23, 3], [64, 256, 512, 1024, 2048]),
     152: ("bottle_neck", [3, 8, 36, 3], [64, 256, 512, 1024, 2048]),
 }
-_BLOCKS = {"basic_block": BasicBlockV1, "bottle_neck": BottleneckV1}
+_NETS = {1: (ResNetV1, {"basic_block": BasicBlockV1,
+                        "bottle_neck": BottleneckV1}),
+         2: (ResNetV2, {"basic_block": BasicBlockV2,
+                        "bottle_neck": BottleneckV2})}
 
 
-def get_resnet(version, num_layers, **kwargs):
-    """A ResNet of the given depth; version 1 only (V2 is not ported)."""
-    if version != 1:
-        raise NotImplementedError("the port has ResNet V1 only; V2 "
-                                  "(pre-activation) is not ported yet")
+def get_resnet(version, num_layers, pretrained=False, ctx=None, root=None,
+               **kwargs):
+    """A ResNet of ``version`` 1 or 2 and the given depth (seeded init:
+    there are no pretrained weights)."""
+    if version not in _NETS:
+        raise ValueError(f"invalid ResNet version {version}: 1 or 2")
     if num_layers not in resnet_spec:
         raise ValueError(f"invalid depth {num_layers}")
+    if pretrained:
+        raise RuntimeError("pretrained weights are not available; "
+                           "load_parameters() from a local file instead")
+    net, blocks = _NETS[version]
     block_type, layers, channels = resnet_spec[num_layers]
-    return ResNetV1(_BLOCKS[block_type], layers, channels, **kwargs)
+    return net(blocks[block_type], layers, channels, **kwargs)
 
 
 def resnet18_v1(**kwargs):
@@ -202,6 +312,26 @@ def resnet101_v1(**kwargs):
 
 def resnet152_v1(**kwargs):
     return get_resnet(1, 152, **kwargs)
+
+
+def resnet18_v2(**kwargs):
+    return get_resnet(2, 18, **kwargs)
+
+
+def resnet34_v2(**kwargs):
+    return get_resnet(2, 34, **kwargs)
+
+
+def resnet50_v2(**kwargs):
+    return get_resnet(2, 50, **kwargs)
+
+
+def resnet101_v2(**kwargs):
+    return get_resnet(2, 101, **kwargs)
+
+
+def resnet152_v2(**kwargs):
+    return get_resnet(2, 152, **kwargs)
 
 
 def _strip(names):

@@ -1,0 +1,108 @@
+"""SqueezeNet 1.0 and 1.1 (the port of
+``mxnet_tpu/gluon/model_zoo/vision/squeezenet.py``), with the
+branches-and-concat block of ``gluon.contrib.nn`` (``HybridConcurrent``)
+it needs."""
+from __future__ import annotations
+
+from ... import nn
+from ...block import HybridBlock
+from .... import ops as F
+
+__all__ = ["SqueezeNet", "squeezenet1_0", "squeezenet1_1"]
+
+
+class HybridConcurrent(HybridBlock):
+    """Parallel branches of one input, concatenated on ``axis`` (the
+    JAX package's ``gluon.contrib.nn.HybridConcurrent``)."""
+
+    def __init__(self, axis=-1, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self.axis = axis
+
+    def add(self, *blocks):
+        for b in blocks:
+            self.register_child(b)
+
+    def infer_shape(self, *args):
+        pass
+
+    def forward(self, x):
+        return F.concat(*[b(x) for b in self._children.values()],
+                        dim=self.axis)
+
+
+def _make_fire(squeeze_channels, expand1x1_channels, expand3x3_channels):
+    out = nn.HybridSequential(prefix="")
+    out.add(_make_fire_conv(squeeze_channels, 1))
+    paths = HybridConcurrent(axis=1, prefix="")
+    paths.add(_make_fire_conv(expand1x1_channels, 1))
+    paths.add(_make_fire_conv(expand3x3_channels, 3, 1))
+    out.add(paths)
+    return out
+
+
+def _make_fire_conv(channels, kernel_size, padding=0):
+    out = nn.HybridSequential(prefix="")
+    out.add(nn.Conv2D(channels, kernel_size, padding=padding))
+    out.add(nn.Activation("relu"))
+    return out
+
+
+class SqueezeNet(HybridBlock):
+    """class SqueezeNet."""
+
+    def __init__(self, version, classes=1000, **kwargs):
+        super().__init__(**kwargs)
+        assert version in ("1.0", "1.1")
+        with self.name_scope():
+            self.features = nn.HybridSequential(prefix="")
+            if version == "1.0":
+                self.features.add(nn.Conv2D(96, kernel_size=7, strides=2))
+                self.features.add(nn.Activation("relu"))
+                self.features.add(nn.MaxPool2D(pool_size=3, strides=2, ceil_mode=True))
+                self.features.add(_make_fire(16, 64, 64))
+                self.features.add(_make_fire(16, 64, 64))
+                self.features.add(_make_fire(32, 128, 128))
+                self.features.add(nn.MaxPool2D(pool_size=3, strides=2, ceil_mode=True))
+                self.features.add(_make_fire(32, 128, 128))
+                self.features.add(_make_fire(48, 192, 192))
+                self.features.add(_make_fire(48, 192, 192))
+                self.features.add(_make_fire(64, 256, 256))
+                self.features.add(nn.MaxPool2D(pool_size=3, strides=2, ceil_mode=True))
+                self.features.add(_make_fire(64, 256, 256))
+            else:
+                self.features.add(nn.Conv2D(64, kernel_size=3, strides=2))
+                self.features.add(nn.Activation("relu"))
+                self.features.add(nn.MaxPool2D(pool_size=3, strides=2, ceil_mode=True))
+                self.features.add(_make_fire(16, 64, 64))
+                self.features.add(_make_fire(16, 64, 64))
+                self.features.add(nn.MaxPool2D(pool_size=3, strides=2, ceil_mode=True))
+                self.features.add(_make_fire(32, 128, 128))
+                self.features.add(_make_fire(32, 128, 128))
+                self.features.add(nn.MaxPool2D(pool_size=3, strides=2, ceil_mode=True))
+                self.features.add(_make_fire(48, 192, 192))
+                self.features.add(_make_fire(48, 192, 192))
+                self.features.add(_make_fire(64, 256, 256))
+                self.features.add(_make_fire(64, 256, 256))
+            self.features.add(nn.Dropout(0.5))
+            self.output = nn.HybridSequential(prefix="")
+            self.output.add(nn.Conv2D(classes, kernel_size=1))
+            self.output.add(nn.Activation("relu"))
+            self.output.add(nn.GlobalAvgPool2D())
+            self.output.add(nn.Flatten())
+
+    def forward(self, x):
+        x = self.features(x)
+        return self.output(x)
+
+
+def squeezenet1_0(pretrained=False, ctx=None, root=None, **kwargs):
+    if pretrained:
+        raise RuntimeError("pretrained weights are not available")
+    return SqueezeNet("1.0", **kwargs)
+
+
+def squeezenet1_1(pretrained=False, ctx=None, root=None, **kwargs):
+    if pretrained:
+        raise RuntimeError("pretrained weights are not available")
+    return SqueezeNet("1.1", **kwargs)

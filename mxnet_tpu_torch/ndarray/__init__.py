@@ -5,8 +5,9 @@ Creation functions, ``save``/``load`` and a wrapper per registered op,
 generated from ``ops.registry.OPS`` (``nd.relu(x)`` is
 ``invoke("relu", x)``); ``nd.linalg`` holds the ``linalg_*`` ops under
 their short names and ``nd.contrib`` the ``_contrib_*`` ones;
-``nd.random`` draws ``uniform``, ``normal`` and ``randint`` from the
-port's seeded per-device generators (``random.generator``).
+``nd.random`` draws ``uniform``, ``normal``, ``randint`` and
+``bernoulli`` from the port's seeded per-device generators
+(``random.generator``).
 
 New arrays land on ``ctx`` or, without one, on the current context
 (``with mx.cpu():``), which outside any scope is the card.  As in the
@@ -238,8 +239,16 @@ def _randint(low=0, high=2, shape=(), ctx=None, dtype="int32", out=None):
         shape, ctx, dtype, out)
 
 
+def _bernoulli(p=0.5, shape=(), ctx=None, dtype="float32", out=None):
+    """1 with probability ``p``, else 0, in ``dtype``."""
+    return _draw(lambda s, g, d: (torch.rand(s, generator=g, device=d)
+                                  < p).to(dtype_torch(dtype)),
+                 shape, ctx, dtype, out)
+
+
 random.uniform = _uniform
 random.normal = _normal
 random.randint = _randint
+random.bernoulli = _bernoulli
 random.seed = _random.seed
 sys.modules[random.__name__] = random

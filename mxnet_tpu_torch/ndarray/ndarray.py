@@ -102,7 +102,8 @@ def invoke(op_name: str, *args, out=None, **kwargs):
         prof = None
     raw = [a._data if isinstance(a, NDArray) else _raw(a) for a in args]
     if kwargs:
-        kwargs = {k: v for k, v in kwargs.items()
+        kwargs = {k: v._data if isinstance(v, NDArray) else v
+                  for k, v in kwargs.items()
                   if v is not None or k in _KEEP_NONE}
     if torch.is_grad_enabled() and not getattr(_autograd._tls, "recording",
                                                False):

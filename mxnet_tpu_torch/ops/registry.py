@@ -26,8 +26,8 @@ __all__ = ["OPS", "OP_META", "register_op", "alias_op", "get_op",
 OPS: Dict[str, Callable] = {}
 OP_META: Dict[str, dict] = {}
 
-# The contrib ops that also get short names in ``nd.contrib`` (none of
-# them is ported yet: they live in op modules still to come).
+# The contrib ops that also get short names in ``nd.contrib`` (those
+# not ported yet get theirs when their op modules come).
 CONTRIB_SHORT_NAMES = (
     "interleaved_matmul_selfatt_qk", "interleaved_matmul_selfatt_valatt",
     "box_nms", "box_iou", "MultiBoxPrior", "MultiBoxTarget",

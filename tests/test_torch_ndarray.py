@@ -252,7 +252,10 @@ def test_linalg_and_contrib_namespaces():
     contrib = {n for n in dir(nd.contrib) if not n.startswith("_")}
     assert contrib == {"div_sqrt_dim", "interleaved_matmul_selfatt_qk",
                        "interleaved_matmul_selfatt_valatt",
-                       "multi_head_attention"}       # the attention ops
+                       "multi_head_attention",       # the attention ops
+                       "MultiBoxPrior", "MultiBoxTarget",
+                       "MultiBoxDetection", "Proposal", "box_iou",
+                       "box_nms"}                    # the multibox ops
     assert contrib <= set(dir(jmx.nd.contrib))
     _same(nd.add_n(ta, ta, ta), jmx.nd.add_n(ja, ja, ja))
     _same(nd.concat(ta, ta, dim=2), jmx.nd.concat(ja, ja, dim=2))
