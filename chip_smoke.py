@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's eight paths end to end on the first CUDA device, with
+Drives the port's nine paths end to end on the first CUDA device, with
 random weights from a seed:
 
 - the imperative API: the Gluon MLP loop of
@@ -50,7 +50,14 @@ random weights from a seed:
   ``SSDMultiBoxLoss`` in the loss, SGD 1e-3 / 0.9 / 5e-4, batch 16 of
   3x512x512 images with 1-3 boxes each), full width and depth.  Neither
   of these two paths reaches a hand-written kernel: the JAX package has
-  no Pallas kernel on them (the recurrence is cuDNN's RNN).
+  no Pallas kernel on them (the recurrence is cuDNN's RNN);
+- the symbolic API: ``resnet50_v1`` built from ``mx.sym`` layers
+  (NCHW, f32) trained by ``mod.Module.fit`` (SGD 0.1 / 0.9 / 1e-4,
+  batch 64 of 3x224x224 from ``RandomState(0)`` through
+  ``io.NDArrayIter``), whose executor runs each step as a captured
+  forward and backward pair; the fused-conv and flash kernels reached
+  through ``mx.sym`` nodes; ``examples/module_symbolic_mnist.py`` and
+  ``examples/bucketing_lstm.py`` as written.
 
 Phases, each of which fails the run (each prints its wall time):
 
@@ -259,7 +266,33 @@ Phases, each of which fails the run (each prints its wall time):
     host: classes and masks equal, boxes within ``MULTIBOX_ATOL``; (b)
     ``bench_ssd``'s step, 2 warm-up and 10 timed steps, captured and
     eager in turns as in 15(c); (c) one ``detect()`` of the net's
-    outputs on the card against the host.
+    outputs on the card against the host;
+17. symbolic: (a) the symbolic ResNet-50 (its weight count equal to
+    ``resnet50_v1()``'s; ``infer_shape``'s host time) through
+    ``Module.fit``, 2 warm-up and 10 timed batches, captured and eager
+    in turns (captured, eager, eager, captured) from the same
+    parameters under cuDNN's deterministic algorithms: every parameter
+    moved, the first captured run the first eager run's bits where the
+    eager runs repeat their bits, else within ``RUN_GAP_FACTOR`` of
+    their gap; then with cuDNN's default algorithms a captured run (a
+    profiled step, peak memory, the executor's graphs) and
+    ``resnet50_v1()`` through ``parallel.TrainStep`` (unfused, NCHW,
+    f32, the same SGD and batch), img/s of both and their ratio; (b) a ``sym.FusedNormReluConv`` node
+    at [256, 56, 56, 64] -> 64 3x3 and a ``sym.flash_attention`` node at
+    (64, 128, 12x64), bf16, through ``Symbol.bind``: 3 training calls
+    with ``backward(out_grads)`` (eager, then a captured pair replayed),
+    one launch of each kernel per call, output and gradients held
+    against the same symbol under ``plain_versions``; (c) the two
+    symbolic examples as written: the reloaded Module's score and the
+    first's within 1e-6, the SymbolBlock's probabilities and
+    ``Module.predict`` within 1e-6, "over buckets [4, 8, 12]" and one
+    graph per bucket key used; (d) ``Module.fit`` of the example's MLP
+    SIGTERMed mid-epoch and resumed on the same Module, loaded in place
+    into the tensors its graphs hold, ending on the uninterrupted run's
+    parameters and optimizer state bit for bit; (e) a hybridized block
+    with a fused norm-relu-conv exported (``HybridBlock.export``) and
+    served by ``SymbolBlock.imports``: the kernel recorded as a custom
+    op, launched once a call, the block's bits.
 
 Prints one JSON ``kernels`` line, then the card line, then as the last
 line ``{"ok": true, "device": {...}}``.  Without a card, or without the
@@ -421,6 +454,15 @@ SSD_MAY_STAY = (r"batchnorm\d+_gamma$|^ssd\d+__predictorhead(8|9|1[0-3])_"
 # captured vs eager parameters, where two eager runs differ: within this
 # many times the eager runs' own gap
 RUN_GAP_FACTOR = 4.0
+# the symbolic phase: ResNet-50 v1 from mx.sym through Module.fit (NCHW,
+# f32, batch SYM_BATCH, SGD 0.1 / 0.9 / 1e-4), the two kernel symbols
+# over SYM_CALLS training calls, the two symbolic examples, and
+# Module.fit preempted and resumed (SYM_FIT_BATCHES batches an epoch,
+# SIGTERM after batch SYM_FIT_KILL)
+SYM_BATCH, SYM_WARMUP, SYM_TIMED = 64, 2, 10
+SYM_SGD = (("learning_rate", 0.1), ("momentum", 0.9), ("wd", 1e-4))
+SYM_CALLS = 3
+SYM_FIT_BATCHES, SYM_FIT_BATCH, SYM_FIT_KILL = 8, 128, (1, 3)
 
 
 def log(msg):
@@ -4526,6 +4568,579 @@ def ssd_phase(torch):
 
 
 
+# ---------------------------------------------------------------- symbolic --
+def sym_resnet50(S):
+    """``resnet50_v1`` (``ResNetV1`` of ``BottleneckV1``, layers [3, 4,
+    6, 3], channels [64, 256, 512, 1024, 2048], 1000 classes, NCHW) built
+    from ``mx.sym`` layers, layer for layer as the Gluon net: the 7x7/2
+    stem, BatchNorm (scale learned, eps 1e-5, momentum 0.9), ReLU, 3x3/2
+    max pool; each bottleneck's 1x1 (stride here) -> 3x3 -> 1x1 with a
+    BatchNorm after each, a 1x1 + BatchNorm downsample on a stage's first
+    unit, ReLU after the sum; global average pool, flatten, the 1000-way
+    FullyConnected, and ``SoftmaxOutput`` with the batch-mean loss of
+    ``SoftmaxCrossEntropyLoss``."""
+    def bn(x, name):
+        return S.BatchNorm(x, name=name, fix_gamma=False, eps=1e-5,
+                           momentum=0.9)
+
+    def conv(x, name, ch, k, stride):
+        return S.Convolution(x, name=name, num_filter=ch, kernel=(k, k),
+                             stride=(stride, stride),
+                             pad=(k // 2, k // 2), no_bias=True)
+
+    x = conv(S.Variable("data"), "conv0", 64, 7, 2)
+    x = S.Activation(bn(x, "bn0"), act_type="relu", name="relu0")
+    x = S.Pooling(x, kernel=(3, 3), stride=(2, 2), pad=(1, 1),
+                  pool_type="max", name="pool0")
+    for stage, (blocks, _, _, ch) in enumerate(RESNET50_STAGES, 1):
+        for unit in range(blocks):
+            p = f"stage{stage}_unit{unit}_"
+            stride = 2 if stage > 1 and unit == 0 else 1
+            y = S.Activation(bn(conv(x, p + "conv1", ch // 4, 1, stride),
+                                p + "bn1"), act_type="relu")
+            y = S.Activation(bn(conv(y, p + "conv2", ch // 4, 3, 1),
+                                p + "bn2"), act_type="relu")
+            y = bn(conv(y, p + "conv3", ch, 1, 1), p + "bn3")
+            r = bn(conv(x, p + "down", ch, 1, stride), p + "down_bn") \
+                if unit == 0 else x
+            x = S.Activation(y + r, act_type="relu", name=p + "relu")
+    x = S.Pooling(x, kernel=(7, 7), global_pool=True, pool_type="avg",
+                  name="pool1")
+    x = S.FullyConnected(S.Flatten(x), num_hidden=1000, name="fc")
+    return S.SoftmaxOutput(x, name="softmax", normalization="batch")
+
+
+def sym_data(torch, mx):
+    """(SYM_WARMUP + SYM_TIMED) batches of SYM_BATCH images 3x224x224 and
+    labels of 1000 classes from RandomState(0), in an NDArrayIter on the
+    card."""
+    rng = np.random.RandomState(0)
+    n = SYM_BATCH * (SYM_WARMUP + SYM_TIMED)
+    x = rng.rand(n, 3, 224, 224).astype(np.float32)
+    y = rng.randint(0, 1000, (n,)).astype(np.float32)
+    return mx.io.NDArrayIter(x, y, batch_size=SYM_BATCH)
+
+
+def sym_fit(torch, mx, symbol, it, start, capture, what):
+    """One epoch of ``Module.fit`` from the parameters ``start``: the
+    warm-up batches, then SYM_TIMED timed ones (the clock read at batch
+    ends, the card synchronised).  Returns the numbers, the module and
+    every parameter and running statistic after the run."""
+    mx.random.seed(0)
+    mod = mx.mod.Module(symbol, context=mx.gpu(0), capture=capture)
+    clock = {}
+
+    def at_batch_end(p):
+        if p.nbatch in (SYM_WARMUP - 1, SYM_WARMUP + SYM_TIMED - 1):
+            torch.cuda.synchronize()
+            clock[p.nbatch] = time.perf_counter()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mod.fit(it, optimizer="sgd", optimizer_params=SYM_SGD,
+            arg_params=start[0], aux_params=start[1], eval_metric="acc",
+            num_epoch=1, batch_end_callback=at_batch_end)
+    dt = clock[SYM_WARMUP + SYM_TIMED - 1] - clock[SYM_WARMUP - 1]
+    peak = torch.cuda.max_memory_allocated()
+    ex = mod._exec
+    ends = {n: a._data.detach().clone() for d in (ex.arg_dict, ex.aux_dict)
+            for n, a in d.items() if n not in ("data", "softmax_label")}
+    expect(all(bool(torch.isfinite(t).all()) for t in ends.values()),
+           f"{what}: a parameter is not finite")
+    graphs = ex.graph_count()
+    expect(graphs == (0 if capture is False else 1),
+           f"{what}: the executor holds {graphs} graphs")
+    res = {"ms_step": 1e3 * dt / SYM_TIMED,
+           "img_s": SYM_BATCH * SYM_TIMED / dt, "peak": peak,
+           "graphs": graphs}
+    log(f"symbolic [{what}]: {SYM_TIMED} timed steps in {dt:.3f} s = "
+        f"{res['ms_step']:.2f} ms/step = {res['img_s']:.1f} img/s; peak "
+        f"device memory {peak / 2**30:.2f} GiB; executor graphs {graphs}")
+    return res, mod, ends
+
+
+def sym_turn(torch, mx, symbol, it, start, capture, what, profile):
+    """One run of ``sym_fit``, then (``profile``) one more step and a
+    profiled one.  The module dies with the call, so the next run has
+    the card's memory.  Returns the numbers (with the busy share, or
+    None) and the parameters after the run."""
+    res, mod, end = sym_fit(torch, mx, symbol, it, start, capture, what)
+    res["busy"] = None
+    if profile:
+        it.reset()
+        batch = it.next()
+
+        def one_step():
+            mod.forward(batch, is_train=True)
+            mod.backward()
+            mod.update()
+        one_step()
+        prof, wall_us, _ = profiled(torch, one_step, what)
+        res["busy"] = print_profile(prof, wall_us, f"{what}, one step")
+    return res, end
+
+
+def sym_resnet(torch, smi_line):
+    """(a) The symbolic ResNet-50 through ``Module.fit`` on the card: its
+    weight count against ``resnet50_v1()``'s and ``infer_shape``'s host
+    time; captured and eager runs in turns (captured, eager, eager,
+    captured) from the same parameters under cuDNN's deterministic
+    algorithms, held as ``train_in_turns`` holds them (every parameter
+    moved; the first captured run the first eager run's bits where the
+    eager runs repeat their bits, else within RUN_GAP_FACTOR of their
+    gap); then, with cuDNN's default algorithms, a captured run with a
+    profiled step, and ``resnet50_v1()`` through ``parallel.TrainStep``
+    (unfused, NCHW, f32, SGD_KW, the same batch): img/s of both and
+    their ratio."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon, initializer, optimizer, parallel
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+
+    symbol = sym_resnet50(mx.sym)
+    shape = (SYM_BATCH, 3, 224, 224)
+    infer_s = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        args, _, aux = symbol.infer_shape(data=shape)
+        infer_s.append(time.perf_counter() - t0)
+    names = symbol.list_arguments()
+    n_sym = sum(int(np.prod(s)) for n, s in zip(names, args)
+                if n not in ("data", "softmax_label"))
+    log(f"symbolic ResNet-50: {len(names) - 2} parameters, "
+        f"{len(symbol.list_auxiliary_states())} running statistics, "
+        f"{n_sym} weights; infer_shape (one meta walk, "
+        f"{sum(1 for n in symbol._topo_nodes() if n.op)} nodes) took "
+        f"{infer_s[0]:.3f} s on the host, {infer_s[1]:.3f} s called again")
+
+    initializer.seed(0)
+    m0 = mx.mod.Module(symbol, context=mx.gpu(0))
+    m0.bind([("data", shape)], [("softmax_label", (SYM_BATCH,))],
+            for_training=False)
+    m0.init_params(initializer=mx.init.Xavier(rnd_type="gaussian",
+                                              factor_type="in",
+                                              magnitude=2))
+    start = m0.get_params()
+    del m0
+    it = sym_data(torch, mx)
+    runs, ends = {"captured": [], "eager": []}, {"captured": [], "eager": []}
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=True):
+        for kind in ("captured", "eager", "eager", "captured"):
+            res, end = sym_turn(torch, mx, symbol, it, start,
+                                None if kind == "captured" else False,
+                                f"symbolic ResNet-50, {kind}, cuDNN "
+                                f"deterministic", not runs[kind])
+            runs[kind].append(res)
+            ends[kind].append(end)
+            gc.collect()
+            torch.cuda.empty_cache()
+    first = {n: a._data for d in start for n, a in d.items()}
+    stuck = [n for n, t in ends["captured"][0].items()
+             if n in start[0] and torch.equal(t, first[n])]
+    expect(not stuck, f"symbolic ResNet-50: {len(stuck)} parameters never "
+           f"moved ({stuck[:4]})")
+    keys = sorted(ends["eager"][0])
+    listed = {k: [[e[n] for n in keys] for e in v] for k, v in ends.items()}
+    eager_gap = tensors_gap(listed["eager"][1], listed["eager"][0])
+    gap = tensors_gap(listed["captured"][0], listed["eager"][0])
+    log(f"symbolic ResNet-50 (cuDNN deterministic): after "
+        f"{SYM_WARMUP + SYM_TIMED} steps {len(start[0]) - len(stuck)} of "
+        f"{len(start[0])} parameters moved; gap (max error / tensor scale) "
+        f"over {len(keys)} parameters and running statistics: captured vs "
+        f"eager {gap:.3e}, eager vs eager {eager_gap:.3e}")
+    if eager_gap == 0:
+        expect(gap == 0, f"symbolic ResNet-50: the eager runs repeat bit "
+               f"for bit but the captured run ends {gap:.3e} away")
+    else:
+        expect(gap <= RUN_GAP_FACTOR * eager_gap, f"symbolic ResNet-50: "
+               f"captured vs eager {gap:.3e} apart, over {RUN_GAP_FACTOR} "
+               f"x the eager runs' own {eager_gap:.3e}")
+    del ends, listed
+    gc.collect()
+    default, _ = sym_turn(torch, mx, symbol, it, start, None,
+                          "symbolic ResNet-50, captured", True)
+    del start, it
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    initializer.seed(0)
+    net = resnet50_v1()
+    net.initialize(ctx=DEVICE)
+    with mx.autograd.pause():
+        net(torch.zeros((1, 3, 224, 224), device=DEVICE))
+    n_net = sum(p.tensor().numel() for p in net.collect_params().values()
+                if p.grad_req != "null")
+    expect(n_net == n_sym, f"symbolic ResNet-50 has {n_sym} weights, "
+           f"resnet50_v1() {n_net}")
+    step = parallel.TrainStep(net, gluon.loss.SoftmaxCrossEntropyLoss(),
+                              optimizer.create("sgd", **SGD_KW))
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.rand(*shape).astype(np.float32)).to(DEVICE)
+    y = torch.from_numpy(rng.randint(0, 1000, (SYM_BATCH,))
+                         .astype(np.int32)).to(DEVICE)
+    ts = timed_run(torch, step, (x, y), SYM_WARMUP, SYM_TIMED,
+                   "resnet50_v1 TrainStep, NCHW f32 unfused", "img/s",
+                   SYM_BATCH)
+    ts["busy"] = profile_step(torch, step, (x, y), "train step (resnet50_v1"
+                              f" NCHW f32, batch {SYM_BATCH}, TrainStep)")
+    del step, net
+    gc.collect()
+    torch.cuda.empty_cache()
+    det = {k: [round(r["ms_step"], 2) for r in v] for k, v in runs.items()}
+    log(f"symbolic: Module.fit ResNet-50 (NCHW f32, batch {SYM_BATCH}) "
+        f"captured {default['ms_step']:.2f} ms/step = "
+        f"{default['img_s']:.1f} img/s (busy {100 * default['busy']:.1f}%, "
+        f"peak {default['peak'] / 2**30:.2f} GiB, {default['graphs']} "
+        f"executor graph); TrainStep {ts['ms_step']:.2f} ms/step = "
+        f"{ts['rate']:.1f} img/s (busy {100 * ts['busy']:.1f}%, peak "
+        f"{ts['peak'] / 2**30:.2f} GiB); Module / TrainStep = "
+        f"{default['img_s'] / ts['rate']:.3f}x; under cuDNN's "
+        f"deterministic algorithms captured {det['captured']} ms/step "
+        f"(busy {100 * runs['captured'][0]['busy']:.1f}%), eager "
+        f"{det['eager']} ms/step (busy "
+        f"{100 * runs['eager'][0]['busy']:.1f}%); infer_shape "
+        f"{infer_s[0]:.3f} s (again {infer_s[1]:.3f} s); {n_sym} weights "
+        f"in both; card {smi_line}")
+    return {"module": default, "turns": runs, "train_step": ts,
+            "infer_s": infer_s}
+
+
+def sym_kernel_calls(torch, symbol, vals, req, out_grad, calls, capture):
+    """``calls`` training forwards and ``backward(out_grad)`` through
+    ``Symbol.bind`` on the card.  Returns the last call's output and
+    gradients, each call's kernel launches and the executor."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import graphs
+
+    ex = symbol.bind(ctx=mx.gpu(0), args={k: mx.nd.NDArray(v.clone())
+                                          for k, v in vals.items()},
+                     grad_req=req, capture=capture)
+    per_call = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        before = graphs.launch_counts()
+        out = ex.forward(is_train=True)[0]
+        ex.backward([mx.nd.NDArray(out_grad)])
+        torch.cuda.synchronize()
+        after = graphs.launch_counts()
+        per_call.append({k: after[k] - before[k] for k in after
+                         if after[k] != before[k]})
+    got = [out._data] + [ex.grad_dict[k]._data.clone()
+                         for k in sorted(req) if req[k] != "null"]
+    return got, per_call, ex
+
+
+def sym_kernels(torch):
+    """(b) The hand-written kernels reached through ``mx.sym``: a
+    ``FusedNormReluConv`` node (data, weight, gamma, beta and the moving
+    statistics as variables, output 0) at ResNet-50's first fused shape,
+    and a ``flash_attention`` node at BERT-base's (12 heads x 64,
+    sequence 128), data in bf16, bound by ``Symbol.bind`` with
+    ``grad_req="write"``: SYM_CALLS training forwards with
+    ``backward(out_grads)``, the first eager, then a captured pair
+    replayed; every call launches each kernel of the op once (counted
+    through the graphs' replay counters) and the last call's output and
+    gradients are held against the same symbol bound on the card under
+    ``plain_versions`` (phase 7's and 11's tolerances).  Returns the
+    launches of each kernel over the calls, by kernel name."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import fused_conv as fc
+
+    fa = flash_module()
+    gen = torch.Generator(device=DEVICE).manual_seed(11)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=DEVICE)
+
+    label, _, hw, ci, co, k = next(iter(path_shapes()))
+    n = IMPERATIVE_FUSED[0]
+    names = ("data", "weight", "gamma", "beta", "moving_mean", "moving_var")
+    fused_vals = {
+        "data": randn(n, hw, hw, ci).bfloat16(),
+        "weight": (randn(k, k, ci, co) * (2.0 / (k * k * ci)) ** 0.5)
+        .bfloat16(),
+        "gamma": torch.rand(ci, generator=gen, device=DEVICE) + 0.5,
+        "beta": 0.1 * randn(ci), "moving_mean": 0.1 * randn(ci),
+        "moving_var": torch.rand(ci, generator=gen, device=DEVICE) + 0.5}
+    fused_sym = mx.sym.FusedNormReluConv(
+        *[mx.sym.Variable(v) for v in names], stride=1, name="nrc")[0]
+    fused_req = {v: "null" if v.startswith("moving") else "write"
+                 for v in names}
+    b, s, h, d = BERT_BATCH, BERT_SEQ, BERT_HEADS, BERT_HEAD_DIM
+    flash_vals = {v: randn(b, s, h * d).bfloat16() for v in "qkv"}
+    flash_sym = mx.sym.flash_attention(*[mx.sym.Variable(v) for v in "qkv"],
+                                       heads=h, name="fa")
+    cases = (
+        (f"sym.FusedNormReluConv [{n}, {hw}, {hw}, {ci}] -> {co}, "
+         f"{k}x{k}, bf16 ({label})", fc, fc.norm_relu_conv, "fused_conv",
+         FUSED, fused_sym, fused_vals, fused_req,
+         randn(n, hw, hw, co).bfloat16()),
+        (f"sym.flash_attention ({b}, {s}, {h}x{d}) bf16", fa,
+         fa.flash_attention, "flash_attention", FLASH, flash_sym,
+         flash_vals, dict.fromkeys("qkv", "write"),
+         randn(b, s, h * d).bfloat16()))
+    launched = {}
+    for what, module, fn, prefix, kinds, symbol, vals, req, og in cases:
+        counters = dict(fn.launches)
+        got, per_call, ex = sym_kernel_calls(torch, symbol, vals, req, og,
+                                             SYM_CALLS, None)
+        one = {f"{prefix}_{kk}": 1 for kk in kinds}
+        expect(all(c == one for c in per_call),
+               f"{what}: launches per call {per_call}, expected {one}")
+        expect(ex.graph_count() == 1, f"{what}: the executor holds "
+               f"{ex.graph_count()} graphs, expected the training pair")
+        launched.update({f"{prefix}_{kk}": fn.launches[kk] - counters[kk]
+                         for kk in kinds})
+        del ex
+        plain_counts = dict(fn.launches)
+        with plain_versions(module):
+            want, _, ex = sym_kernel_calls(torch, symbol, vals, req, og, 1,
+                                           False)
+        del ex
+        expect(fn.launches == plain_counts,
+               f"{what}: the plain route launched kernels")
+        labels = ["out"] + [f"d{v}" for v in sorted(req)
+                            if req[v] != "null"]
+        err = {nm: check_outputs(torch, what, nm, [g], [p])
+               for nm, g, p in zip(labels, got, want)}
+        log(f"symbolic kernels [{what}]: {SYM_CALLS} training calls "
+            f"(eager, then the captured pair replayed), launches per call "
+            f"{per_call}; max abs err vs the plain versions "
+            + ", ".join(f"{nm} {e:.3e}" for nm, e in err.items()))
+        torch.cuda.empty_cache()
+    return launched
+
+
+def sym_examples(torch, root):
+    """(c) ``examples/module_symbolic_mnist.py --epochs 1`` and
+    ``examples/bucketing_lstm.py --epochs 2 --batch-size 16`` as
+    written, with the port as ``mx``: the first Module's score and the
+    reloaded Module's within 1e-6, the SymbolBlock's probabilities and
+    ``Module.predict`` of the reloaded Module on the same batch within
+    1e-6 (every executor on the card); the bucketing run prints "over
+    buckets [4, 8, 12]", and its bucket executors hold one graph per key
+    used (a training pair where a bucket trained twice or more, an
+    inference forward where it was scored)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import executor as exmod
+
+    seen = {"scores": [], "served": [], "calls": {}, "executors": {}}
+    patches = []
+
+    def patch(owner, name, wrap):
+        orig = getattr(owner, name)
+        patches.append((owner, name, orig))
+        setattr(owner, name, wrap(orig))
+
+    patch(mx.mod.Module, "score", lambda orig: lambda self, *a, **kw: (
+        seen["scores"].append((self, orig(self, *a, **kw)))
+        or seen["scores"][-1][1]))
+
+    def sb_forward(orig):
+        def forward(self, *args):
+            out = orig(self, *args)
+            seen["served"].append((args, out))
+            return out
+        return forward
+    patch(mx.gluon.SymbolBlock, "forward", sb_forward)
+
+    def ex_forward(orig):
+        def forward(self, is_train=False, **kw):
+            key = (id(self), bool(is_train))
+            seen["calls"][key] = seen["calls"].get(key, 0) + 1
+            seen["executors"][id(self)] = self
+            return orig(self, is_train=is_train, **kw)
+        return forward
+    patch(exmod.Executor, "forward", ex_forward)
+    try:
+        mx.random.seed(0)
+        text = run_example(root, "module_symbolic_mnist", ["--epochs", "1"],
+                           env={"JAX_PLATFORMS": ""})
+        expect("SymbolBlock serve" in text and "validation accuracy" in text,
+               "module_symbolic_mnist: its lines are missing")
+        expect(all(e._device.type == "cuda"
+                   for e in seen["executors"].values()),
+               "module_symbolic_mnist: an executor ran off the card")
+        (first, (s1,)), (reloaded, (s2,)) = seen["scores"][:2]
+        expect(s1[0] == s2[0] and abs(s1[1] - s2[1]) <= 1e-6,
+               f"module_symbolic_mnist: score {s1} vs the reloaded {s2}")
+        (x,), probs = seen["served"][0]
+        pred = reloaded.predict(mx.io.NDArrayIter(
+            mx.nd.NDArray(x), batch_size=x.shape[0]))._data
+        diff = float((pred - probs).abs().max())
+        expect(probs.is_cuda and diff <= 1e-6, f"module_symbolic_mnist: "
+               f"SymbolBlock vs Module.predict max abs diff {diff:.3e}")
+        log(f"symbolic example module_symbolic_mnist: score {s1[1]:.6f}, "
+            f"reloaded {s2[1]:.6f}; SymbolBlock vs Module.predict on a "
+            f"batch of {x.shape[0]}: max abs diff {diff:.3e}")
+
+        seen["calls"].clear()
+        seen["executors"].clear()
+        mx.random.seed(0)
+        text = run_example(root, "bucketing_lstm",
+                           ["--epochs", "2", "--batch-size", "16"],
+                           env={"JAX_PLATFORMS": ""})
+        expect("over buckets [4, 8, 12]" in text,
+               "bucketing_lstm: 'over buckets [4, 8, 12]' not printed")
+        execs = seen["executors"]
+        keys = sum((seen["calls"].get((i, True), 0) >= 2)
+                   + (seen["calls"].get((i, False), 0) >= 1) for i in execs)
+        graphs = sum(e.graph_count() for e in execs.values())
+        expect(len(execs) == 3 and graphs == keys,
+               f"bucketing_lstm: {len(execs)} bucket executors hold "
+               f"{graphs} graphs, {keys} keys used")
+        log(f"symbolic example bucketing_lstm: {len(execs)} bucket "
+            f"executors x their keys (train pair, inference forward) = "
+            f"{keys} keys used, {graphs} graphs held; calls by (executor, "
+            f"is_train): {sorted(seen['calls'].values())}")
+    finally:
+        for owner, name, orig in reversed(patches):
+            setattr(owner, name, orig)
+    return graphs
+
+
+def sym_mlp(S):
+    """``examples/module_symbolic_mnist.py``'s ``build_symbol``."""
+    net = S.FullyConnected(S.Variable("data"), name="fc1", num_hidden=128)
+    net = S.Activation(net, name="relu1", act_type="relu")
+    net = S.FullyConnected(net, name="fc2", num_hidden=64)
+    net = S.Activation(net, name="relu2", act_type="relu")
+    net = S.FullyConnected(net, name="fc3", num_hidden=10)
+    return S.SoftmaxOutput(net, name="softmax", normalization="batch")
+
+
+def sym_resume(torch, tmp):
+    """(d) ``Module.fit`` on the card, 2 epochs of SYM_FIT_BATCHES batches
+    of the example's MLP (Adam 0.02, as the example): once uninterrupted;
+    once with ``checkpoint_prefix`` and a batch-end callback that raises
+    SIGTERM after batch SYM_FIT_KILL (the fit snapshots and returns); the
+    same Module's parameters and optimizer state are then overwritten in
+    place and ``fit(resume=True)`` restores them in place, into the
+    tensors its captured graphs hold (their graphs kept), and picks up at
+    the next batch.  It must end on the uninterrupted run's parameters
+    and optimizer state bit for bit."""
+    import signal
+
+    import mxnet_tpu_torch as mx
+
+    rng = np.random.RandomState(4)
+    n = SYM_FIT_BATCHES * SYM_FIT_BATCH
+    x = rng.rand(n, 784).astype(np.float32)
+    y = rng.randint(0, 10, (n,)).astype(np.float32)
+
+    def fit(mod, prefix, resume=False, kill_at=None):
+        seen = []
+
+        def at_batch_end(p):
+            seen.append((p.epoch, p.nbatch))
+            if (p.epoch, p.nbatch) == kill_at:
+                signal.raise_signal(signal.SIGTERM)
+
+        mod.fit(mx.io.NDArrayIter(x, y, batch_size=SYM_FIT_BATCH),
+                optimizer="adam", optimizer_params=(("learning_rate", 0.02),),
+                eval_metric="acc", num_epoch=2,
+                batch_end_callback=at_batch_end, checkpoint_prefix=prefix,
+                resume=resume)
+        return seen
+
+    def state(mod):
+        ex = mod._exec
+        out = {n: ex.arg_dict[n]._data for n in mod._param_names()}
+        for n, st in mod._opt_states.items():
+            for i, t in enumerate(st):
+                out[f"{n}.opt{i}"] = t._data
+        return out
+
+    def fresh():
+        mx.random.seed(3)
+        mx.init.seed(3)
+        return mx.mod.Module(sym_mlp(mx.sym), context=mx.gpu(0))
+
+    ref = fresh()
+    fit(ref, os.path.join(tmp, "ref"))
+    want = {k: t.clone() for k, t in state(ref).items()}
+    del ref
+    prefix = os.path.join(tmp, "ck")
+    mod = fresh()
+    seen1 = fit(mod, prefix, kill_at=SYM_FIT_KILL)
+    expect(seen1[-1] == SYM_FIT_KILL
+           and os.path.exists(prefix + "-resume.json"),
+           f"Module.fit on SIGTERM: last batch {seen1[-1]}, marker "
+           f"{os.path.exists(prefix + '-resume.json')}")
+    held = state(mod)
+    graphs = mod._exec.graph_count()
+    with torch.no_grad():
+        for t in held.values():
+            t.fill_(0.5)
+    seen2 = fit(mod, prefix, resume=True)
+    nxt = (SYM_FIT_KILL[0], SYM_FIT_KILL[1] + 1)
+    expect(seen2[0] == nxt, f"resumed fit started at {seen2[0]}, not {nxt}")
+    got = state(mod)
+    expect(all(got[k] is held[k] for k in held)
+           and mod._exec.graph_count() == graphs,
+           "resumed fit rebound a tensor its graphs hold")
+    differ = [k for k in want if not torch.equal(got[k], want[k])]
+    expect(not differ, f"resumed Module.fit differs from the "
+           f"uninterrupted run in {differ[:4]}")
+    log(f"symbolic resume: Module.fit (MLP 784-128-64-10, Adam, 2 x "
+        f"{SYM_FIT_BATCHES} batches of {SYM_FIT_BATCH}) SIGTERMed after "
+        f"batch {SYM_FIT_KILL}, loaded in place into the {len(held)} "
+        f"tensors its {graphs} graph(s) hold, resumed at {seen2[0]}; "
+        f"parameters and optimizer state the uninterrupted run's bits")
+
+
+def sym_export(torch, tmp):
+    """(e) ``HybridBlock.export`` of a hybridized NHWC block with a fused
+    norm-relu-conv (64 -> 64, 3x3) on the card, then
+    ``SymbolBlock.imports`` of the artifact: the program records the
+    kernel as the ``mxnet_tpu_torch::norm_relu_conv`` custom op, each
+    call of the imported block launches the forward kernel once, and
+    its outputs are the block's bits."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon import nn
+    from mxnet_tpu_torch.ops.fused_conv import norm_relu_conv
+
+    with mx.name.NameManager():
+        net = nn.HybridSequential()
+        net.add(nn.Conv2D(64, 3, padding=1, layout="NHWC", in_channels=3),
+                nn.NormReluConv2D(64, 3, in_channels=64),
+                nn.BatchNorm(axis=-1), nn.Flatten(), nn.Dense(10))
+    net.initialize(ctx=mx.gpu(0))
+    net.hybridize()
+    x = mx.nd.array(np.random.RandomState(5).randn(4, 16, 16, 3)
+                    .astype(np.float32), ctx=mx.gpu(0))
+    ref = net(x)._data
+    t0 = time.perf_counter()
+    sym_file, _ = net.export(os.path.join(tmp, "fused"))
+    export_s = time.perf_counter() - t0
+    program = open(os.path.join(tmp, "fused-graph.pt2"), "rb").read()
+    served = mx.gluon.SymbolBlock.imports(sym_file, ctx=mx.gpu(0))
+    before = norm_relu_conv.launches["fwd"]
+    got = served(x)._data
+    torch.cuda.synchronize()
+    launched = norm_relu_conv.launches["fwd"] - before
+    expect(b"mxnet_tpu_torch.norm_relu_conv" in program and launched == 1
+           and torch.equal(got, ref), f"export: custom op recorded "
+           f"{b'mxnet_tpu_torch.norm_relu_conv' in program}, {launched} "
+           f"forward launches a call, same bits {torch.equal(got, ref)}")
+    log(f"symbolic export: a fused block exported in {export_s:.2f} s, "
+        f"served by SymbolBlock.imports on the card: 1 fused_conv_fwd "
+        f"launch a call, the block's bits")
+
+
+def symbolic_phase(torch, root, smi_line):
+    """The symbolic API on the card: (a) ``sym_resnet``, (b)
+    ``sym_kernels``, (c) ``sym_examples``, (d) ``sym_resume``, (e)
+    ``sym_export``."""
+    resnet = sym_resnet(torch, smi_line)
+    launched = sym_kernels(torch)
+    graphs = sym_examples(torch, root)
+    with tempfile.TemporaryDirectory() as tmp:
+        sym_resume(torch, tmp)
+        sym_export(torch, tmp)
+    return {"resnet": resnet, "launches": launched, "bucket_graphs": graphs}
+
+
 class phase:
     """Print a phase's wall time on its own line when it ends."""
 
@@ -4762,6 +5377,10 @@ def main():
             torch.cuda.empty_cache()
         with phase("SSD"):
             ssd_phase(torch)
+            gc.collect()
+            torch.cuda.empty_cache()
+        with phase("symbolic"):
+            symbolic = symbolic_phase(torch, root, smi_line)
     except SmokeError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -4792,7 +5411,8 @@ def main():
                                      kern],
                                  "input pipeline":
                                      pipeline["fed"]["launches"][kern],
-                                 "resume": resumed["launches"][kern]}})
+                                 "resume": resumed["launches"][kern],
+                                 "symbolic": symbolic["launches"][kname]}})
     for kern in FLASH:
         kname, t = f"flash_attention_{kern}", flash_times[kern]
         kernels["kernels"].append({
@@ -4802,7 +5422,8 @@ def main():
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "launches_by_path": {"train": bert["launches"][kern],
-                                 "nd": pipeline["nd"]["flash"][kern]}})
+                                 "nd": pipeline["nd"]["flash"][kern],
+                                 "symbolic": symbolic["launches"][kname]}})
     print(json.dumps(kernels), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -44,6 +44,14 @@ into ``mxnet_tpu_torch/_build/`` (``base.load_native_lib``).  ``config``
 holds the ``MXNET_*`` knobs, ``storage`` the accounting of NDArray bytes
 and the host staging pool.
 
+The symbolic API: ``sym`` (``symbol``: Symbols over the op registry,
+the JAX package's json byte for byte), ``executor`` (on the card its
+programs are captured CUDA graphs, a training step a forward and
+backward pair), ``mod`` (``module``: ``Module``, ``BucketingModule``),
+``model`` (checkpoints), ``rnn`` (the legacy symbolic cells),
+``callback``, ``mon`` (``monitor``), ``viz`` (``visualization``),
+``name``, ``AttrScope`` (``attribute``) and ``gluon.SymbolBlock``.
+
 On the card every step — ``parallel.TrainStep``, ``parallel.EvalStep``,
 the server's prefill and decode steps and a hybridized Gluon block's
 forward and backward (``HybridBlock.hybridize``) — runs as a captured
@@ -51,24 +59,35 @@ CUDA graph (``graphs``), the counterpart of the JAX package's compiled
 programs; ``python -m mxnet_tpu_torch.bench {resnet,bert,llm}`` prints
 ``bench.py``'s line for each slice.
 
-Exports: ``nd`` (``ndarray``), ``autograd``, ``config``, ``elastic``
+Exports: ``nd`` (``ndarray``, with ``NDArray``), ``autograd``,
+``config``, ``elastic``
 (heartbeats and the gang supervisor; ``parallel.checkpoint`` the
 snapshots they resume from), ``engine``,
 ``gluon``, ``image``, ``init`` (``initializer``), ``io``, ``metric``,
 ``optimizer``, ``parallel``, ``profiler``, ``random``, ``recordio``,
-``storage``,
-``Context``/``cpu``/``gpu``/``current_context``, ``num_gpus`` and
-``gpu_memory_info``.
+``serving``, ``storage``, the symbolic names above,
+``Context``/``cpu``/``cpu_pinned``/``gpu``/``current_context``,
+``num_gpus``, ``gpu_memory_info``, ``MXNetError`` and ``waitall``.
 """
 from . import base, config, storage
 from . import (autograd, context, elastic, engine, gluon, image, initializer,
                io, lr_scheduler, metric, ndarray, optimizer, parallel,
                profiler, random, recordio)
-from .context import (Context, cpu, current_context, gpu, gpu_memory_info,
-                      num_gpus, resolve_device)
+from . import (attribute, callback, executor, model, module, monitor, name,
+               rnn, serving, symbol, visualization)
+from .attribute import AttrScope
+from .base import MXNetError
+from .context import (Context, cpu, cpu_pinned, current_context, gpu,
+                      gpu_memory_info, num_gpus, resolve_device)
+from .ndarray import NDArray
 
 nd = ndarray
 init = initializer
+sym = symbol
+mod = module
+mon = monitor
+viz = visualization
+waitall = engine.waitall
 
 config._apply_startup()
 
@@ -76,5 +95,9 @@ __all__ = ["autograd", "base", "config", "context", "elastic", "engine",
            "gluon",
            "image", "initializer", "init", "io", "lr_scheduler", "metric",
            "nd", "ndarray", "optimizer", "parallel", "profiler", "random",
-           "recordio", "storage", "Context", "cpu", "gpu", "current_context",
-           "num_gpus", "gpu_memory_info", "resolve_device"]
+           "recordio", "storage", "Context", "cpu", "cpu_pinned", "gpu",
+           "current_context", "num_gpus", "gpu_memory_info",
+           "resolve_device", "attribute", "AttrScope", "callback",
+           "executor", "model", "module", "mod", "monitor", "mon", "name",
+           "rnn", "serving", "symbol", "sym", "visualization", "viz",
+           "MXNetError", "NDArray", "waitall"]

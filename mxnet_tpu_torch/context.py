@@ -9,15 +9,23 @@ the current context, which outside any scope is the card.  Without a
 card, and without a ``cpu`` context asked for, it raises: it never
 carries on silently on the host (the JAX package's ``current_context``
 falls back to the CPU; the port does not).
+
+``cpu_pinned`` names the host's page-locked memory (``storage`` hands
+out pinned buffers for it); arrays made under it are host tensors.
+``shape_trace()`` is the scope in which ``symbol``'s shape inference
+traces a graph on ``meta`` tensors: the registry's creation ops make
+meta tensors inside it, whatever context they are given.
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 
 import torch
 
-__all__ = ["Context", "resolve_device", "cpu", "gpu", "current_context",
-           "num_gpus", "gpu_memory_info"]
+__all__ = ["Context", "resolve_device", "cpu", "cpu_pinned", "gpu",
+           "current_context", "num_gpus", "gpu_memory_info", "shape_trace",
+           "tracing_shapes"]
 
 _tls = threading.local()
 
@@ -47,7 +55,7 @@ class Context:
     for the card when it is made.  It compares equal to the
     ``torch.device`` it names."""
 
-    devtype2str = {1: "cpu", 2: "gpu"}
+    devtype2str = {1: "cpu", 2: "gpu", 3: "cpu_pinned"}
     devstr2type = {v: k for k, v in devtype2str.items()}
 
     def __init__(self, device_type, device_id: int = 0):
@@ -59,7 +67,8 @@ class Context:
                                       else "cpu", device_type.index or 0)
         if device_type not in self.devstr2type:
             raise ValueError(f"unknown device type {device_type!r}: the "
-                             f"port runs on 'gpu' or, when asked, 'cpu'")
+                             f"port runs on 'gpu' or, when asked, 'cpu' "
+                             f"('cpu_pinned')")
         self.device_type = device_type
         self.device_id = int(device_id)
         self.device = (_card(f"gpu({self.device_id})", self.device_id)
@@ -118,6 +127,12 @@ def cpu(device_id=0) -> Context:
     return Context("cpu", device_id)
 
 
+def cpu_pinned(device_id=0) -> Context:
+    """The host's page-locked memory (``device_id`` is accepted for API
+    parity)."""
+    return Context("cpu_pinned", device_id)
+
+
 def gpu(device_id=0) -> Context:
     """CUDA card ``device_id``; raises when there is none."""
     return Context("gpu", device_id)
@@ -142,6 +157,24 @@ def context_of(device: torch.device) -> Context:
     if ctx is None:
         ctx = _DEVICE_CTX[device] = Context(device)
     return ctx
+
+
+@contextlib.contextmanager
+def shape_trace():
+    """Inside, on this thread, the registry's creation ops make ``meta``
+    tensors: shape inference traces a graph on tensors that hold no
+    data, the port's counterpart of ``jax.eval_shape``."""
+    depth = getattr(_tls, "meta", 0)
+    _tls.meta = depth + 1
+    try:
+        yield
+    finally:
+        _tls.meta = depth
+
+
+def tracing_shapes() -> bool:
+    """True inside ``shape_trace`` on this thread."""
+    return getattr(_tls, "meta", 0) > 0
 
 
 def num_gpus() -> int:

@@ -3,11 +3,11 @@ trainer, utilities, the recurrent layers and cells (``rnn``), the model
 zoo and ``data`` (datasets, samplers, the
 DataLoader, vision datasets and transforms)."""
 from . import data, loss, model_zoo, nn, rnn, utils
-from .block import Block, HybridBlock, params_from_jax
+from .block import Block, HybridBlock, SymbolBlock, params_from_jax
 from .parameter import (Constant, DeferredInitializationError, Parameter,
                         ParameterDict)
 from .trainer import Trainer
 
-__all__ = ["Block", "HybridBlock", "Parameter", "ParameterDict", "Constant",
+__all__ = ["Block", "HybridBlock", "SymbolBlock", "Parameter", "ParameterDict", "Constant",
            "DeferredInitializationError", "Trainer", "params_from_jax",
            "data", "loss", "model_zoo", "nn", "rnn", "utils"]

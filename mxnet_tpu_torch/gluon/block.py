@@ -30,9 +30,18 @@ bodies run without capture.
 Hooks (``register_forward_hook``, ``register_forward_pre_hook``) fire on
 eager calls, as in the JAX package; ``summary`` prints the JAX
 package's table.
+
+``SymbolBlock`` makes a block of an ``mx.sym`` graph (or of a callable
+over ``nd`` arrays): the graph's remaining variables become its
+parameters, and its forward walks the graph over the registry's ops.
+``HybridBlock.export`` writes a block's inference forward as a
+``torch.export`` program beside its parameters, and
+``SymbolBlock.imports`` serves that pair without the block's class.
 """
 from __future__ import annotations
 
+import json
+import os
 import re
 import threading
 import weakref
@@ -48,7 +57,7 @@ from ..parallel.functional import functional_call, run_eagerly, \
     running_eagerly
 from .parameter import DeferredInitializationError, Parameter, ParameterDict
 
-__all__ = ["Block", "HybridBlock", "params_from_jax"]
+__all__ = ["Block", "HybridBlock", "SymbolBlock", "params_from_jax"]
 
 _naming = threading.local()
 
@@ -311,6 +320,7 @@ class HybridBlock(Block):
         super().__init__(prefix=prefix, params=params)
         self._active = False
         self._cached = None
+        self._export_spec = None        # the last hybridized call's inputs
 
     def hybridize(self, active=True, static_alloc=False, static_shape=False,
                   **kwargs):
@@ -391,6 +401,7 @@ class HybridBlock(Block):
         targs = tuple(a._data if isinstance(a, NDArray) else a
                       for a in args)
         leaves, spec = _flatten(targs)
+        self._export_spec = spec
         if any(t.is_cuda for t in leaves) and \
                 torch.cuda.is_current_stream_capturing():
             return super().__call__(*args)
@@ -414,6 +425,55 @@ class HybridBlock(Block):
     def hybrid_forward(self, F, x, *args, **kwargs):
         raise NotImplementedError
 
+    def export(self, path, epoch=0):
+        """ref: HybridBlock.export — ``path-symbol.json`` (a descriptor),
+        ``path-NNNN.params`` (``save_parameters``'s structural names) and
+        ``path-graph.pt2``: the inference forward as a ``torch.export``
+        program taking the parameters (in ``param_order``) and the
+        inputs of the last hybridized call, on their devices.  The
+        hand-written kernels appear in it as the ``mxnet_tpu_torch::``
+        custom ops.  Returns the json's and the params file's paths."""
+        if self._export_spec is None:
+            raise RuntimeError(
+                f"{type(self).__name__}.export: run one hybridized forward "
+                f"first (hybridize() and call the block): the program is "
+                f"traced at that call's input shapes")
+        params_file = f"{path}-{epoch:04d}.params"
+        self.save_parameters(params_file)
+        names = sorted(self.collect_params().keys())
+        plist = [self.collect_params()[n] for n in names]
+        by_id = {id(p): k for k, p in
+                 self._collect_params_with_prefix().items()}
+        missing = [p.name for p in plist if id(p) not in by_id]
+        if missing:
+            raise ValueError(f"export: parameters {missing} lie outside the "
+                             f"block's tree; the params file cannot hold "
+                             f"them")
+        spec = self._export_spec
+        leaves = [torch.zeros(s[1], dtype=s[2], device=s[3])
+                  for s in _leaf_specs(spec)]
+        serve = _Serve(self, plist, spec)
+        with torch.no_grad():   # inference: no grad-mode switch to record
+            program = torch.export.export(
+                serve, ([p.tensor().detach() for p in plist], *leaves))
+        out_spec = serve.out_spec
+        if out_spec[0] != _TENSOR and any(s[0] != _TENSOR
+                                          for s in out_spec[1]):
+            raise ValueError("export: the block must return a tensor or a "
+                             "flat tuple of tensors")
+        graph_file = f"{path}-graph.pt2"
+        torch.export.save(program, graph_file)
+        # file names are basenames, resolved against the json's directory
+        meta = {"framework": "mxnet_tpu_torch", "block": type(self).__name__,
+                "prefix": self._prefix,
+                "params": os.path.basename(params_file),
+                "graph": os.path.basename(graph_file),
+                "param_order": [by_id[id(p)] for p in plist],
+                "tuple_out": out_spec[0] != _TENSOR}
+        with open(f"{path}-symbol.json", "w") as f:
+            json.dump(meta, f, indent=2)
+        return f"{path}-symbol.json", params_file
+
 
 # ------------------------------------------------------------- hybridize --
 _TENSOR, _VALUE = "tensor", "value"
@@ -433,6 +493,30 @@ def _flatten(tree):
             return (type(x), tuple(walk(v) for v in x))
         return (_VALUE, x)
     return leaves, walk(tree)
+
+
+def _leaf_specs(spec):
+    """The tensor leaves' specs of ``_flatten``'s spec, in order."""
+    if spec[0] == _TENSOR:
+        return [spec]
+    if spec[0] == _VALUE:
+        return []
+    return [s for sub in spec[1] for s in _leaf_specs(sub)]
+
+
+class _Serve(torch.nn.Module):
+    """A block's inference forward over parameters passed in (what
+    ``HybridBlock.export`` traces)."""
+
+    def __init__(self, block, plist, spec):
+        super().__init__()
+        self.block, self.plist, self.spec = block, plist, spec
+
+    def forward(self, params, *leaves):
+        out, _ = functional_call(self.block, self.plist, list(params),
+                                 _unflatten(self.spec, leaves), False)
+        outs, self.out_spec = _flatten(out)
+        return tuple(outs)
 
 
 def _unflatten(spec, leaves):
@@ -702,6 +786,224 @@ class _CachedFunction(torch.autograd.Function):
                 "gradient) through it is not possible; call "
                 "hybridize(active=False) to run it eagerly")
         return (None,) + ctx.call.backward(cts)
+
+
+class SymbolBlock(HybridBlock):
+    """A block made from symbol outputs (ref: class SymbolBlock).
+
+    Two forms of ``outputs``:
+
+    - an ``mx.sym.Symbol`` graph and its ``inputs`` (Symbols or names):
+      every other variable of the graph becomes a Parameter (aux states
+      with ``grad_req="null"``), named as the variable, taken from
+      ``params`` (a ``load_checkpoint`` dict; ``arg:``/``aux:`` prefixes
+      accepted) or deferred until the first forward sizes it.  The
+      forward walks the graph (``executor.walk_graph``) over the
+      registry's ops on tensors, reading each parameter's tensor
+      through ``Parameter._data`` — the route ``functional_call``
+      swaps for aliases, so ``hybridize()`` captures it through
+      ``_CachedOp`` and reads the live weights.  Loss-head label
+      variables that are not inputs are fed zeros.  In training mode
+      the running statistics the graph updates are written back;
+    - a callable over ``nd`` arrays, with ``params`` its Parameters;
+    - ``SymbolBlock.imports``: serving ``HybridBlock.export``'s pair.
+    """
+
+    def __init__(self, outputs, inputs=None, params=None, prefix=None):
+        super().__init__(prefix=prefix)
+        from .. import symbol as _symbol
+
+        self._sym = None
+        if isinstance(outputs, _symbol.Symbol):
+            self._init_from_symbol(outputs, inputs, params)
+            return
+        if not callable(outputs):
+            raise TypeError("SymbolBlock(outputs): outputs must be a Symbol "
+                            "or a callable built from framework ops")
+        self._fn = outputs
+        if params:
+            for name, p in (params.items() if hasattr(params, "items") else
+                            ((p.name, p) for p in params)):
+                self._params._params[name] = p
+
+    def _init_from_symbol(self, outputs, inputs, params):
+        from .. import symbol as _symbol
+
+        self._sym = outputs
+        if inputs is None:
+            inputs = ["data"]
+        if isinstance(inputs, (str, _symbol.Symbol)):
+            inputs = [inputs]
+        for s in inputs:
+            if isinstance(s, _symbol.Symbol) and s._node.op is not None:
+                raise ValueError(
+                    f"SymbolBlock: input {s.name!r} is an op output, not a "
+                    f"variable; graph cutting is not supported — rebuild the "
+                    f"subgraph from a Variable (or bind the full symbol)")
+        self._sym_inputs = [s.name if isinstance(s, _symbol.Symbol) else s
+                            for s in inputs]
+        arg_names = self._sym.list_arguments()
+        aux_names = self._sym.list_auxiliary_states()
+        unknown = [n for n in self._sym_inputs
+                   if n not in arg_names and n not in aux_names]
+        if unknown:
+            raise ValueError(
+                f"SymbolBlock: inputs {unknown} are not variables of the "
+                f"symbol (its variables: {arg_names})")
+        # loss-head label variables are inputs, never weights: zeros are
+        # fed at forward unless the caller wires them as inputs
+        self._label_vars = _symbol.label_variables(self._sym) \
+            - set(self._sym_inputs)
+        self._shape_cache = {}
+        given = {}
+        if params:
+            items = params.items() if hasattr(params, "items") else \
+                ((p.name, p) for p in params)
+            for name, p in items:
+                key = name.split(":", 1)[1] if name[:4] in ("arg:", "aux:") \
+                    else name
+                given[key] = p
+        for n in arg_names + aux_names:
+            if n in self._sym_inputs or n in self._label_vars:
+                continue
+            p = given.pop(n, None)
+            if isinstance(p, Parameter):
+                self._params._params[n] = p
+                continue
+            param = Parameter(n, shape=None, allow_deferred_init=True,
+                              grad_req="null" if n in aux_names else "write")
+            if p is not None:           # an array from load_checkpoint
+                param.set_data(p)
+            self._params._params[n] = param
+        if given:
+            # a key mismatch must not silently yield a random-init model
+            raise ValueError(
+                f"SymbolBlock: params {sorted(given)} match no argument of "
+                f"the symbol (its arguments: {arg_names + aux_names})")
+
+    def _arg_shapes(self, feed):
+        """Every variable's shape for these inputs' shapes (memoised)."""
+        from ..symbol import infer_arg_shapes
+
+        key = tuple(tuple(feed[n].shape) for n in self._sym_inputs)
+        if key not in self._shape_cache:
+            self._shape_cache[key] = infer_arg_shapes(
+                self._sym, {n: tuple(feed[n].shape)
+                            for n in self._sym_inputs})
+        return self._shape_cache[key]
+
+    def forward(self, *args):
+        if self._sym is None:
+            out = self._fn(*[a if isinstance(a, NDArray) else NDArray(a)
+                             for a in args])
+            return _unwrap(out)
+        from ..executor import walk_graph
+        from ..ops.registry import get_op
+
+        if len(args) != len(self._sym_inputs):
+            raise ValueError(f"SymbolBlock: expected {len(self._sym_inputs)} "
+                             f"inputs {self._sym_inputs}, got {len(args)}")
+        feed = {n: a._data if isinstance(a, NDArray) else a
+                for n, a in zip(self._sym_inputs, args)}
+        params = self._params._params
+        missing_labels = [n for n in self._label_vars if n not in feed]
+        if missing_labels:
+            shapes = self._arg_shapes(feed)
+            dev = feed[self._sym_inputs[0]].device
+            for n in missing_labels:
+                feed[n] = torch.zeros(shapes[n], dtype=torch.float32,
+                                      device=dev)
+        pending = [p for p in params.values()
+                   if p._nd is None and p._deferred_init is not None]
+        if pending:
+            # the first forward with known input shapes finishes deferred
+            # init (ref: SymbolBlock parameter shape inference)
+            shapes = self._arg_shapes(feed)
+            for p in pending:
+                p.shape = tuple(shapes[p.name])
+                p._finish_deferred_init()
+
+        def leaf(node):
+            if node.name in feed:
+                return feed[node.name]
+            p = params[node.name]
+            if p._nd is None:
+                p.data()                # raises: not initialised
+            return p._data
+
+        def apply_op(node, ins, attrs):
+            return get_op(node.op)(*ins, **attrs)
+
+        def aux_update(name, v_new):
+            if _autograd.is_training():
+                params[name]._data = v_new.detach()
+
+        outs = walk_graph(self._sym, leaf, apply_op, aux_update)
+        return outs[0] if len(outs) == 1 else tuple(outs)
+
+    @staticmethod
+    def imports(symbol_file, input_names=None, param_file=None, ctx=None):
+        """ref: SymbolBlock.imports — a block serving the pair that
+        ``HybridBlock.export`` wrote, without the defining class: its
+        parameters load by structural name (on ``ctx``; None: the
+        current context) and feed the ``torch.export`` program in its
+        recorded order, under ``no_grad``.  ``input_names`` is accepted
+        for API compatibility (the program's positional signature is
+        authoritative).  A JAX package's artifact raises, naming that
+        package: its graph is a StableHLO program."""
+        return _imports(symbol_file, param_file, ctx)
+
+
+def _imports(symbol_file, param_file=None, ctx=None):
+    """``SymbolBlock.imports``' body: the block serving an exported pair."""
+    from .. import ndarray as nd
+
+    with open(symbol_file) as f:
+        meta = json.load(f)
+    framework = meta.get("framework")
+    if framework == "mxnet_tpu":
+        raise ValueError(
+            f"{symbol_file} was exported by the JAX package (mxnet_tpu): "
+            f"its graph is a StableHLO program, which mxnet_tpu_torch "
+            f"cannot run; export the model from mxnet_tpu_torch")
+    if framework != "mxnet_tpu_torch" or not meta.get("graph"):
+        raise ValueError(
+            f"{symbol_file} holds no graph exported by mxnet_tpu_torch; "
+            f"re-export the model after one hybridized forward (or rebuild "
+            f"the model class and use load_parameters)")
+    base = os.path.dirname(os.path.abspath(symbol_file))
+    params_path = param_file or os.path.join(base, meta["params"])
+    loaded = nd.load(params_path, ctx=ctx)
+    missing = [n for n in meta["param_order"] if n not in loaded]
+    if missing:
+        raise ValueError(f"params file {params_path} is missing graph inputs "
+                         f"{missing}")
+    program = torch.export.load(os.path.join(base, meta["graph"])).module()
+    order = meta["param_order"]
+
+    def fn(*args):
+        tensors = [loaded[n]._data for n in order]
+        leaves = [a._data if isinstance(a, NDArray) else a for a in args]
+        with torch.no_grad():
+            outs = program(tensors, *leaves)
+        wrap = any(isinstance(a, NDArray) for a in args)
+        outs = _wrap_all(tuple(outs)) if wrap else tuple(outs)
+        return outs if meta["tuple_out"] else outs[0]
+
+    blk = SymbolBlock(fn)
+    for name, arr in loaded.items():
+        p = Parameter(name, shape=arr.shape, grad_req="null")
+        p._data = arr._data
+        blk._params._params[name] = p
+    return blk
+
+
+def _unwrap(out):
+    if isinstance(out, NDArray):
+        return out._data
+    if isinstance(out, (tuple, list)):
+        return type(out)(_unwrap(o) for o in out)
+    return out
 
 
 def params_from_jax(block, arrays):

@@ -32,7 +32,8 @@ from .ndarray import (_NARROW, NDArray, as_tensor, invoke,
 
 __all__ = ["NDArray", "invoke", "array", "empty", "zeros", "ones", "full",
            "zeros_like", "ones_like", "arange", "linspace", "eye",
-           "waitall", "save", "load", "concat", "stack", "add_n", "random",
+           "waitall", "save", "load", "concat", "stack", "add_n",
+           "ElementWiseSum", "random",
            "contrib", "linalg", "Context", "cpu", "gpu", "current_context"]
 
 
@@ -172,6 +173,9 @@ def add_n(*data):
     for d in data[1:]:
         out = out + d
     return out
+
+
+ElementWiseSum = add_n
 
 
 def __getattr__(name):

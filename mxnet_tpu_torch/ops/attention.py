@@ -96,8 +96,8 @@ _mesh_attention("ulysses_attention")
 
 
 @register_op("multi_head_attention", needs_rng=True)
-def multi_head_attention(q, k, v, mask=None, heads=1, causal=False,
-                         dropout=0.0, training=None):
+def multi_head_attention(q, k, v, mask=None, heads=1, dropout=0.0,
+                         causal=False, training=None):
     """Attention over ``(B, S, H*D)`` projections.
 
     ``scale = 1/sqrt(D)`` (float32-rounded) multiplies q before the

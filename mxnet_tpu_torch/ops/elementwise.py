@@ -54,21 +54,31 @@ def _logical(fn):
 
 
 def _both(fn):
-    def op(a, b):
-        return fn(*_tensors(a, b))
+    def op(x1, x2):
+        return fn(*_tensors(x1, x2))
+    return op
+
+
+def _ufunc(fn):
+    """Two inputs taken as ``*args``, the JAX registry's signature for
+    these ops (numpy's ufuncs), so a symbol builder maps positionals as
+    the JAX package's does."""
+    def op(*args):
+        a, b = args
+        return fn(a, b)
     return op
 
 
 # ---------------------------------------------------------------- binary ----
 _BINARY = {
-    "add": lambda a, b: a + b,
-    "subtract": lambda a, b: a - b,
-    "multiply": lambda a, b: a * b,
-    "divide": lambda a, b: a / b,
-    "mod": lambda a, b: a % b,
-    "power": lambda a, b: a ** b,
-    "maximum": _both(torch.maximum),
-    "minimum": _both(torch.minimum),
+    "add": _ufunc(lambda a, b: a + b),
+    "subtract": _ufunc(lambda a, b: a - b),
+    "multiply": _ufunc(lambda a, b: a * b),
+    "divide": lambda x1, x2: x1 / x2,
+    "mod": lambda x1, x2: x1 % x2,
+    "power": lambda x1, x2: x1 ** x2,
+    "maximum": _ufunc(_both(torch.maximum)),
+    "minimum": _ufunc(_both(torch.minimum)),
     "hypot": _both(torch.hypot),
     "arctan2": _both(torch.atan2),
     "equal": _compare(lambda a, b: a == b),
@@ -222,8 +232,9 @@ def _shape_tuple(shape):
 
 
 def _device(ctx):
-    from ..context import resolve_device
-    return resolve_device(ctx)
+    """``ctx``'s device; ``meta`` while a shape inference traces."""
+    from ..context import resolve_device, tracing_shapes
+    return torch.device("meta") if tracing_shapes() else resolve_device(ctx)
 
 
 @register_op("_zeros", aliases=("zeros",))

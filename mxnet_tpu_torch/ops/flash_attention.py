@@ -45,6 +45,7 @@ import ctypes
 
 import numpy as np
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 __all__ = ["flash_attention", "uniform01", "seed_tensor"]
 
@@ -272,10 +273,12 @@ def _dkv_cuda(q, k, v, do, lse, delta, scale, causal, dropout, seed):
 
 
 def _use_plain(tensors):
-    """True for CPU tensors, False for CUDA tensors; raises on a mix."""
+    """True for CPU tensors and for ``meta`` ones (a shape inference's
+    trace: the plain body gives the shapes, and runs nothing), False for
+    CUDA tensors; raises on a mix."""
     kinds = {t.device.type for t in tensors}
-    if kinds in ({"cpu"}, {"cuda"}):
-        return kinds == {"cpu"}
+    if kinds in ({"cpu"}, {"meta"}, {"cuda"}):
+        return kinds != {"cuda"}
     raise ValueError(f"flash_attention: inputs must all lie on the CPU or "
                      f"all on one CUDA device, got {sorted(kinds)}")
 
@@ -332,8 +335,29 @@ def flash_attention(q, k, v, scale=None, causal=False, block_q=128,
         seed = 0
     elif not isinstance(seed, torch.Tensor):
         seed = int(seed)
+    if is_fake(q):      # traced by torch.export: record the custom op
+        if dropout > 0.0:
+            raise ValueError("torch.export records inference: "
+                             "flash_attention's dropout must be 0")
+        return torch.ops.mxnet_tpu_torch.flash_attention(q, k, v, scale,
+                                                         bool(causal))
     return _FlashAttention.apply(q, k, v, scale, bool(causal),
                                  float(dropout), seed)
 
 
 flash_attention.launches = {"fwd": 0, "dq": 0, "dkv": 0}
+
+
+@torch.library.custom_op(
+    "mxnet_tpu_torch::flash_attention", mutates_args=(),
+    schema="(Tensor q, Tensor k, Tensor v, float scale, bool causal) "
+           "-> Tensor")
+def _flash_attention_op(q, k, v, scale, causal):
+    """``flash_attention`` without dropout as one op for
+    ``torch.export`` (see ``fused_conv._norm_relu_conv_op``)."""
+    return flash_attention(q, k, v, scale=scale, causal=causal)
+
+
+@_flash_attention_op.register_fake
+def _flash_attention_shape(q, k, v, scale, causal):
+    return torch.empty_like(q)

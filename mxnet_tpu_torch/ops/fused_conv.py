@@ -47,6 +47,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import is_fake
 
 __all__ = ["supports", "norm_relu_conv", "norm_relu_conv_reference"]
 
@@ -297,10 +298,12 @@ def _dw_cuda(x, scale, shift, res, do, k, relu, stride):
 
 
 def _use_plain(tensors):
-    """True for CPU tensors, False for CUDA tensors; raises on a mix."""
+    """True for CPU tensors and for ``meta`` ones (a shape inference's
+    trace: the plain body gives the shapes, and runs nothing), False for
+    CUDA tensors; raises on a mix."""
     kinds = {t.device.type for t in tensors if t is not None}
-    if kinds in ({"cpu"}, {"cuda"}):
-        return kinds == {"cpu"}
+    if kinds in ({"cpu"}, {"meta"}, {"cuda"}):
+        return kinds != {"cuda"}
     raise ValueError(f"fused_conv: inputs must all lie on the CPU or all "
                      f"on one CUDA device, got {sorted(kinds)}")
 
@@ -368,9 +371,31 @@ def norm_relu_conv(x, scale, shift, w, residual=None, relu=True, stride=1):
     if residual is not None and residual.shape != x.shape:
         raise ValueError(f"norm_relu_conv: residual {tuple(residual.shape)}"
                          f" must have x's shape {tuple(x.shape)}")
+    if is_fake(x):      # traced by torch.export: record the custom op
+        return torch.ops.mxnet_tpu_torch.norm_relu_conv(
+            x, scale, shift, w, residual, bool(relu), int(stride))
     return _NormReluConv.apply(x, scale, shift, w, residual, bool(relu),
                                int(stride))
 
 
 norm_relu_conv.launches = {"fwd": 0, "dx": 0, "dw": 0}
+
+
+@torch.library.custom_op(
+    "mxnet_tpu_torch::norm_relu_conv", mutates_args=(),
+    schema="(Tensor x, Tensor scale, Tensor shift, Tensor w, "
+           "Tensor? residual, bool relu, int stride) -> Tensor")
+def _norm_relu_conv_op(x, scale, shift, w, residual, relu, stride):
+    """``norm_relu_conv`` as one op for ``torch.export``, which cannot
+    trace the kernels (they launch through ctypes): an exported program
+    records this op, and running it calls the wrapper (the kernels on
+    CUDA tensors, the plain versions on CPU ones).  Inference only."""
+    return norm_relu_conv(x, scale, shift, w, residual, relu, stride)
+
+
+@_norm_relu_conv_op.register_fake
+def _norm_relu_conv_shape(x, scale, shift, w, residual, relu, stride):
+    n, h, wd = x.shape[:3]
+    return x.new_empty((n, -(-h // stride), -(-wd // stride), w.shape[3]))
+
 

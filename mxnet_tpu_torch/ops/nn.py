@@ -83,8 +83,11 @@ _DECONV = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
 @register_op("Convolution", aliases=("convolution",))
 def Convolution(data, weight, bias=None, kernel=None, stride=None,
                 dilate=None, pad=None, num_filter=None, num_group=1,
-                no_bias=False, layout=None, **_unused):
-    """1-D, 2-D or 3-D convolution with symmetric padding ``pad``."""
+                workspace=1024, no_bias=False, cudnn_tune=None,
+                cudnn_off=False, layout=None, **_unused):
+    """1-D, 2-D or 3-D convolution with symmetric padding ``pad``
+    (``workspace``/``cudnn_tune``/``cudnn_off`` are the reference's, in
+    its order, and ignored)."""
     nd = data.dim() - 2
     last = _channels_last(layout, nd)
     stride, dilate = _tup(stride, nd), _tup(dilate, nd)
@@ -102,8 +105,8 @@ def Convolution(data, weight, bias=None, kernel=None, stride=None,
 @register_op("Deconvolution", aliases=("deconvolution",))
 def Deconvolution(data, weight, bias=None, kernel=None, stride=None,
                   dilate=None, pad=None, adj=None, target_shape=None,
-                  num_filter=None, num_group=1, no_bias=True, layout=None,
-                  **_unused):
+                  num_filter=None, num_group=1, workspace=512, no_bias=True,
+                  cudnn_tune=None, cudnn_off=False, layout=None, **_unused):
     """Transposed convolution; weight ``(in, out/group, *k)`` (channel
     last: ``(in, *k, out/group)``).  The output is ``(in-1)*stride -
     2*pad + dilate*(k-1) + 1`` long, then ``adj`` zeros are appended at
@@ -135,8 +138,9 @@ _MAX = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
 
 @register_op("Pooling", aliases=("pooling",))
 def Pooling(data, kernel=None, pool_type="max", global_pool=False,
-            stride=None, pad=None, pooling_convention="valid", p_value=2,
-            count_include_pad=True, layout=None, **_unused):
+            cudnn_off=False, pooling_convention="valid", stride=None,
+            pad=None, p_value=2, count_include_pad=True, layout=None,
+            **_unused):
     """Max, average, sum or Lp pooling over 1-3 spatial dims, or a
     global max/sum/mean.  Padding is explicit, as the JAX package's
     ``reduce_window`` pads: ``-inf`` for max, zeros otherwise, plus the
@@ -240,7 +244,8 @@ def moments(data, axes, keepdims=False):
 @register_op("BatchNorm", aliases=("batch_norm",))
 def BatchNorm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
               momentum=0.9, fix_gamma=True, use_global_stats=False,
-              output_mean_var=False, axis=1, training=None, **_unused):
+              output_mean_var=False, axis=1, cudnn_off=False, training=None,
+              **_unused):
     """Batch normalisation over every axis but ``axis``.  Returns
     ``(out, new_moving_mean, new_moving_var)`` (with
     ``output_mean_var``: ``(out, mean, rsqrt(var + eps))``); the Gluon
@@ -439,8 +444,8 @@ def _softmin(data, axis=-1, temperature=None, dtype=None):
 
 # --------------------------------------------------------------- dropout ----
 @register_op("Dropout", aliases=("dropout",), needs_rng=True)
-def Dropout(data, p=0.5, mode="training", axes=(), training=None,
-            **_unused):
+def Dropout(data, p=0.5, mode="training", axes=(), cudnn_off=False,
+            training=None, **_unused):
     """Inverted dropout in training mode (or ``mode="always"``): keep
     with probability ``1 - p`` (the mask broadcast over ``axes``), drawn
     from the data's device stream (``random.generator``), and divide by

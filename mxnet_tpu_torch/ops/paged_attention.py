@@ -39,6 +39,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from .registry import register_op
 
@@ -305,20 +306,39 @@ def _paged_decode_attention_cuda(q, k_pages, v_pages, page_tables,
 def paged_decode_attention(q, k_pages, v_pages, page_tables, lengths):
     """Single-query attention over a paged KV cache (arguments as in
     ``paged_decode_attention_reference``).  CPU tensors run the plain
-    version; CUDA tensors launch the hand-written kernel, which takes
+    version (so do ``meta`` ones, whose shapes a shape inference
+    traces); CUDA tensors launch the hand-written kernel, which takes
     float32 q/pools, int32 tables/lengths, contiguous, and raises on
     anything else.  Returns ``[slots, heads, head_dim]`` in q's dtype."""
     ts = (q, k_pages, v_pages, page_tables, lengths)
+    if is_fake(q):      # traced by torch.export: record the custom op
+        return torch.ops.mxnet_tpu_torch.paged_decode_attention(*ts)
     if all(t.is_cuda for t in ts):
         return _paged_decode_attention_cuda(*ts)
     kinds = {t.device.type for t in ts}
-    if kinds == {"cpu"}:
+    if kinds in ({"cpu"}, {"meta"}):      # meta: a shape inference
         return paged_decode_attention_reference(*ts)
     raise ValueError(f"paged_decode_attention: inputs must all lie on the "
                      f"CPU or all on one CUDA device, got {sorted(kinds)}")
 
 
 paged_decode_attention.launches = 0
+
+
+@torch.library.custom_op(
+    "mxnet_tpu_torch::paged_decode_attention", mutates_args=(),
+    schema="(Tensor q, Tensor k_pages, Tensor v_pages, Tensor page_tables, "
+           "Tensor lengths) -> Tensor")
+def _paged_decode_attention_op(q, k_pages, v_pages, page_tables, lengths):
+    """``paged_decode_attention`` as one op for ``torch.export`` (see
+    ``fused_conv._norm_relu_conv_op``)."""
+    return paged_decode_attention(q, k_pages, v_pages, page_tables, lengths)
+
+
+@_paged_decode_attention_op.register_fake
+def _paged_decode_attention_shape(q, k_pages, v_pages, page_tables,
+                                  lengths):
+    return torch.empty_like(q)
 
 
 @register_op("paged_decode_attention")

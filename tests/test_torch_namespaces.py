@@ -1,0 +1,87 @@
+"""The public names of the port against the JAX package's: ``dir()`` of
+the top level, ``nd``, ``gluon``, ``gluon.model_zoo``, ``optimizer``,
+``sym`` and ``mod``.  Every public name of the JAX package is in the
+port, but for those in the named lists below: the modules still in
+queue A of ROADMAP.md (A12 classifier serving, A14 the rest that runs
+on one card, A15 several cards), the TPU-only names, and the JAX
+modules' own imports of their implementation.
+"""
+import pytest
+
+import mxnet_tpu as jmx
+import mxnet_tpu_torch as tmx
+
+A12 = set()       # classifier serving adds names inside ``serving`` only
+A14 = {
+    # top level
+    "amp", "contrib", "log", "np", "npx", "numpy", "numpy_extension",
+    "onnx", "operator", "runtime", "sparse", "test_utils", "util",
+    # nd: the custom op, quantization and random ops, sparse arrays
+    "Custom", "dequantize", "quantize_v2", "quantized_conv",
+    "quantized_fully_connected", "quantized_matmul", "normal", "uniform",
+    "randint", "shuffle", "random_exponential", "random_gamma",
+    "random_generalized_negative_binomial", "random_negative_binomial",
+    "random_normal", "random_poisson", "random_randint", "random_uniform",
+    "sample_exponential", "sample_gamma", "sample_multinomial",
+    "sample_normal", "sample_poisson", "sample_uniform",
+}
+A15 = {"distributed", "kv", "kvstore", "moe_ffn"}
+TPU_ONLY = {"tpu", "num_tpus"}
+JAX_IMPORTS = {"jax", "jnp", "dtype_np"}
+MAY_BE_MISSING = {
+    "": A14 | A15 | TPU_ONLY,
+    "nd": A14 | TPU_ONLY | JAX_IMPORTS,
+    "gluon": {"contrib"},           # A14: gluon.contrib
+    "gluon.model_zoo": set(),
+    "optimizer": set(),
+    "sym": A14 | A15,
+    "mod": set(),
+}
+
+
+def _walk(pkg, path):
+    for part in filter(None, path.split(".")):
+        pkg = getattr(pkg, part)
+    return pkg
+
+
+def _public(mod):
+    return {n for n in dir(mod) if not n.startswith("_")}
+
+
+@pytest.mark.parametrize("path", sorted(MAY_BE_MISSING),
+                         ids=lambda p: p or "top")
+def test_namespace_has_the_jax_packages_names(path):
+    missing = _public(_walk(jmx, path)) - _public(_walk(tmx, path))
+    assert missing <= MAY_BE_MISSING[path], sorted(
+        missing - MAY_BE_MISSING[path])
+
+
+def test_listed_gaps_are_still_gaps():
+    """Each named list holds only names the port still lacks, so a list
+    shrinks as queue A is done."""
+    listed = set().union(*MAY_BE_MISSING.values())
+    missing = set()
+    for path in MAY_BE_MISSING:
+        missing |= _public(_walk(jmx, path)) - _public(_walk(tmx, path))
+    assert listed <= missing, sorted(listed - missing)
+
+
+def test_c9_names_resolve_to_the_ported_code():
+    assert tmx.waitall is tmx.engine.waitall
+    assert tmx.NDArray is tmx.nd.NDArray
+    assert tmx.MXNetError is tmx.base.MXNetError
+    assert tmx.nd.ElementWiseSum is tmx.nd.add_n
+    assert tmx.gluon.model_zoo.get_model is \
+        tmx.gluon.model_zoo.vision.get_model
+    assert tmx.optimizer.FactorScheduler is tmx.lr_scheduler.FactorScheduler
+    ctx = tmx.cpu_pinned()
+    assert str(ctx) == "cpu_pinned(0)" and ctx.device.type == "cpu"
+    assert tmx.sym is tmx.symbol and tmx.mod is tmx.module
+    assert tmx.mon is tmx.monitor and tmx.viz is tmx.visualization
+    assert tmx.AttrScope is tmx.attribute.AttrScope
+    assert hasattr(tmx.serving, "GenerationServer")
+    tmx.waitall()
+    with tmx.cpu():
+        s = tmx.nd.ElementWiseSum(tmx.nd.ones((2,)), tmx.nd.ones((2,)))
+    assert s.asnumpy().tolist() == [2.0, 2.0]

@@ -62,16 +62,18 @@ def test_registry_census():
     with aliases); beyond them, only the names of the op modules ported
     since (image, attention and paged attention: 30 names,
     ``tests/test_torch_data_image.py``; rnn, sequence and multibox: 25,
-    ``tests/test_torch_rnn.py`` and ``tests/test_torch_multibox.py``).
+    ``tests/test_torch_rnn.py`` and ``tests/test_torch_multibox.py``;
+    the symbol frontend's ``_scalar``, ``tests/test_torch_symbol.py``).
     Quantization, control flow and random are later slices."""
     assert len(ROW_NAMES) == 252
     assert ROW_NAMES <= set(TOPS)
     later = set(TOPS) - ROW_NAMES
-    assert len(later) == 55
+    assert len(later) == 56
     assert {JOPS[n].__module__ for n in later} == {
         "mxnet_tpu.ops.image", "mxnet_tpu.ops.attention",
         "mxnet_tpu.ops.paged_attention", "mxnet_tpu.ops.rnn",
-        "mxnet_tpu.ops.sequence", "mxnet_tpu.ops.multibox"}
+        "mxnet_tpu.ops.sequence", "mxnet_tpu.ops.multibox",
+        "mxnet_tpu.symbol"}
 
 
 def test_nd_without_a_card_raises():

@@ -123,8 +123,13 @@ def test_cpu_wrapper_runs_plain_and_launches_nothing():
 
 
 def test_wrapper_refuses_other_devices():
-    """Neither CPU nor CUDA: the wrapper raises instead of guessing."""
-    args = [torch.from_numpy(a).to("meta") for a in _fixture(8)]
+    """Not all on the CPU nor all on one CUDA device: the wrapper raises
+    instead of guessing.  ``meta`` tensors alone are a shape inference's
+    trace and get the plain version's shape (nothing runs)."""
+    host = [torch.from_numpy(a) for a in _fixture(8)]
+    args = [t.to("meta") for t in host]
+    assert tpa.paged_decode_attention(*args).shape == args[0].shape
+    args[1] = host[1]
     with pytest.raises(ValueError, match="CPU or all on one CUDA"):
         tpa.paged_decode_attention(*args)
 
