@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's nine paths end to end on the first CUDA device, with
+Drives the port's ten paths end to end on the first CUDA device, with
 random weights from a seed:
 
 - the imperative API: the Gluon MLP loop of
@@ -57,7 +57,14 @@ random weights from a seed:
   ``io.NDArrayIter``), whose executor runs each step as a captured
   forward and backward pair; the fused-conv and flash kernels reached
   through ``mx.sym`` nodes; ``examples/module_symbolic_mnist.py`` and
-  ``examples/bucketing_lstm.py`` as written.
+  ``examples/bucketing_lstm.py`` as written;
+- classifier serving: ``examples/serve_mnist.py`` as written; the fused
+  bf16 ResNet-50 of ``bench_resnet`` (full width, 1000 classes) behind
+  ``parallel.EvalStep`` and ``serving.InferenceServer`` at buckets (1,
+  4, 16, 64); the symbolic ResNet-50 above served by
+  ``serving.module_apply`` in f32 and int8 at buckets (1, 8, 64); the
+  MLP fleet of ``examples/serve_fleet_mnist.py`` (3 replicas sharing one
+  ``graphs.captured`` forward, ``WeightUpdater``, ``FleetAutoscaler``).
 
 Phases, each of which fails the run (each prints its wall time):
 
@@ -292,7 +299,37 @@ Phases, each of which fails the run (each prints its wall time):
     parameters and optimizer state bit for bit; (e) a hybridized block
     with a fused norm-relu-conv exported (``HybridBlock.export``) and
     served by ``SymbolBlock.imports``: the kernel recorded as a custom
-    op, launched once a call, the block's bits.
+    op, launched once a call, the block's bits;
+18. classifier serving: (a) ``examples/serve_mnist.py``'s ``main()``
+    as written with ``--requests 256 --clients 4``: no failed request,
+    4 distinct shapes, the hybridized net's 4 forward graphs, every
+    accepted request resolved by the drain; (b) the fused ResNet-50
+    behind ``EvalStep`` (host f32 images uploaded without a host sync,
+    cast to bf16 on the card) and ``InferenceServer(buckets=(1, 4, 16,
+    64))``: 4 graphs after ``start()`` and after the traffic; 8
+    closed-loop clients x 64 requests (deadline 2 s; p50/p99 latency,
+    occupancy) and an open burst of 1024 submits from 4 threads (img/s,
+    device ms a batch by bucket, the busy share of a profiled burst of
+    256); a group of each bucket's size whose responses are the bits of
+    their rows of a direct ``EvalStep`` call on the same padded batch,
+    each padded batch held against the plain versions
+    (``check_outputs``' bf16 tolerance) with the top-1 agreement; 32
+    forward launches a batch counted under replay, no dX or dW; the
+    forward kernel at the eight shapes at N = 1 and 4 against its plain
+    version, timed beside it and its bound; (c) the symbolic ResNet-50
+    bound at 64 for inference through ``module_apply`` in f32 and int8
+    at buckets (1, 8, 64): 3 graphs after the warm-up and after 200
+    mixed requests each, nothing rebound, f32 within 1e-5 of
+    ``Module.predict``, int8 against f32 (atol 5e-3 printed) and the
+    weight-input bytes of both; (d) the MLP fleet: a captured Adam
+    ``TrainStep`` checkpointed by ``CheckpointManager``; 3 replicas at
+    buckets (1, 4, 8, 16) serve 400 requests while ``WeightUpdater``
+    rolls the next snapshot (every replica the snapshot's bits, the
+    responses the new weights' eager output); then a ``serving.step``
+    fault, one replica killed, a ``FleetAutoscaler`` up to 4 and down
+    to 2: zero accepted requests dropped and the shared function's
+    graphs the grid's 4 throughout; (e) one call of each apply under
+    ``set_sync_debug_mode("error")``.
 
 Prints one JSON ``kernels`` line, then the card line, then as the last
 line ``{"ok": true, "device": {...}}``.  Without a card, or without the
@@ -463,6 +500,19 @@ SYM_BATCH, SYM_WARMUP, SYM_TIMED = 64, 2, 10
 SYM_SGD = (("learning_rate", 0.1), ("momentum", 0.9), ("wd", 1e-4))
 SYM_CALLS = 3
 SYM_FIT_BATCHES, SYM_FIT_BATCH, SYM_FIT_KILL = 8, 128, (1, 3)
+# classifier serving: examples/serve_mnist.py's arguments; the fused
+# ResNet-50 behind EvalStep (buckets, distinct images, closed-loop
+# clients x requests, the open burst and a shorter profiled one, the
+# forward kernel timed at the small buckets' N); the symbolic ResNet-50
+# through module_apply (buckets, requests per precision); the MLP fleet
+# (buckets, requests during the roll, in-flight cap per replica)
+SERVE_MNIST_ARGS = ["--requests", "256", "--clients", "4"]
+CLASSIFIER_BUCKETS, CLASSIFIER_IMAGES = (1, 4, 16, 64), 160
+CLASSIFIER_CLIENTS, CLASSIFIER_PER_CLIENT = 8, 64
+CLASSIFIER_BURST, CLASSIFIER_PROFILED_BURST = 1024, 256
+CLASSIFIER_SMALL_N = (1, 4)
+MODULE_BUCKETS, MODULE_REQUESTS = (1, 8, 64), 200
+FLEET_BUCKETS, FLEET_REQUESTS, FLEET_INFLIGHT = (1, 4, 8, 16), 400, 8
 
 
 def log(msg):
@@ -5141,6 +5191,702 @@ def symbolic_phase(torch, root, smi_line):
     return {"resnet": resnet, "launches": launched, "bucket_graphs": graphs}
 
 
+# ------------------------------------------------------ classifier serving --
+def card_line(smi_line):
+    return f"[{smi_line}]"
+
+
+def stamped(req, stamps):
+    """``req``, its resolution time noted in ``stamps`` by a callback."""
+    req.add_done_callback(lambda r: stamps.__setitem__(id(r),
+                                                       time.monotonic()))
+    return req
+
+
+def latency_ms(reqs, stamps):
+    """p50 and p99 of resolved requests' submit-to-result times, ms."""
+    lat = [1e3 * (stamps[id(r)] - r.submitted_at) for r in reqs]
+    return (float(np.percentile(lat, 50)), float(np.percentile(lat, 99)))
+
+
+def serve_mnist_example(torch, root, smi_line):
+    """(a) ``examples/serve_mnist.py``'s ``main()`` as written, with
+    ``SERVE_MNIST_ARGS``: zero failed requests, four distinct shapes, the
+    hybridized net's forward graphs one per bucket, every accepted
+    request resolved by the drain."""
+    import importlib.util
+    import io as _io
+
+    path = os.path.join(root, "examples", "serve_mnist.py")
+    out = _io.StringIO()
+    nets = []
+    with port_as_mxnet([path] + SERVE_MNIST_ARGS):
+        spec = importlib.util.spec_from_file_location("_serve_mnist", path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        expect(mod.mx.__name__ == "mxnet_tpu_torch",
+               f"serve_mnist: mx is {mod.mx.__name__}, not the port")
+        train_quick = mod.train_quick
+
+        def kept(*a, **kw):
+            nets.append(train_quick(*a, **kw))
+            return nets[-1]
+        mod.train_quick = kept
+        with contextlib.redirect_stdout(out):
+            mod.main()
+    text = out.getvalue()
+    for line in text.splitlines():
+        log(f"example serve_mnist {' '.join(SERVE_MNIST_ARGS)}: {line}")
+    served = re.search(r"served (\d+) requests .* failed=(\d+)", text)
+    shapes = re.search(r"distinct_shapes=(\d+)", text)
+    drained = re.search(r"drained=(\w+) \(accepted requests resolved: "
+                        r"(\d+)/(\d+)\)", text)
+    expect(served and shapes and drained,
+           "serve_mnist: its summary lines are missing")
+    expect(served.group(2) == "0", f"serve_mnist: {served.group(2)} "
+           f"requests failed")
+    expect(shapes.group(1) == "4", f"serve_mnist: {shapes.group(1)} "
+           f"distinct shapes, not 4")
+    expect(drained.group(1) == "True"
+           and drained.group(2) == drained.group(3),
+           f"serve_mnist: the drain left requests unresolved "
+           f"({drained.group(0)})")
+    fwd = len(nets[0]._cached.forward_graphs or ())
+    expect(fwd == 4, f"serve_mnist: the hybridized net holds {fwd} "
+           f"forward graphs, not 4")
+    log(f"classifier serving [serve_mnist, {card_line(smi_line)}]: "
+        f"{served.group(1)} served, 0 failed, 4 distinct shapes, the "
+        f"hybridized net's graphs {nets[0].graph_count()} (4 forward, one "
+        f"training pair), every accepted request resolved")
+
+
+def classifier_images(n, seed):
+    """``n`` distinct host images 224x224x3 in [0, 1) from a seed."""
+    return np.random.RandomState(seed).rand(
+        n, 224, 224, 3).astype(np.float32)
+
+
+class RecordingApply:
+    """The served ResNet apply: host f32 [b, 224, 224, 3] onto the card
+    without a host sync, cast to bf16 there, through the ``EvalStep``'s
+    graph of the bucket.  Notes each call's bucket and device time
+    (CUDA events, read after the traffic); while ``keep`` is set, also
+    the padded batch and its output."""
+
+    def __init__(self, torch, step):
+        self.torch, self.step = torch, step
+        self.events, self.kept, self.keep = [], [], False
+        self.graph_count = step.graph_count
+
+    def __call__(self, x):
+        torch = self.torch
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        xd = torch.from_numpy(x).to("cuda", non_blocking=True)
+        out = self.step(xd.to(torch.bfloat16))
+        e1.record()
+        self.events.append((x.shape[0], e0, e1))
+        if self.keep:
+            self.kept.append((x.copy(), out))
+        return out
+
+
+def bucket_ms(apply, events):
+    """Mean device ms per batch at each bucket over ``events``."""
+    apply.torch.cuda.synchronize()
+    per = {}
+    for b, e0, e1 in events:
+        per.setdefault(b, []).append(e0.elapsed_time(e1))
+    return {b: float(np.mean(v)) for b, v in sorted(per.items())}
+
+
+def resnet_traffic(torch, srv, apply, images, smi_line):
+    """(i) CLASSIFIER_CLIENTS closed-loop clients, CLASSIFIER_PER_CLIENT
+    requests each, deadline 2 s; (ii) an open burst of CLASSIFIER_BURST
+    ``submit()``s from 4 threads.  Returns the numbers."""
+    import threading
+
+    done, lock, stamps = [], threading.Lock(), {}
+
+    def client(k):
+        rng = np.random.RandomState(k)
+        for _ in range(CLASSIFIER_PER_CLIENT):
+            req = stamped(srv.submit(images[rng.randint(len(images))],
+                                     deadline=2.0), stamps)
+            req.result(30)
+            with lock:
+                done.append(req)
+
+    b0 = srv.stats["batches"]
+    apply.events.clear()
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(k,))
+               for k in range(CLASSIFIER_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+    dt = time.perf_counter() - t0
+    n = CLASSIFIER_CLIENTS * CLASSIFIER_PER_CLIENT
+    expect(len(done) == n and all(r.exception(0) is None for r in done),
+           f"closed loop: {len(done)} of {n} requests served")
+    batches = srv.stats["batches"] - b0
+    p50, p99 = latency_ms(done, stamps)
+    closed = {"img_s": n / dt, "p50_ms": p50, "p99_ms": p99,
+              "occupancy": n / batches, "batches": batches,
+              "bucket_ms": bucket_ms(apply, apply.events)}
+    log(f"classifier serving [ResNet-50 closed loop, "
+        f"{CLASSIFIER_CLIENTS} clients x {CLASSIFIER_PER_CLIENT}, "
+        f"{card_line(smi_line)}]: {closed['img_s']:.1f} img/s, latency "
+        f"p50 {p50:.2f} ms p99 {p99:.2f} ms, {batches} batches, mean "
+        f"occupancy {closed['occupancy']:.2f} requests a batch, device ms "
+        f"a batch by bucket {closed['bucket_ms']}")
+
+    def burst(n_req, out):
+        def submitter(k):
+            mine = [stamped(srv.submit(images[(k + 4 * i) % len(images)]),
+                            stamps) for i in range(n_req // 4)]
+            with lock:
+                out.extend(mine)
+        threads = [threading.Thread(target=submitter, args=(k,))
+                   for k in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+        for r in out:
+            r.result(60)
+
+    b0 = srv.stats["batches"]
+    apply.events.clear()
+    reqs = []
+    t0 = time.perf_counter()
+    burst(CLASSIFIER_BURST, reqs)
+    dt = time.perf_counter() - t0
+    expect(all(r.exception(0) is None for r in reqs),
+           "burst: a request failed")
+    batches = srv.stats["batches"] - b0
+    p50, p99 = latency_ms(reqs, stamps)
+    opened = {"img_s": CLASSIFIER_BURST / dt, "p50_ms": p50, "p99_ms": p99,
+              "batches": batches,
+              "occupancy": CLASSIFIER_BURST / batches,
+              "bucket_ms": bucket_ms(apply, apply.events)}
+    log(f"classifier serving [ResNet-50 burst of {CLASSIFIER_BURST} from 4 "
+        f"threads, {card_line(smi_line)}]: {opened['img_s']:.1f} img/s, "
+        f"{batches} batches (mean occupancy {opened['occupancy']:.2f}), "
+        f"latency p50 {p50:.1f} ms p99 {p99:.1f} ms, device ms a batch "
+        f"by bucket {opened['bucket_ms']}")
+    prof, wall_us, _ = profiled(
+        torch, lambda: burst(CLASSIFIER_PROFILED_BURST, []),
+        "classifier burst")
+    opened["busy"] = print_profile(
+        prof, wall_us, f"ResNet-50 burst of {CLASSIFIER_PROFILED_BURST}, "
+        f"{card_line(smi_line)}")
+    return closed, opened
+
+
+def resnet_check_traffic(srv, apply, images):
+    """A group of each bucket's size of distinct images, each padded
+    batch and its output kept.  Returns ``[(payload, request)]``."""
+    apply.kept.clear()
+    apply.keep = True
+    reqs, offset = [], 0
+    for b in CLASSIFIER_BUCKETS:
+        mine = [(images[offset + i], srv.submit(images[offset + i]))
+                for i in range(b)]
+        offset += b
+        for _, r in mine:
+            r.result(60)
+        reqs += mine
+    apply.keep = False
+    return reqs
+
+
+def resnet_checks(torch, net, apply, reqs):
+    """Every response of ``resnet_check_traffic`` the bits of its row of
+    one direct ``EvalStep`` call on the same padded batch (the same
+    graph), and each padded batch held against the same batch through
+    the plain versions of the fused conv (``check_outputs``' bf16
+    tolerance) with the top-1 agreement.  Returns the worst error."""
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.ops import fused_conv as fc
+
+    worst, agree, rows = 0.0, 0, 0
+    for x, out in apply.kept:
+        again = apply(x)
+        expect(torch.equal(again, out), f"bucket {x.shape[0]}: a direct "
+               f"EvalStep call on the same padded batch differs")
+        with plain_versions(fc), autograd.pause():
+            want = net(torch.from_numpy(x).cuda().to(torch.bfloat16))
+        torch.cuda.synchronize()
+        worst = max(worst, check_outputs(
+            torch, f"served ResNet-50, bucket {x.shape[0]}", "fused_conv",
+            [out], [want]))
+        agree += int((out.argmax(1) == want.argmax(1)).sum())
+        rows += x.shape[0]
+    kept = [(x, out.float().cpu().numpy()) for x, out in apply.kept]
+    for payload, r in reqs:
+        got = r.result(0)
+        hit = [o[i] for x, o in kept for i in range(x.shape[0])
+               if np.array_equal(x[i], payload)]
+        expect(hit and any(np.array_equal(got, h) for h in hit),
+               "a served row is not its direct EvalStep row's bits")
+    log(f"classifier serving [ResNet-50 checks]: {len(reqs)} responses "
+        f"over buckets {CLASSIFIER_BUCKETS} the bits of their direct "
+        f"EvalStep rows; {len(apply.kept)} padded batches vs the plain "
+        f"versions: max abs err {worst:.3e} (bf16 rtol {BF16_RTOL} of "
+        f"each output's scale), top-1 agreement {agree}/{rows}")
+    apply.kept.clear()
+    return worst
+
+
+def fwd_small_n(torch, smi_line):
+    """The forward kernel at the eight ResNet-50 shapes at N = 1 and 4
+    (the serving buckets' smallest), bf16: held against its plain
+    version, then timed (CUDA events, L2 flushed) beside its plain
+    version and its bound; summed over a forward's 32 launches."""
+    from mxnet_tpu_torch.ops import fused_conv as fc
+
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    flush = torch.empty(1024 * 2**20, dtype=torch.uint8, device=DEVICE)
+    before = dict(fc.norm_relu_conv.launches)
+    out = {}
+    for n in CLASSIFIER_SMALL_N:
+        tot = dict.fromkeys(("ms", "plain_ms", "bound_ms", "err"), 0.0)
+        for label, blocks, hw, ci, co, k in path_shapes():
+            x, sc, sh, w, _, _ = fused_inputs(torch, gen, n, hw, ci, co, k,
+                                              torch.bfloat16)
+            kfn = lambda: fc._fwd_cuda(x, sc, sh, w, None, True, 1)
+            pfn = lambda: fc._fwd_plain(x, sc, sh, w, None, True, 1)
+            err = check_outputs(torch, f"{label}, N={n}, bf16", "fwd",
+                                [kfn()], [pfn()])
+            ms = time_ms(torch, kfn, 20, flush)
+            plain_ms = time_ms(torch, pfn, 10, flush)
+            ops_ms, bytes_ms = conv_bound(n, hw, ci, co, k, "fwd")
+            bound = max(ops_ms, bytes_ms)
+            log(f"time [fused_conv_fwd {label}, N={n}, bf16, "
+                f"{card_line(smi_line)}]: {ms:.4f} ms (plain "
+                f"{plain_ms:.4f}, bound {bound:.5f} by "
+                f"{'operations' if ops_ms >= bytes_ms else 'bytes'}, "
+                f"{100 * bound / ms:.2f}% of bound), max abs err {err:.3e}, "
+                f"grid rows {n * hw * hw} = {-(-n * hw * hw // 64)} tiles")
+            tot["ms"] += blocks * ms
+            tot["plain_ms"] += blocks * plain_ms
+            tot["bound_ms"] += blocks * bound
+            tot["err"] = max(tot["err"], err)
+        log(f"time per forward [fused_conv_fwd, N={n}, 32 launches, "
+            f"{card_line(smi_line)}]: kernel {tot['ms']:.3f} ms "
+            f"({tot['ms'] / 32:.4f} ms a launch), plain "
+            f"{tot['plain_ms']:.3f} ms, bound {tot['bound_ms']:.4f} ms, "
+            f"max abs err {tot['err']:.3e}")
+        out[n] = tot
+    fc.norm_relu_conv.launches = before       # timing is not the path
+    return out
+
+
+def serve_resnet(torch, smi_line):
+    """(b) The fused ResNet-50 classifier at full width (``bench_resnet``'s
+    net: NHWC, ``fused=True``, bf16, 1000 classes, seeded) behind
+    ``parallel.EvalStep`` and ``InferenceServer(buckets=(1, 4, 16,
+    64))``: the grid captured by ``start()``, the traffic of
+    ``resnet_traffic``, the checks of ``resnet_checks``, the forward
+    kernel's launches counted under replay (32 a batch, no dX or dW)."""
+    from mxnet_tpu_torch import parallel, serving
+    from mxnet_tpu_torch.ops import fused_conv as fc
+
+    net = build_resnet50(torch, True, "bfloat16")
+    step = parallel.EvalStep(net)
+    apply = RecordingApply(torch, step)
+    images = classifier_images(CLASSIFIER_IMAGES, 0)
+    srv = serving.InferenceServer(
+        apply, buckets=CLASSIFIER_BUCKETS, max_queue=CLASSIFIER_BURST,
+        max_delay=0.005, sample=images[0], name="ResNetServer")
+    t0 = time.perf_counter()
+    srv.start()
+    warm = time.perf_counter() - t0
+    expect(step.graph_count() == len(CLASSIFIER_BUCKETS),
+           f"ResNet server: {step.graph_count()} graphs after start")
+    fc.norm_relu_conv.launches = dict.fromkeys(FUSED, 0)
+    b0 = srv.stats["batches"]
+    closed, opened = resnet_traffic(torch, srv, apply, images, smi_line)
+    reqs = resnet_check_traffic(srv, apply, images)
+    launches = dict(fc.norm_relu_conv.launches)
+    batches = srv.stats["batches"] - b0
+    worst = resnet_checks(torch, net, apply, reqs)
+    expect(launches["fwd"] == FUSED_PER_STEP * batches
+           and launches["dx"] == 0 and launches["dw"] == 0,
+           f"ResNet server: launches {launches} for {batches} batches")
+    expect(step.graph_count() == len(CLASSIFIER_BUCKETS),
+           f"ResNet server: {step.graph_count()} graphs after the traffic")
+    srv.drain()
+    st = srv.stats
+    expect(st["admitted"] == st["completed"] and st["failed"] == 0,
+           f"ResNet server: {st}")
+    log(f"classifier serving [ResNet-50, {card_line(smi_line)}]: start "
+        f"(4 graphs captured) {warm:.2f} s; graphs {step.graph_count()} = "
+        f"the grid after the traffic; fused_conv_fwd {launches['fwd']} "
+        f"launches = 32 x {batches} batches, no dX or dW")
+    return {"closed": closed, "burst": opened, "launches": launches["fwd"],
+            "batches": batches, "max_abs_err": worst, "step": step,
+            "apply": apply, "sample": images[:1]}
+
+
+def module_traffic(srv, sample, n, seed):
+    """``n`` requests from 4 clients with ragged gaps (every bucket);
+    returns ``[(index into sample, request)]``."""
+    import threading
+
+    out, lock = [], threading.Lock()
+
+    def client(k):
+        rng = np.random.RandomState(seed + k)
+        mine = []
+        for i in range(n // 4):
+            j = rng.randint(len(sample))
+            mine.append((j, srv.submit(sample[j], deadline=30.0)))
+            if rng.rand() < 0.3:
+                time.sleep(0.01)
+        for _, r in mine:
+            r.result(60)
+        with lock:
+            out.extend(mine)
+
+    threads = [threading.Thread(target=client, args=(k,)) for k in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    expect(len(out) == n and all(r.exception(0) is None for _, r in out),
+           f"module traffic: {len(out)} of {n} served")
+    return out
+
+
+def serve_module(torch, smi_line):
+    """(c) The symbolic ResNet-50 (NCHW, f32; ``sym_resnet50``) bound
+    for inference at batch 64, seeded, served by ``module_apply`` in f32
+    and int8 at buckets (1, 8, 64): one graph a bucket after the warm-up
+    and after MODULE_REQUESTS mixed requests, nothing rebound; f32
+    responses against ``Module.predict``, int8 against f32, and the int8
+    graph's weight-input bytes against f32's."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import serving
+
+    mx.random.seed(0)
+    mod = mx.mod.Module(sym_resnet50(mx.sym), context=mx.gpu(0))
+    mod.bind([("data", (MODULE_BUCKETS[-1], 3, 224, 224))],
+             [("softmax_label", (MODULE_BUCKETS[-1],))], for_training=False)
+    mod.init_params(mx.init.Xavier(magnitude=2.0))
+    images = np.random.RandomState(1).rand(
+        MODULE_BUCKETS[-1], 3, 224, 224).astype(np.float32)
+    want = mod.predict(mx.io.NDArrayIter(
+        images, batch_size=MODULE_BUCKETS[-1])).asnumpy()
+    results = {}
+    for quantize in (None, "int8"):
+        what = quantize or "f32"
+        apply = serving.module_apply(mod, quantize=quantize)
+        srv = serving.InferenceServer(apply, buckets=MODULE_BUCKETS,
+                                      max_delay=0.005, sample=images[0],
+                                      name=f"ModuleServer-{what}")
+        srv.start()
+        graphs = apply.jit_cache_size()
+        held = mod._exec._held
+        served = module_traffic(srv, images, MODULE_REQUESTS, 10)
+        srv.drain()
+        after = apply.jit_cache_size()
+        expect(graphs == after == len(MODULE_BUCKETS),
+               f"module_apply {what}: graphs {graphs} after the warm-up, "
+               f"{after} after the traffic")
+        expect(mod._exec._held is held, f"module_apply {what}: the "
+               f"executor dropped its graphs")
+        idx = [j for j, _ in served]
+        got = np.stack([r.result(0) for _, r in served])
+        results[what] = (idx, got, apply, srv.stats)
+    idx, got, f32_apply, st = results["f32"]
+    err = float(np.abs(got - want[idx]).max() / np.abs(want).max())
+    expect(err <= 1e-5, f"module_apply f32 vs Module.predict: {err:.3e} of "
+           f"the output's scale")
+    qidx, qgot, q_apply, qst = results["int8"]
+    ref = np.stack([want[i] for i in qidx])
+    qerr = float(np.abs(qgot - ref).max())
+    f32_bytes = sum(a._data.numel() * a._data.element_size()
+                    for n, a in mod._exec.arg_dict.items()
+                    if n not in ("data", "softmax_label"))
+    log(f"classifier serving [module_apply, symbolic ResNet-50 NCHW f32, "
+        f"buckets {MODULE_BUCKETS}, {card_line(smi_line)}]: graphs "
+        f"{len(MODULE_BUCKETS)} for f32 and for int8 after the warm-up and "
+        f"after {MODULE_REQUESTS} requests each, nothing rebound; f32 vs "
+        f"Module.predict max abs err {err:.3e} of the output's scale "
+        f"(bound 1e-5); int8 vs f32 max abs err {qerr:.3e} on the softmax "
+        f"outputs ({'within' if qerr <= 5e-3 else 'OVER'} atol 5e-3); "
+        f"weight-input bytes int8 {q_apply.weight_bytes / 2**20:.2f} MiB "
+        f"vs f32 {f32_bytes / 2**20:.2f} MiB = "
+        f"{q_apply.weight_bytes / f32_bytes:.3f}x; batches f32 "
+        f"{st['batches']}, int8 {qst['batches']}")
+    return {"f32": f32_apply, "int8": q_apply, "sample": images[:1]}
+
+
+def fleet_mlp(torch, params_idx):
+    """The MLP forward of ``examples/serve_fleet_mnist.py`` over a params
+    list in snapshot order: ``relu(x @ w1.T + b1) @ w2.T + b2``."""
+    iw1, ib1, iw2, ib2 = params_idx
+
+    def fwd(p, x):
+        h = torch.relu(x @ p[iw1].t() + p[ib1])
+        return h @ p[iw2].t() + p[ib2]
+    return fwd
+
+
+def serve_fleet(torch, smi_line):
+    """(d) ``examples/serve_fleet_mnist.py`` on the port: a captured
+    ``TrainStep`` of its MLP (Adam, batch 256 over the synthetic MNIST)
+    checkpoints through ``CheckpointManager``; ``ServingFleet.replicated``
+    over one ``graphs.captured`` forward, 3 replicas at buckets (1, 4, 8,
+    16), serves FLEET_REQUESTS requests from 4 clients while
+    ``WeightUpdater`` rolls the next snapshot across them; then a
+    ``serving.step`` fault and one replica killed mid-traffic, and a
+    ``FleetAutoscaler`` scaling up to 4 and retiring down to 2.  The
+    shared function's graphs equal the grid throughout; zero accepted
+    requests dropped."""
+    import threading
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import fault, gluon, graphs, parallel, serving
+    from mxnet_tpu_torch.gluon import nn
+    from mxnet_tpu_torch.parallel.checkpoint import (CheckpointManager,
+                                                     load_snapshot_params)
+
+    train = gluon.data.vision.MNIST(train=True)
+    test = gluon.data.vision.MNIST(train=False)
+    tx = np.stack([np.asarray(train[i][0], np.float32).reshape(-1) / 255.0
+                   for i in range(2048)])
+    ty = np.array([int(train[i][1]) for i in range(2048)], np.float32)
+    vx = np.stack([np.asarray(test[i][0], np.float32).reshape(-1) / 255.0
+                   for i in range(256)])
+    mx.random.seed(0)
+    with mx.gpu(0):
+        net = nn.HybridSequential()
+        net.add(nn.Dense(128, activation="relu", in_units=784),
+                nn.Dense(10, in_units=128))
+        net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+    step = parallel.TrainStep(net, gluon.loss.SoftmaxCrossEntropyLoss(),
+                              mx.optimizer.create("adam"))
+    rng = np.random.RandomState(0)
+
+    def train_batches(k):
+        for _ in range(k):
+            idx = rng.randint(0, len(tx), 256)
+            step(tx[idx], ty[idx])
+
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        mgr = CheckpointManager(step, ckpt_dir, keep_last=3)
+        train_batches(8)
+        mgr.save()
+        first_n, first_path = mgr.checkpoints()[-1]
+        host, _names = load_snapshot_params(first_path)
+        shapes = [tuple(p.shape) for p in host]
+        fwd = fleet_mlp(torch, (shapes.index((128, 784)),
+                                    shapes.index((128,)),
+                                    shapes.index((10, 128)),
+                                    shapes.index((10,))))
+        shared = graphs.captured(fwd)
+        params = [torch.from_numpy(p).cuda() for p in host]
+
+        class KillableApply(serving.HotSwapApply):
+            """A replica's apply whose batch thread dies (SystemExit)
+            once ``dead`` is set: a killed replica."""
+            dead = False
+
+            def __call__(self, *leaves):
+                if self.dead:
+                    raise SystemExit("replica killed")
+                return super().__call__(*leaves)
+
+        fleet = serving.ServingFleet(
+            [KillableApply(shared, list(params)) for _ in range(3)],
+            buckets=FLEET_BUCKETS, max_delay=0.003, sample=vx[0],
+            name="MnistFleet", max_inflight=FLEET_INFLIGHT)
+        fleet.start()
+        census = fleet.grid_census
+        seen = {"min": shared.graph_count(), "max": shared.graph_count()}
+        watching = threading.Event()
+
+        def watch():
+            while not watching.wait(0.005):
+                n = shared.graph_count()
+                seen["min"] = min(seen["min"], n)
+                seen["max"] = max(seen["max"], n)
+
+        watcher = threading.Thread(target=watch)
+        watcher.start()
+        accepted, shed, lock = [], [0], threading.Lock()
+        stop = threading.Event()
+
+        def client(k, n=None):
+            rc = np.random.RandomState(k)
+            i = 0
+            while (n is None and not stop.is_set()) or (n is not None
+                                                        and i < n):
+                i += 1
+                try:
+                    req = fleet.submit(vx[rc.randint(len(vx))])
+                    with lock:
+                        accepted.append(req)
+                    req.result(60)
+                except serving.RejectedError:
+                    with lock:
+                        shed[0] += 1
+                time.sleep(0.002)
+
+        updater = serving.WeightUpdater(fleet, mgr, last_seen=first_n,
+                                        poll=0.05)
+        updater.start()
+        threads = [threading.Thread(target=client,
+                                    args=(k, FLEET_REQUESTS // 4))
+                   for k in range(4)]
+        for t in threads:
+            t.start()
+        train_batches(48)
+        mgr.save()
+        new_n, new_path = mgr.checkpoints()[-1]
+        t0 = time.time()
+        while updater.applied < 1 and time.time() - t0 < 60:
+            time.sleep(0.02)
+        for t in threads:
+            t.join(120)
+        updater.stop(timeout=10)
+        expect(updater.applied == 1 and updater.skipped == 0,
+               f"fleet: updater applied {updater.applied}, skipped "
+               f"{updater.skipped}")
+        new_host, _ = load_snapshot_params(new_path)
+        for rep in fleet.replicas:
+            expect(all(leaf.is_cuda and torch.equal(leaf, torch.from_numpy(
+                h).cuda()) for leaf, h in zip(rep.apply.params, new_host)),
+                f"fleet: r{rep.index}'s params are not the snapshot's bits")
+        new_params = fleet.replicas[0].apply.params
+        xs = vx[:16]
+        got = np.stack([fleet(x, timeout=30) for x in xs])
+        eager = torch.cat([fwd(new_params, torch.from_numpy(x[None]).cuda())
+                           for x in xs]).cpu().numpy()
+        err = float(np.abs(got - eager).max() / np.abs(eager).max())
+        expect(err <= 1e-5, f"fleet: responses after the roll vs the new "
+               f"weights' eager output: {err:.3e}")
+        rolled = len(accepted)
+        log(f"classifier serving [fleet roll, {card_line(smi_line)}]: "
+            f"{rolled} accepted, {shed[0]} shed, snapshot {first_n} -> "
+            f"{new_n} rolled across 3 replicas; every replica's params the "
+            f"snapshot's bits on the card; responses after the roll vs the "
+            f"new weights' eager output {err:.3e} of scale "
+            f"({'the same bits' if np.array_equal(got, eager) else 'not the same bits'})")
+        # a serving.step fault, then one replica killed mid-traffic
+        threads = [threading.Thread(target=client, args=(10 + k,))
+                   for k in range(4)]
+        for t in threads:
+            t.start()
+        time.sleep(0.2)
+        with fault.inject("serving.step", RuntimeError("wedged step"),
+                          times=2):
+            time.sleep(0.3)
+        victim = fleet.replicas[1]
+        victim.apply.dead = True
+        t0 = time.time()
+        while victim.server.alive() and time.time() - t0 < 10:
+            time.sleep(0.01)
+        expect(not victim.server.alive(), "fleet: the killed replica's "
+               "batch thread is still alive")
+        time.sleep(0.3)
+        redispatched = fleet.stats["redispatched"]
+        policy = serving.ScalingPolicy(
+            min_replicas=2, max_replicas=4, up_occupancy=0.1,
+            down_occupancy=0.05, up_queue_depth=None, up_ticks=2,
+            down_ticks=4, cooldown=0.3)
+        auto = serving.FleetAutoscaler(fleet, policy, tick=0.05)
+        auto.start()
+        t0 = time.time()
+        while len(fleet.replicas) < 4 and time.time() - t0 < 30:
+            time.sleep(0.05)
+        peak = len(fleet.replicas)
+        stop.set()
+        for t in threads:
+            t.join(60)
+        t0 = time.time()
+        while len(fleet.replicas) > 2 and time.time() - t0 < 60:
+            time.sleep(0.05)
+        auto.stop(timeout=30)
+        low = len(fleet.replicas)
+        drained = fleet.drain(timeout=60)
+        watching.set()
+        watcher.join(10)
+        st = fleet.stats
+        resolved = st["completed"] + st["failed"] + st["expired"]
+        errors = [r.exception(0) for r in accepted
+                  if r.exception(0) is not None]
+        expect(drained and all(r.done() for r in accepted) and not errors,
+               f"fleet: drained {drained}, {len(errors)} accepted requests "
+               f"failed ({errors[:3]})")
+        expect(st["admitted"] == resolved == st["completed"],
+               f"fleet: books {st}")
+        expect(peak == 4 and low == 2, f"fleet: the autoscaler reached "
+               f"{peak} replicas and came back to {low}")
+        expect(seen["min"] == seen["max"] == census,
+               f"fleet: the shared function held {seen} graphs, grid "
+               f"{census}")
+        log(f"classifier serving [fleet, {card_line(smi_line)}]: "
+            f"{len(accepted)} accepted, {shed[0]} shed, 0 dropped; "
+            f"serving.step fault x2 and r1 killed: {redispatched} "
+            f"redispatched; autoscaler up to {peak} and down to {low} "
+            f"({auto.stats}); the shared function's graphs {census} = the "
+            f"grid throughout (min {seen['min']}, max {seen['max']})")
+    return {"fn": shared, "params": new_params, "sample": vx[:1]}
+
+
+def no_sync_calls(torch, applies):
+    """One call of each apply under ``set_sync_debug_mode("error")`` (a
+    host sync raises), its result read back after."""
+    for what, (fn, sample) in applies.items():
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = fn(sample)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        outs = out if isinstance(out, (tuple, list)) else (out,)
+        expect(all(bool(torch.isfinite(o.float()).all()) for o in outs),
+               f"{what}: non-finite output")
+    log(f"classifier serving: one call of each apply ({', '.join(applies)})"
+        f" under set_sync_debug_mode('error'): no host sync before the "
+        f"read-back")
+
+
+def classifier_phase(torch, root, smi_line):
+    """Classifier serving on the card: (a) ``serve_mnist_example``, (b)
+    ``serve_resnet`` and ``fwd_small_n``, (c) ``serve_module``, (d)
+    ``serve_fleet``, (e) ``no_sync_calls``."""
+    serve_mnist_example(torch, root, smi_line)
+    gc.collect()
+    resnet = serve_resnet(torch, smi_line)
+    small = fwd_small_n(torch, smi_line)
+    torch.cuda.empty_cache()
+    module = serve_module(torch, smi_line)
+    fleet = serve_fleet(torch, smi_line)
+    no_sync_calls(torch, {
+        "EvalStep ResNet-50": (resnet["apply"], resnet["sample"]),
+        "module_apply f32": (module["f32"], module["sample"]),
+        "module_apply int8": (module["int8"], module["sample"]),
+        "fleet captured MLP": (lambda x: fleet["fn"](fleet["params"], x),
+                               fleet["sample"])})
+    c, b = resnet["closed"], resnet["burst"]
+    log(f"classifier serving [summary, {card_line(smi_line)}]: ResNet-50 "
+        f"burst {b['img_s']:.1f} img/s (busy {100 * b['busy']:.1f}%), "
+        f"bucket 64 {b['bucket_ms'].get(64, float('nan')):.2f} ms a batch "
+        f"of device time; closed loop p50 {c['p50_ms']:.2f} ms p99 "
+        f"{c['p99_ms']:.2f} ms; fused_conv_fwd per launch "
+        + ", ".join(f"N={n} {t['ms'] / 32:.4f} ms (bound "
+                    f"{t['bound_ms'] / 32:.5f})" for n, t in small.items()))
+    resnet.pop("step")
+    return {"resnet": resnet, "small_n": small}
+
+
 class phase:
     """Print a phase's wall time on its own line when it ends."""
 
@@ -5381,6 +6127,10 @@ def main():
             torch.cuda.empty_cache()
         with phase("symbolic"):
             symbolic = symbolic_phase(torch, root, smi_line)
+            gc.collect()
+            torch.cuda.empty_cache()
+        with phase("classifier serving"):
+            classifier = classifier_phase(torch, root, smi_line)
     except SmokeError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -5412,7 +6162,19 @@ def main():
                                  "input pipeline":
                                      pipeline["fed"]["launches"][kern],
                                  "resume": resumed["launches"][kern],
-                                 "symbolic": symbolic["launches"][kname]}})
+                                 "symbolic": symbolic["launches"][kname],
+                                 "classifier serving":
+                                     classifier["resnet"]["launches"]
+                                     if kern == "fwd" else 0}})
+        if kern == "fwd":
+            kernels["kernels"][-1]["serving_small_n"] = {
+                f"N={n}": {"ms_per_launch": t["ms"] / FUSED_PER_STEP,
+                           "plain_ms_per_launch":
+                               t["plain_ms"] / FUSED_PER_STEP,
+                           "bound_ms_per_launch":
+                               t["bound_ms"] / FUSED_PER_STEP,
+                           "max_abs_err": t["err"]}
+                for n, t in classifier["small_n"].items()}
     for kern in FLASH:
         kname, t = f"flash_attention_{kern}", flash_times[kern]
         kernels["kernels"].append({

@@ -59,7 +59,13 @@ CUDA graph (``graphs``), the counterpart of the JAX package's compiled
 programs; ``python -m mxnet_tpu_torch.bench {resnet,bert,llm}`` prints
 ``bench.py``'s line for each slice.
 
-Exports: ``nd`` (``ndarray``, with ``NDArray``), ``autograd``,
+Classifier serving: ``serving.InferenceServer`` over a batched apply
+function (``parallel.EvalStep``, a hybridized block, a bound ``Module``
+through ``serving.module_apply``, in f32 or int8 with ``amp``'s
+quantizer, or a ``graphs.captured`` function), ``serving.ServingFleet``
+of replicas with ``WeightUpdater`` and ``FleetAutoscaler``.
+
+Exports: ``nd`` (``ndarray``, with ``NDArray``), ``amp``, ``autograd``,
 ``config``, ``elastic``
 (heartbeats and the gang supervisor; ``parallel.checkpoint`` the
 snapshots they resume from), ``engine``,
@@ -70,7 +76,7 @@ snapshots they resume from), ``engine``,
 ``num_gpus``, ``gpu_memory_info``, ``MXNetError`` and ``waitall``.
 """
 from . import base, config, storage
-from . import (autograd, context, elastic, engine, gluon, image, initializer,
+from . import (amp, autograd, context, elastic, engine, gluon, image, initializer,
                io, lr_scheduler, metric, ndarray, optimizer, parallel,
                profiler, random, recordio)
 from . import (attribute, callback, executor, model, module, monitor, name,
@@ -91,7 +97,7 @@ waitall = engine.waitall
 
 config._apply_startup()
 
-__all__ = ["autograd", "base", "config", "context", "elastic", "engine",
+__all__ = ["amp", "autograd", "base", "config", "context", "elastic", "engine",
            "gluon",
            "image", "initializer", "init", "io", "lr_scheduler", "metric",
            "nd", "ndarray", "optimizer", "parallel", "profiler", "random",

@@ -10,8 +10,10 @@ heads) by torch autograd, as the JAX executor takes ``jax.grad``.
 On the card the executor's programs are captured CUDA graphs (the JAX
 package's ``jax.jit``s), kept by the JAX executor's keys:
 
-- ``forward(is_train=False)``: a forward graph (``graphs.GraphCache``,
-  key ``("fwd", False)``) over the bound tensors;
+- ``forward(is_train=False)``: a forward graph (``graphs.GraphCache``)
+  per signature of what is fed — the shape and dtype of every fed data
+  and label array, as ``jax.jit`` keeps one executable per signature
+  of the JAX executor's inputs;
 - ``forward(is_train=True)`` then ``backward()``: a pair, the forward
   and, in its memory pool, the backward (``StepGraph(pool_of=...)``),
   keyed by the differentiated names and the heads given ``out_grads``.
@@ -30,10 +32,16 @@ package's ``jax.jit``s), kept by the JAX executor's keys:
 Graphs read the bound tensors where they lie, so every write into a
 bound array is in place: fed data (``forward(**feeds)``), gradients,
 the running statistics a training forward updates, and what ``Module``
-writes (``init_params``, ``set_params``, the optimizer's updates).  An
-array the caller rebinds (``ex.arg_dict[n] = other``, or a new tensor
-under an array) is seen at the next call, by identity, and the graphs
-are made again.  ``capture=False`` runs the same bodies eagerly (the
+writes (``init_params``, ``set_params``, the optimizer's updates).  A
+fed name keeps one array per shape and dtype it was fed at (the bound
+array for the bound ones): a feed is copied into the array of its
+signature, which is then bound, so switching between signatures (a
+server's bucket grid) rebinds nothing a graph reads and drops no
+graph.  A parameter, auxiliary or gradient array the caller rebinds
+(``ex.arg_dict[n] = other``, or a new tensor under an array) is seen at
+the next call, by identity, and every graph is made again; a fed
+name's array rebound by the caller drops the graphs that read the old
+one.  ``capture=False`` runs the same bodies eagerly (the
 yardstick); on the CPU they always run eagerly and ``capture=True``
 raises.
 
@@ -232,10 +240,11 @@ class _Pair:
     """A training key's graphs on the card: the forward and, sharing its
     memory pool, the backward, with their static tensors."""
 
-    def __init__(self, device):
+    def __init__(self, device, reads):
         self.fwd = StepGraph(device)
         self.bwd = None
         self.warmed = False             # a backward ran eagerly
+        self.reads = reads              # the fed tensors its bodies read
 
     @property
     def captured(self):
@@ -287,7 +296,9 @@ class Executor:
         self.outputs: List[NDArray] = []
         self._last_train = False
         self._forward_graphs = None     # GraphCache of inference forwards
+        self._reads = {}                # its key -> the fed tensors read
         self._pairs = {}                # (diff names, out_grad keys) -> _Pair
+        self._fed = {}                  # fed name -> {(shape, dtype): array}
         self._held = None               # the tensors the graphs read
         self._pending = None            # what a backward() may reuse
         self._last_og = ()              # out_grad keys of the last backward
@@ -306,25 +317,42 @@ class Executor:
         return [self.aux_dict[n] for n in self._aux_names]
 
     def graph_count(self):
-        """Captured programs held: one per inference key, one per
+        """Captured programs held: one per inference signature, one per
         training pair (a forward and a backward graph)."""
         return len(self._forward_graphs or ()) + sum(
             p.captured for p in self._pairs.values())
 
     # ---- binding ----
     def _feed(self, name, value):
-        """Write a fed value into the bound array, in place, where its
-        shape and dtype match; else bind a new array."""
+        """Copy a fed value into the array kept for its name, shape and
+        dtype — the bound array where they match it, else one made at
+        the first feed of that signature — and bind that array."""
         cur = self.arg_dict.get(name)
         if cur is value:
             return
-        t = value._data if isinstance(value, NDArray) else as_tensor(value)
-        if cur is not None and t.shape == cur._data.shape \
-                and t.dtype == cur._data.dtype:
+        table = self._fed.get(name)
+        if table is None:
+            table = self._fed[name] = {}
+            if cur is not None:
+                table[(tuple(cur.shape), cur._data.dtype)] = cur
+        t = value._data if isinstance(value, NDArray) else \
+            value if isinstance(value, torch.Tensor) else as_tensor(value)
+        key = (tuple(t.shape), t.dtype)
+        arr = table.get(key)
+        if arr is None:                 # never the caller's own storage
+            arr = table[key] = NDArray(as_tensor(t, device=self._device))
+        else:
             with torch.no_grad():
-                cur._data.copy_(t)
-            return
-        self.arg_dict[name] = _as_nd(value, self._device)
+                arr._data.copy_(t)
+        self.arg_dict[name] = arr
+
+    def _fed_reads(self):
+        """The tensors bound under the fed names, in name order."""
+        return tuple(self.arg_dict[n]._data for n in sorted(self._fed))
+
+    @staticmethod
+    def _same(a, b):
+        return len(a) == len(b) and all(x is y for x, y in zip(a, b))
 
     def _diff_names(self):
         return tuple(sorted(n for n, r in self._grad_req.items()
@@ -341,10 +369,11 @@ class Executor:
                      for d, names in ((self.arg_dict, self._arg_names),
                                       (self.aux_dict, self._aux_names),
                                       (self.grad_dict, self._arg_names))
-                     for n in names)
-        if self._held is None or len(held) != len(self._held) or any(
-                a is not b for a, b in zip(held, self._held)):
+                     for n in names if d is not self.arg_dict
+                     or n not in self._fed)
+        if self._held is None or not self._same(held, self._held):
             self._forward_graphs = None
+            self._reads = {}
             self._pairs = {}
             self._pending = None
             self._held = held
@@ -430,15 +459,26 @@ class Executor:
         if is_train:
             outs = self._train_forward()
         elif self._capture:
-            if self._forward_graphs is None:
-                self._forward_graphs = GraphCache(self._device)
-            outs = [o.clone() for o in self._forward_graphs.run(
-                ("fwd", False), self._infer_body)]
+            outs = [o.clone() for o in self._infer_graphs()]
         else:
             outs = self._infer_body()
         self.outputs = [NDArray(o.detach()) for o in outs]
         self._last_train = bool(is_train)
         return self.outputs
+
+    def _infer_graphs(self):
+        """The inference forward through the graph of the fed signature
+        (a graph whose fed tensors were rebound is made again)."""
+        if self._forward_graphs is None:
+            self._forward_graphs = GraphCache(self._device)
+        key = tuple((n, tuple(self.arg_dict[n].shape),
+                     self.arg_dict[n]._data.dtype)
+                    for n in sorted(self._fed))
+        reads = self._fed_reads()
+        if not self._same(self._reads.get(key, reads), reads):
+            self._forward_graphs.drop(key)
+        self._reads[key] = reads
+        return self._forward_graphs.run(key, self._infer_body)
 
     def _train_forward(self):
         if not self._capture:
@@ -447,10 +487,13 @@ class Executor:
             return outs
         key = (self._diff_names(), self._last_og)
         pair = self._pairs.get(key)
+        reads = self._fed_reads()
+        if pair is not None and not self._same(pair.reads, reads):
+            pair = None                 # fed at another signature
         if pair is None or not pair.warmed:
             # a key's first training call runs eagerly on the capture
             # stream (its warm-up), as does its backward
-            pair = pair or _Pair(self._device)
+            pair = pair or _Pair(self._device, reads)
             outs, leaves = self._on_capture_stream(pair, self._train_body)
             self._pending = ("eager", outs, leaves, pair)
             return outs

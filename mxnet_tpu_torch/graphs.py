@@ -65,6 +65,13 @@ first call of a bucket captures while the loop runs.  So:
   draw none, so their replays on several threads only read it; a
   server's graphs are freed with the server.
 
+``captured(fn)`` is the counterpart of ``jax.jit`` for a function that
+takes its parameters as an argument, ``fn(params, *leaves)`` (a serving
+fleet's shared apply, ``amp.Int8Quantizer.wrap``): one graph per
+signature of the leaves, over static input tensors and static
+parameter slots that a call's parameters are copied into when they are
+not the ones copied last.
+
 There is no fallback: a capture that fails raises.
 """
 from __future__ import annotations
@@ -74,12 +81,13 @@ import importlib
 import threading
 import weakref
 
+import numpy as np
 import torch
 
 from . import random as _random
 
-__all__ = ["GraphCache", "StepGraph", "launch_counts", "owned_stream",
-           "release_stream"]
+__all__ = ["GraphCache", "StepGraph", "captured", "launch_counts",
+           "owned_stream", "release_stream"]
 
 _capture_lock = threading.RLock()  # one capture at a time in the process
 _count_lock = threading.Lock()     # the launch counters' updates
@@ -265,6 +273,12 @@ class GraphCache:
     def __len__(self):
         return len(self.held)
 
+    def drop(self, key):
+        """Free the graph held under ``key``, if any (the next ``run``
+        of the key captures again)."""
+        with _capture_lock:
+            self.held.pop(key, None)
+
     def run(self, key, body):
         """``body()`` through the graph held under ``key``.  ``body``
         reads inputs that stay at the same addresses for the key (its
@@ -293,3 +307,108 @@ class GraphCache:
                 t.record_stream(main)
         self.held[key] = (graph, graph.capture(body))
         return out
+
+
+# ----------------------------------------------------------------- captured --
+def _tree_leaves(x):
+    """The leaves of a container of dicts (by sorted key), lists and
+    tuples, in order."""
+    if isinstance(x, dict):
+        return [leaf for k in sorted(x) for leaf in _tree_leaves(x[k])]
+    if isinstance(x, (list, tuple)):
+        return [leaf for v in x for leaf in _tree_leaves(v)]
+    return [x]
+
+
+def _tree_map(fn, x):
+    """``x`` with ``fn`` applied to every leaf, its containers rebuilt."""
+    if isinstance(x, dict):
+        return {k: _tree_map(fn, v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_tree_map(fn, v) for v in x)
+    return fn(x)
+
+
+def _as_tensor(x):
+    return x if isinstance(x, torch.Tensor) \
+        else torch.from_numpy(np.ascontiguousarray(x))
+
+
+class captured:
+    """``fn(params, *leaves)`` replayed as one CUDA graph per signature
+    (shape and dtype) of ``leaves``: the port's ``jax.jit`` of a function
+    whose parameters are an argument.
+
+    On the card the graphs read static tensors: a slot for every
+    parameter leaf (``params`` is a dict, list or tuple of tensors,
+    nested or not; its structure and leaf shapes are fixed at the first
+    call) and a copy of each signature's leaves.  A call copies its
+    parameters into the slots (one ``torch._foreach_copy_``) only when
+    they are not the tensors copied in last — so replicas that share
+    one set of parameters copy nothing per call — and its leaves (host
+    arrays or tensors) into the signature's static copies, replays, and
+    returns clones of the outputs.  One lock is held from filling the
+    static inputs until the outputs are cloned: the replicas of a fleet
+    call one shared function from their batch threads at once.  Where
+    no parameter lies on the card (the CPU), ``fn`` runs eagerly (on the
+    leaves as tensors).
+
+    ``graph_count()`` (also ``_cache_size()``, the name the serving
+    runtime probes on a jitted function) says how many graphs are held.
+    """
+
+    def __init__(self, fn):
+        self.fn = fn
+        self._lock = threading.Lock()
+        self._graphs = None           # GraphCache, at the first card call
+        self._slots = None            # static parameter tensors
+        self._bound = None            # the parameter leaves copied last
+        self._static = {}             # leaf signature -> static leaves
+
+    def graph_count(self):
+        return 0 if self._graphs is None else len(self._graphs)
+
+    _cache_size = graph_count
+
+    def __call__(self, params, *leaves):
+        flat = _tree_leaves(params)
+        device = next((t.device for t in flat
+                       if isinstance(t, torch.Tensor) and t.is_cuda), None)
+        if device is None:
+            return self.fn(params, *[_as_tensor(x) for x in leaves])
+        with self._lock:
+            self._bind(params, flat, device)
+            xs = [_as_tensor(x) for x in leaves]
+            sig = tuple((tuple(x.shape), x.dtype) for x in xs)
+            static = self._static.get(sig)
+            if static is None:
+                static = self._static[sig] = tuple(
+                    torch.empty(x.shape, dtype=x.dtype, device=device)
+                    for x in xs)
+            for buf, x in zip(static, xs):
+                buf.copy_(x, non_blocking=True)
+            out = self._graphs.run(sig, lambda: self.fn(self._slots,
+                                                        *static))
+            return _tree_map(torch.clone, out)
+
+    def _bind(self, params, flat, device):
+        """The parameter slots, made at the first call and refilled from
+        ``params`` when its leaves are not the ones copied last."""
+        if self._graphs is None:
+            self._graphs = GraphCache(device)
+            self._slots = _tree_map(
+                lambda t: _as_tensor(t).to(device, copy=True), params)
+        elif len(flat) == len(self._bound) and all(
+                a is b for a, b in zip(flat, self._bound)):
+            return
+        else:
+            slots = _tree_leaves(self._slots)
+            if len(slots) != len(flat) or any(
+                    tuple(a.shape) != tuple(np.shape(b))
+                    for a, b in zip(slots, flat)):
+                raise ValueError(
+                    "captured: the parameters' structure or shapes differ "
+                    "from those the graphs were captured with")
+            torch._foreach_copy_(slots, [_as_tensor(t) for t in flat],
+                                 non_blocking=True)
+        self._bound = flat

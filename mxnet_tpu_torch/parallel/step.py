@@ -80,6 +80,7 @@ compression (ROADMAP A15).  The prefetching feed is
 """
 from __future__ import annotations
 
+import threading
 import time
 
 import numpy as np
@@ -95,7 +96,29 @@ from .functional import (functional_call, param_names_and_values,
                          run_eagerly, trainable_split)
 from .functional_opt import multi_update, state_template
 
-__all__ = ["TrainStep", "EvalStep", "NonFiniteAbortError"]
+__all__ = ["TrainStep", "EvalStep", "NonFiniteAbortError",
+           "all_finite_rows"]
+
+
+def all_finite_rows(arrays):
+    """Per-example all-finite verdict over batch-major arrays: the
+    serving-side counterpart of ``TrainStep(skip_nonfinite=True)``'s
+    guard, taken per ROW so a server fails exactly the poisoned request
+    of a batch.  ``arrays`` is one array or a list of them (numpy
+    arrays, torch tensors on any device, NDArrays) whose leading axis
+    is the batch; returns a host bool mask of shape ``(batch,)``.  A
+    tensor is reduced where it lies and one bool per row comes back."""
+    mask = None
+    for a in arrays if isinstance(arrays, (list, tuple)) else (arrays,):
+        x = getattr(a, "_data", a)      # an NDArray's tensor
+        if isinstance(x, torch.Tensor):
+            m = torch.isfinite(x.reshape(x.shape[0], -1)).all(dim=1) \
+                .cpu().numpy()
+        else:
+            x = np.asarray(x)
+            m = np.isfinite(x.reshape((x.shape[0], -1))).all(axis=1)
+        mask = m if mask is None else np.logical_and(mask, m)
+    return np.asarray(mask)
 
 
 # ------------------------------------------------------ batch structure --
@@ -460,7 +483,11 @@ class EvalStep:
     on the card it is captured into one CUDA graph per input signature,
     as ``TrainStep`` does (eagerly on the CPU).  Returns the outputs in
     the net's structure (a one-element tuple unwrapped, as the JAX step
-    does)."""
+    does).
+
+    Threads may share one step (the replicas of a serving fleet): a call
+    holds the step's lock from filling the static inputs until the
+    outputs are cloned."""
 
     def __init__(self, net, mesh=None):
         if mesh is not None:
@@ -469,6 +496,7 @@ class EvalStep:
         self.net = net
         self._built = False
         self._rebuild = {}       # input signature -> output structure
+        self._lock = threading.Lock()
 
     def _build(self, data, device):
         self._graphs = GraphCache(device) if device.type == "cuda" \
@@ -490,13 +518,14 @@ class EvalStep:
     def __call__(self, *data):
         device = _device_of(self.net)
         data = tuple(_coerce(d, device) for d in data)
-        if not self._built:
-            self._build(data, device)
-        if self._graphs is None:
-            leaves = self._body(*data)
-        else:
-            leaves = _through_graphs(self._graphs, self._static,
-                                     self._body, data)
+        with self._lock:
+            if not self._built:
+                self._build(data, device)
+            if self._graphs is None:
+                leaves = self._body(*data)
+            else:
+                leaves = _through_graphs(self._graphs, self._static,
+                                         self._body, data)
         res = self._rebuild[_signature(data)](leaves)
         if isinstance(res, tuple) and len(res) == 1:
             return res[0]

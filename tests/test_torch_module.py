@@ -203,6 +203,108 @@ def test_bound_arrays_are_written_in_place(tmp_path):
     assert ex._held is not before
 
 
+def _inference_pair():
+    """The same module bound at batch 8 for inference in both packages,
+    the port's parameters copied by name from the JAX module's."""
+    mods = []
+    for pkg in (jmx, tmx):
+        m = pkg.mod.Module(_mlp_sym(pkg.sym), context=pkg.cpu())
+        m.bind([("data", (8, 10))], [("softmax_label", (8,))],
+               for_training=False)
+        mods.append(m)
+    jmod, tmod = mods
+    jmx.random.seed(0)
+    jmod.init_params(jmx.init.Xavier(magnitude=2.0))
+    arg, aux = jmod.get_params()
+    tmod.init_params(arg_params={k: v.asnumpy() for k, v in arg.items()},
+                     aux_params={k: v.asnumpy() for k, v in aux.items()})
+    return jmod, tmod
+
+
+def test_inference_batches_keep_one_array_per_signature():
+    """Batches of 1, 2, 4, 1, 2, 4 through a module bound at 8 match the
+    JAX Module; a signature fed before is written into the array it got
+    the first time (same object, same storage), and nothing the graphs
+    read is rebound: the executor's held set never drops."""
+    jmod, tmod = _inference_pair()
+    ex = tmod._exec
+    rng = np.random.RandomState(7)
+    first, held = {}, None
+    for b in (1, 2, 4, 1, 2, 4):
+        x = rng.randn(b, 10).astype(np.float32)
+        y = np.zeros((b,), np.float32)
+        for pkg, m in ((jmx, jmod), (tmx, tmod)):
+            m.forward(pkg.io.DataBatch(data=[pkg.nd.array(x)],
+                                       label=[pkg.nd.array(y)]),
+                      is_train=False)
+        np.testing.assert_allclose(tmod.get_outputs()[0].asnumpy(),
+                                   jmod.get_outputs()[0].asnumpy(),
+                                   rtol=1e-5, atol=1e-6)
+        data = ex.arg_dict["data"]
+        np.testing.assert_array_equal(data.asnumpy(), x)
+        if b in first:
+            arr, ptr = first[b]
+            assert data is arr and data._data.data_ptr() == ptr
+            assert ex._held is held
+        else:
+            first[b] = (data, data._data.data_ptr())
+            held = ex._held
+    assert len(ex._fed["data"]) == 4        # the bound array + 3 batches
+
+
+def test_rebound_parameter_still_drops_the_training_graphs():
+    """A training step fed at the bound signature keeps its arrays; a
+    parameter the caller rebinds drops every graph, as before."""
+    X, y = _cls_problem(n=32)
+    mod = mx.mod.Module(_mlp_sym(), context=mx.cpu())
+    mod.bind([("data", (16, 10))], [("softmax_label", (16,))])
+    mod.init_params(initializer=mx.init.Xavier())
+    ex = mod._exec
+    batch = mx.io.DataBatch(data=[nd.array(X[:16])],
+                            label=[nd.array(y[:16])])
+    mod.forward(batch, is_train=True)
+    mod.backward()
+    held = ex._held
+    mod.forward(batch, is_train=True)
+    mod.backward()
+    assert ex._held is held
+    ex.arg_dict["fc1_weight"] = nd.zeros((32, 10))
+    mod.forward(batch, is_train=True)
+    assert ex._held is not held and ex._pairs == {}
+
+
+@pytest.mark.gpu
+def test_card_inference_grid_and_training_recapture():
+    """On the card: one inference graph per fed signature, none dropped
+    by switching between them; a rebound parameter drops the training
+    pair, and the next steps capture it again."""
+    import torch
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run with -m gpu on the card)")
+    X, y = _cls_problem(n=64)
+    with mx.gpu(0):
+        mod = mx.mod.Module(_mlp_sym(), context=mx.gpu(0))
+        mod.bind([("data", (16, 10))], [("softmax_label", (16,))])
+        mod.init_params(initializer=mx.init.Xavier())
+        ex = mod._exec
+        for b in (1, 2, 4, 1, 2, 4):
+            mod.forward(mx.io.DataBatch(
+                data=[nd.array(X[:b], ctx=mx.gpu(0))],
+                label=[nd.array(y[:b], ctx=mx.gpu(0))]), is_train=False)
+        assert ex.graph_count() == 3
+        batch = mx.io.DataBatch(data=[nd.array(X[:16], ctx=mx.gpu(0))],
+                                label=[nd.array(y[:16], ctx=mx.gpu(0))])
+        for _ in range(3):
+            mod.forward(batch, is_train=True)
+            mod.backward()
+        assert ex.graph_count() == 4
+        ex.arg_dict["fc1_weight"] = nd.zeros((32, 10), ctx=mx.gpu(0))
+        for _ in range(3):
+            mod.forward(batch, is_train=True)
+            mod.backward()
+        assert ex.graph_count() == 1        # the pair, captured again
+
+
 def test_checkpoint_roundtrip(tmp_path):
     X, y = _cls_problem(n=128)
     it = mx.io.NDArrayIter(X, y, batch_size=32)

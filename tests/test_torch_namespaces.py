@@ -1,9 +1,9 @@
 """The public names of the port against the JAX package's: ``dir()`` of
 the top level, ``nd``, ``gluon``, ``gluon.model_zoo``, ``optimizer``,
-``sym`` and ``mod``.  Every public name of the JAX package is in the
+``sym``, ``mod`` and ``serving``.  Every public name of the JAX package is in the
 port, but for those in the named lists below: the modules still in
-queue A of ROADMAP.md (A12 classifier serving, A14 the rest that runs
-on one card, A15 several cards), the TPU-only names, and the JAX
+queue A of ROADMAP.md (A14 the rest that runs on one card, A15
+several cards), the TPU-only names, and the JAX
 modules' own imports of their implementation.
 """
 import pytest
@@ -11,10 +11,9 @@ import pytest
 import mxnet_tpu as jmx
 import mxnet_tpu_torch as tmx
 
-A12 = set()       # classifier serving adds names inside ``serving`` only
 A14 = {
     # top level
-    "amp", "contrib", "log", "np", "npx", "numpy", "numpy_extension",
+    "contrib", "log", "np", "npx", "numpy", "numpy_extension",
     "onnx", "operator", "runtime", "sparse", "test_utils", "util",
     # nd: the custom op, quantization and random ops, sparse arrays
     "Custom", "dequantize", "quantize_v2", "quantized_conv",
@@ -36,6 +35,7 @@ MAY_BE_MISSING = {
     "optimizer": set(),
     "sym": A14 | A15,
     "mod": set(),
+    "serving": set(),
 }
 
 
@@ -65,6 +65,12 @@ def test_listed_gaps_are_still_gaps():
     for path in MAY_BE_MISSING:
         missing |= _public(_walk(jmx, path)) - _public(_walk(tmx, path))
     assert listed <= missing, sorted(listed - missing)
+
+
+def test_amp_has_the_int8_quantization():
+    names = {"quantize_weight", "dequantize_weight", "Int8Quantizer"}
+    assert names <= _public(jmx.amp) and names <= _public(tmx.amp)
+    assert tmx.amp.quantize_weight is tmx.amp.quantize.quantize_weight
 
 
 def test_c9_names_resolve_to_the_ported_code():
