@@ -65,6 +65,14 @@ through ``serving.module_apply``, in f32 or int8 with ``amp``'s
 quantizer, or a ``graphs.captured`` function), ``serving.ServingFleet``
 of replicas with ``WeightUpdater`` and ``FleetAutoscaler``.
 
+Mixed precision and the rest of one card's training surface: ``amp``
+(``init``, ``init_trainer``, ``scale_loss``, the loss scaler, and the
+int8 weight quantizer of serving), the samplers and the int8 and
+control-flow ops of the registry, ``operator`` (``CustomOp``,
+``nd.Custom``), ``contrib.quantization`` (``quantize_net``),
+``gluon.contrib`` (``HybridConcurrent``, the ``Estimator``),
+``runtime``, ``test_utils``, ``util`` and ``log``.
+
 Exports: ``nd`` (``ndarray``, with ``NDArray``), ``amp``, ``autograd``,
 ``config``, ``elastic``
 (heartbeats and the gang supervisor; ``parallel.checkpoint`` the
@@ -81,6 +89,7 @@ from . import (amp, autograd, context, elastic, engine, gluon, image, initialize
                profiler, random, recordio)
 from . import (attribute, callback, executor, model, module, monitor, name,
                rnn, serving, symbol, visualization)
+from . import contrib, log, operator, runtime, test_utils, util
 from .attribute import AttrScope
 from .base import MXNetError
 from .context import (Context, cpu, cpu_pinned, current_context, gpu,
@@ -106,4 +115,5 @@ __all__ = ["amp", "autograd", "base", "config", "context", "elastic", "engine",
            "resolve_device", "attribute", "AttrScope", "callback",
            "executor", "model", "module", "mod", "monitor", "mon", "name",
            "rnn", "serving", "symbol", "sym", "visualization", "viz",
-           "MXNetError", "NDArray", "waitall"]
+           "MXNetError", "NDArray", "waitall", "contrib", "log", "operator",
+           "runtime", "test_utils", "util"]

@@ -202,7 +202,7 @@ class BERTModel(HybridBlock):
             sel = _take_along_seq(seq_out, masked_positions)    # (B, M, C)
             h = self.decoder_ln(self.decoder_transform(sel))
             w = self.word_embed.weight.tensor()                   # (V, C)
-            mlm = torch.matmul(h.reshape(-1, self._units), w.t())
+            mlm = F.dot(h.reshape(-1, self._units), w, transpose_b=True)
             mlm = mlm.reshape(inputs.shape[0], -1, w.shape[0]) \
                 + self.decoder_bias.tensor().reshape(1, 1, -1)
             outputs.append(mlm)

@@ -5,6 +5,7 @@ from __future__ import annotations
 from .... import ops as F
 from ... import nn
 from ...block import HybridBlock
+from ...contrib.nn import HybridConcurrent
 
 __all__ = ["Inception3", "inception_v3"]
 
@@ -33,21 +34,15 @@ def _make_branch(use_pool, *conv_settings):
     return out
 
 
-class _Concurrent(HybridBlock):
-    """Parallel branches concatenated on channels (gluon.contrib.HybridConcurrent)."""
+class _Concurrent(HybridConcurrent):
+    """``gluon.contrib.nn.HybridConcurrent`` on channels, its branches
+    named ``branch1``, ``branch2``... as the JAX package names them."""
 
     def __init__(self, axis=1, prefix=None, params=None):
-        super().__init__(prefix=prefix, params=params)
-        self._branches = []
-        self._axis = axis
+        super().__init__(axis=axis, prefix=prefix, params=params)
 
     def add(self, block):
-        self._branches.append(block)
-        setattr(self, f"branch{len(self._branches)}", block)
-
-    def forward(self, x):
-        outs = [b(x) for b in self._branches]
-        return F.concat(*outs, dim=self._axis)
+        self.register_child(block, f"branch{len(self._children) + 1}")
 
 
 def _make_A(pool_features, prefix):

@@ -1,34 +1,13 @@
 """SqueezeNet 1.0 and 1.1 (the port of
-``mxnet_tpu/gluon/model_zoo/vision/squeezenet.py``), with the
-branches-and-concat block of ``gluon.contrib.nn`` (``HybridConcurrent``)
-it needs."""
+``mxnet_tpu/gluon/model_zoo/vision/squeezenet.py``); the fire modules'
+branches concatenate through ``gluon.contrib.nn.HybridConcurrent``."""
 from __future__ import annotations
 
 from ... import nn
 from ...block import HybridBlock
-from .... import ops as F
+from ...contrib.nn import HybridConcurrent
 
 __all__ = ["SqueezeNet", "squeezenet1_0", "squeezenet1_1"]
-
-
-class HybridConcurrent(HybridBlock):
-    """Parallel branches of one input, concatenated on ``axis`` (the
-    JAX package's ``gluon.contrib.nn.HybridConcurrent``)."""
-
-    def __init__(self, axis=-1, prefix=None, params=None):
-        super().__init__(prefix=prefix, params=params)
-        self.axis = axis
-
-    def add(self, *blocks):
-        for b in blocks:
-            self.register_child(b)
-
-    def infer_shape(self, *args):
-        pass
-
-    def forward(self, x):
-        return F.concat(*[b(x) for b in self._children.values()],
-                        dim=self.axis)
 
 
 def _make_fire(squeeze_channels, expand1x1_channels, expand3x3_channels):

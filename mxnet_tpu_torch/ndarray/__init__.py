@@ -5,9 +5,13 @@ Creation functions, ``save``/``load`` and a wrapper per registered op,
 generated from ``ops.registry.OPS`` (``nd.relu(x)`` is
 ``invoke("relu", x)``); ``nd.linalg`` holds the ``linalg_*`` ops under
 their short names and ``nd.contrib`` the ``_contrib_*`` ones;
-``nd.random`` draws ``uniform``, ``normal``, ``randint`` and
-``bernoulli`` from the port's seeded per-device generators
-(``random.generator``).
+``nd.random`` draws ``uniform``, ``normal``, ``randn``, ``randint``,
+``bernoulli``, ``exponential``, ``gamma``, ``poisson``, ``multinomial``
+and ``shuffle`` from the port's seeded per-device generators
+(``random.generator``), as do the registry's samplers
+(``ops/random_ops.py``: ``nd.uniform``, ``nd.normal``, ``nd.randint``,
+``nd.shuffle``, ``nd.sample_*``...); ``nd.Custom`` runs a registered
+custom operator (``operator``).
 
 New arrays land on ``ctx`` or, without one, on the current context
 (``with mx.cpu():``), which outside any scope is the card.  As in the
@@ -26,6 +30,7 @@ from .. import random as _random
 from ..base import dtype_torch
 from ..context import Context, cpu, current_context, gpu, resolve_device
 from ..engine import waitall
+from ..ops import random_ops as _ro
 from ..ops.registry import CONTRIB_SHORT_NAMES, OPS
 from .ndarray import (_NARROW, NDArray, as_tensor, invoke,
                       tensor_from_numpy)
@@ -33,7 +38,7 @@ from .ndarray import (_NARROW, NDArray, as_tensor, invoke,
 __all__ = ["NDArray", "invoke", "array", "empty", "zeros", "ones", "full",
            "zeros_like", "ones_like", "arange", "linspace", "eye",
            "waitall", "save", "load", "concat", "stack", "add_n",
-           "ElementWiseSum", "random",
+           "ElementWiseSum", "random", "Custom",
            "contrib", "linalg", "Context", "cpu", "gpu", "current_context"]
 
 
@@ -250,9 +255,59 @@ def _bernoulli(p=0.5, shape=(), ctx=None, dtype="float32", out=None):
                  shape, ctx, dtype, out)
 
 
+def _exponential(scale=1.0, shape=(), ctx=None, dtype="float32", out=None):
+    """Exponential draws of mean ``scale``."""
+    return _draw(lambda s, g, d: (scale * _ro._exponential(s, d, g))
+                 .to(dtype_torch(dtype)), shape, ctx, dtype, out)
+
+
+def _gamma(alpha=1.0, beta=1.0, shape=(), ctx=None, dtype="float32",
+           out=None):
+    """Gamma draws of shape ``alpha`` and scale ``beta``."""
+    return _draw(lambda s, g, d: (beta * _ro._gamma(
+        torch.full(s, float(alpha), device=d), d, g)).to(dtype_torch(dtype)),
+        shape, ctx, dtype, out)
+
+
+def _poisson(lam=1.0, shape=(), ctx=None, dtype="float32", out=None):
+    """Poisson counts of rate ``lam``, in ``dtype``."""
+    return _draw(lambda s, g, d: _ro._poisson(
+        torch.full(s, float(lam), device=d), d, g).to(dtype_torch(dtype)),
+        shape, ctx, dtype, out)
+
+
+def _randn(*shape, **kwargs):
+    return _normal(shape=shape, **kwargs)
+
+
+def _multinomial(data, shape=None, get_prob=False, dtype="int32"):
+    """The registry's ``_sample_multinomial``: ``shape=None`` squeezes
+    the draw axis, an explicit ``shape=1`` keeps it."""
+    return invoke("_sample_multinomial", data, shape=shape,
+                  get_prob=get_prob, dtype=dtype)
+
+
+def _shuffle(data):
+    """The registry's ``_shuffle``: ``data`` permuted along axis 0."""
+    return invoke("_shuffle", data)
+
+
 random.uniform = _uniform
 random.normal = _normal
+random.randn = _randn
 random.randint = _randint
 random.bernoulli = _bernoulli
+random.exponential = _exponential
+random.gamma = _gamma
+random.poisson = _poisson
+random.multinomial = _multinomial
+random.shuffle = _shuffle
 random.seed = _random.seed
 sys.modules[random.__name__] = random
+
+
+def Custom(*inputs, op_type, **kwargs):
+    """Run a registered custom operator (ref: mx.nd.Custom ->
+    src/operator/custom/custom.cc; see ``operator``)."""
+    from ..operator import invoke_custom
+    return invoke_custom(*inputs, op_type=op_type, **kwargs)

@@ -88,13 +88,21 @@ def tensor_from_numpy(a):
 # any profiler cost but this read.
 _PROF = None
 
+# Set by ``amp.init()``: the mixed-precision cast policy applied to every
+# dispatch (the same opt-in hook as the profiler's; None costs this read).
+_AMP = None
+
 
 def invoke(op_name: str, *args, out=None, **kwargs):
     """Dispatch registered op ``op_name`` on NDArrays (and scalars); a
-    span per call while the profiler records."""
+    span per call while the profiler records, the AMP cast policy while
+    ``amp.init()`` holds."""
     fn = OPS.get(op_name)
     if fn is None:
         raise ValueError(f"unknown operator '{op_name}'")
+    amp = _AMP
+    if amp is not None:
+        fn = amp._wrapped.get(op_name, fn)
     prof = _PROF
     if prof is not None and prof.ACTIVE:
         t0 = prof._now_us()

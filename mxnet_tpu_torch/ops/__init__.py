@@ -17,6 +17,7 @@ from .registry import OPS, OP_META, alias_op, get_op, register_op
 # the op families, imported for their registrations
 from . import elementwise, image, loss, matrix, nn, optimizer_ops  # noqa: F401
 from . import multibox, rnn, sequence  # noqa: F401
+from . import control_flow, quantization, random_ops  # noqa: F401
 from . import reduce as reduce_ops  # noqa: F401
 from .attention import flash_attention, multi_head_attention
 from .fused_conv import norm_relu_conv, norm_relu_conv_reference

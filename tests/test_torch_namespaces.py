@@ -12,17 +12,8 @@ import mxnet_tpu as jmx
 import mxnet_tpu_torch as tmx
 
 A14 = {
-    # top level
-    "contrib", "log", "np", "npx", "numpy", "numpy_extension",
-    "onnx", "operator", "runtime", "sparse", "test_utils", "util",
-    # nd: the custom op, quantization and random ops, sparse arrays
-    "Custom", "dequantize", "quantize_v2", "quantized_conv",
-    "quantized_fully_connected", "quantized_matmul", "normal", "uniform",
-    "randint", "shuffle", "random_exponential", "random_gamma",
-    "random_generalized_negative_binomial", "random_negative_binomial",
-    "random_normal", "random_poisson", "random_randint", "random_uniform",
-    "sample_exponential", "sample_gamma", "sample_multinomial",
-    "sample_normal", "sample_poisson", "sample_uniform",
+    # the second half of A14: mx.np / mx.npx, ONNX and sparse arrays
+    "np", "npx", "numpy", "numpy_extension", "onnx", "sparse",
 }
 A15 = {"distributed", "kv", "kvstore", "moe_ffn"}
 TPU_ONLY = {"tpu", "num_tpus"}
@@ -30,7 +21,7 @@ JAX_IMPORTS = {"jax", "jnp", "dtype_np"}
 MAY_BE_MISSING = {
     "": A14 | A15 | TPU_ONLY,
     "nd": A14 | TPU_ONLY | JAX_IMPORTS,
-    "gluon": {"contrib"},           # A14: gluon.contrib
+    "gluon": set(),
     "gluon.model_zoo": set(),
     "optimizer": set(),
     "sym": A14 | A15,

@@ -255,7 +255,8 @@ def test_linalg_and_contrib_namespaces():
                        "multi_head_attention",       # the attention ops
                        "MultiBoxPrior", "MultiBoxTarget",
                        "MultiBoxDetection", "Proposal", "box_iou",
-                       "box_nms"}                    # the multibox ops
+                       "box_nms",                    # the multibox ops
+                       "quantize_v2", "dequantize"}  # the int8 ops
     assert contrib <= set(dir(jmx.nd.contrib))
     _same(nd.add_n(ta, ta, ta), jmx.nd.add_n(ja, ja, ja))
     _same(nd.concat(ta, ta, dim=2), jmx.nd.concat(ja, ja, dim=2))

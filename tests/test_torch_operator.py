@@ -63,17 +63,21 @@ def test_registry_census():
     since (image, attention and paged attention: 30 names,
     ``tests/test_torch_data_image.py``; rnn, sequence and multibox: 25,
     ``tests/test_torch_rnn.py`` and ``tests/test_torch_multibox.py``;
-    the symbol frontend's ``_scalar``, ``tests/test_torch_symbol.py``).
-    Quantization, control flow and random are later slices."""
+    the symbol frontend's ``_scalar``, ``tests/test_torch_symbol.py``;
+    random, quantization and control flow: 39,
+    ``tests/test_torch_random_ops.py``,
+    ``tests/test_torch_quantization.py`` and
+    ``tests/test_torch_control_flow.py``)."""
     assert len(ROW_NAMES) == 252
     assert ROW_NAMES <= set(TOPS)
     later = set(TOPS) - ROW_NAMES
-    assert len(later) == 56
+    assert len(later) == 95
     assert {JOPS[n].__module__ for n in later} == {
         "mxnet_tpu.ops.image", "mxnet_tpu.ops.attention",
         "mxnet_tpu.ops.paged_attention", "mxnet_tpu.ops.rnn",
         "mxnet_tpu.ops.sequence", "mxnet_tpu.ops.multibox",
-        "mxnet_tpu.symbol"}
+        "mxnet_tpu.symbol", "mxnet_tpu.ops.random_ops",
+        "mxnet_tpu.ops.quantization", "mxnet_tpu.ops.control_flow"}
 
 
 def test_nd_without_a_card_raises():

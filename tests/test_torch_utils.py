@@ -1,0 +1,131 @@
+"""The port's small utility modules against the JAX package's: ``util``
+and ``log`` (copies), ``runtime`` (the same feature keys, the port's own
+values) and ``test_utils`` (the same tolerances, random arrays and
+verdicts, on the caller's device).
+"""
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import mxnet_tpu as jmx
+import mxnet_tpu_torch as tmx
+from mxnet_tpu_torch import test_utils as ttu
+from mxnet_tpu import test_utils as jtu
+
+
+def test_util_module(tmp_path):
+    d = str(tmp_path / "a" / "b" / "c")
+    tmx.util.makedirs(d)
+    tmx.util.makedirs(d)                          # idempotent
+    assert os.path.isdir(d)
+    assert tmx.util.getenv("MXNET_ENGINE_TYPE") == \
+        jmx.util.getenv("MXNET_ENGINE_TYPE") == "ThreadedEnginePerDevice"
+    tmx.util.setenv("MXNET_TEST_DUMMY_PORT", "42")
+    assert os.environ.pop("MXNET_TEST_DUMMY_PORT") == "42"
+    assert tmx.util.is_np_array() is False
+
+    @tmx.util.use_np
+    def inside():
+        return tmx.util.is_np_array(), tmx.util.is_np_shape()
+
+    assert inside() == (True, True)
+    assert tmx.util.is_np_array() is False
+    assert set(tmx.util.__all__) == set(jmx.util.__all__)
+    assert tmx.util.set_module("x.y")(inside).__module__ == "x.y"
+
+
+def test_log_module(tmp_path):
+    f = str(tmp_path / "t.log")
+    lg = tmx.log.get_logger("mxtpu_torch_test_logger", filename=f,
+                            level=tmx.log.INFO)
+    assert tmx.log.get_logger("mxtpu_torch_test_logger") is lg
+    assert len(lg.handlers) == 1 and lg.propagate is False
+    lg.info("hello-from-port")
+    lg.handlers[0].flush()
+    assert "hello-from-port" in open(f).read()
+    assert (tmx.log.DEBUG, tmx.log.INFO, tmx.log.WARNING, tmx.log.ERROR) == \
+        (jmx.log.DEBUG, jmx.log.INFO, jmx.log.WARNING, jmx.log.ERROR)
+
+
+def test_runtime_features():
+    from mxnet_tpu_torch.base import load_native_lib
+    feats = tmx.runtime.Features()
+    assert list(feats) == list(jmx.runtime.Features())
+    assert feats.is_enabled("CPU") and feats.is_enabled("INT8")
+    assert feats.is_enabled("CUDA") == torch.cuda.is_available()
+    for off in ("TPU", "PALLAS", "DIST_KVSTORE", "ONNX"):
+        assert not feats.is_enabled(off), off
+    assert feats.is_enabled("RECORDIO_NATIVE") == \
+        (load_native_lib("librecordio") is not None)
+    with pytest.raises(RuntimeError, match="unknown feature"):
+        feats.is_enabled("WARP_DRIVE")
+    assert [f.name for f in tmx.runtime.feature_list()] == list(feats)
+    assert "CUDA" in repr(feats)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32", "float16",
+                                   "bfloat16", "int32"])
+def test_default_tols_as_jax(dtype):
+    assert ttu.default_tols(dtype) == jtu.default_tols(dtype)
+
+
+def test_rand_ndarray_as_jax():
+    with tmx.cpu():
+        got = ttu.rand_ndarray((3, 4), low=-2, high=3, seed=5)
+    want = jtu.rand_ndarray((3, 4), low=-2, high=3, seed=5)
+    np.testing.assert_array_equal(got.asnumpy(), want.asnumpy())
+    assert got._data.device.type == "cpu"
+
+
+def test_assert_almost_equal():
+    with tmx.cpu():
+        a = tmx.nd.array(np.ones(4, np.float32))
+        ttu.assert_almost_equal(a, a + 1e-6)
+        ttu.assert_almost_equal(a.astype("bfloat16"), a + 1e-2)
+        with pytest.raises(AssertionError):
+            ttu.assert_almost_equal(a, a + 1e-2)
+        ttu.assert_almost_equal(np.arange(3), np.arange(3))
+        with pytest.raises(AssertionError):
+            ttu.assert_almost_equal(np.arange(3), np.arange(1, 4))
+
+
+@pytest.mark.parametrize("op,shapes,kw", [
+    ("FullyConnected", ((4, 6), (3, 6), (3,)), dict(num_hidden=3)),
+    ("dot", ((3, 5), (5, 4)), {}),
+    ("tanh", ((3, 4),), {}),
+    ("softmax", ((2, 5),), dict(axis=-1)),
+])
+def test_check_numeric_gradient_and_consistency(op, shapes, kw):
+    rng = np.random.RandomState(0)
+    inputs = [rng.uniform(-1, 1, s).astype(np.float32) for s in shapes]
+    with tmx.cpu():
+        ttu.check_numeric_gradient(op, inputs, kw)
+        ttu.check_consistency(op, inputs, kw)
+    jtu.check_numeric_gradient(op, inputs, kw)
+
+
+def test_check_numeric_gradient_catches_a_wrong_backward():
+    class Twice(tmx.autograd.Function):
+        def forward(self, x):
+            return x * 2
+
+        def backward(self, dy):
+            return dy * 3                        # wrong on purpose
+
+    x = np.random.RandomState(1).randn(5).astype(np.float32)
+    with tmx.cpu():
+        with pytest.raises(AssertionError, match="numeric gradient"):
+            ttu.check_numeric_gradient(lambda a: Twice()(a), [x])
+        ttu.check_numeric_gradient(lambda a: a * 2, [x])
+
+
+def test_check_consistency_catches_a_dtype_dependent_op():
+    def dt_dependent(a):
+        return a * (2.0 if str(a.dtype) == "float32" else 3.0)
+
+    x = np.ones((2, 2), np.float32)
+    with tmx.cpu():
+        with pytest.raises(AssertionError, match="inconsistent"):
+            ttu.check_consistency(dt_dependent, [x])
