@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's eleven paths end to end on the first CUDA device, with
+Drives the port's twelve paths end to end on the first CUDA device, with
 random weights from a seed:
 
 - the imperative API: the Gluon MLP loop of
@@ -74,7 +74,14 @@ random weights from a seed:
   ``gluon.contrib.estimator.Estimator.fit`` on BASELINE config 2's
   hybridized fused ResNet-50; ``contrib.quantization.quantize_net`` on
   ``resnet50_v1`` (int8 GEMMs on cuBLASLt); the samplers, ``foreach`` /
-  ``while_loop`` / ``cond`` and a ``CustomOp``.
+  ``while_loop`` / ``cond`` and a ``CustomOp``;
+- the 2.x frontend: the same BERT-base in the MXNet 2.0 / GluonNLP 1.x
+  form (``npx.set_np()``, inputs built with ``mx.np``), so that it
+  reaches the bf16 flash kernels with ``mx.np`` arrays; MXNet 1.x's
+  sparse-gradient matrix factorisation at MovieLens-10M's counts
+  (``Embedding(sparse_grad=True)``, the lazy SGD); ``sparse.dot`` of a
+  CSR batch of Criteo's shape; ResNet-50 v1 through ``mx.onnx`` and
+  back.
 
 Phases, each of which fails the run (each prints its wall time):
 
@@ -375,14 +382,33 @@ Phases, each of which fails the run (each prints its wall time):
     syncs of a step and of the overflow check (one); 3 replayed steps
     against 3 eager ones from the same parameters (dropout 0,
     deterministic algorithms) the same bits where two eager runs repeat
-    theirs.
+    theirs;
+20. numpy, sparse, ONNX: ``nd.add``'s host us a dispatch with
+    ``MXNET_ENGINE_TYPE=NaiveEngine`` unset and set; (a) np BERT-base:
+    19(a)'s net, batch and steps under ``npx.set_np()`` with ``mx.np``
+    inputs, the outputs and the loss ``mx.np.ndarray``, 12 launches of
+    each flash kernel a step on bf16 inputs held against the plain
+    versions on the path's q, tokens/s against 13's ``TrainStep``, busy
+    share, peak memory, the losses; (b) the factorisation (two
+    ``Embedding(sparse_grad=True)`` tables of 71,567 users and 10,681
+    items x 128, batches of 8192 seeded pairs with Zipf item ids,
+    ``gluon.Trainer`` SGD 0.1 / 0.9 / 1e-4, 20 steps) against the same
+    run with dense gradients: after step 1 the rows it touched within
+    MF_RTOL and the rest the start's bits, after 20 steps the rows no
+    step touched the start's bits and the touched ones within
+    MF_RUN_RTOL, ms a step of each; ``sparse.dot`` of an 8192 x 1e6 CSR
+    batch (39 a row) with a dense weight against a dense gather-sum
+    (CSR_RTOL), its ms; (c) ``onnx.export_model`` of ResNet-50 v1 (NCHW,
+    f32) on the card at batch 1 and 64, ``onnx.import_to_function`` on
+    card tensors: 8 seeded images through both within ONNX_RTOL of the
+    logits' scale, export seconds, file size, ms against the block's.
 
 Prints one JSON ``kernels`` line, then the card line, then as the last
 line ``{"ok": true, "device": {...}}``.  Without a card, or without the
 package beside it, it exits non-zero and prints no result.
-``python3 chip_smoke.py --extras`` runs the build and phase 19 alone
-(the TrainStep comparison then not measured) and prints no result
-line.
+``python3 chip_smoke.py --extras`` runs the build and phase 19 alone,
+``--np`` the build and phase 20 alone (the TrainStep comparison then
+not measured); neither prints a result line.
 """
 from __future__ import annotations
 
@@ -575,6 +601,24 @@ SAMPLER_DRAWS, SAMPLER_SIGMAS = 2 ** 22, 6.0
 INT8_BATCH, INT8_CALIB, INT8_LAYER_RTOL, INT8_ACC_MARGIN = 64, 3, 1e-6, 0.05
 INT8_FLOAT_FLOOR = 0.5
 CUSTOM_STEPS, CUSTOM_TOL = 3, 1e-6
+# numpy, sparse, ONNX: the sparse-gradient factorisation of MXNet 1.x's
+# example/sparse/matrix_factorization at MovieLens-10M's user and item
+# counts (factors, batch, steps, the Zipf exponent of the item ids, SGD);
+# after the first step (both runs from the same start) the rows it touched
+# against the dense-gradient run within MF_RTOL of the table's scale;
+# after all steps every touched row within MF_RUN_RTOL (the lazy update
+# skips momentum and weight decay on the rows a step leaves out, and the
+# two runs' predictions part from there); the CSR batch of Criteo's shape (rows, columns, nonzeros
+# a row) against a dense gather-sum within CSR_RTOL of its scale; the
+# ONNX round trip of ResNet-50 v1 (NCHW, f32) at these batches over
+# ONNX_IMAGES seeded images, within ONNX_RTOL of the logits' scale (the
+# block and the imported function both run cuDNN's TF32 convolutions)
+MF_USERS, MF_ITEMS, MF_FACTORS, MF_BATCH, MF_STEPS = 71567, 10681, 128, \
+    8192, 20
+MF_ZIPF, MF_SGD = 1.2, {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}
+MF_RTOL, MF_RUN_RTOL = 1e-5, 0.1
+CSR_ROWS, CSR_COLS, CSR_NNZ, CSR_RTOL = 8192, 1_000_000, 39, 1e-5
+ONNX_BATCHES, ONNX_IMAGES, ONNX_RTOL = (1, 64), 8, 2e-3
 
 
 def log(msg):
@@ -6882,6 +6926,410 @@ def one_card_extras(torch, smi_line, trainstep):
     return out
 
 
+# ------------------------------------------------- numpy, sparse, ONNX --
+def np_bert(torch, smi_line, trainstep):
+    """(a) BERT-base in the MXNet 2.0 / GluonNLP 1.x form of
+    run_pretraining.py: ``npx.set_np()``, inputs built with ``mx.np``,
+    f32 parameters under ``amp.init("float16")``, ``amp.init_trainer`` on
+    a ``gluon.Trainer`` with LAMB 1e-3 / wd 0.01, ``net.hybridize()``;
+    ``bench_bert``'s width and batch (64 x 128, dropout 0.1,
+    ``attention_impl="flash"``).  EXTRAS_WARMUP + EXTRAS_TIMED steps: the
+    outputs and the loss ``mx.np.ndarray``, every flash kernel launched
+    BERT_LAYERS times a step on bf16 inputs (held against its plain
+    version on the path's own q), tokens/s beside ``trainstep``
+    (bench_bert's captured TrainStep of this run), busy share, peak
+    memory and the losses.  ``set_np`` and AMP are off again after."""
+    from mxnet_tpu_torch import amp, npx
+
+    fa = flash_module()
+    seen = set()
+    launch = fa._launch
+
+    def spy(what, fn, q, *rest):
+        seen.add((what.rsplit("_", 1)[1], q.dtype, tuple(q.shape)))
+        if what.endswith("fwd") and "q" not in spy.path:
+            spy.path["q"] = q.detach().clone()
+        return launch(what, fn, q, *rest)
+
+    spy.path = {}
+    npx.set_np()
+    amp.init("float16")
+    fa._launch = spy
+    try:
+        return _np_bert(torch, fa, seen, spy.path, smi_line, trainstep)
+    finally:
+        fa._launch = launch
+        amp._deinit_for_tests()
+        npx.reset_np()
+
+
+def _np_bert(torch, fa, seen, path, smi_line, trainstep):
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import amp, autograd
+    from mxnet_tpu_torch.gluon.model_zoo.bert import BERTPretrainLoss
+
+    net = build_bert(torch, "flash", BERT_DROPOUT)           # f32, no cast
+    params = list(net.collect_params().values())
+    tdata, tlabels = bert_batch(torch, BERT_BATCH)
+    data = tuple(None if t is None else mx.np.array(t, ctx=mx.gpu())
+                 for t in tdata)
+    labels = tuple(mx.np.array(t, ctx=mx.gpu()) for t in tlabels)
+    loss_blk = BERTPretrainLoss()
+    tr = mx.gluon.Trainer(params, "lamb", {"learning_rate": 1e-3,
+                                           "wd": 0.01})
+    amp.init_trainer(tr)
+    types = set()
+
+    def step():
+        with autograd.record():
+            out = net(*data)
+            loss = loss_blk(out[3], out[2], *labels)
+            with amp.scale_loss(loss, tr) as scaled:
+                scaled.backward()
+        tr.step(1)
+        types.update(type(o).__module__ + "." + type(o).__name__
+                     for o in (*out, loss) if o is not None)
+        return loss.detach()
+
+    what = (f"np BERT-base, npx.set_np(), mx.np inputs, f32 parameters, "
+            f"amp.init('float16'), batch {BERT_BATCH} x {BERT_SEQ}, "
+            f"hybridized, gluon.Trainer LAMB")
+    net.hybridize()
+    mx.random.seed(1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.flash_attention.launches = dict.fromkeys(FLASH, 0)  # main path starts
+    losses = [step() for _ in range(EXTRAS_WARMUP)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [step() for _ in range(EXTRAS_TIMED)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(fa.flash_attention.launches)         # ... and ends here
+    peak = torch.cuda.max_memory_allocated()
+    expect(all(isinstance(v, mx.np.ndarray) for v in losses),
+           f"{what}: a loss is not mx.np.ndarray")
+    losses = [float(v) for v in losses]
+    steps = EXTRAS_WARMUP + EXTRAS_TIMED
+    expect(types == {"mxnet_tpu_torch.numpy.ndarray"},
+           f"{what}: outputs and loss of types {sorted(types)}, expected "
+           f"mx.np.ndarray only")
+    expect(all(np.isfinite(losses)), f"{what}: loss not finite {losses}")
+    expect(losses[-1] < losses[0], f"{what}: loss did not fall {losses}")
+    expect(launches == dict.fromkeys(FLASH, BERT_LAYERS * steps),
+           f"{what}: flash launches {launches}, expected {BERT_LAYERS} each "
+           f"a step")
+    routes = {(k, str(dt_).split(".")[1]) for k, dt_, _ in seen}
+    expect(routes == {(k, "bfloat16") for k in FLASH},
+           f"{what}: flash kernels launched on {sorted(routes)}, expected "
+           f"the bf16 tensor-core route only")
+    expect(all(p.tensor().dtype == torch.float32 for p in params),
+           f"{what}: a parameter is not f32")
+    expect(isinstance(params[0].data(), mx.np.ndarray),
+           f"{what}: Parameter.data() is {type(params[0].data())}")
+    expect(net.graph_count() == 1, f"{what}: {net.graph_count()} units")
+    tok_s = BERT_BATCH * BERT_SEQ * EXTRAS_TIMED / dt
+    log(f"train [{what}]: outputs and loss {sorted(types)}; losses "
+        f"{[round(v, 4) for v in losses]}; {EXTRAS_TIMED} timed steps in "
+        f"{dt:.3f} s = {1e3 * dt / EXTRAS_TIMED:.1f} ms/step = "
+        f"{tok_s:.1f} tokens/s; peak device memory {peak / 2**30:.2f} GiB; "
+        f"flash launches {launches} on {sorted(seen)}")
+
+    q = path["q"]
+    gen = torch.Generator(device=DEVICE).manual_seed(6)
+    k, v, do = (torch.randn(q.shape, generator=gen, device=DEVICE)
+                .to(q.dtype) for _ in range(3))
+    args = (q.shape[-1] ** -0.5, False, BERT_DROPOUT,
+            fa.seed_tensor(FLASH_SEED, q.device))
+    before = dict(fa.flash_attention.launches)
+    got, (lse, delta) = flash_kernels(fa, q, k, v, do, args)
+    want = flash_plain(fa, q, k, v, do, lse, delta, args, torch.float64)
+    torch.cuda.synchronize()
+    fa.flash_attention.launches = before        # a check, not the path
+    errs = {kern: check_outputs(torch, f"{what}, path tensors", kern,
+                                got[kern], want[kern]) for kern in FLASH}
+    log(f"flash vs plain [np path: q {tuple(q.shape)} {q.dtype} as the "
+        f"path's first forward launch got it, k/v/dO seeded]: max abs err "
+        + ", ".join(f"{kern} {e:.3e}" for kern, e in errs.items()))
+    prof, wall_us, _ = profiled(torch, step, what)
+    busy = print_profile(prof, wall_us, what)
+    del prof
+    ratio = tok_s / trainstep["tok_s"] if trainstep else float("nan")
+    log(f"np BERT [{card_line(smi_line)}]: {tok_s:.1f} tokens/s (busy "
+        f"{100 * busy:.1f}%, peak {peak / 2**30:.2f} GiB) vs bench_bert's "
+        f"captured bf16 TrainStep "
+        + (f"{trainstep['tok_s']:.1f} tokens/s = {ratio:.3f}x"
+           if trainstep else "not run in this call"))
+    net.hybridize(active=False)
+    return {"tok_s": tok_s, "ms_step": 1e3 * dt / EXTRAS_TIMED,
+            "busy": busy, "peak": peak, "launches": launches,
+            "ratio": ratio, "flash_err": errs, "losses": losses}
+
+
+def mf_batches(torch):
+    """MF_STEPS seeded batches of (user, item, rating) on the card: users
+    uniform, items Zipf(MF_ZIPF) over the item table (popular items recur
+    every batch, the tail rarely), ratings 1-5."""
+    rng = np.random.RandomState(7)
+    out = []
+    for _ in range(MF_STEPS):
+        users = rng.randint(0, MF_USERS, MF_BATCH).astype(np.int32)
+        items = ((rng.zipf(MF_ZIPF, MF_BATCH) - 1) % MF_ITEMS).astype(
+            np.int32)
+        ratings = rng.randint(1, 6, MF_BATCH).astype(np.float32)
+        out.append(tuple(torch.from_numpy(x).to(DEVICE)
+                         for x in (users, items, ratings)))
+    return out
+
+
+def mf_run(torch, mx, sparse_grad, batches):
+    """MF_STEPS steps of the factorisation: two Embedding tables (user,
+    item) of MF_FACTORS, the prediction their rows' dot product, L2 loss,
+    gluon.Trainer SGD (MF_SGD).  Returns the tables, the losses, ms a
+    step over the steps after the first two, and (sparse run) the rows of
+    each step's row_sparse gradients; the tables after the first step."""
+    from mxnet_tpu_torch import autograd, gluon
+
+    mx.random.seed(3)
+    with gluon.nn.HybridSequential(prefix="mf_").name_scope():
+        user = gluon.nn.Embedding(MF_USERS, MF_FACTORS,
+                                  sparse_grad=sparse_grad)
+        item = gluon.nn.Embedding(MF_ITEMS, MF_FACTORS,
+                                  sparse_grad=sparse_grad)
+    for blk in (user, item):
+        blk.initialize(mx.init.Normal(0.1), ctx=mx.gpu())
+    start = [blk.weight.tensor().detach().clone() for blk in (user, item)]
+    params = list(user.collect_params().values()) + \
+        list(item.collect_params().values())
+    tr = gluon.Trainer(params, "sgd", dict(MF_SGD))
+    l2 = gluon.loss.L2Loss()
+    losses, rows = [], ([], [])
+    torch.cuda.synchronize()
+    for i, (u, it, r) in enumerate(batches):
+        if i == 2:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        u, it, r = (mx.nd.NDArray(x) for x in (u, it, r))
+        with autograd.record():
+            pred = (user(u) * item(it)).sum(axis=1)
+            loss = l2(pred, r)
+        loss.backward()
+        if sparse_grad:
+            for k, blk in enumerate((user, item)):
+                g = blk.weight.grad()
+                expect(g.stype == "row_sparse", f"grad stype {g.stype}")
+                rows[k].append(g._indices.long())
+        tr.step(MF_BATCH)
+        losses.append(loss.mean())
+        if i == 0:
+            first = [blk.weight.tensor().detach().clone()
+                     for blk in (user, item)]
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / (MF_STEPS - 2)
+    return {"tables": [blk.weight.tensor().detach() for blk in (user, item)],
+            "start": start, "first": first,
+            "losses": [float(v) for v in losses], "ms": ms, "rows": rows}
+
+
+def sparse_factorization(torch, smi_line):
+    """(b) The sparse-gradient factorisation (MXNet 1.x's
+    example/sparse/matrix_factorization, MovieLens-10M's 71,567 users and
+    10,681 items, 128 factors, batches of 8192 seeded pairs with Zipf
+    item ids, gluon.Trainer SGD 0.1 / 0.9 / 1e-4, MF_STEPS steps) with
+    ``Embedding(sparse_grad=True)``: the lazy update, against the same run
+    with dense gradients.  After the first step (from the same start, the
+    same arithmetic on the rows it touched) those rows within MF_RTOL of
+    the table's scale and every other row the start's bits; after all
+    steps the rows no step touched still the start's bits (the dense run's
+    weight decay and momentum move them) and every touched row within
+    MF_RUN_RTOL of the scale (the lazy update leaves a row's momentum and
+    weight decay alone in the steps that skip it, and the predictions part
+    from there).  ms a step of each."""
+    import mxnet_tpu_torch as mx
+
+    batches = mf_batches(torch)
+    lazy = mf_run(torch, mx, True, batches)
+    dense = mf_run(torch, mx, False, batches)
+    what = (f"factorisation {MF_USERS} users x {MF_ITEMS} items x "
+            f"{MF_FACTORS}, batch {MF_BATCH}, Zipf({MF_ZIPF}) items, SGD "
+            f"{MF_SGD}")
+    expect(all(np.isfinite(lazy["losses"] + dense["losses"])),
+           f"{what}: losses not finite")
+    notes = []
+    for k, name in enumerate(("user", "item")):
+        n = (MF_USERS, MF_ITEMS)[k]
+        start = lazy["start"][k]
+        expect(torch.equal(start, dense["start"][k]),
+               f"{what}: the two runs start from different {name} tables")
+        scale = float(dense["tables"][k].abs().max())
+        step1 = lazy["rows"][k][0]
+        rest1 = torch.ones(n, dtype=torch.bool, device=DEVICE)
+        rest1[step1] = False
+        gap1 = float((lazy["first"][k][step1]
+                      - dense["first"][k][step1]).abs().max())
+        kept1 = torch.equal(lazy["first"][k][rest1], start[rest1])
+        expect(kept1 and gap1 <= MF_RTOL * scale,
+               f"{what}: after the first step the {name} rows it left kept "
+               f"their bits: {kept1}; the rows it touched {gap1:.3e} from "
+               f"the dense run (bound {MF_RTOL} x {scale:.3e})")
+        counts = torch.zeros(n, dtype=torch.int64, device=DEVICE)
+        for r in lazy["rows"][k]:
+            counts[r] += 1
+        never = (counts == 0).nonzero().reshape(-1)
+        touched = (counts > 0).nonzero().reshape(-1)
+        w_lazy, w_dense = lazy["tables"][k], dense["tables"][k]
+        kept = torch.equal(w_lazy[never], start[never])
+        gap = float((w_lazy[touched] - w_dense[touched]).abs().max())
+        moved = float((w_dense[never] - start[never]).abs().max()) \
+            if never.numel() else 0.0
+        expect(kept, f"{what}: {name} rows no step touched changed in the "
+               f"sparse run")
+        expect(gap <= MF_RUN_RTOL * scale,
+               f"{what}: touched {name} rows {gap:.3e} from the dense run, "
+               f"beyond {MF_RUN_RTOL} x {scale:.3e}")
+        notes.append(f"{name}: step 1 touched {step1.numel()} rows "
+                     f"({gap1:.3e} from dense), the rest the start's bits; "
+                     f"after {MF_STEPS} steps {never.numel()} rows never "
+                     f"touched (the start's bits; dense moved them up to "
+                     f"{moved:.3e}), {touched.numel()} touched "
+                     f"({int((counts == MF_STEPS).sum())} every step) "
+                     f"{gap:.3e} from dense, scale {scale:.3e}")
+    log(f"sparse [{what}]: " + "; ".join(notes))
+    log(f"sparse [{what}, {card_line(smi_line)}]: row_sparse (lazy) "
+        f"{lazy['ms']:.3f} ms/step vs dense {dense['ms']:.3f} ms/step = "
+        f"{lazy['ms'] / dense['ms']:.3f}x; losses lazy "
+        f"{[round(v, 4) for v in lazy['losses'][::5]]} dense "
+        f"{[round(v, 4) for v in dense['losses'][::5]]}")
+    return {"lazy_ms": lazy["ms"], "dense_ms": dense["ms"]}
+
+
+def csr_dot(torch, smi_line):
+    """``sparse.dot`` of a seeded CSR batch of Criteo's shape (CSR_ROWS x
+    CSR_COLS, CSR_NNZ nonzeros a row: its 39 fields, hashed) with a dense
+    (CSR_COLS, 1) weight, against the dense gather-sum of the same
+    entries within CSR_RTOL of its scale; its ms (CUDA events)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import sparse
+
+    rng = np.random.RandomState(8)
+    cols = np.sort(rng.randint(0, CSR_COLS, (CSR_ROWS, CSR_NNZ)), 1)
+    vals = rng.rand(CSR_ROWS, CSR_NNZ).astype(np.float32)
+    indptr = np.arange(0, CSR_ROWS * CSR_NNZ + 1, CSR_NNZ, dtype=np.int32)
+    dev = torch.device(DEVICE)
+    csr = sparse.csr_matrix((torch.from_numpy(vals.ravel()).to(dev),
+                             torch.from_numpy(cols.ravel().astype(
+                                 np.int32)).to(dev),
+                             torch.from_numpy(indptr).to(dev)),
+                            shape=(CSR_ROWS, CSR_COLS))
+    w = torch.randn(CSR_COLS, 1, generator=torch.Generator(
+        device=DEVICE).manual_seed(9), device=DEVICE)
+    wnd = mx.nd.NDArray(w)
+    got = sparse.dot(csr, wnd)._data
+    ci = torch.from_numpy(cols).to(dev).long()
+    vd = torch.from_numpy(vals).to(dev)
+    want = (w[ci, 0] * vd).sum(1, keepdim=True)
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    expect(got.shape == (CSR_ROWS, 1), f"csr dot shape {tuple(got.shape)}")
+    expect(err <= CSR_RTOL * scale, f"csr dot {err:.3e} from the dense "
+           f"gather-sum, beyond {CSR_RTOL} x {scale:.3e}")
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)
+    ms = time_ms(torch, lambda: sparse.dot(csr, wnd), 20, flush)
+    plain = time_ms(torch, lambda: (w[ci, 0] * vd).sum(1), 20, flush)
+    log(f"csr dot [{CSR_ROWS} x {CSR_COLS}, {CSR_NNZ} a row, "
+        f"{card_line(smi_line)}]: {ms:.4f} ms vs the dense gather-sum "
+        f"{plain:.4f} ms; {err:.3e} from it (scale {scale:.3e})")
+    return {"ms": ms, "err": err, "plain": plain}
+
+
+def onnx_resnet(torch, smi_line, tmp):
+    """(c) An ONNX round trip of ResNet-50 v1 (the model zoo's, NCHW, f32,
+    ``fused=False``: the symbolic phase's net) on the card at each of
+    ONNX_BATCHES: ``onnx.export_model`` on the card, then
+    ``onnx.import_to_function`` run on card tensors; ONNX_IMAGES seeded
+    images through the block and the imported function (at batch 1 one
+    by one, at batch 64 among the batch) within ONNX_RTOL of the logits'
+    scale; export seconds, file size, and the imported function's ms
+    against the block's (CUDA events)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, initializer
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+
+    initializer.seed(0)
+    net = resnet50_v1()
+    net.initialize(ctx=mx.gpu())
+    images = np.random.RandomState(12).rand(
+        max(ONNX_BATCHES), 3, 224, 224).astype(np.float32)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)
+    out = {}
+    for n in ONNX_BATCHES:
+        x = torch.from_numpy(images[:n]).to(DEVICE)
+        path = os.path.join(tmp, f"resnet50_v1_b{n}.onnx")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mx.onnx.export_model(net, x, path)
+        export_s = time.perf_counter() - t0
+        fn = mx.onnx.import_to_function(path)
+        with autograd.pause():
+            errs = []
+            for i in range(ONNX_IMAGES if n == 1 else 1):
+                xi = torch.from_numpy(images[i:i + n]).to(DEVICE)
+                ref = net(xi)[:ONNX_IMAGES]
+                got = fn(xi)[0][:ONNX_IMAGES]
+                expect(tuple(got.shape) == tuple(ref.shape) and
+                       got.device.type == "cuda",
+                       f"onnx b{n}: {tuple(got.shape)} on {got.device}")
+                errs.append(float((got - ref).abs().max())
+                            / float(ref.abs().max()))
+            err = max(errs)
+            expect(err <= ONNX_RTOL, f"onnx b{n}: the imported function "
+                   f"{err:.3e} of the logits' scale from the block")
+            ms_fn = time_ms(torch, lambda: fn(x), 10, flush)
+            ms_blk = time_ms(torch, lambda: net(x), 10, flush)
+        size = os.path.getsize(path)
+        os.remove(path)
+        out[n] = {"export_s": export_s, "bytes": size, "ms": ms_fn,
+                  "block_ms": ms_blk, "err": err}
+        log(f"onnx [ResNet-50 v1 NCHW f32 batch {n}, {card_line(smi_line)}]"
+            f": export {export_s:.2f} s, {size / 2**20:.1f} MiB, "
+            f"{ONNX_IMAGES} images within {err:.3e} of the logits' scale; "
+            f"imported function {ms_fn:.3f} ms vs the block {ms_blk:.3f} "
+            f"ms = {ms_fn / ms_blk:.3f}x")
+    return out
+
+
+def numpy_sparse_onnx(torch, smi_line, trainstep):
+    """The phase "numpy, sparse, ONNX": ``nd.add``'s host us with
+    NaiveEngine unset (and set), (a) np BERT-base, (b) the factorisation
+    and the CSR dot, (c) the ONNX round trip.  Returns their numbers."""
+    import mxnet_tpu_torch as mx
+
+    card = mx.gpu()
+    off = dispatch_times(torch, mx, card)["off"]
+    mx.engine.set_naive(True)
+    try:
+        naive = dispatch_times(torch, mx, card)["off"]
+    finally:
+        mx.engine.set_naive(False)
+    log(f"nd.add host us a dispatch on {DISPATCH_SHAPE} over "
+        f"{DISPATCH_CALLS} calls (storage accounting off): NaiveEngine "
+        f"unset {off:.2f}, set {naive:.2f}")
+    out = {"dispatch_us": {"naive unset": off, "naive set": naive}}
+    out["np"] = np_bert(torch, smi_line, trainstep)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["sparse"] = sparse_factorization(torch, smi_line)
+    out["csr"] = csr_dot(torch, smi_line)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        out["onnx"] = onnx_resnet(torch, smi_line, tmp)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+
 class phase:
     """Print a phase's wall time on its own line when it ends."""
 
@@ -6923,6 +7371,10 @@ def main():
         if sys.argv[1:] == ["--extras"]:
             with phase("one-card extras"):
                 one_card_extras(torch, smi_line, None)
+            return 0
+        if sys.argv[1:] == ["--np"]:
+            with phase("numpy, sparse, ONNX"):
+                numpy_sparse_onnx(torch, smi_line, None)
             return 0
         with phase("imperative"):
             # first: its backward is the first CUDA work of autograd's
@@ -7134,6 +7586,8 @@ def main():
             torch.cuda.empty_cache()
         with phase("one-card extras"):
             extras = one_card_extras(torch, smi_line, bert)
+        with phase("numpy, sparse, ONNX"):
+            npso = numpy_sparse_onnx(torch, smi_line, bert)
     except SmokeError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -7191,7 +7645,8 @@ def main():
             "launches_by_path": {"train": bert["launches"][kern],
                                  "nd": pipeline["nd"]["flash"][kern],
                                  "symbolic": symbolic["launches"][kname],
-                                 "amp": extras["amp"]["launches"][kern]}})
+                                 "amp": extras["amp"]["launches"][kern],
+                                 "np": npso["np"]["launches"][kern]}})
     print(json.dumps(kernels), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {

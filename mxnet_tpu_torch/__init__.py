@@ -73,6 +73,15 @@ control-flow ops of the registry, ``operator`` (``CustomOp``,
 ``gluon.contrib`` (``HybridConcurrent``, the ``Estimator``),
 ``runtime``, ``test_utils``, ``util`` and ``log``.
 
+The numpy frontend and the rest of one card's surface: ``np``
+(``numpy``: ``mx.np.ndarray`` and numpy's functions on torch tensors,
+``np.linalg``, ``np.random``), ``npx`` (``numpy_extension``:
+``set_np()`` and the neural ops with numpy arrays), ``sparse``
+(``nd.sparse``: row_sparse and csr arrays, their products, the lazy
+optimizer updates behind ``Embedding(sparse_grad=True)``) and ``onnx``
+(export through ``torch.export``'s core-aten graph, import as a
+function on torch tensors).
+
 Exports: ``nd`` (``ndarray``, with ``NDArray``), ``amp``, ``autograd``,
 ``config``, ``elastic``
 (heartbeats and the gang supervisor; ``parallel.checkpoint`` the
@@ -90,6 +99,7 @@ from . import (amp, autograd, context, elastic, engine, gluon, image, initialize
 from . import (attribute, callback, executor, model, module, monitor, name,
                rnn, serving, symbol, visualization)
 from . import contrib, log, operator, runtime, test_utils, util
+from . import numpy, numpy_extension, onnx, sparse
 from .attribute import AttrScope
 from .base import MXNetError
 from .context import (Context, cpu, cpu_pinned, current_context, gpu,
@@ -97,6 +107,9 @@ from .context import (Context, cpu, cpu_pinned, current_context, gpu,
 from .ndarray import NDArray
 
 nd = ndarray
+nd.sparse = sparse
+np = numpy
+npx = numpy_extension
 init = initializer
 sym = symbol
 mod = module
@@ -116,4 +129,5 @@ __all__ = ["amp", "autograd", "base", "config", "context", "elastic", "engine",
            "executor", "model", "module", "mod", "monitor", "mon", "name",
            "rnn", "serving", "symbol", "sym", "visualization", "viz",
            "MXNetError", "NDArray", "waitall", "contrib", "log", "operator",
-           "runtime", "test_utils", "util"]
+           "runtime", "test_utils", "util", "np", "npx", "numpy",
+           "numpy_extension", "onnx", "sparse"]

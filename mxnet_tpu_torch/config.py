@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import os
 
-__all__ = ["get", "describe", "KNOBS"]
+__all__ = ["get", "describe", "naive_engine", "KNOBS"]
 
 
 class Knob:
@@ -60,12 +60,12 @@ KNOBS = {k.name: k for k in [
     Knob("MXNET_STORAGE_ACCOUNTING", 1, int,
          "1 = every NDArray registers its storage's bytes with the storage "
          "manager (mx.storage.stats()); 0 disables."),
-    # --- accepted for compatibility (no effect in the port) -------------
     Knob("MXNET_ENGINE_TYPE", "ThreadedEnginePerDevice", str,
-         "Execution engine.  'NaiveEngine' forces synchronous dispatch in "
-         "the reference (its race-bisect debugging mode); the port's "
-         "engine is the CUDA stream, so set CUDA_LAUNCH_BLOCKING=1 for "
-         "that instead.", wired=False),
+         "Execution engine, read at import.  'NaiveEngine' is synchronous "
+         "dispatch (the reference's race-bisect debugging mode): every nd "
+         "dispatch waits for its kernels on the card.  Anything else: "
+         "the CUDA stream's asynchronous order."),
+    # --- accepted for compatibility (no effect in the port) -------------
     Knob("MXNET_STORAGE_FALLBACK_LOG_VERBOSE", 1, int,
          "No silent sparse->dense fallback exists here: the port's arrays "
          "are dense and sparse requests raise.", wired=False),
@@ -135,6 +135,9 @@ def _apply_startup():
     if not get("MXNET_STORAGE_ACCOUNTING"):
         from . import storage
         storage.set_accounting(False)
+    if naive_engine():
+        from . import engine
+        engine.set_naive(True)
     if get("MXNET_PROFILER_AUTOSTART"):
         import atexit
 
@@ -142,3 +145,8 @@ def _apply_startup():
         profiler.set_config(filename=get("MXNET_PROFILER_FILENAME"))
         profiler.start()
         atexit.register(lambda: (profiler.stop(), profiler.dump()))
+
+
+def naive_engine():
+    """True when MXNET_ENGINE_TYPE=NaiveEngine (synchronous dispatch)."""
+    return get("MXNET_ENGINE_TYPE") == "NaiveEngine"

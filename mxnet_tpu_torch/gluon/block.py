@@ -15,7 +15,10 @@ Calling a block builds the autograd graph only inside
 ``autograd.record()``, as in the JAX package.  A block takes tensors or
 NDArrays: NDArray inputs are unwrapped, and the outputs come back as
 NDArrays only when NDArrays went in, so the training steps, the
-captured graphs and the server keep passing tensors.
+captured graphs and the server keep passing tensors.  They come back as
+``mx.np.ndarray`` when one went in or ``npx.set_np()`` holds, from an
+eager and a hybridized block alike (the JAX package's hybridized
+blocks return legacy NDArrays there: ROADMAP C12).
 
 ``save_parameters``/``load_parameters`` use structural names
 (``0.weight``, ``features.3.body.1.gamma``) in ``nd.save``'s container,
@@ -50,9 +53,11 @@ import numpy as np
 import torch
 
 from .. import autograd as _autograd
+from .. import numpy_extension as _npx
 from .. import ops as _ops
 from ..graphs import GraphCache, StepGraph
 from ..ndarray.ndarray import NDArray, _wrap_all
+from ..numpy import ndarray as _np_ndarray
 from ..parallel.functional import functional_call, run_eagerly, \
     running_eagerly
 from .parameter import DeferredInitializationError, Parameter, ParameterDict
@@ -207,7 +212,7 @@ class Block(torch.nn.Module):
         with torch.set_grad_enabled(_autograd.is_recording()):
             out = super().__call__(*targs)
         if wrap:
-            out = _wrap_all(out)
+            out = _wrap_all(out, _out_class(args))
         for hook in self._gluon_hooks:
             hook(self, args, out)
         return out
@@ -412,7 +417,7 @@ class HybridBlock(Block):
                     super().__call__(*targs)
             self._cached = _CachedOp(self)
         out = self._cached(leaves, spec)
-        return _wrap_all(out) if wrap else out
+        return _wrap_all(out, _out_class(args)) if wrap else out
 
     def forward(self, x, *args):
         try:
@@ -473,6 +478,18 @@ class HybridBlock(Block):
         with open(f"{path}-symbol.json", "w") as f:
             json.dump(meta, f, indent=2)
         return f"{path}-symbol.json", params_file
+
+
+def _out_class(args):
+    """The array class of a block's outputs for NDArray inputs:
+    ``mx.np.ndarray`` under ``npx.set_np()`` or for an ``mx.np`` input,
+    else None (NDArray)."""
+    if _npx.is_np_array():
+        return _np_ndarray
+    for a in args:
+        if isinstance(a, _np_ndarray):
+            return _np_ndarray
+    return None
 
 
 # ------------------------------------------------------------- hybridize --

@@ -272,19 +272,20 @@ class RMSNorm(HybridBlock):
 
 
 class Embedding(HybridBlock):
-    """``Embedding`` op; weight ``(input_dim, output_dim)``."""
+    """``Embedding`` op; weight ``(input_dim, output_dim)``.  With
+    ``sparse_grad=True`` the weight's gradient is handed out row_sparse
+    (``Parameter.grad``), which ``gluon.Trainer`` applies lazily."""
 
     def __init__(self, input_dim, output_dim, dtype="float32",
                  weight_initializer=None, sparse_grad=False, prefix=None,
                  params=None):
         super().__init__(prefix=prefix, params=params)
-        if sparse_grad:
-            raise NotImplementedError("the port's Embedding has dense "
-                                      "gradients only")
         self._input_dim = input_dim
         self._output_dim = output_dim
-        self.weight = self.params.get("weight", shape=(input_dim, output_dim),
-                                      init=weight_initializer, dtype=dtype)
+        self.weight = self.params.get(
+            "weight", shape=(input_dim, output_dim),
+            init=weight_initializer, dtype=dtype,
+            grad_stype="row_sparse" if sparse_grad else "default")
 
     def infer_shape(self, *args):
         pass

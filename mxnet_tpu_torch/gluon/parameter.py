@@ -10,8 +10,13 @@ with ``requires_grad``, and a backward inside ``autograd.record()``
 leaves its gradient in ``grad()``.  Running statistics are created with
 ``differentiable=False``.
 
-``data()`` is the NDArray; ``tensor()`` is its ``torch.Tensor``, what
-the blocks' ``hybrid_forward`` and the port's training steps take.
+``data()`` is the NDArray (under ``npx.set_np()`` the same object
+retyped as ``mx.np.ndarray``, so the autograd hook that holds it
+stays); ``tensor()`` is its ``torch.Tensor``, what the blocks'
+``hybrid_forward`` and the port's training steps take.  A parameter
+made with ``grad_stype="row_sparse"`` (``Embedding(sparse_grad=True)``)
+hands out its gradient as a ``sparse.RowSparseNDArray``: the rows of
+the dense gradient with a nonzero entry.
 
 ``set_data`` writes in place; ``initialize(force_reinit=True)``,
 ``cast``, ``reset_ctx`` and a ``grad_req`` change give the parameter a
@@ -27,7 +32,9 @@ from .. import autograd as _autograd
 from .. import initializer as init_mod
 from ..base import MXNetError, dtype_torch
 from ..context import context_of, resolve_device
+from .. import numpy_extension as _npx
 from ..ndarray.ndarray import NDArray, tensor_from_numpy
+from ..numpy import ndarray as _np_ndarray
 
 __all__ = ["Parameter", "ParameterDict", "Constant",
            "DeferredInitializationError"]
@@ -50,8 +57,11 @@ class Parameter:
 
     def __init__(self, name, grad_req="write", shape=None, dtype="float32",
                  lr_mult=1.0, wd_mult=1.0, init=None,
-                 allow_deferred_init=False, differentiable=True):
+                 allow_deferred_init=False, differentiable=True,
+                 stype="default", grad_stype="default"):
         self.name = name
+        self._stype = stype
+        self._grad_stype = grad_stype
         self._grad_req = grad_req if differentiable else "null"
         if isinstance(shape, int):
             shape = (shape,)
@@ -144,6 +154,9 @@ class Parameter:
                     f"accessing data()")
             raise RuntimeError(f"parameter '{self.name}' has not been "
                                f"initialized; call .initialize() first")
+        want = _np_ndarray if _npx.is_np_array() else NDArray
+        if type(self._nd) is not want:
+            self._nd.__class__ = want     # in place: hooks hold the object
         return self._nd
 
     def tensor(self):
@@ -174,10 +187,18 @@ class Parameter:
     def grad(self, ctx=None):
         """The gradient NDArray the last backward left (zeros before
         one)."""
-        d = self.data(ctx)
         if self._grad_req == "null":
             raise RuntimeError(f"parameter '{self.name}' has "
                                f"grad_req='null'")
+        g = self._dense_grad()
+        if self._grad_stype == "row_sparse":
+            from .. import sparse
+            return sparse.cast_storage(g, "row_sparse")
+        return g
+
+    def _dense_grad(self):
+        """The dense gradient buffer, whatever ``grad_stype`` says."""
+        d = self.data()
         if d._grad is None:
             d._grad = NDArray(torch.zeros_like(d._data))
         return d._grad

@@ -9,6 +9,11 @@ gradient the last backward left.  One card has one worker, so the
 gradients are used where they are; a distributed store, a store object
 and ``update_on_kvstore`` raise ``NotImplementedError`` (they come with
 the multi-card port).
+
+A parameter with row_sparse gradients (``Embedding(sparse_grad=True)``)
+hands an optimizer that ``supports_sparse`` (SGD, Adam, AdaGrad) its
+row_sparse gradient, the lazy update; any other optimizer gets the
+dense gradient buffer.
 """
 from __future__ import annotations
 
@@ -76,8 +81,11 @@ class Trainer:
         self._optimizer.rescale_grad = self._scale / batch_size
         if not self._states_ready:
             self._init_states()
+        sparse_ok = self._optimizer.supports_sparse
         for i, p in enumerate(self._params):
-            self._optimizer.update_multi_precision(i, p.data(), p.grad(),
+            g = p.grad() if sparse_ok or p._grad_stype != "row_sparse" \
+                else p._dense_grad()
+            self._optimizer.update_multi_precision(i, p.data(), g,
                                                    self._states[i])
 
     def zero_grad(self):

@@ -42,30 +42,42 @@ _NARROW = {torch.int64: torch.int32, torch.float64: torch.float32}
 _KEEP_NONE = ("a_min", "a_max")
 
 
-def _wrap(t):
-    """``t`` as an NDArray: 64-bit dtypes narrowed, and stamped with the
-    recording epoch when it carries a graph."""
+def _wrap(t, cls=None):
+    """``t`` as an NDArray (or ``cls``, ``mx.np.ndarray``): 64-bit dtypes
+    narrowed, and stamped with the recording epoch when it carries a
+    graph."""
     narrow = _NARROW.get(t.dtype)
     if narrow is not None:
         t = t.to(narrow)
-    nd = NDArray(t)
+    nd = NDArray(t) if cls is None else cls(t)
     if t.grad_fn is not None:
         nd._epoch = _autograd.current_epoch()
     return nd
 
 
-def _wrap_all(res):
+def _wrap_all(res, cls=None):
     if isinstance(res, torch.Tensor):
-        return _wrap(res)
+        return _wrap(res, cls)
     if isinstance(res, (tuple, list)):
-        return type(res)(_wrap_all(r) for r in res)
+        return type(res)(_wrap_all(r, cls) for r in res)
     return res
+
+
+# the sparse array classes (``sparse.py`` adds them): an op argument of
+# one of them raises, as in the JAX package
+SPARSE_TYPES = set()
 
 
 def _raw(a):
     """An op argument that is not an NDArray: numpy arrays become
-    tensors, anything else passes as is."""
-    return tensor_from_numpy(a) if isinstance(a, np.ndarray) else a
+    tensors, a sparse array raises, anything else passes as is."""
+    if isinstance(a, np.ndarray):
+        return tensor_from_numpy(a)
+    if type(a) in SPARSE_TYPES:
+        raise TypeError("this op does not support sparse storage; densify "
+                        "with .tostype('default') or use the "
+                        "mxnet_tpu_torch.sparse functions")
+    return a
 
 
 def tensor_from_numpy(a):
@@ -92,6 +104,10 @@ _PROF = None
 # dispatch (the same opt-in hook as the profiler's; None costs this read).
 _AMP = None
 
+# Set by ``engine.set_naive(True)`` (MXNET_ENGINE_TYPE=NaiveEngine): the
+# wait after each dispatch (None costs this read).
+_NAIVE = None
+
 
 def invoke(op_name: str, *args, out=None, **kwargs):
     """Dispatch registered op ``op_name`` on NDArrays (and scalars); a
@@ -108,7 +124,15 @@ def invoke(op_name: str, *args, out=None, **kwargs):
         t0 = prof._now_us()
     else:
         prof = None
-    raw = [a._data if isinstance(a, NDArray) else _raw(a) for a in args]
+    cls = None
+    raw = []
+    for a in args:
+        if isinstance(a, NDArray):
+            raw.append(a._data)
+            if cls is None and type(a) is not NDArray:
+                cls = type(a)      # mx.np.ndarray in, mx.np.ndarray out
+        else:
+            raw.append(_raw(a))
     if kwargs:
         kwargs = {k: v._data if isinstance(v, NDArray) else v
                   for k, v in kwargs.items()
@@ -123,16 +147,19 @@ def invoke(op_name: str, *args, out=None, **kwargs):
     else:
         res = fn(*raw, **kwargs)
     if isinstance(res, tuple):
-        res = tuple(_wrap(r) for r in res)
+        res = tuple(_wrap(r, cls) for r in res)
         first = res[0]
     else:
-        res = first = _wrap(res)
+        res = first = _wrap(res, cls)
     if out is not None:
         if first._epoch is None:
             out._rebind(first._data)
         else:   # recorded: ``out`` must hold the tensor the graph knows
             out._data, out._epoch = first._data, first._epoch
         res = (out,) + res[1:] if isinstance(res, tuple) else out
+    naive = _NAIVE
+    if naive is not None:
+        naive(first._data)
     if prof is not None:
         if prof.want_sync() and first._data.is_cuda:
             torch.cuda.synchronize(first._data.device)
@@ -248,7 +275,7 @@ class NDArray:
         return self._grad
 
     def detach(self):
-        return NDArray(self._data.detach())
+        return type(self)(self._data.detach())
 
     def backward(self, out_grad=None, retain_graph=False, train_mode=True):
         _autograd.backward([self], [out_grad] if out_grad is not None
@@ -265,7 +292,7 @@ class NDArray:
 
     # ------------------------------------------------------------- moves --
     def copy(self):
-        return NDArray(self._data.detach().clone())
+        return type(self)(self._data.detach().clone())
 
     def copyto(self, other):
         """Into NDArray ``other`` (rebinding it) or onto a context."""
@@ -290,10 +317,11 @@ class NDArray:
     # ----------------------------------------------------------- indexing --
     def __getitem__(self, key):
         key = _index(key)
+        cls = None if type(self) is NDArray else type(self)
         if _autograd.is_recording() or not torch.is_grad_enabled():
-            return _wrap(self._data[key])
+            return _wrap(self._data[key], cls)
         with torch.no_grad():
-            return _wrap(self._data[key])
+            return _wrap(self._data[key], cls)
 
     def __setitem__(self, key, value):
         if _autograd.is_recording():
@@ -516,10 +544,12 @@ class NDArray:
                       transpose_b=transpose_b)
 
     def tostype(self, stype):
-        if stype != "default":
-            raise NotImplementedError(
-                f"storage type {stype!r}: the port has dense arrays only")
-        return self
+        """``"default"`` is this array; ``"row_sparse"`` and ``"csr"``
+        are ``sparse.cast_storage`` of it."""
+        if stype == "default":
+            return self
+        from .. import sparse
+        return sparse.cast_storage(self, stype)
 
     def zeros_like(self):
         return invoke("zeros_like", self)

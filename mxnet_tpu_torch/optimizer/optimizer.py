@@ -16,6 +16,12 @@ and two ways to apply them:
 
 ``multi_precision=None`` (the default) keeps f32 master weights for
 float16/bfloat16 parameters, as in the JAX package.
+
+``supports_sparse`` is true on SGD, Adam and AdaGrad: their ``update``
+takes a ``sparse.RowSparseNDArray`` gradient through the lazy update
+(only its rows change, written into the weight in place); another
+optimizer given one raises, and ``gluon.Trainer`` hands it the dense
+gradient instead.
 """
 from __future__ import annotations
 
@@ -69,10 +75,25 @@ def _assign(target, value):
         target._data.copy_(value)
 
 
+def _is_rsp(grad):
+    """True for a row_sparse gradient (the lazy-update dispatch)."""
+    from ..sparse import RowSparseNDArray
+    return isinstance(grad, RowSparseNDArray)
+
+
+def _write_rows(weight, idx_rows):
+    """Write a lazy update's rows into the weight's own tensor."""
+    idx, rows = idx_rows
+    with torch.no_grad():
+        weight._data.index_copy_(0, idx, rows.to(weight._data.dtype))
+
+
 class Optimizer:
     """Base optimizer: learning rate (or schedule), weight decay,
     gradient rescale/clip, per-parameter ``lr_mult``/``wd_mult``, update
     counts and the multi-precision rule."""
+
+    supports_sparse = False
 
     def __init__(self, rescale_grad=1.0, param_idx2name=None, wd=0.0,
                  clip_gradient=None, learning_rate=0.01, lr_scheduler=None,
@@ -186,6 +207,8 @@ class SGD(Optimizer):
     """SGD with optional momentum: ``mom = momentum*mom - lr*(g + wd*w)``,
     ``w += mom``."""
 
+    supports_sparse = True
+
     def __init__(self, momentum=0.0, lazy_update=False, **kwargs):
         super().__init__(**kwargs)
         self.momentum = momentum
@@ -196,6 +219,18 @@ class SGD(Optimizer):
     def update(self, index, weight, grad, state):
         self._update_count(index)
         kw = self._kw(index)
+        if _is_rsp(grad):
+            from .. import sparse
+            args = (self._get_lr(index), self._get_wd(index),
+                    self.rescale_grad, self.clip_gradient)
+            if self.momentum == 0.0:
+                _write_rows(weight, sparse._sgd_rows(weight, grad, *args))
+            else:
+                lr, wd, rescale, clip = args
+                _write_rows(weight, sparse._sgd_mom_rows(
+                    weight, grad, state, lr, self.momentum, wd, rescale,
+                    clip))
+            return
         if self.momentum == 0.0:
             _writeback(invoke("sgd_update", weight, grad, **kw), weight)
         else:
@@ -207,6 +242,8 @@ class SGD(Optimizer):
 class NAG(SGD):
     """Nesterov momentum (``nag_mom_update``)."""
 
+    supports_sparse = False
+
     def update(self, index, weight, grad, state):
         self._update_count(index)
         _writeback(invoke("nag_mom_update", weight, grad, state,
@@ -217,6 +254,8 @@ class NAG(SGD):
 @register
 class Adam(Optimizer):
     """Adam, the bias correction folded into the step size."""
+
+    supports_sparse = True
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, lazy_update=False, **kwargs):
@@ -235,6 +274,13 @@ class Adam(Optimizer):
     def update(self, index, weight, grad, state):
         self._update_count(index)
         mean, var = state
+        if _is_rsp(grad):
+            from .. import sparse
+            _write_rows(weight, sparse._adam_rows(
+                weight, grad, mean, var, self._index_update_count[index],
+                self._get_lr(index), self.beta1, self.beta2, self.epsilon,
+                self._get_wd(index), self.rescale_grad, self.clip_gradient))
+            return
         kw = self._kw(index, beta1=self.beta1, beta2=self.beta2,
                       epsilon=self.epsilon)
         kw["lr"] = self._lr_t(index)
@@ -245,6 +291,8 @@ class Adam(Optimizer):
 @register
 class AdamW(Adam):
     """Adam with decoupled weight decay (``adamw_update``)."""
+
+    supports_sparse = False
 
     def update(self, index, weight, grad, state):
         self._update_count(index)
@@ -362,6 +410,8 @@ class RMSProp(Optimizer):
 class AdaGrad(Optimizer):
     """AdaGrad (``adagrad_update``)."""
 
+    supports_sparse = True
+
     def __init__(self, learning_rate=0.01, eps=1e-7, **kwargs):
         super().__init__(learning_rate=learning_rate, **kwargs)
         self.float_stable_eps = eps
@@ -371,6 +421,13 @@ class AdaGrad(Optimizer):
 
     def update(self, index, weight, grad, state):
         self._update_count(index)
+        if _is_rsp(grad):
+            from .. import sparse
+            _write_rows(weight, sparse._adagrad_rows(
+                weight, grad, state, self._get_lr(index),
+                self.float_stable_eps, self._get_wd(index),
+                self.rescale_grad, self.clip_gradient))
+            return
         _writeback(invoke("adagrad_update", weight, grad, state,
                           **self._kw(index, epsilon=self.float_stable_eps)),
                    weight, state)

@@ -5,9 +5,10 @@ ref: python/mxnet/runtime.py — ``Features()`` says which optional
 capabilities this build has.  The keys are the JAX package's; the
 values are the port's own: ``CUDA`` and ``CUDNN`` come from torch,
 ``TPU`` and ``PALLAS`` are false (the port's kernels are CUDA C++),
-the native flags say whether the host natives of ``src/`` load, and
-``DIST_KVSTORE`` and ``ONNX`` stay false until the multi-card port and
-the ONNX exporter come."""
+the native flags say whether the host natives of ``src/`` load,
+``ONNX`` is true (``onnx``: export and import, no onnx package
+needed), and ``DIST_KVSTORE`` stays false until the multi-card port
+comes."""
 from __future__ import annotations
 
 import torch
@@ -45,7 +46,7 @@ def _detect():
     add("RECORDIO_NATIVE", load_native_lib("librecordio") is not None)
     add("STORAGE_POOL_NATIVE", load_native_lib("libstoragepool") is not None)
     add("DIST_KVSTORE", False)
-    add("ONNX", False)
+    add("ONNX", True)            # onnx/
     add("PROFILER", True)
     return feats
 

@@ -2,21 +2,16 @@
 — env helpers, np-array mode queries, misc utilities used across
 reference scripts).
 
-The port has no ``mx.np``/``mx.npx`` yet (ROADMAP A14's second half),
-so the numpy-semantics flag that ``npx.set_np()`` flips in the JAX
-package is kept here: ``use_np`` sets it around a call and restores
-the enclosing mode, and ``is_np_array`` reads it.
+``is_np_array`` reads ``npx``'s process-wide flag, which ``use_np``
+sets around a call and restores after it, as in the JAX package.
 """
 from __future__ import annotations
 
 import functools
 import os
-import threading
 
 __all__ = ["makedirs", "getenv", "setenv", "is_np_array", "is_np_shape",
            "use_np", "set_module"]
-
-_np_mode = threading.local()
 
 
 def makedirs(d):
@@ -38,8 +33,9 @@ def setenv(name, value):
 
 
 def is_np_array():
-    """True inside a ``use_np`` call on this thread."""
-    return getattr(_np_mode, "on", False)
+    """True while ``npx.set_np()`` holds (or inside a ``use_np`` call)."""
+    from . import numpy_extension as npx
+    return npx.is_np_array()
 
 
 def is_np_shape():
@@ -53,14 +49,17 @@ def use_np(func_or_cls):
     if isinstance(func_or_cls, type):
         return func_or_cls
 
+    from . import numpy_extension as npx
+
     @functools.wraps(func_or_cls)
     def _wrapped(*args, **kwargs):
-        was = is_np_array()
-        _np_mode.on = True
+        was = npx.is_np_array()
+        npx.set_np()
         try:
             return func_or_cls(*args, **kwargs)
         finally:
-            _np_mode.on = was
+            if not was:     # the enclosing mode comes back
+                npx.reset_np()
     return _wrapped
 
 

@@ -1,32 +1,35 @@
 """The public names of the port against the JAX package's: ``dir()`` of
 the top level, ``nd``, ``gluon``, ``gluon.model_zoo``, ``optimizer``,
-``sym``, ``mod`` and ``serving``.  Every public name of the JAX package is in the
-port, but for those in the named lists below: the modules still in
-queue A of ROADMAP.md (A14 the rest that runs on one card, A15
-several cards), the TPU-only names, and the JAX
-modules' own imports of their implementation.
+``sym``, ``mod``, ``serving``, ``np``, ``np.random``, ``np.linalg``,
+``npx``, ``nd.sparse`` and ``onnx``.  Every public name of the JAX
+package is in the port, but for those in the named lists below: the
+modules still in queue A of ROADMAP.md (A15 several cards), the
+TPU-only names, and the JAX modules' own imports of their
+implementation.
 """
 import pytest
 
 import mxnet_tpu as jmx
 import mxnet_tpu_torch as tmx
 
-A14 = {
-    # the second half of A14: mx.np / mx.npx, ONNX and sparse arrays
-    "np", "npx", "numpy", "numpy_extension", "onnx", "sparse",
-}
 A15 = {"distributed", "kv", "kvstore", "moe_ffn"}
 TPU_ONLY = {"tpu", "num_tpus"}
 JAX_IMPORTS = {"jax", "jnp", "dtype_np"}
 MAY_BE_MISSING = {
-    "": A14 | A15 | TPU_ONLY,
-    "nd": A14 | TPU_ONLY | JAX_IMPORTS,
+    "": A15 | TPU_ONLY,
+    "nd": TPU_ONLY | JAX_IMPORTS,
     "gluon": set(),
     "gluon.model_zoo": set(),
     "optimizer": set(),
-    "sym": A14 | A15,
+    "sym": A15,
     "mod": set(),
     "serving": set(),
+    "np": JAX_IMPORTS,
+    "np.random": JAX_IMPORTS,
+    "np.linalg": JAX_IMPORTS,
+    "npx": set(),
+    "nd.sparse": JAX_IMPORTS,
+    "onnx": set(),
 }
 
 

@@ -55,8 +55,10 @@ def test_runtime_features():
     assert list(feats) == list(jmx.runtime.Features())
     assert feats.is_enabled("CPU") and feats.is_enabled("INT8")
     assert feats.is_enabled("CUDA") == torch.cuda.is_available()
-    for off in ("TPU", "PALLAS", "DIST_KVSTORE", "ONNX"):
+    for off in ("TPU", "PALLAS", "DIST_KVSTORE"):
         assert not feats.is_enabled(off), off
+    assert feats.is_enabled("ONNX") == jmx.runtime.Features().is_enabled(
+        "ONNX")
     assert feats.is_enabled("RECORDIO_NATIVE") == \
         (load_native_lib("librecordio") is not None)
     with pytest.raises(RuntimeError, match="unknown feature"):
@@ -129,3 +131,66 @@ def test_check_consistency_catches_a_dtype_dependent_op():
     with tmx.cpu():
         with pytest.raises(AssertionError, match="inconsistent"):
             ttu.check_consistency(dt_dependent, [x])
+
+
+def test_naive_engine_waits_after_each_dispatch(monkeypatch):
+    """MXNET_ENGINE_TYPE=NaiveEngine (the knob is wired, read at import as
+    the JAX package reads it): each ``nd`` dispatch calls the engine's
+    wait once, on its first output; with the knob unset the dispatch
+    calls nothing.  A host tensor needs no wait."""
+    from mxnet_tpu import config as jconfig
+    from mxnet_tpu_torch import config, engine
+    from mxnet_tpu_torch.ndarray import ndarray as ndmod
+    assert config.KNOBS["MXNET_ENGINE_TYPE"].wired
+    monkeypatch.setenv("MXNET_ENGINE_TYPE", "NaiveEngine")
+    assert config.naive_engine() and jconfig.naive_engine()
+    monkeypatch.delenv("MXNET_ENGINE_TYPE")
+    assert not config.naive_engine() and not engine.is_naive()
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: pytest.fail(
+        "a host tensor was synchronised"))
+    seen = []
+    with tmx.cpu():
+        x = tmx.nd.ones((2, 3))
+        engine.set_naive(True)
+        try:
+            assert engine.is_naive()
+            wait = ndmod._NAIVE
+            monkeypatch.setattr(ndmod, "_NAIVE",
+                                lambda t: (seen.append(t), wait(t)))
+            y = x + 1
+            z = tmx.nd.relu(y)
+        finally:
+            engine.set_naive(False)
+        assert seen[0] is y._data and seen[1] is z._data and len(seen) == 2
+        assert not engine.is_naive() and ndmod._NAIVE is None
+        (x * 2).asnumpy()
+    assert len(seen) == 2
+
+
+def test_naive_engine_from_the_environment():
+    """A process started with the knob set dispatches synchronously."""
+    import subprocess
+    import sys
+    env = dict(os.environ, MXNET_ENGINE_TYPE="NaiveEngine")
+    out = subprocess.run(
+        [sys.executable, "-c", "import mxnet_tpu_torch as mx; "
+         "print(mx.engine.is_naive())"], env=env, capture_output=True,
+        text=True, timeout=120, cwd=os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))))
+    assert out.stdout.strip().splitlines()[-1] == "True", out.stderr[-2000:]
+
+
+@pytest.mark.gpu
+def test_naive_engine_on_the_card():
+    """On the card NaiveEngine leaves no kernel queued after a dispatch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from mxnet_tpu_torch import engine
+    x = tmx.nd.ones((4096, 4096), ctx=tmx.gpu())
+    engine.set_naive(True)
+    try:
+        y = tmx.nd.dot(x, x)
+        assert torch.cuda.current_stream().query()
+    finally:
+        engine.set_naive(False)
+    assert float(y[0, 0].asscalar()) == 4096.0
