@@ -392,16 +392,19 @@ Phases, each of which fails the run (each prints its wall time):
     share, peak memory, the losses; (b) the factorisation (two
     ``Embedding(sparse_grad=True)`` tables of 71,567 users and 10,681
     items x 128, batches of 8192 seeded pairs with Zipf item ids,
-    ``gluon.Trainer`` SGD 0.1 / 0.9 / 1e-4, 20 steps) against the same
-    run with dense gradients: after step 1 the rows it touched within
-    MF_RTOL and the rest the start's bits, after 20 steps the rows no
-    step touched the start's bits and the touched ones within
-    MF_RUN_RTOL, ms a step of each; ``sparse.dot`` of an 8192 x 1e6 CSR
+    ``gluon.Trainer`` SGD 0.1 / 0.9 / 1e-4, 20 steps): every step within
+    MF_RTOL of a plain lazy momentum SGD on dense tensors; against the
+    same run with dense gradients, after step 1 the rows it touched
+    within MF_RTOL and the rest the start's bits, after 20 steps the
+    rows no step touched the start's bits; ms a step of an unchecked
+    lazy run and of the dense one; ``sparse.dot`` of an 8192 x 1e6 CSR
     batch (39 a row) with a dense weight against a dense gather-sum
     (CSR_RTOL), its ms; (c) ``onnx.export_model`` of ResNet-50 v1 (NCHW,
     f32) on the card at batch 1 and 64, ``onnx.import_to_function`` on
     card tensors: 8 seeded images through both within ONNX_RTOL of the
-    logits' scale, export seconds, file size, ms against the block's.
+    logits' scale, numpy inputs under ``mx.gpu()`` on the card, no
+    synchronizing copy a call, export seconds, file size, ms against the
+    block's.
 
 Prints one JSON ``kernels`` line, then the card line, then as the last
 line ``{"ok": true, "device": {...}}``.  Without a card, or without the
@@ -604,11 +607,10 @@ CUSTOM_STEPS, CUSTOM_TOL = 3, 1e-6
 # numpy, sparse, ONNX: the sparse-gradient factorisation of MXNet 1.x's
 # example/sparse/matrix_factorization at MovieLens-10M's user and item
 # counts (factors, batch, steps, the Zipf exponent of the item ids, SGD);
-# after the first step (both runs from the same start) the rows it touched
-# against the dense-gradient run within MF_RTOL of the table's scale;
-# after all steps every touched row within MF_RUN_RTOL (the lazy update
-# skips momentum and weight decay on the rows a step leaves out, and the
-# two runs' predictions part from there); the CSR batch of Criteo's shape (rows, columns, nonzeros
+# every step against a plain lazy momentum SGD on dense tensors, and
+# after the first step (both runs from the same start) the rows it
+# touched against the dense-gradient run, within MF_RTOL of the table's
+# scale; the CSR batch of Criteo's shape (rows, columns, nonzeros
 # a row) against a dense gather-sum within CSR_RTOL of its scale; the
 # ONNX round trip of ResNet-50 v1 (NCHW, f32) at these batches over
 # ONNX_IMAGES seeded images, within ONNX_RTOL of the logits' scale (the
@@ -616,7 +618,7 @@ CUSTOM_STEPS, CUSTOM_TOL = 3, 1e-6
 MF_USERS, MF_ITEMS, MF_FACTORS, MF_BATCH, MF_STEPS = 71567, 10681, 128, \
     8192, 20
 MF_ZIPF, MF_SGD = 1.2, {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}
-MF_RTOL, MF_RUN_RTOL = 1e-5, 0.1
+MF_RTOL = 1e-5
 CSR_ROWS, CSR_COLS, CSR_NNZ, CSR_RTOL = 8192, 1_000_000, 39, 1e-5
 ONNX_BATCHES, ONNX_IMAGES, ONNX_RTOL = (1, 64), 8, 2e-3
 
@@ -7082,12 +7084,15 @@ def mf_batches(torch):
     return out
 
 
-def mf_run(torch, mx, sparse_grad, batches):
+def mf_run(torch, mx, sparse_grad, batches, check=False):
     """MF_STEPS steps of the factorisation: two Embedding tables (user,
     item) of MF_FACTORS, the prediction their rows' dot product, L2 loss,
-    gluon.Trainer SGD (MF_SGD).  Returns the tables, the losses, ms a
-    step over the steps after the first two, and (sparse run) the rows of
-    each step's row_sparse gradients; the tables after the first step."""
+    gluon.Trainer SGD (MF_SGD).  Returns the tables (at the start, after
+    the first step, at the end), the losses and ms a step over the steps
+    after the first two.  With ``check`` (a sparse run) every step is
+    also held against ``LazySGDReference`` fed the step's dense gradient,
+    and the row_sparse gradient's rows against the gradient's nonzero
+    rows; the returned ms then counts those checks and is not kept."""
     from mxnet_tpu_torch import autograd, gluon
 
     mx.random.seed(3)
@@ -7096,14 +7101,16 @@ def mf_run(torch, mx, sparse_grad, batches):
                                   sparse_grad=sparse_grad)
         item = gluon.nn.Embedding(MF_ITEMS, MF_FACTORS,
                                   sparse_grad=sparse_grad)
-    for blk in (user, item):
+    blocks = (user, item)
+    for blk in blocks:
         blk.initialize(mx.init.Normal(0.1), ctx=mx.gpu())
-    start = [blk.weight.tensor().detach().clone() for blk in (user, item)]
+    start = [blk.weight.tensor().detach().clone() for blk in blocks]
+    refs = [LazySGDReference(torch, w) for w in start] if check else None
     params = list(user.collect_params().values()) + \
         list(item.collect_params().values())
     tr = gluon.Trainer(params, "sgd", dict(MF_SGD))
     l2 = gluon.loss.L2Loss()
-    losses, rows = [], ([], [])
+    losses = []
     torch.cuda.synchronize()
     for i, (u, it, r) in enumerate(batches):
         if i == 2:
@@ -7114,21 +7121,71 @@ def mf_run(torch, mx, sparse_grad, batches):
             pred = (user(u) * item(it)).sum(axis=1)
             loss = l2(pred, r)
         loss.backward()
-        if sparse_grad:
-            for k, blk in enumerate((user, item)):
+        if check:
+            grads = [blk.weight._dense_grad()._data.clone()
+                     for blk in blocks]
+            rows = []
+            for blk in blocks:
                 g = blk.weight.grad()
                 expect(g.stype == "row_sparse", f"grad stype {g.stype}")
-                rows[k].append(g._indices.long())
+                rows.append(g._indices.long())
         tr.step(MF_BATCH)
         losses.append(loss.mean())
+        if check:
+            for k, blk in enumerate(blocks):
+                refs[k].step(grads[k], rows[k],
+                             blk.weight.tensor().detach(), i)
         if i == 0:
-            first = [blk.weight.tensor().detach().clone()
-                     for blk in (user, item)]
+            first = [blk.weight.tensor().detach().clone() for blk in blocks]
     torch.cuda.synchronize()
     ms = 1e3 * (time.perf_counter() - t0) / (MF_STEPS - 2)
-    return {"tables": [blk.weight.tensor().detach() for blk in (user, item)],
-            "start": start, "first": first,
-            "losses": [float(v) for v in losses], "ms": ms, "rows": rows}
+    return {"tables": [blk.weight.tensor().detach() for blk in blocks],
+            "start": start, "first": first, "refs": refs,
+            "losses": [float(v) for v in losses], "ms": ms}
+
+
+class LazySGDReference:
+    """The plain lazy momentum SGD of one table (MF_SGD, gradients
+    rescaled by 1 / MF_BATCH), on dense tensors and written apart from
+    ``sparse``: a step's rows are those where its dense gradient has a
+    nonzero entry; only they take weight decay, momentum and the
+    update, every other row keeps its weight and its momentum.  ``step``
+    advances it and holds the card's table after the same step within
+    MF_RTOL of the table's scale, and the row_sparse gradient's rows
+    against this step's rows."""
+
+    def __init__(self, torch, start):
+        self.torch = torch
+        self.w = start.clone()
+        self.mom = torch.zeros_like(start)
+        self.touched = torch.zeros(start.shape[0], dtype=torch.bool,
+                                   device=start.device)
+        self.first_rows = None
+        self.gap = 0.0
+
+    def step(self, grad, rows, table, i):
+        torch = self.torch
+        mask = (grad != 0).any(1)
+        want_rows = mask.nonzero().reshape(-1)
+        expect(torch.equal(torch.sort(rows).values, want_rows),
+               f"step {i}: the row_sparse gradient's {rows.numel()} rows "
+               f"are not the dense gradient's {want_rows.numel()} nonzero "
+               f"rows")
+        lr, momentum, wd = (MF_SGD[k] for k in
+                            ("learning_rate", "momentum", "wd"))
+        mom = momentum * self.mom - lr * (grad * (1.0 / MF_BATCH)
+                                          + wd * self.w)
+        self.mom = torch.where(mask[:, None], mom, self.mom)
+        self.w = torch.where(mask[:, None], self.w + self.mom, self.w)
+        self.touched |= mask
+        if self.first_rows is None:
+            self.first_rows = want_rows
+        scale = float(self.w.abs().max())
+        gap = float((table - self.w).abs().max())
+        expect(gap <= MF_RTOL * scale,
+               f"step {i}: the lazy table {gap:.3e} from the plain lazy "
+               f"reference, beyond {MF_RTOL} x {scale:.3e}")
+        self.gap = max(self.gap, gap)
 
 
 def sparse_factorization(torch, smi_line):
@@ -7136,69 +7193,60 @@ def sparse_factorization(torch, smi_line):
     example/sparse/matrix_factorization, MovieLens-10M's 71,567 users and
     10,681 items, 128 factors, batches of 8192 seeded pairs with Zipf
     item ids, gluon.Trainer SGD 0.1 / 0.9 / 1e-4, MF_STEPS steps) with
-    ``Embedding(sparse_grad=True)``: the lazy update, against the same run
-    with dense gradients.  After the first step (from the same start, the
-    same arithmetic on the rows it touched) those rows within MF_RTOL of
-    the table's scale and every other row the start's bits; after all
-    steps the rows no step touched still the start's bits (the dense run's
-    weight decay and momentum move them) and every touched row within
-    MF_RUN_RTOL of the scale (the lazy update leaves a row's momentum and
-    weight decay alone in the steps that skip it, and the predictions part
-    from there).  ms a step of each."""
+    ``Embedding(sparse_grad=True)``: the lazy update.  A checked run holds
+    every step against the plain lazy reference within MF_RTOL; after
+    the first step (from the same start, the same arithmetic on the rows
+    it touched) those rows are within MF_RTOL of the dense-gradient
+    run's and every other row has the start's bits; after all steps the
+    rows no step touched still have the start's bits (the dense run's
+    weight decay and momentum move them).  ms a step of a second lazy
+    run, which checks nothing, and of the dense run."""
     import mxnet_tpu_torch as mx
 
     batches = mf_batches(torch)
+    checked = mf_run(torch, mx, True, batches, check=True)
     lazy = mf_run(torch, mx, True, batches)
     dense = mf_run(torch, mx, False, batches)
     what = (f"factorisation {MF_USERS} users x {MF_ITEMS} items x "
             f"{MF_FACTORS}, batch {MF_BATCH}, Zipf({MF_ZIPF}) items, SGD "
             f"{MF_SGD}")
-    expect(all(np.isfinite(lazy["losses"] + dense["losses"])),
+    expect(all(np.isfinite(checked["losses"] + lazy["losses"]
+                           + dense["losses"])),
            f"{what}: losses not finite")
     notes = []
     for k, name in enumerate(("user", "item")):
-        n = (MF_USERS, MF_ITEMS)[k]
-        start = lazy["start"][k]
+        start, ref = checked["start"][k], checked["refs"][k]
         expect(torch.equal(start, dense["start"][k]),
                f"{what}: the two runs start from different {name} tables")
-        scale = float(dense["tables"][k].abs().max())
-        step1 = lazy["rows"][k][0]
-        rest1 = torch.ones(n, dtype=torch.bool, device=DEVICE)
+        scale = float(dense["first"][k].abs().max())
+        step1 = ref.first_rows
+        rest1 = torch.ones_like(ref.touched)
         rest1[step1] = False
-        gap1 = float((lazy["first"][k][step1]
+        gap1 = float((checked["first"][k][step1]
                       - dense["first"][k][step1]).abs().max())
-        kept1 = torch.equal(lazy["first"][k][rest1], start[rest1])
+        kept1 = torch.equal(checked["first"][k][rest1], start[rest1])
         expect(kept1 and gap1 <= MF_RTOL * scale,
                f"{what}: after the first step the {name} rows it left kept "
                f"their bits: {kept1}; the rows it touched {gap1:.3e} from "
                f"the dense run (bound {MF_RTOL} x {scale:.3e})")
-        counts = torch.zeros(n, dtype=torch.int64, device=DEVICE)
-        for r in lazy["rows"][k]:
-            counts[r] += 1
-        never = (counts == 0).nonzero().reshape(-1)
-        touched = (counts > 0).nonzero().reshape(-1)
-        w_lazy, w_dense = lazy["tables"][k], dense["tables"][k]
-        kept = torch.equal(w_lazy[never], start[never])
-        gap = float((w_lazy[touched] - w_dense[touched]).abs().max())
-        moved = float((w_dense[never] - start[never]).abs().max()) \
-            if never.numel() else 0.0
+        never = (~ref.touched).nonzero().reshape(-1)
+        kept = torch.equal(checked["tables"][k][never], start[never])
+        moved = float((dense["tables"][k][never] - start[never]).abs()
+                      .max()) if never.numel() else 0.0
         expect(kept, f"{what}: {name} rows no step touched changed in the "
                f"sparse run")
-        expect(gap <= MF_RUN_RTOL * scale,
-               f"{what}: touched {name} rows {gap:.3e} from the dense run, "
-               f"beyond {MF_RUN_RTOL} x {scale:.3e}")
         notes.append(f"{name}: step 1 touched {step1.numel()} rows "
                      f"({gap1:.3e} from dense), the rest the start's bits; "
-                     f"after {MF_STEPS} steps {never.numel()} rows never "
-                     f"touched (the start's bits; dense moved them up to "
-                     f"{moved:.3e}), {touched.numel()} touched "
-                     f"({int((counts == MF_STEPS).sum())} every step) "
-                     f"{gap:.3e} from dense, scale {scale:.3e}")
+                     f"every step within {ref.gap:.3e} of the plain lazy "
+                     f"reference (bound {MF_RTOL} of the scale); after "
+                     f"{MF_STEPS} steps {never.numel()} rows never touched "
+                     f"(the start's bits; dense moved them up to "
+                     f"{moved:.3e})")
     log(f"sparse [{what}]: " + "; ".join(notes))
     log(f"sparse [{what}, {card_line(smi_line)}]: row_sparse (lazy) "
         f"{lazy['ms']:.3f} ms/step vs dense {dense['ms']:.3f} ms/step = "
-        f"{lazy['ms'] / dense['ms']:.3f}x; losses lazy "
-        f"{[round(v, 4) for v in lazy['losses'][::5]]} dense "
+        f"{lazy['ms'] / dense['ms']:.3f}x (no check in either timed run); "
+        f"losses lazy {[round(v, 4) for v in lazy['losses'][::5]]} dense "
         f"{[round(v, 4) for v in dense['losses'][::5]]}")
     return {"lazy_ms": lazy["ms"], "dense_ms": dense["ms"]}
 
@@ -7249,7 +7297,9 @@ def onnx_resnet(torch, smi_line, tmp):
     ``onnx.import_to_function`` run on card tensors; ONNX_IMAGES seeded
     images through the block and the imported function (at batch 1 one
     by one, at batch 64 among the batch) within ONNX_RTOL of the logits'
-    scale; export seconds, file size, and the imported function's ms
+    scale; numpy inputs under ``mx.gpu()`` run on the card with the card
+    inputs' bits; a call makes no synchronizing copy (sync debug mode
+    "error"); export seconds, file size, and the imported function's ms
     against the block's (CUDA events)."""
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch import autograd, initializer
@@ -7284,6 +7334,18 @@ def onnx_resnet(torch, smi_line, tmp):
             err = max(errs)
             expect(err <= ONNX_RTOL, f"onnx b{n}: the imported function "
                    f"{err:.3e} of the logits' scale from the block")
+            with mx.gpu():
+                from_np = fn(images[:n])[0]
+            np_err = float((from_np - fn(x)[0]).abs().max()) / float(
+                from_np.abs().max())
+            expect(from_np.device.type == "cuda" and np_err <= ONNX_RTOL,
+                   f"onnx b{n}: numpy inputs under mx.gpu() ran on "
+                   f"{from_np.device}, {np_err:.3e} from card inputs")
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                fn(x)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
             ms_fn = time_ms(torch, lambda: fn(x), 10, flush)
             ms_blk = time_ms(torch, lambda: net(x), 10, flush)
         size = os.path.getsize(path)

@@ -43,7 +43,7 @@ from ..context import current_context
 from ..ndarray.ndarray import (NDArray, _NARROW, _wrap as _nd_wrap,
                                as_tensor, invoke,  # noqa: F401
                                tensor_from_numpy)
-from ..parallel.functional import running_eagerly
+from ..parallel.functional import check_concrete
 
 pi = _onp.pi
 e = _onp.e
@@ -215,12 +215,10 @@ def _axis_flat(a, axis):
 
 def _check_concrete(name):
     """Data-dependent sizes are read on the host: not inside a graph."""
-    if running_eagerly() or (torch.cuda.is_available()
-                             and torch.cuda.is_current_stream_capturing()):
-        raise TypeError(
-            f"np.{name} has a data-dependent output size, read on the "
-            f"host: it cannot run inside a captured graph or a "
-            f"hybridized body (keep it outside, as jnp under jit)")
+    check_concrete(
+        f"np.{name} has a data-dependent output size, read on the host: "
+        f"it cannot run inside a captured graph or a hybridized body "
+        f"(keep it outside, as jnp under jit)")
 
 
 def _index_dtype(t):

@@ -4,10 +4,12 @@ path).
 
 ``parse_model`` reads the binary directly (no onnx package);
 ``import_to_function`` returns ``fn(*inputs) -> list of tensors`` that
-evaluates the graph with torch ops on the device of its inputs (the
-initializers are copied there once per device).  It reads what either
-package's exporter writes, and small third-party inference models of
-the same ops.
+evaluates the graph with torch ops on the device of its first tensor
+input, else on ``current_context()``'s (the initializers are copied
+there once per device).  The integer initializers that a node reads as
+a shape, axes, pads or slice bounds stay on the host, so a call reads
+no value back from the card.  It reads what either package's exporter
+writes, and small third-party inference models of the same ops.
 """
 from __future__ import annotations
 
@@ -148,6 +150,14 @@ def parse_model(path):
 
 def _ints(t):
     return [int(v) for v in t.reshape(-1).tolist()]
+
+
+# The input slots that ``_eval_node`` reads on the host (``_ints``, the
+# Pad value): an initializer there is passed as its host tensor.
+_HOST_SLOTS = {"Reshape": (1,), "Squeeze": (1,), "Unsqueeze": (1,),
+               "Expand": (1,), "Slice": (1, 2, 3, 4), "Pad": (1, 2),
+               "ReduceSum": (1,), "ReduceMean": (1,), "ReduceMax": (1,),
+               "ReduceMin": (1,)}
 
 
 def _pads(x, pads, nsp, value):
@@ -349,7 +359,9 @@ def _eval_node(op, ins, attrs):
     raise NotImplementedError(f"ONNX import: unsupported op {op!r}")
 
 
-def _as_input(x):
+def _as_input(x, device):
+    """A tensor or NDArray as it is; anything else (numpy arrays, lists)
+    as a tensor on ``device``."""
     from ..ndarray.ndarray import NDArray
     if isinstance(x, NDArray):
         return x._data
@@ -358,20 +370,29 @@ def _as_input(x):
     a = np.asarray(x)
     if a.dtype.itemsize == 2 and (a.dtype.kind == "V"
                                   or a.dtype.name == "bfloat16"):
-        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
-    return torch.from_numpy(np.ascontiguousarray(a))
+        t = torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.ascontiguousarray(a))
+    return t.to(device)
 
 
 def import_to_function(path):
     """Load an ONNX file -> ``fn(*inputs) -> list of tensors``; the
-    inputs are tensors, NDArrays or numpy arrays, and the graph runs on
-    the first input's device."""
+    inputs are tensors, NDArrays or numpy arrays.  The graph runs on the
+    first tensor input's device, else on ``current_context()``'s, where
+    the numpy inputs go too."""
+    from ..context import current_context
+    from ..ndarray.ndarray import NDArray
     nodes, inits, in_names, out_names = parse_model(path)
+    host = [[inits[n] if n in inits and k in _HOST_SLOTS.get(op, ()) else
+             None for k, n in enumerate(ins)] for op, ins, _, _ in nodes]
     on_device = {}
 
     def fn(*inputs):
-        xs = [_as_input(x) for x in inputs]
-        dev = xs[0].device if xs else torch.device("cpu")
+        tensors = [x._data if isinstance(x, NDArray) else x for x in inputs
+                   if isinstance(x, (NDArray, torch.Tensor))]
+        dev = tensors[0].device if tensors else current_context().device
+        xs = [_as_input(x, dev) for x in inputs]
         consts = on_device.get(dev)
         if consts is None:
             consts = on_device[dev] = {k: v.to(dev)
@@ -379,11 +400,12 @@ def import_to_function(path):
         env = dict(consts)
         env.update(zip(in_names, xs))
         with torch.no_grad():
-            for op, ins, outs, attrs in nodes:
+            for (op, ins, outs, attrs), pinned in zip(nodes, host):
                 # an empty name is an omitted optional input: the slot
                 # stays None so later inputs keep their positions
                 env[outs[0]] = _eval_node(
-                    op, [env[i] if i else None for i in ins], dict(attrs))
+                    op, [h if h is not None else env[i] if i else None
+                         for i, h in zip(ins, pinned)], dict(attrs))
         return [env[o] for o in out_names]
 
     return fn

@@ -14,10 +14,12 @@ from __future__ import annotations
 import contextlib
 import threading
 
+import torch
+
 from .. import autograd as _autograd
 
 __all__ = ["param_names_and_values", "trainable_split", "functional_call",
-           "run_eagerly", "running_eagerly"]
+           "run_eagerly", "running_eagerly", "check_concrete"]
 
 _eager = threading.local()
 
@@ -37,6 +39,15 @@ def run_eagerly():
 def running_eagerly():
     """True inside ``run_eagerly`` on this thread."""
     return getattr(_eager, "depth", 0) > 0
+
+
+def check_concrete(message):
+    """Raise ``TypeError(message)`` inside ``run_eagerly`` or a CUDA graph
+    capture: an op whose output size depends on the data reads it on the
+    host, which neither allows (as a tracer raises in the JAX package)."""
+    if running_eagerly() or (torch.cuda.is_available()
+                             and torch.cuda.is_current_stream_capturing()):
+        raise TypeError(message)
 
 
 def param_names_and_values(block):

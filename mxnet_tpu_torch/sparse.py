@@ -24,7 +24,7 @@ import torch
 
 from .context import current_context, resolve_device
 from .ndarray.ndarray import SPARSE_TYPES, NDArray, tensor_from_numpy
-from .parallel.functional import running_eagerly
+from .parallel.functional import check_concrete
 
 __all__ = ["RowSparseNDArray", "CSRNDArray", "BaseSparseNDArray",
            "cast_storage", "row_sparse_array", "csr_matrix", "zeros",
@@ -33,12 +33,10 @@ __all__ = ["RowSparseNDArray", "CSRNDArray", "BaseSparseNDArray",
 
 
 def _check_concrete():
-    if running_eagerly() or (torch.cuda.is_available()
-                             and torch.cuda.is_current_stream_capturing()):
-        raise TypeError(
-            "sparse storage construction is data-dependent (nnz) and "
-            "eager-only; inside a captured graph or a hybridized body keep "
-            "dense storage")
+    check_concrete(
+        "sparse storage construction is data-dependent (nnz) and "
+        "eager-only; inside a captured graph or a hybridized body keep "
+        "dense storage")
 
 
 def _tensor(x, device, dtype=None):

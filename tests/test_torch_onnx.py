@@ -282,3 +282,64 @@ def test_export_and_import_on_the_card(tmp_path):
     got = tmx.onnx.import_to_function(path)(x)[0]
     assert got.is_cuda
     torch.testing.assert_close(got, net(x), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_numpy_inputs_follow_the_context_and_read_nothing_back(tmp_path):
+    """Numpy inputs go to ``current_context()``'s card, so the imported
+    function runs there; the shape initializers stay on the host, so a
+    call on card tensors (once the initializers are there) makes no
+    synchronizing copy.  1e-4: the same cuBLAS/cuDNN products."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    with tmx.gpu():
+        net = _convnet(tmx, "onp_gpu_")
+        net.initialize(tmx.init.Xavier(), ctx=tmx.gpu())
+        x = np.random.RandomState(13).rand(2, 3, 8, 8).astype(np.float32)
+        path = str(tmp_path / "c.onnx")
+        tmx.onnx.export_model(net, nd.array(x), path)
+        fn = tmx.onnx.import_to_function(path)
+        got = fn(x)[0]
+        assert got.is_cuda
+        xc = torch.from_numpy(x).cuda()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            again = fn(xc)[0]
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        want = net(xc)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(again, want, rtol=1e-4, atol=1e-4)
+
+
+def test_numpy_inputs_use_the_context_device(tmp_path):
+    """Under ``with cpu()`` numpy inputs and a call with no inputs at
+    all run on the CPU (exact: the same ops).  The shape, axes and pads
+    initializers stay host tensors: on ``meta`` tensors, which hold no
+    values to read back, the graph still runs to the right shapes."""
+    path = str(tmp_path / "r.onnx")
+    x = np.random.RandomState(14).randn(2, 3, 4).astype(np.float32)
+    tmx.onnx.export_function(
+        lambda t: t.reshape(6, 4).sum(dim=0, keepdim=True), (x,), path)
+    nodes, inits, _, _ = tmx.onnx.parse_model(path)
+    assert any(op == "Reshape" for op, *_ in nodes)
+    fn = tmx.onnx.import_to_function(path)
+    got = fn(x)[0]
+    assert got.device.type == "cpu"
+    np.testing.assert_array_equal(
+        got.numpy(), torch.from_numpy(x).reshape(6, 4).sum(0, True).numpy())
+    assert fn(torch.empty(2, 3, 4, device="meta"))[0].shape == (1, 4)
+    const = str(tmp_path / "k.onnx")
+    tmx.onnx.export_function(lambda: torch.ones(2, 2) * 3.0, (), const)
+    out = tmx.onnx.import_to_function(const)()[0]
+    assert out.device.type == "cpu" and float(out.sum()) == 12.0
+    net = _convnet(tmx, "onp_meta_")
+    net.initialize(tmx.init.Xavier())
+    conv = str(tmp_path / "c.onnx")
+    xi = np.random.RandomState(15).rand(2, 3, 8, 8).astype(np.float32)
+    tmx.onnx.export_model(net, nd.array(xi), conv)
+    ops = {op for op, *_ in tmx.onnx.parse_model(conv)[0]}
+    assert ops & {"Pad", "Reshape", "Flatten"}, ops
+    meta = tmx.onnx.import_to_function(conv)(
+        torch.empty(2, 3, 8, 8, device="meta"))[0]
+    assert meta.shape == (2, 5)
