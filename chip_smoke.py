@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port (``mxnet_tpu_torch``) on one card.
+"""Smoke run of the PyTorch/CUDA port (``mxnet_tpu_torch``) on the card.
 
     python3 chip_smoke.py
 
-Drives the port's twelve paths end to end on the first CUDA device, with
-random weights from a seed:
+Drives the port's thirteen paths end to end on the first CUDA device
+(the last on a gang of ranks over the machine's cards), with random
+weights from a seed:
 
 - the imperative API: the Gluon MLP loop of
   ``examples/train_mnist_mlp.py``'s ``_run`` (BASELINE config 1) on card
@@ -81,7 +82,12 @@ random weights from a seed:
   sparse-gradient matrix factorisation at MovieLens-10M's counts
   (``Embedding(sparse_grad=True)``, the lazy SGD); ``sparse.dot`` of a
   CSR batch of Criteo's shape; ResNet-50 v1 through ``mx.onnx`` and
-  back.
+  back;
+- data parallelism: the fused ResNet-50 and BERT-base above on a gang of
+  ranks (one a card over NCCL, or two sharing one card over gloo)
+  through ``TrainStep(mesh=make_mesh())`` with f32, bf16 and int8
+  gradient exchange and ``gluon.Trainer(kvstore="dist_sync_device")``,
+  and ``examples/dist_train.py`` as written.
 
 Phases, each of which fails the run (each prints its wall time):
 
@@ -406,12 +412,41 @@ Phases, each of which fails the run (each prints its wall time):
     synchronizing copy a call, export seconds, file size, ms against the
     block's.
 
+21. data parallel: the gang the card machine allows, launched through
+    ``python -m mxnet_tpu_torch.launch --platform gpu`` with this script
+    as each rank (``--dp-worker``): one rank a card over NCCL with 2 or
+    more cards, else 2 ranks sharing the card over gloo (the backend
+    rule; each rank's backend and card printed, card = rank % count);
+    (b) the fused bf16 ResNet-50 (bench_resnet's settings, its CE in
+    f32) on each rank's rows of the global batch 256 through
+    ``TrainStep(mesh=make_mesh())`` with ``grad_reduce`` f32, bf16,
+    int8 and int8 again, 2 + 5 steps each: every rank the same bits
+    (parameters, statistics, losses), 32 launches of each fused kernel
+    a step, two int8 runs under one seed the same losses; the leaves
+    after one f32 step within 3x their bf16 noise floor (the world of
+    one in bf16 against f32) of the world of one; (c) bf16 and int8
+    held one update at a time from the f32 run's states against the
+    same explicit path with an f32 wire, the next loss within 2e-3 /
+    1e-2 (the JAX package's gates), the free-running and sync-BN gaps
+    printed; (a) the world of one over NCCL in this process, its
+    collectives captured in the step's graph; (d) BERT-base (flash,
+    dropout 0.1, bf16 with f32 masters, hybridized) through
+    ``gluon.Trainer(kvstore="dist_sync_device")`` LAMB 1e-3 / wd 0.01
+    on the ranks' rows of 64 x 128, 2 + 5 steps: every rank the same
+    parameters, 12 launches of each flash kernel a step; (e)
+    ``examples/dist_train.py`` as written with the port as ``mx`` in a
+    gang of 2: the same weight checksum on both ranks; (f) ms/step per
+    rank, img/s and tokens/s over the gang against the world of one,
+    and a profiled f32 step's collective and copy ms and busy share,
+    beside the card's name and power limit.
+
 Prints one JSON ``kernels`` line, then the card line, then as the last
 line ``{"ok": true, "device": {...}}``.  Without a card, or without the
 package beside it, it exits non-zero and prints no result.
 ``python3 chip_smoke.py --extras`` runs the build and phase 19 alone,
 ``--np`` the build and phase 20 alone (the TrainStep comparison then
-not measured); neither prints a result line.
+not measured), ``--dp`` the build and phase 21 alone; none of them
+prints a result line.
 """
 from __future__ import annotations
 
@@ -621,6 +656,13 @@ MF_ZIPF, MF_SGD = 1.2, {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}
 MF_RTOL = 1e-5
 CSR_ROWS, CSR_COLS, CSR_NNZ, CSR_RTOL = 8192, 1_000_000, 39, 1e-5
 ONNX_BATCHES, ONNX_IMAGES, ONNX_RTOL = (1, 64), 8, 2e-3
+# data parallel: bench_resnet's global batch split over the ranks, the
+# steps of each run, the loss gates of the compressed gradient exchange
+# against f32's trajectory (the JAX package's, tests/test_quantize.py:
+# 2e-3 relative for bf16, 1e-2 for int8), a gang's time limit
+DP_BATCH, DP_WARMUP, DP_TIMED = 256, 2, 5
+DP_GATES = {"bf16": 2e-3, "int8": 1e-2}
+DP_GANG_TIMEOUT_S = 600
 
 
 def log(msg):
@@ -7391,6 +7433,596 @@ def numpy_sparse_onnx(torch, smi_line, trainstep):
     return out
 
 
+# ------------------------------------------------------------ data parallel --
+def dp_topology(torch):
+    """The gangs the card machine allows: ``(ranks, what)``.  Several
+    cards: one rank a card over NCCL.  One card: two ranks sharing it
+    over gloo (the backend rule gives NCCL only where every rank has a
+    card of its own); the world of one over NCCL runs in this process
+    either way (``dp_reference``)."""
+    count = torch.cuda.device_count()
+    if count >= 2:
+        return count, f"{count} ranks, one card each, over NCCL"
+    return 2, "2 ranks sharing the one card over gloo"
+
+
+def dp_batch(torch, rank, world, device):
+    """bench_resnet's global batch (RandomState(0), DP_BATCH of 224x224x3,
+    1000 classes), this rank's rows of it on ``device``, in bf16."""
+    rng = np.random.RandomState(0)
+    xh = rng.randn(DP_BATCH, 224, 224, 3).astype(np.float32)
+    yh = rng.randint(0, 1000, (DP_BATCH,)).astype(np.int32)
+    b = DP_BATCH // world
+    x = torch.from_numpy(xh[rank * b:(rank + 1) * b]).to(device)
+    y = torch.from_numpy(yh[rank * b:(rank + 1) * b]).to(device)
+    return x.to(torch.bfloat16), y
+
+
+def dp_leaves(step):
+    """The step's parameters and running statistics by name, and their
+    kinds (a ``hold_leaves`` table)."""
+    names = step._names
+    out = {}
+    for i, t in zip(step._train_idx, step._train):
+        out[names[i]] = ("parameter", t)
+    for i, t in zip(step._aux_idx, step._aux):
+        out[names[i]] = ("running statistic", t)
+    return out
+
+
+def same_across_ranks(torch, tensors):
+    """Whether every rank holds rank 0's bits of ``tensors`` (one
+    broadcast per dtype)."""
+    from mxnet_tpu_torch import distributed
+
+    by_dtype = {}
+    for t in tensors:
+        by_dtype.setdefault(t.dtype, []).append(t.detach().reshape(-1))
+    same = True
+    for ts in by_dtype.values():
+        flat = torch.cat(ts)
+        ref = distributed.broadcast(flat, root=0)
+        same = same and torch.equal(ref.to(flat.device), flat)
+    return same
+
+
+def dp_profile(torch, fn, what):
+    """One profiled call: ms of the device's collective work (NCCL kernels;
+    over gloo the host staging copies, the reduction itself running on
+    the host), the device's busy share of the call's wall time."""
+    prof, wall_us, _ = profiled(torch, fn, what)
+    busy = print_profile(prof, wall_us, what)
+    rows = device_rows(prof)
+    nccl = sum(device_us(e) for e in rows if "nccl" in e.key.lower()) / 1e3
+    copies = sum(device_us(e) for e in rows
+                 if "memcpy" in e.key.lower()) / 1e3
+    del prof
+    return {"busy": busy, "nccl_ms": nccl, "copy_ms": copies,
+            "wall_ms": wall_us / 1e3}
+
+
+def step_tensors(step):
+    """Every tensor a step's update reads and writes: parameters, running
+    statistics, optimizer states and the count."""
+    return (list(step._train) + list(step._aux)
+            + [s for st in step._states for s in st] + [step._t])
+
+
+def snapshot(step):
+    return [t.detach().clone() for t in step_tensors(step)]
+
+
+def load_snapshot(torch, step, snap):
+    with torch.no_grad():
+        for t, v in zip(step_tensors(step), snap):
+            t.copy_(v)
+
+
+@contextlib.contextmanager
+def f32_wire():
+    """Inside the block, the explicit path's gradient exchange
+    (``quantize.reduce_gradients``) moves f32 whatever mode it is asked
+    for: the yardstick that isolates a mode's quantization from the
+    explicit path's own semantics (per-shard batch statistics)."""
+    from mxnet_tpu_torch.parallel import quantize
+
+    exchange = quantize.reduce_gradients
+
+    def plain(grads, axis_name, n_dev, mode="int8", key=None,
+              reduce="mean", chunk=quantize.DEFAULT_CHUNK):
+        return exchange(grads, axis_name, n_dev, mode="f32", reduce=reduce)
+    quantize.reduce_gradients = plain
+    try:
+        yield
+    finally:
+        quantize.reduce_gradients = exchange
+
+
+def dp_resnet(torch, modes, save=None):
+    """The fused bf16 ResNet-50 (bench_resnet's settings; the loss's
+    softmax cross-entropy taken in f32, so that its value resolves the
+    gates below bf16's 2**-8) through ``TrainStep(mesh=make_mesh(),
+    grad_reduce=mode)`` for each of ``modes``: DP_WARMUP + DP_TIMED
+    steps on this rank's rows of the global batch.  Per run: the
+    losses, ms/step, launches of each fused kernel a step, whether every
+    rank holds the same parameters, running statistics and losses.  The
+    f32 run's leaves after its first step go to ``save`` (an ``.npz``) on
+    rank 0, and rank 0 profiles one more f32 step.
+
+    The bf16 and int8 runs are also held step by step: from the net's
+    parameters and then from the f32 run's state after each of its
+    updates, one update of the mode and one of its yardstick (the same
+    explicit path, its exchange moving f32: ``f32_wire``), then the loss
+    at the parameters each leaves, taken by the f32 step's forward; the
+    relative gap between the two is what the mode's quantization did in
+    one update (``stepwise``).  The gaps to the f32 run's own next loss
+    (``vs_implicit``) carry the explicit path's per-shard batch
+    statistics too."""
+    from mxnet_tpu_torch import distributed, gluon, optimizer, parallel
+    from mxnet_tpu_torch import random as mxrandom
+    from mxnet_tpu_torch.ops.fused_conv import norm_relu_conv
+
+    rank, world = distributed.rank(), distributed.num_workers()
+    device = distributed.device()
+    net = build_resnet50(torch, fused=True, device=device).cast("bfloat16")
+    x, y = dp_batch(torch, rank, world, device)
+    ce = gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def loss_fn(out, label):
+        return ce(out.float(), label)
+
+    runs, f32_step, snaps = {}, None, []
+    steps = DP_WARMUP + DP_TIMED
+    for label in modes:
+        mode = label.split("-")[0]
+        mxrandom.seed(0)          # each run's rounding stream from one seed
+        step = parallel.TrainStep(
+            net, loss_fn, optimizer.create("sgd", learning_rate=0.1,
+                                           momentum=0.9, wd=1e-4),
+            mesh=parallel.make_mesh(), grad_reduce=mode)
+        distributed.barrier()
+        norm_relu_conv.launches = dict.fromkeys(FUSED, 0)  # the path starts
+        losses = []
+        for i in range(DP_WARMUP):
+            losses.append(float(step(x, y)))
+            if i == 0:          # the parameters after the first update
+                first = [t.detach().clone() for t in step._train + step._aux]
+            if label == "f32" and i == 0:
+                snaps.append(snapshot(step))
+                if save is not None and rank == 0:
+                    np.savez(save, **{
+                        n: t.detach().float().cpu().numpy()
+                        for n, (_, t) in dp_leaves(step).items()},
+                        **{f"kind:{n}": np.array(k)
+                           for n, (k, _) in dp_leaves(step).items()})
+        torch.cuda.synchronize()
+        distributed.barrier()
+        t0 = time.perf_counter()
+        timed = [step(x, y) for _ in range(DP_TIMED)]
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = dict(norm_relu_conv.launches)           # ... and ends
+        losses += [float(v) for v in timed]
+        leaves = dp_leaves(step)
+        same = same_across_ranks(
+            torch, [t for _, t in leaves.values()]
+            + [torch.tensor(losses, dtype=torch.float64)])
+        run = runs[label] = {
+            "losses": losses, "ms_step": 1e3 * dt / DP_TIMED,
+            "per_step": {k: v / steps for k, v in launches.items()},
+            "same": bool(same), "graphs": step.graph_count(),
+            "finite": all(bool(torch.isfinite(t).all())
+                          for _, t in leaves.values())}
+        log(f"dp resnet [rank {rank}/{world} {distributed.backend()}, "
+            f"grad_reduce={mode}, local batch {DP_BATCH // world}]: losses "
+            f"{[round(v, 5) for v in losses]}; {1e3 * dt / DP_TIMED:.1f} "
+            f"ms/step; launches {launches}; graphs {step.graph_count()}; "
+            f"ranks {'the same bits' if same else 'DIFFER'}")
+        if label == "f32":
+            # the reference of the step-by-step gates: from the state
+            # after the first update, the run again, a snapshot after
+            # each update and the loss at it (run["again"][k]: after
+            # k + 1 updates)
+            f32_step = step
+            load_snapshot(torch, step, snaps[0])
+            run["again"] = []
+            for _ in range(steps - 1):
+                run["again"].append(float(step(x, y)))
+                snaps.append(snapshot(step))
+            run["again"].append(float(step(x, y)))
+            what = (f"dp f32 step, rank {rank}/{world} over "
+                    f"{distributed.backend()}, local batch "
+                    f"{DP_BATCH // world}")
+            if rank == 0:
+                run["profile"] = dp_profile(
+                    torch, lambda: float(step(x, y)), what)
+            else:
+                float(step(x, y))
+        elif mode != "f32" and label == mode and f32_step is not None:
+            # step by step from the f32 run's states: one update of the
+            # mode, and one of its yardstick (the same explicit path,
+            # eager, its exchange moving f32), each then evaluated by the
+            # f32 step's forward
+            yard = parallel.TrainStep(
+                net, loss_fn, optimizer.create("sgd", learning_rate=0.1,
+                                               momentum=0.9, wd=1e-4),
+                mesh=parallel.make_mesh(), grad_reduce=mode, capture=False)
+
+            def evaluate(tensors):
+                with torch.no_grad():
+                    for t, v in zip(f32_step._train + f32_step._aux,
+                                    tensors):
+                        t.copy_(v)
+                return float(f32_step(x, y))
+
+            with f32_wire():
+                yard(x, y)          # its first update, from the net's own
+            got, want = [evaluate(first)], [evaluate(yard._train
+                                                     + yard._aux)]
+            implicit = runs["f32"]["losses"][1:2] + runs["f32"]["again"][1:]
+            for snap in snaps[:-1]:
+                for st, out, wire in ((step, got, contextlib.nullcontext),
+                                      (yard, want, f32_wire)):
+                    load_snapshot(torch, st, snap)
+                    with wire():
+                        st(x, y)
+                    out.append(evaluate(st._train + st._aux))
+            run["stepwise"] = [abs(a - b) / abs(b) for a, b in zip(got, want)]
+            run["vs_implicit"] = [abs(a - b) / abs(b)
+                                  for a, b in zip(got, implicit)]
+            run["yard_vs_implicit"] = [abs(a - b) / abs(b)
+                                       for a, b in zip(want, implicit)]
+            log(f"dp resnet [rank {rank}, grad_reduce={mode}]: step by step "
+                f"from the f32 run's states, the next loss's relative gap "
+                f"to the f32 wire {[f'{g:.2e}' for g in run['stepwise']]}, "
+                f"to the f32 run {[f'{g:.2e}' for g in run['vs_implicit']]}")
+            del yard
+        if step is not f32_step:
+            del step
+        del leaves, first
+        torch.cuda.empty_cache()
+    del f32_step, snaps, net
+    gc.collect()
+    torch.cuda.empty_cache()
+    return runs
+
+
+def dp_precision_floor(torch, save):
+    """The bf16 noise floor of a leaf one step from the same parameters:
+    the world of one's bf16 step against the same step in f32 from the
+    same (bf16-rounded) parameters and batch, eager on one card.  Writes
+    the f32 leaves after the first update to ``save``; returns the loss
+    at them."""
+    from mxnet_tpu_torch import gluon, optimizer, parallel
+
+    net = build_resnet50(torch, fused=True).cast("bfloat16").cast("float32")
+    x, y = dp_batch(torch, 0, 1, DEVICE)
+    ce = gluon.loss.SoftmaxCrossEntropyLoss()
+    step = parallel.TrainStep(
+        net, lambda out, label: ce(out.float(), label),
+        optimizer.create("sgd", learning_rate=0.1, momentum=0.9, wd=1e-4),
+        capture=False)
+    step(x.float(), y)
+    np.savez(save, **{n: t.detach().float().cpu().numpy()
+                      for n, (_, t) in dp_leaves(step).items()})
+    loss = float(step(x.float(), y))
+    del step, net
+    gc.collect()
+    torch.cuda.empty_cache()
+    return loss
+
+
+def dp_bert(torch, kvstore):
+    """BERT-base (flash, dropout BERT_DROPOUT, bf16 with f32 masters,
+    hybridized) through ``gluon.Trainer(kvstore=...)`` with LAMB 1e-3 /
+    wd 0.01 on this rank's rows of bench_bert's global batch, DP_WARMUP
+    + DP_TIMED steps: losses, ms/step, flash launches a step, whether
+    every rank ends on the same parameters."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, distributed
+
+    fa = flash_module()
+    rank, world = distributed.rank(), distributed.num_workers()
+    device = distributed.device()
+    net = build_bert(torch, "flash", BERT_DROPOUT, device=device)
+    net.cast("bfloat16")
+    net.hybridize()
+    params = list(net.collect_params().values())
+    tr = mx.gluon.Trainer(params, "lamb", {"learning_rate": 1e-3,
+                                           "wd": 0.01,
+                                           "multi_precision": True},
+                          kvstore=kvstore)
+    tdata, tlabels = bert_batch(torch, BERT_BATCH, device=device)
+    b = BERT_BATCH // world
+
+    def rows(t):
+        return None if t is None else mx.nd.NDArray(t[rank * b:(rank + 1)
+                                                      * b])
+    data = tuple(rows(t) for t in tdata)
+    labels = tuple(rows(t) for t in tlabels)
+    loss_fn = bert_loss_fn()
+
+    def step():
+        with autograd.record():
+            loss = loss_fn(net(*data), labels)
+        loss.backward()
+        tr.step(world)       # the gradients summed over the ranks / world
+        return loss
+
+    mx.random.seed(1)
+    distributed.barrier()
+    fa.flash_attention.launches = dict.fromkeys(FLASH, 0)  # the path starts
+    losses = [float(step().asnumpy()) for _ in range(DP_WARMUP)]
+    torch.cuda.synchronize()
+    distributed.barrier()
+    t0 = time.perf_counter()
+    timed = [step() for _ in range(DP_TIMED)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(fa.flash_attention.launches)         # ... and ends here
+    losses += [float(v.asnumpy()) for v in timed]
+    steps = DP_WARMUP + DP_TIMED
+    same = same_across_ranks(torch, [p.tensor() for p in params])
+    out = {"losses": losses, "ms_step": 1e3 * dt / DP_TIMED,
+           "per_step": {k: v / steps for k, v in launches.items()},
+           "same": bool(same), "units": net.graph_count(),
+           "finite": all(bool(torch.isfinite(p.tensor()).all())
+                         for p in params)}
+    log(f"dp bert [rank {rank}/{world} {distributed.backend()}, kvstore "
+        f"{kvstore}, local batch {b} x {BERT_SEQ}]: losses "
+        f"{[round(v, 4) for v in losses]}; {1e3 * dt / DP_TIMED:.1f} "
+        f"ms/step; flash launches {launches}; parameters "
+        f"{'the same bits' if same else 'DIFFER'} across ranks")
+    net.hybridize(active=False)
+    del net, tr, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def dp_worker(torch, root, outdir, task):
+    """One rank of a gang the phase launches (``python3 chip_smoke.py
+    --dp-worker <outdir> <task>`` under ``mxnet_tpu_torch.launch``):
+    ``train`` runs the ResNet-50 and BERT runs, ``example`` runs
+    ``examples/dist_train.py`` as written.  Writes ``<task>-r<rank>.json``
+    into ``outdir``."""
+    import mxnet_tpu_torch  # noqa: F401  (joins the gang at import)
+    from mxnet_tpu_torch import distributed
+    from mxnet_tpu_torch.ops import cuda as kcuda
+
+    rank, world = distributed.rank(), distributed.num_workers()
+    device = distributed.device()
+    res = {"rank": rank, "world": world, "backend": distributed.backend(),
+           "card": device.index, "cards_seen": torch.cuda.device_count(),
+           "name": torch.cuda.get_device_name(device)}
+    log(f"dp topology: rank {rank}/{world} over {res['backend']} on "
+        f"cuda:{device.index} ({res['name']}) of {res['cards_seen']} "
+        f"cards seen")
+    kcuda.build_all()           # the phase built them: this loads them
+    if task == "train":
+        if rank == 0:
+            warm_profiler(torch)
+        res["resnet"] = dp_resnet(
+            torch, ("f32", "bf16", "int8", "int8-again"),
+            save=os.path.join(outdir, "gang-f32.npz"))
+        res["bert"] = dp_bert(torch, "dist_sync_device")
+    else:
+        res["example"] = run_example(root, "dist_train", [])
+    with open(os.path.join(outdir, f"{task}-r{rank}.json"), "w") as f:
+        json.dump(res, f)
+    distributed.barrier("done", timeout=120)
+    return 0
+
+
+def dp_gang(root, outdir, world, task):
+    """A gang of ``world`` ranks of ``dp_worker`` through the port's
+    launcher (``--platform gpu``: every rank sees every card and takes
+    card ``rank % count``); its output is logged; returns the ranks'
+    results."""
+    cmd = [sys.executable, "-m", "mxnet_tpu_torch.launch", "-n", str(world),
+           "--platform", "gpu", "--graceful-secs", "5", sys.executable,
+           os.path.join(root, "chip_smoke.py"), "--dp-worker", outdir, task]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=root, env=env, capture_output=True,
+                          text=True, timeout=DP_GANG_TIMEOUT_S)
+    for line in proc.stdout.splitlines():
+        log(f"gang {task}: {line}")
+    tail = proc.stderr.strip().splitlines()[-40:]
+    if proc.returncode != 0:
+        for line in tail:
+            log(f"gang {task} stderr: {line}")
+    expect(proc.returncode == 0, f"dp gang {task} of {world} failed "
+           f"(rc {proc.returncode})")
+    log(f"dp gang {task}: {world} ranks in {time.perf_counter() - t0:.1f} s")
+    return [json.load(open(os.path.join(outdir, f"{task}-r{r}.json")))
+            for r in range(world)]
+
+
+def dp_reference(torch, outdir):
+    """The world of one over NCCL in this process: ``distributed.init``
+    with a coordinator and one process, then the f32 ResNet-50 on the
+    whole global batch through the same ``TrainStep(mesh=make_mesh())``
+    — its collectives real NCCL calls of a group of one, captured in the
+    step's graph — and BERT-base under a local store; the group is left
+    again after."""
+    import socket
+
+    from mxnet_tpu_torch import distributed
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    distributed.init(coordinator=f"127.0.0.1:{port}", num_processes=1,
+                     process_id=0)
+    try:
+        expect(distributed.backend() == "nccl",
+               f"a world of one on a card runs over "
+               f"{distributed.backend()}, not NCCL")
+        log(f"dp topology: the world of one over {distributed.backend()} on "
+            f"cuda:{distributed.device().index}")
+        ref = {"resnet": dp_resnet(torch, ("f32",), save=os.path.join(
+            outdir, "ref-f32.npz")), "bert": dp_bert(torch, "device")}
+    finally:
+        distributed.shutdown()
+    ref["f32_loss"] = dp_precision_floor(torch, os.path.join(outdir,
+                                                             "ref32.npz"))
+    expect(ref["resnet"]["f32"]["graphs"] == 1,
+           f"the world of one's step holds {ref['resnet']['f32']['graphs']}"
+           f" graphs, not 1 (its NCCL collectives captured)")
+    return ref
+
+
+def dp_hold(torch, ranks, ref, world, outdir):
+    """The phase's checks over the gang's results and the world of one."""
+    per_step = dict.fromkeys(FUSED, FUSED_PER_STEP)
+    for r in ranks:
+        for label, run in r["resnet"].items():
+            expect(run["same"], f"dp resnet {label}: rank {r['rank']}'s "
+                   f"parameters, statistics or losses differ from rank 0's")
+            expect(run["finite"] and all(np.isfinite(run["losses"])),
+                   f"dp resnet {label}: not finite on rank {r['rank']}")
+            expect(run["per_step"] == per_step,
+                   f"dp resnet {label}: rank {r['rank']} launched "
+                   f"{run['per_step']} a step, expected {per_step}")
+        expect(r["bert"]["same"], f"dp bert: rank {r['rank']}'s parameters "
+               f"differ from rank 0's")
+        expect(r["bert"]["per_step"] == dict.fromkeys(FLASH, BERT_LAYERS),
+               f"dp bert: rank {r['rank']} launched {r['bert']['per_step']}"
+               f" flash kernels a step, expected {BERT_LAYERS} each")
+        expect(r["bert"]["losses"][-1] < r["bert"]["losses"][0],
+               f"dp bert: the loss did not fall {r['bert']['losses']}")
+    run0 = ranks[0]["resnet"]
+    f32 = run0["f32"]["losses"]
+    again = [abs(a - b) / abs(b) for a, b in zip(run0["f32"]["again"],
+                                                  f32[1:])]
+    log(f"dp resnet: the f32 run again from its state after one update, "
+        f"relative gap of each loss to the first run's "
+        f"{[f'{g:.2e}' for g in again]}")
+    for mode in ("bf16", "int8"):
+        free = [abs(a - b) / abs(b) for a, b in zip(run0[mode]["losses"],
+                                                    f32)]
+        gaps = run0[mode]["stepwise"]
+        log(f"dp resnet: grad_reduce={mode}, one update from the same state "
+            f"against the explicit path with the f32 wire, relative gap "
+            f"of the next loss {[f'{g:.2e}' for g in gaps]} (gate "
+            f"{DP_GATES[mode]}); against the f32 run (sync-BN) "
+            f"{[f'{g:.2e}' for g in run0[mode]['vs_implicit']]}, the f32 "
+            f"wire against it {[f'{g:.2e}' for g in run0[mode]['yard_vs_implicit']]}"
+            f"; free-running losses against f32's "
+            f"{[f'{g:.2e}' for g in free]} (not held: the f32 run's own "
+            f"reproducibility is printed below)")
+        expect(max(gaps) < DP_GATES[mode], f"dp resnet {mode}: one "
+               f"update left the f32 wire's next loss by {max(gaps):.3e}")
+    expect(run0["int8"]["losses"] == run0["int8-again"]["losses"],
+           "dp resnet: two int8 runs under one seed differ")
+    from mxnet_tpu_torch.gluon.model_zoo.vision.resnet import _strip
+
+    gang = np.load(os.path.join(outdir, "gang-f32.npz"))
+    one = np.load(os.path.join(outdir, "ref-f32.npz"))
+    one32 = np.load(os.path.join(outdir, "ref32.npz"))
+    # the same net, named from each process's own block counters
+    gnames = _strip(n for n in gang.files if not n.startswith("kind:"))
+    onames = _strip(n for n in one.files if not n.startswith("kind:"))
+    fnames = _strip(one32.files)
+    expect(sorted(gnames) == sorted(onames) == sorted(fnames),
+           "dp resnet: the gang's leaves are not the world of one's")
+    keys = sorted(onames)
+    kinds = [(k, str(one[f"kind:{onames[k]}"])) for k in keys]
+
+    def leaves(npz, names, loss):
+        return [torch.tensor([loss], dtype=torch.float64)] + [
+            torch.from_numpy(npz[names[k]]).double() for k in keys]
+    hold_leaves(torch, [("loss", "loss")] + kinds,
+                leaves(gang, gnames, run0["f32"]["losses"][1]),
+                leaves(one, onames, ref["resnet"]["f32"]["losses"][1]),
+                leaves(one32, fnames, ref["f32_loss"]),
+                f"dp f32 resnet50_v1 bf16, {world} ranks vs the world of "
+                f"one on the global batch {DP_BATCH}, one step from the "
+                f"same parameters; floor: the world of one in bf16 vs f32")
+    gaps = [abs(a - b) / abs(b) for a, b in zip(
+        run0["f32"]["losses"], ref["resnet"]["f32"]["losses"])]
+    log(f"dp resnet: f32 losses {world} ranks vs the world of one (the "
+        f"same function summed in another order), relative gap per step "
+        f"{[f'{g:.2e}' for g in gaps]}: the trajectory's own "
+        f"reproducibility")
+
+
+def data_parallel(torch, root, smi_line):
+    """The "data parallel" phase (21 above).  Returns the launches of the
+    dp path per kernel and the numbers."""
+    import shutil
+
+    outdir = tempfile.mkdtemp(prefix="dp-")
+    try:
+        return _data_parallel(torch, root, smi_line, outdir)
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+
+
+def _data_parallel(torch, root, smi_line, outdir):
+    world, what = dp_topology(torch)
+    log(f"dp topology: {torch.cuda.device_count()} card(s) seen; the gang: "
+        f"{what}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks = dp_gang(root, outdir, world, "train")
+    backends = {r["backend"] for r in ranks}
+    cards = {r["rank"]: r["card"] for r in ranks}
+    want = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
+    expect(backends == {want}, f"dp: the gang ran over {backends}, the "
+           f"backend rule gives {want}")
+    expect(all(c == r % torch.cuda.device_count() for r, c in cards.items()),
+           f"dp: rank -> card {cards}, expected rank % "
+           f"{torch.cuda.device_count()}")
+    log(f"dp topology: {world} ranks over {want}, rank -> card {cards}")
+    ref = dp_reference(torch, outdir)
+    dp_hold(torch, ranks, ref, world, outdir)
+    example = dp_gang(root, outdir, 2, "example")
+    sums = [re.findall(r"weight checksum=(\S+)", r["example"])
+            for r in example]
+    expect(all(len(s) == 1 for s in sums) and sums[0] == sums[1],
+           f"dist_train.py: the ranks' weight checksums {sums} differ")
+    log(f"dp example dist_train.py on {example[0]['backend']}: both ranks "
+        f"end on weight checksum {sums[0][0]}")
+    # (f) the numbers
+    ms = {m: [r["resnet"][m]["ms_step"] for r in ranks]
+          for m in ("f32", "bf16", "int8")}
+    one_ms = ref["resnet"]["f32"]["ms_step"]
+    numbers = {"resnet": {}, "bert": {}}
+    for mode, per in ms.items():
+        img_s = DP_BATCH / (max(per) / 1e3)
+        numbers["resnet"][mode] = {"ms_step": per, "img_s": img_s}
+        log(f"dp numbers [{card_line(smi_line)}]: resnet50_v1 bf16 "
+            f"grad_reduce={mode}, {world} ranks ({want}): ms/step per rank "
+            f"{[round(v, 1) for v in per]} = {img_s:.1f} img/s over the "
+            f"gang vs the world of one (NCCL, captured) {one_ms:.1f} ms/step"
+            f" = {DP_BATCH / (one_ms / 1e3):.1f} img/s")
+    bper = [r["bert"]["ms_step"] for r in ranks]
+    tok = BERT_BATCH * BERT_SEQ / (max(bper) / 1e3)
+    one_tok = BERT_BATCH * BERT_SEQ / (ref["bert"]["ms_step"] / 1e3)
+    numbers["bert"] = {"ms_step": bper, "tok_s": tok, "one_tok_s": one_tok}
+    log(f"dp numbers [{card_line(smi_line)}]: BERT-base gluon.Trainer "
+        f"dist_sync_device, {world} ranks ({want}): ms/step per rank "
+        f"{[round(v, 1) for v in bper]} = {tok:.1f} tokens/s over the gang"
+        f" vs one rank under a local store {ref['bert']['ms_step']:.1f} "
+        f"ms/step = {one_tok:.1f} tokens/s")
+    for who, prof in (("gang rank 0", ranks[0]["resnet"]["f32"]["profile"]),
+                      ("world of one", ref["resnet"]["f32"]["profile"])):
+        log(f"dp numbers [{card_line(smi_line)}]: profiled f32 step, {who}:"
+            f" wall {prof['wall_ms']:.1f} ms, busy {100 * prof['busy']:.1f}"
+            f"%, NCCL kernels {prof['nccl_ms']:.3f} ms, copies "
+            f"{prof['copy_ms']:.3f} ms")
+    numbers["profile"] = {"gang": ranks[0]["resnet"]["f32"]["profile"],
+                          "one": ref["resnet"]["f32"]["profile"]}
+    return {"launches": {k: int(v * (DP_WARMUP + DP_TIMED))
+                         for k, v in ranks[0]["resnet"]["f32"]["per_step"]
+                         .items()},
+            "flash": {k: int(v * (DP_WARMUP + DP_TIMED))
+                      for k, v in ranks[0]["bert"]["per_step"].items()},
+            "numbers": numbers, "backend": want, "world": world}
+
 
 class phase:
     """Print a phase's wall time on its own line when it ends."""
@@ -7425,6 +8057,12 @@ def main():
               f"this script ({exc})", file=sys.stderr)
         return 2
 
+    if sys.argv[1:2] == ["--dp-worker"]:
+        try:
+            return dp_worker(torch, root, *sys.argv[2:4])
+        except SmokeError as exc:
+            print(f"chip_smoke: dp worker FAILED: {exc}", file=sys.stderr)
+            return 1
     try:
         name, count, smi_line = card_report(torch)
         with phase("build"):
@@ -7437,6 +8075,10 @@ def main():
         if sys.argv[1:] == ["--np"]:
             with phase("numpy, sparse, ONNX"):
                 numpy_sparse_onnx(torch, smi_line, None)
+            return 0
+        if sys.argv[1:] == ["--dp"]:
+            with phase("data parallel"):
+                data_parallel(torch, root, smi_line)
             return 0
         with phase("imperative"):
             # first: its backward is the first CUDA work of autograd's
@@ -7650,6 +8292,10 @@ def main():
             extras = one_card_extras(torch, smi_line, bert)
         with phase("numpy, sparse, ONNX"):
             npso = numpy_sparse_onnx(torch, smi_line, bert)
+            gc.collect()
+            torch.cuda.empty_cache()
+        with phase("data parallel"):
+            dp = data_parallel(torch, root, smi_line)
     except SmokeError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -7686,7 +8332,8 @@ def main():
                                      classifier["resnet"]["launches"]
                                      if kern == "fwd" else 0,
                                  "estimator":
-                                     extras["estimator"]["launches"][kern]}})
+                                     extras["estimator"]["launches"][kern],
+                                 "dp": dp["launches"][kern]}})
         if kern == "fwd":
             kernels["kernels"][-1]["serving_small_n"] = {
                 f"N={n}": {"ms_per_launch": t["ms"] / FUSED_PER_STEP,
@@ -7708,7 +8355,8 @@ def main():
                                  "nd": pipeline["nd"]["flash"][kern],
                                  "symbolic": symbolic["launches"][kname],
                                  "amp": extras["amp"]["launches"][kern],
-                                 "np": npso["np"]["launches"][kern]}})
+                                 "np": npso["np"]["launches"][kern],
+                                 "dp": dp["flash"][kern]}})
     print(json.dumps(kernels), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -90,8 +90,15 @@ snapshots they resume from), ``engine``,
 ``optimizer``, ``parallel``, ``profiler``, ``random``, ``recordio``,
 ``serving``, ``storage``, the symbolic names above,
 ``Context``/``cpu``/``cpu_pinned``/``gpu``/``current_context``,
-``num_gpus``, ``gpu_memory_info``, ``MXNetError`` and ``waitall``.
+``num_gpus``, ``gpu_memory_info``, ``MXNetError`` and ``waitall``;
+``distributed`` (the process group: one process per card), ``kvstore``
+(``kv``) and ``parallel``'s mesh for data parallelism.  Under the
+launcher's DMLC_* env with more than one worker, importing the package
+joins the process group (``distributed.init()``), as the JAX package
+connects its coordination service at import.
 """
+import os as _os
+
 from . import base, config, storage
 from . import (amp, autograd, context, elastic, engine, gluon, image, initializer,
                io, lr_scheduler, metric, ndarray, optimizer, parallel,
@@ -100,6 +107,7 @@ from . import (attribute, callback, executor, model, module, monitor, name,
                rnn, serving, symbol, visualization)
 from . import contrib, log, operator, runtime, test_utils, util
 from . import numpy, numpy_extension, onnx, sparse
+from . import distributed, kvstore
 from .attribute import AttrScope
 from .base import MXNetError
 from .context import (Context, cpu, cpu_pinned, current_context, gpu,
@@ -116,8 +124,12 @@ mod = module
 mon = monitor
 viz = visualization
 waitall = engine.waitall
+kv = kvstore
 
 config._apply_startup()
+
+if int(_os.environ.get("DMLC_NUM_WORKER", "0") or 0) > 1:
+    distributed.init()
 
 __all__ = ["amp", "autograd", "base", "config", "context", "elastic", "engine",
            "gluon",
@@ -130,4 +142,5 @@ __all__ = ["amp", "autograd", "base", "config", "context", "elastic", "engine",
            "rnn", "serving", "symbol", "sym", "visualization", "viz",
            "MXNetError", "NDArray", "waitall", "contrib", "log", "operator",
            "runtime", "test_utils", "util", "np", "npx", "numpy",
-           "numpy_extension", "onnx", "sparse"]
+           "numpy_extension", "onnx", "sparse", "distributed", "kvstore",
+           "kv"]

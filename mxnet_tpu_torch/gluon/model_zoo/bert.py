@@ -52,8 +52,9 @@ class BERTAttentionCell(HybridBlock):
                              "'ulysses')")
         if attention_impl in ("ring", "ulysses"):
             raise NotImplementedError(
-                f"attention_impl='{attention_impl}' runs over a device "
-                f"mesh, which the port does not have yet")
+                f"attention_impl='{attention_impl}' runs over a sequence-"
+                f"parallel mesh axis, which the port does not run yet "
+                f"(ROADMAP A15b)")
         self._units = units
         self._heads = num_heads
         self._dropout = dropout

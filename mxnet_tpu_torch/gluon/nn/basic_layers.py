@@ -165,7 +165,9 @@ class BatchNorm(HybridBlock):
 
 
 class SyncBatchNorm(BatchNorm):
-    """BatchNorm with statistics over every device's batch: on one card,
+    """BatchNorm with statistics over every device's batch.  The port's
+    ``BatchNorm`` already takes them over every rank's batch inside a
+    data-parallel ``TrainStep`` (``ops.nn.stats_over``), so this is
     BatchNorm (``num_devices`` is accepted)."""
 
     def __init__(self, in_channels=0, num_devices=None, **kwargs):

@@ -18,7 +18,7 @@ reference's interleaved self-attention pair
 (``interleaved_matmul_selfatt_qk``/``_valatt`` over ``(S, B, H*3*D)``
 projections) and ``div_sqrt_dim``.  ``ring_attention`` and
 ``ulysses_attention`` run over a device mesh in the JAX package; they
-are registered here and raise ``NotImplementedError`` (ROADMAP A15).
+are registered here and raise ``NotImplementedError`` (ROADMAP A15b).
 
 Both drop attention probabilities in training mode only: the dense op
 through the ``Dropout`` op (its mask from ``random.generator`` of the
@@ -83,11 +83,11 @@ def _mesh_attention(name):
     def op(q, k, v, heads=1, causal=False, axis="sp", batch_axis="dp",
            dropout=0.0, training=None):
         raise NotImplementedError(
-            f"{name} runs over a device mesh, which the port does not have "
-            f"yet (ROADMAP A15)")
+            f"{name} runs over a model-parallel ('sp') mesh axis, which the port "
+            f"does not run yet (ROADMAP A15b)")
     op.__name__ = op.__qualname__ = name
     op.__doc__ = (f"Sequence-parallel attention over a device mesh in the "
-                  f"JAX package; raises here (ROADMAP A15).")
+                  f"JAX package; raises here (ROADMAP A15b).")
     return register_op(name)(op)
 
 

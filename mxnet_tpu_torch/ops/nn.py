@@ -13,6 +13,7 @@ writes them back.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -25,7 +26,7 @@ from .registry import register_op
 
 __all__ = ["FullyConnected", "Convolution", "Deconvolution", "Pooling",
            "BatchNorm", "FusedNormReluConv", "LayerNorm", "Activation",
-           "Dropout", "log_softmax", "softmax", "moments"]
+           "Dropout", "log_softmax", "softmax", "moments", "stats_over"]
 
 
 def _tup(v, n):
@@ -191,28 +192,71 @@ def Pooling(data, kernel=None, pool_type="max", global_pool=False,
 
 
 # ---------------------------------------------------------- normalisation ---
+_STATS_OVER = None        # (all-reduce fn, ranks) inside ``stats_over``
+
+
+@contextlib.contextmanager
+def stats_over(fn, ranks):
+    """Inside the block ``BatchNorm`` and ``FusedNormReluConv`` take
+    their batch statistics over the batch of every rank (sync-BN):
+    ``fn(t)`` sums ``t`` over the ``ranks`` ranks in place.  The
+    data-parallel ``TrainStep`` opens it around its forward, so the
+    statistics are those of the global batch, as the JAX step's mean
+    over the sharded batch axis is."""
+    global _STATS_OVER
+    old, _STATS_OVER = _STATS_OVER, (fn, ranks)
+    try:
+        yield
+    finally:
+        _STATS_OVER = old
+
+
 class _Moments(torch.autograd.Function):
     """Mean and variance over ``axes`` with wide accumulators; the
     backward recomputes the centred values instead of keeping a widened
-    copy of the activation (the JAX ``_moments`` custom VJP)."""
+    copy of the activation (the JAX ``_moments`` custom VJP).
+
+    With ``red`` (``stats_over``'s ``(fn, ranks)``) the sums are taken
+    over every rank's batch: the forward all-reduces the per-channel sums (sum and sum of squares
+    for half precision; the sum, then the centred sum of squares, in
+    full precision), the backward the statistics' gradients, as the
+    gradient of the global loss needs them."""
 
     @staticmethod
-    def forward(ctx, data, axes):
+    def forward(ctx, data, axes, red):
+        n = 1 if red is None else red[1]
+        for a in axes:
+            n *= data.shape[a]
         if data.dtype in (torch.bfloat16, torch.float16):
             # one pass, f32 accumulators: the E[x^2] - E[x]^2
             # cancellation sits far below bf16's own quantisation
             x = data.float()
-            mean = x.mean(dim=axes, keepdim=True)
-            var = (x * x).mean(dim=axes, keepdim=True) - mean * mean
+            if red is None:
+                mean = x.mean(dim=axes, keepdim=True)
+                var = (x * x).mean(dim=axes, keepdim=True) - mean * mean
+            else:
+                sums = torch.stack([x.sum(dim=axes, keepdim=True),
+                                    (x * x).sum(dim=axes, keepdim=True)])
+                red[0](sums)
+                mean = sums[0] / n
+                var = sums[1] / n - mean * mean
             var = var.clamp_min(0.0)
         else:
             # full precision: centred two-pass
             acc = torch.float64 if data.dtype == torch.float64 \
                 else torch.float32
             x = data.to(acc)
-            mean = x.mean(dim=axes, keepdim=True)
-            var = ((x - mean) ** 2).mean(dim=axes, keepdim=True)
-        ctx.axes = axes
+            if red is None:
+                mean = x.mean(dim=axes, keepdim=True)
+                var = ((x - mean) ** 2).mean(dim=axes, keepdim=True)
+            else:
+                total = x.sum(dim=axes, keepdim=True)
+                red[0](total)
+                mean = total / n
+                sq = ((x - mean) ** 2).sum(dim=axes, keepdim=True)
+                red[0](sq)
+                var = sq / n
+        ctx.axes, ctx.red, ctx.n = axes, red, n
         ctx.save_for_backward(data, mean)
         keep = [i for i in range(data.dim()) if i not in axes]
         shape = [data.shape[i] for i in keep]
@@ -221,20 +265,24 @@ class _Moments(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dmean, dvar):
         data, mean = ctx.saved_tensors
-        n = 1
-        for a in ctx.axes:
-            n *= data.shape[a]
+        n = ctx.n
         dmean = dmean.reshape(mean.shape).to(mean.dtype)
         dvar = dvar.reshape(mean.shape).to(mean.dtype)
+        if ctx.red is not None:
+            both = torch.stack([dmean, dvar])
+            ctx.red[0](both)
+            dmean, dvar = both[0], both[1]
         xm = data.to(mean.dtype) - mean
-        return (dmean / n + xm * (2.0 * dvar / n)).to(data.dtype), None
+        return (dmean / n + xm * (2.0 * dvar / n)).to(data.dtype), None, None
 
 
-def moments(data, axes, keepdims=False):
+def moments(data, axes, keepdims=False, batch=False):
     """``(mean, var)`` of ``data`` over ``axes``, f32 for half-precision
-    data; the reduced axes are dropped unless ``keepdims``."""
+    data; the reduced axes are dropped unless ``keepdims``.  ``batch``:
+    these are batch statistics, taken over every rank's batch inside
+    ``stats_over``."""
     axes = tuple(sorted(a % data.dim() for a in axes))
-    mean, var = _Moments.apply(data, axes)
+    mean, var = _Moments.apply(data, axes, _STATS_OVER if batch else None)
     if keepdims:
         shape = [1 if i in axes else s for i, s in enumerate(data.shape)]
         mean, var = mean.reshape(shape), var.reshape(shape)
@@ -259,7 +307,7 @@ def BatchNorm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
     bshape = [1] * data.dim()
     bshape[axis] = data.shape[axis]
     if training and not use_global_stats:
-        mean, var = moments(data, axes)
+        mean, var = moments(data, axes, batch=True)
         new_mm = moving_mean * momentum \
             + mean.to(moving_mean.dtype) * (1 - momentum)
         new_mv = moving_var * momentum \
@@ -289,7 +337,7 @@ def FusedNormReluConv(data, weight, gamma, beta, moving_mean, moving_var,
         training = _autograd.is_training()
     axes = tuple(range(data.dim() - 1))
     if training:
-        mean, var = moments(data, axes)
+        mean, var = moments(data, axes, batch=True)
         new_mm = moving_mean * momentum \
             + mean.detach().to(moving_mean.dtype) * (1 - momentum)
         new_mv = moving_var * momentum \

@@ -1,8 +1,10 @@
-"""Training-step plumbing of the port: the single-device ``TrainStep``
-and ``EvalStep`` (captured as CUDA graphs on the card), their
-functional helpers, the ``DevicePrefetcher`` feed and the v1.1
-checkpoints (``checkpoint``: ``CheckpointManager``, ``save_train_step``,
-``load_train_step``, ``resume_latest``)."""
+"""Training-step plumbing of the port: the mesh (``make_mesh``,
+``MeshScope``; data parallelism over the ranks of ``distributed``), the
+sharding rules, the quantized gradient collectives, ``TrainStep`` and
+``EvalStep`` (captured as CUDA graphs on the card; ``mesh=`` for data
+parallelism), their functional helpers, the ``DevicePrefetcher`` feed
+and the v1.1 checkpoints (``checkpoint``: ``CheckpointManager``,
+``save_train_step``, ``load_train_step``, ``resume_latest``)."""
 from .checkpoint import (CheckpointManager, CheckpointMismatchError,
                          list_checkpoints, load_snapshot_params,
                          load_train_step, load_train_step_sharded,
@@ -11,8 +13,17 @@ from .checkpoint import (CheckpointManager, CheckpointMismatchError,
 from .functional import (functional_call, param_names_and_values,
                          trainable_split)
 from .functional_opt import multi_update, pure_update, state_template
+from .mesh import (AXES, MeshScope, current_mesh, default_mesh, make_mesh,
+                   named_sharding, replicated, shard_map, validate_specs)
+from .sharding import (ShardingRules, batch_spec, causal_lm_tp_rules,
+                       fsdp_rules, param_sharding, tp_dense_rules)
+from .quantize import (ACTIVATION_REDUCE_MODES, GRAD_REDUCE_MODES,
+                       all_reduce_activations, cast_bf16,
+                       dequantize_chunked, quantize_chunked,
+                       reduce_gradients)
 from .prefetch import DevicePrefetcher
-from .step import EvalStep, NonFiniteAbortError, TrainStep
+from .step import (EvalStep, NonFiniteAbortError, TrainStep,
+                   add_transfer_hook, remove_transfer_hook)
 
 __all__ = ["TrainStep", "EvalStep", "NonFiniteAbortError", "DevicePrefetcher",
            "functional_call", "param_names_and_values", "trainable_split",
@@ -20,4 +31,12 @@ __all__ = ["TrainStep", "EvalStep", "NonFiniteAbortError", "DevicePrefetcher",
            "load_train_step", "save_train_step", "load_train_step_sharded",
            "save_train_step_sharded", "CheckpointManager",
            "CheckpointMismatchError", "list_checkpoints", "resume_latest",
-           "wait_for_new", "load_snapshot_params"]
+           "wait_for_new", "load_snapshot_params",
+           "AXES", "MeshScope", "current_mesh", "default_mesh", "make_mesh",
+           "named_sharding", "replicated", "shard_map", "validate_specs",
+           "ShardingRules", "batch_spec", "fsdp_rules", "param_sharding",
+           "tp_dense_rules", "causal_lm_tp_rules",
+           "add_transfer_hook", "remove_transfer_hook",
+           "GRAD_REDUCE_MODES", "quantize_chunked", "dequantize_chunked",
+           "cast_bf16", "reduce_gradients",
+           "ACTIVATION_REDUCE_MODES", "all_reduce_activations"]

@@ -45,7 +45,7 @@ non-finite-abort exits call it).  A failed copy or write raises, or
 latches in ``errors``: there is no synchronous fallback.
 
 One process writes and reads; the sharded v2 format of the JAX package
-(orbax, every host its own shards) is not ported (ROADMAP A15).
+(orbax, every host its own shards) is not ported (ROADMAP A15b).
 """
 from __future__ import annotations
 
@@ -647,16 +647,16 @@ def save_train_step_sharded(step, directory, async_save=True):
     """The JAX package's sharded v2 format (orbax, every host writing
     its own shards).  Not ported: it needs a device mesh."""
     raise NotImplementedError(
-        "save_train_step_sharded: the sharded v2 format needs a device "
-        "mesh, which the port does not have yet (ROADMAP A15); use "
+        "save_train_step_sharded: the sharded v2 format needs a sharded "
+        "mesh layout, which the port does not run yet (ROADMAP A15b); use "
         "save_train_step (v1.1, one file)")
 
 
 def load_train_step_sharded(step, directory):
     """See ``save_train_step_sharded``: not ported."""
     raise NotImplementedError(
-        "load_train_step_sharded: the sharded v2 format needs a device "
-        "mesh, which the port does not have yet (ROADMAP A15); use "
+        "load_train_step_sharded: the sharded v2 format needs a sharded "
+        "mesh layout, which the port does not run yet (ROADMAP A15b); use "
         "load_train_step (v1.1, one file)")
 
 

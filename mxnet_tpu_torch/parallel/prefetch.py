@@ -35,8 +35,11 @@ dicts or bare arrays — the structure is walked and rebuilt, array leaves
 are placed (float64 as float32 and int64 as int32, as ``nd.array``
 narrows them) and other leaves pass through.  ``step=`` places batches
 on a ``TrainStep``'s device; ``put=`` replaces the placement of each
-leaf.  A ``sharding`` is a device mesh's
-(ROADMAP A15) and raises ``NotImplementedError``.
+leaf.  ``sharding=`` (a ``NamedSharding`` of a mesh, or the step's
+``data_sharding``) places each batch as the rank's local shard on the
+rank's card (``distributed.device()``), as the JAX feed places a
+process's shard; the step's transfer hooks (``add_transfer_hook``) see
+each leaf copied for a sharding.
 
 ``stats`` carries ``produced``/``consumed``, the live ``queue_depth``
 and the wait split — ``producer_wait_s`` (the producer blocked on a
@@ -120,8 +123,9 @@ class _Placer:
     thread; on the card through pinned staging buffers from
     ``storage``'s pool."""
 
-    def __init__(self, device):
+    def __init__(self, device, sharding=None):
         self.device = device
+        self.sharding = sharding
         self.handles = []          # this batch's pinned staging buffers
 
     def __call__(self, leaf):
@@ -133,6 +137,10 @@ class _Placer:
             t = None
         if t is not None and t.device == self.device:
             return leaf if isinstance(leaf, NDArray) else NDArray(t)
+        if self.sharding is not None:
+            from .step import _TRANSFER_HOOKS
+            for fn in _TRANSFER_HOOKS:
+                fn(leaf, self.sharding)
         if self.device.type != "cuda":
             return NDArray(as_tensor(leaf if t is None else t, None,
                                      self.device))
@@ -167,13 +175,11 @@ class DevicePrefetcher:
     _STOP = object()
 
     def __init__(self, source, step=None, sharding=None, depth=2, put=None):
-        if sharding is not None:
-            raise NotImplementedError(
-                "DevicePrefetcher(sharding=...): a sharding lays batches "
-                "over a device mesh, which the port does not have yet "
-                "(ROADMAP A15)")
+        if sharding is None and step is not None:
+            sharding = getattr(step, "data_sharding", None)
         self._source = source
         self._step = step
+        self._sharding = sharding
         self._put = put
         self._depth = max(1, int(depth))
         self._closed = False
@@ -194,6 +200,10 @@ class DevicePrefetcher:
         the caller's context's), and the context the source runs under
         (the caller's, or the step's device's)."""
         if self._step is None:
+            if self._sharding is not None:
+                from .. import distributed
+                device = distributed.device()
+                return device, Context(device)
             ctx = current_context()
             return ctx.device, ctx
         from .step import _device_of
@@ -210,7 +220,7 @@ class DevicePrefetcher:
             self._produce_loop(it, q, stop, device, ctx, stream)
 
     def _produce_loop(self, it, q, stop, device, ctx, stream):
-        placer = _Placer(device)
+        placer = _Placer(device, self._sharding)
         place = placer if self._put is None else self._put
         while not stop.is_set():
             event = None

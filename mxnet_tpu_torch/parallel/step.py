@@ -74,12 +74,44 @@ no capture nests in another.
 nothing to donate (a captured step copies the batch into its static
 buffers either way).
 
-Not ported yet: a device mesh (data parallelism) and gradient
-compression (ROADMAP A15).  The prefetching feed is
-``parallel.DevicePrefetcher``.
+**Data parallel.**  ``mesh=`` (default ``default_mesh()``: one ``dp``
+axis over every rank of the process group, a mesh of one outside one)
+runs the step on each rank over its **local shard** of the batch, as a
+``jax.distributed`` process feeds its own shard: ``step(data, label)``
+on rank r takes rank r's rows.  At the first call rank 0's parameters
+are broadcast, so every rank starts alike.  ``grad_reduce`` picks the
+gradient exchange:
+
+- ``"f32"`` computes what the JAX step's SPMD program computes on the
+  global batch: each rank's loss is its share of the global loss, the
+  gradients are all-reduced (one collective per dtype over the leaves
+  laid side by side), the loss too, and ``BatchNorm``/
+  ``FusedNormReluConv`` take their statistics over the global batch
+  (``ops.nn.stats_over``: the per-channel sums all-reduced in the
+  forward, their gradients in the backward), so every rank holds the
+  same parameters, running statistics and loss;
+- ``"bf16"``/``"int8"`` are the JAX step's explicit path: the local
+  gradients of the local loss go through ``quantize.reduce_gradients``
+  (stochastic rounding from this rank's own stream, ``random.
+  generator(device, salt)``), the loss is averaged (or summed) over the
+  ranks, batch statistics are the shard's own and the float running
+  statistics are averaged afterwards.
+
+A loss that reduces the batch to a scalar itself (``BERTPretrainLoss``'s
+weighted mean) is reduced per rank and averaged over the ranks.
+Dropout draws per rank (``random``: rank r > 0 folds its rank into the
+device streams).  Over NCCL the collectives are captured in the step's
+graph; over gloo (ranks sharing one card, or the CPU) a collective
+goes through the host and cannot be captured, so there the step runs
+eagerly (``capture=True`` raises).  ``skip_nonfinite`` reads the flag of
+the reduced gradients and loss, so a NaN on one rank skips the step on
+every rank.  A mesh with a model-parallel axis of size > 1, or ``rules``
+that shard a parameter, raise ``NotImplementedError`` (ROADMAP A15b).
+The prefetching feed is ``parallel.DevicePrefetcher``.
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 
@@ -91,13 +123,72 @@ from .. import profiler as _profiler
 from .. import telemetry as _telemetry
 from ..elastic import NonFiniteAbortError
 from ..fault import fire as _fire
+from .. import distributed as _dist
+from .. import random as _random
 from ..graphs import GraphCache
+from ..ops.nn import stats_over
+from . import mesh as _mesh
+from . import quantize as _quantize
 from .functional import (functional_call, param_names_and_values,
                          run_eagerly, trainable_split)
 from .functional_opt import multi_update, state_template
+from .sharding import (NamedSharding, ShardingRules, batch_spec,
+                       param_sharding, shards_any)
 
 __all__ = ["TrainStep", "EvalStep", "NonFiniteAbortError",
-           "all_finite_rows"]
+           "all_finite_rows", "add_transfer_hook", "remove_transfer_hook"]
+
+# decorrelates the gradient quantizer's rounding stream from dropout's
+_GRADQ_SALT = 0x6A5D
+
+# Observers of real host->device batch transfers: ``fn(leaf, sharding)``
+# runs before each leaf the step (or a DevicePrefetcher placing for a
+# sharding) copies to the device, and not for a leaf already there.
+_TRANSFER_HOOKS = []
+
+
+def add_transfer_hook(fn):
+    """Register ``fn(leaf, sharding)`` to run on every real batch H2D
+    copy."""
+    _TRANSFER_HOOKS.append(fn)
+    return fn
+
+
+def remove_transfer_hook(fn):
+    _TRANSFER_HOOKS.remove(fn)
+
+
+def _put_leaf(leaf, device, sharding):
+    """One batch leaf (the rank's local shard) on ``device``; the
+    transfer hooks see every leaf that is not already there."""
+    if isinstance(leaf, torch.Tensor) and leaf.device == device:
+        return leaf
+    for fn in _TRANSFER_HOOKS:
+        fn(leaf, sharding)
+    if isinstance(leaf, np.ndarray):
+        leaf = torch.from_numpy(np.ascontiguousarray(leaf))
+    return leaf.to(device)
+
+
+def _check_mesh(mesh, what):
+    """Raise for a mesh this port cannot run yet: a model-parallel axis
+    of size > 1 (ROADMAP A15b)."""
+    extra = _mesh.model_parallel_axes(mesh)
+    if extra:
+        raise NotImplementedError(
+            f"{what}: model-parallel mesh axes {extra} — the port runs "
+            f"data parallelism only; tp/fsdp/pp/sp/ep are ROADMAP A15b")
+
+
+def _check_rules(mesh, rules, names, tensors, what):
+    """Raise when ``rules`` shard a parameter (ROADMAP A15b)."""
+    for name, sh in zip(names, param_sharding(
+            names, [tuple(t.shape) for t in tensors], mesh, rules)):
+        if shards_any(sh):
+            raise NotImplementedError(
+                f"{what}: the sharding rules place {name!r} as {sh.spec}; "
+                f"the port replicates every parameter (data parallelism); "
+                f"sharded parameters are ROADMAP A15b")
 
 
 def all_finite_rows(arrays):
@@ -122,20 +213,18 @@ def all_finite_rows(arrays):
 
 
 # ------------------------------------------------------ batch structure --
-def _coerce(value, device):
+def _coerce(value, device, sharding=None):
     """A tensor (an NDArray's, or a numpy array) on ``device``; tuples
     and lists leaf by leaf, ``None`` as it is."""
     if value is None:
         return None
     if isinstance(value, (tuple, list)):
-        return tuple(_coerce(v, device) for v in value)
-    if isinstance(value, np.ndarray):
-        value = torch.from_numpy(np.ascontiguousarray(value))
+        return tuple(_coerce(v, device, sharding) for v in value)
     value = getattr(value, "_data", value)          # an NDArray's tensor
-    if not isinstance(value, torch.Tensor):
+    if not isinstance(value, (torch.Tensor, np.ndarray)):
         raise TypeError(f"the step takes NDArrays, torch tensors or numpy "
                         f"arrays, got {type(value).__name__}")
-    return value.to(device)
+    return _put_leaf(value, device, sharding)
 
 
 def _signature(x):
@@ -181,6 +270,21 @@ def _build_deferred(net, data_args):
             net(*(a if a is None else a[:1] for a in data_args))
 
 
+def _broadcast_flat(tensors, group, root=0):
+    """``root``'s values into every rank's ``tensors``, in place: one
+    broadcast per dtype over the tensors laid side by side."""
+    by_dtype = {}
+    for t in tensors:
+        by_dtype.setdefault(t.dtype, []).append(t)
+    for ts in by_dtype.values():
+        flat = torch.cat([t.reshape(-1) for t in ts])
+        _dist.broadcast_(flat, root, group)
+        o = 0
+        for t in ts:
+            t.copy_(flat[o:o + t.numel()].reshape(t.shape))
+            o += t.numel()
+
+
 def _through_graphs(graphs, statics, body, args):
     """``body(*args)`` through the graph of ``args``' signature in
     ``graphs``, over static copies of ``args`` kept in ``statics``."""
@@ -213,22 +317,43 @@ def _finish_trace(tr, error=None):
 class TrainStep:
     """``step(data, label)`` -> the loss, updating the step's params."""
 
-    def __init__(self, net, loss_fn, optimizer, mesh=None,
-                 loss_reduce="mean", donate_batch=False,
-                 skip_nonfinite=False, nonfinite_budget=10, capture=None,
-                 heartbeat=None):
-        if mesh is not None:
-            raise NotImplementedError("the port's TrainStep runs on one "
-                                      "device; a mesh is not ported yet")
+    def __init__(self, net, loss_fn, optimizer, mesh=None, rules=None,
+                 data_spec=None, loss_reduce="mean", donate_batch=False,
+                 skip_nonfinite=False, nonfinite_budget=10,
+                 grad_reduce="f32", heartbeat=None, capture=None):
         if loss_reduce not in ("mean", "sum", "none"):
             raise ValueError(f"loss_reduce={loss_reduce!r}: 'mean', 'sum' "
                              f"or 'none'")
         self.net = net
+        self.mesh = mesh if mesh is not None else _mesh.default_mesh()
+        self.rules = rules or ShardingRules()
+        self._data_pspec = data_spec if data_spec is not None \
+            else batch_spec(self.mesh)
         self._loss_reduce = loss_reduce
         self.loss_fn = loss_fn
         self.optimizer = optimizer
         self._skip_nonfinite = bool(skip_nonfinite)
         self._nonfinite_budget = nonfinite_budget
+        if grad_reduce not in _quantize.GRAD_REDUCE_MODES:
+            raise ValueError(
+                f"TrainStep: grad_reduce={grad_reduce!r} not in "
+                f"{_quantize.GRAD_REDUCE_MODES}")
+        if grad_reduce != "f32":
+            if "dp" not in self.mesh.shape:
+                raise ValueError(
+                    f"TrainStep: grad_reduce={grad_reduce!r} needs a "
+                    f"'dp' mesh axis to reduce over (mesh axes: "
+                    f"{dict(self.mesh.shape)})")
+            extra = {a: s for a, s in self.mesh.shape.items()
+                     if a != "dp" and s > 1}
+            if extra:
+                raise ValueError(
+                    f"TrainStep: grad_reduce={grad_reduce!r} supports "
+                    f"pure data-parallel meshes only; model-parallel "
+                    f"axes {extra} shard the params the explicit "
+                    f"reduction stage would replicate")
+        _check_mesh(self.mesh, "TrainStep")
+        self._grad_reduce = grad_reduce
         self._capture = capture
         self._heartbeat = heartbeat
         self.skipped_steps = 0
@@ -240,25 +365,50 @@ class TrainStep:
         # the DevicePrefetcher consumer wait read at the last traced step
         self._feed_wait_seen = None
 
+    @property
+    def data_sharding(self):
+        """How batch leaves lie over the mesh: what a DevicePrefetcher
+        needs to place batches this step takes without a second copy."""
+        return NamedSharding(self.mesh, self._data_pspec)
+
     # --------------------------------------------------------------- build --
     def _build(self, data_args, device):
         net = self.net
+        if not self.mesh.covers_world():
+            raise ValueError(
+                f"TrainStep: the mesh's devices {self.mesh.devices.tolist()}"
+                f" are not this run's ranks 0..{_dist.num_workers() - 1}")
+        self._group = self.mesh.group("dp") if "dp" in self.mesh.shape \
+            else None
+        self._dp = self.mesh.shape.get("dp", 1)
         if device.type != "cuda" and self._capture:
             raise ValueError(f"TrainStep(capture=True): a CUDA graph needs "
                              f"the card, and the net's parameters lie on "
                              f"{device}; pass capture=None or False")
+        host_comm = self._group is not None and _dist.backend() == "gloo"
+        if host_comm and self._capture:
+            raise ValueError("TrainStep(capture=True): the process group "
+                             "runs over gloo (ranks share a card), whose "
+                             "collectives go through the host and cannot "
+                             "be captured; pass capture=None or False")
         self._graphs = GraphCache(device) \
-            if device.type == "cuda" and self._capture is not False else None
+            if device.type == "cuda" and self._capture is not False \
+            and not host_comm else None
         self._static = {}
         _build_deferred(net, data_args)
         names, plist, tensors = param_names_and_values(net)
+        _check_rules(self.mesh, self.rules, names, tensors, "TrainStep")
         self._names, self._plist = names, plist
         self._train_idx, self._aux_idx = trainable_split(plist)
         self._train = [tensors[i].detach().clone().requires_grad_(True)
                        for i in self._train_idx]
         self._aux = [tensors[i].detach().clone() for i in self._aux_idx]
-        self._states = [state_template(self.optimizer, tensors[i])
-                        for i in self._train_idx]
+        if self._group is not None:
+            # every rank starts from rank 0's parameters
+            with torch.no_grad():
+                _broadcast_flat(self._train + self._aux, self._group)
+        self._states = [state_template(self.optimizer, t)
+                        for t in self._train]
         self._lr_mults = [plist[i].lr_mult for i in self._train_idx]
         self._wd_mults = [plist[i].wd_mult for i in self._train_idx]
         self._aux_pos = {i: k for k, i in enumerate(self._aux_idx)}
@@ -277,32 +427,43 @@ class TrainStep:
 
     # ---------------------------------------------------------------- body --
     def _body(self, data_args, label):
-        """Forward, loss, backward, the update and the write-back, on the
-        step's tensors: what one eager call runs and one graph holds.
-        Returns ``(loss, finite flag or None)``."""
+        """Forward, loss, backward, the gradient exchange, the update and
+        the write-back, on the step's tensors: what one eager call runs
+        and one graph holds.  Returns ``(loss, finite flag or None)``."""
         tensors = [None] * len(self._plist)
         for i, t in zip(self._train_idx, self._train):
             tensors[i] = t
         for i, t in zip(self._aux_idx, self._aux):
             tensors[i] = t
-        with _autograd.record(train_mode=True):
+        group, dp, mode = self._group, self._dp, self._grad_reduce
+        mean = self._loss_reduce == "mean"
+        sync_stats = contextlib.nullcontext()
+        if group is not None and mode == "f32":
+            sync_stats = stats_over(
+                lambda t: _dist.all_reduce_(t, group), dp)
+        with _mesh.MeshScope(self.mesh), sync_stats, \
+                _autograd.record(train_mode=True):
             out, mutated = functional_call(self.net, self._plist, tensors,
                                            data_args, training=True)
             loss = self.loss_fn(out, label)
-            loss = (loss.mean() if self._loss_reduce == "mean"
-                    else loss.sum()).float()
-        grads = torch.autograd.grad(loss, self._train)
+            loss = (loss.mean() if mean else loss.sum()).float()
+        share = loss / dp if group is not None and mode == "f32" and mean \
+            else loss
+        grads = list(torch.autograd.grad(share, self._train))
         loss = loss.detach()
-        with torch.no_grad():
+        with torch.no_grad(), _mesh.MeshScope(self.mesh):
+            if group is not None:
+                grads, loss, mutated = self._exchange(grads, share.detach(),
+                                                      loss, mutated)
             finite = None
             if self._skip_nonfinite:
                 # x * 0 is 0 where x is finite and NaN elsewhere
                 zeros = torch.stack(torch._foreach_norm(
-                    torch._foreach_mul(list(grads), 0.0)))
+                    torch._foreach_mul(grads, 0.0)))
                 finite = torch.isfinite(loss).all() \
                     & torch.isfinite(zeros).all()
             t1 = self._t + 1
-            multi_update(self.optimizer, self._train, list(grads),
+            multi_update(self.optimizer, self._train, grads,
                          self._states, t1, self._lr, self._lr_mults,
                          self._wd_mults, finite)
             for i, new in mutated:
@@ -314,6 +475,25 @@ class TrainStep:
             self._t.copy_(t1 if finite is None
                           else torch.where(finite, t1, self._t))
         return loss, finite
+
+    def _exchange(self, grads, share, loss, mutated):
+        """The cross-rank reduction of one step: gradients, the loss and
+        (on the explicit paths) the float running statistics."""
+        dp, mode, reduce = self._dp, self._grad_reduce, self._loss_reduce
+        if mode == "f32":
+            # the gradients of each rank's share of the global loss
+            grads = _quantize.reduce_gradients(grads, "dp", dp, "f32",
+                                               reduce="sum")
+            return grads, _mesh.psum(share, "dp"), mutated
+        key = _random.generator(self._train[0].device, salt=_GRADQ_SALT)
+        grads = _quantize.reduce_gradients(grads, "dp", dp, mode, key=key,
+                                           reduce=reduce)
+        loss = (_mesh.pmean if reduce == "mean" else _mesh.psum)(loss, "dp")
+        # per-shard running statistics: average the float ones; anything
+        # else is taken as the same on every rank
+        mutated = [(i, _mesh.pmean(m, "dp") if m.is_floating_point()
+                    else m) for i, m in mutated]
+        return grads, loss, mutated
 
     # ---------------------------------------------------------------- call --
     def __call__(self, data, label):
@@ -330,7 +510,8 @@ class TrainStep:
             if _telemetry.ACTIVE else None
         sp = None if tr is None else tr.open("h2d", parent=tr.root)
         device = _device_of(self.net)
-        data, label = _coerce(data, device), _coerce(label, device)
+        data = _coerce(data, device, self.data_sharding)
+        label = _coerce(label, device, self.data_sharding)
         data_args = data if isinstance(data, tuple) else (data,)
         if isinstance(label, tuple) and len(label) == 1:
             label = label[0]
@@ -487,23 +668,36 @@ class EvalStep:
 
     Threads may share one step (the replicas of a serving fleet): a call
     holds the step's lock from filling the static inputs until the
-    outputs are cloned."""
+    outputs are cloned.
 
-    def __init__(self, net, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError("the port's EvalStep runs on one "
-                                      "device; a mesh is not ported yet")
+    With a mesh (default ``default_mesh()``) each rank runs its local
+    shard and gets its own rows' outputs back; a model-parallel axis or
+    rules that shard a parameter raise ``NotImplementedError``
+    (ROADMAP A15b)."""
+
+    def __init__(self, net, mesh=None, rules=None, data_spec=None):
         self.net = net
+        self.mesh = mesh if mesh is not None else _mesh.default_mesh()
+        _check_mesh(self.mesh, "EvalStep")
+        self.rules = rules or ShardingRules()
+        self._data_pspec = data_spec if data_spec is not None \
+            else batch_spec(self.mesh)
         self._built = False
         self._rebuild = {}       # input signature -> output structure
         self._lock = threading.Lock()
+
+    @property
+    def data_sharding(self):
+        """See ``TrainStep.data_sharding``."""
+        return NamedSharding(self.mesh, self._data_pspec)
 
     def _build(self, data, device):
         self._graphs = GraphCache(device) if device.type == "cuda" \
             else None
         self._static = {}
         _build_deferred(self.net, data)
-        _names, plist, tensors = param_names_and_values(self.net)
+        names, plist, tensors = param_names_and_values(self.net)
+        _check_rules(self.mesh, self.rules, names, tensors, "EvalStep")
         self._plist = plist
         self._tensors = [t.detach().clone() for t in tensors]
         self._built = True
@@ -517,7 +711,7 @@ class EvalStep:
 
     def __call__(self, *data):
         device = _device_of(self.net)
-        data = tuple(_coerce(d, device) for d in data)
+        data = tuple(_coerce(d, device, self.data_sharding) for d in data)
         with self._lock:
             if not self._built:
                 self._build(data, device)

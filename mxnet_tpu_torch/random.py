@@ -20,6 +20,15 @@ seeds: the counter starts at the first value ``next_seed()`` gives after
 graph that holds them (``cuda_generators`` lists the ones a capture
 registers) stays valid.
 
+In a process group (``distributed.init``) rank r > 0 folds its rank into
+the device streams and the seed counters, so each rank draws its own
+dropout masks and rounding noise from the same ``seed(s)``, as the JAX
+step folds ``axis_index`` into its key; the initializers' generator is
+not folded, so every rank initializes the same parameters.  Rank 0's
+streams are those of a run of one process.  ``generator(device,
+salt)`` is a further stream of the device (the gradient quantizer's
+rounding: ``salt`` decorrelates it from dropout's).
+
 The JAX package splits threefry keys, so the same seed gives other
 numbers here; the port does not reproduce JAX's key stream bit for bit.
 Parity with dropout on is held where the draw is explicit: the
@@ -51,6 +60,33 @@ def _first_draw(seed_state):
     return int(torch.randint(0, 2 ** 31 - 1, (1,), generator=gen))
 
 
+def _stream_seed(salt=0):
+    """The seed of a device stream: the global seed, with this process's
+    rank and ``salt`` folded in (rank 0, salt 0: the seed itself)."""
+    from . import distributed
+    rank = distributed.rank()
+    s = _state["seed"]
+    if rank == 0 and salt == 0:
+        return s
+    return (s * 0x9E3779B97F4A7C15 + rank * 0xBF58476D1CE4E5B9
+            + salt * 0x94D049BB133111EB) % 2 ** 63
+
+
+def _reseed_locked():
+    for (_dev, salt), gen in _state["gens"].items():
+        gen.manual_seed(_stream_seed(salt))
+    start = _first_draw(_stream_seed())
+    for ctr in _state["counters"].values():
+        ctr.fill_(start)
+
+
+def _refold():
+    """Reseed every stream after the process's rank changed (a process
+    group joined or left)."""
+    with _lock:
+        _reseed_locked()
+
+
 def _device(device):
     dev = torch.device(device)
     if dev.type == "cuda" and dev.index is None:
@@ -63,22 +99,20 @@ def seed(seed_state, ctx=None):
     ``seed_state``; ``ctx`` is accepted for API parity."""
     with _lock:
         _state["seed"] = int(seed_state)
-        for gen in _state["gens"].values():
-            gen.manual_seed(_state["seed"])
-        start = _first_draw(_state["seed"])
-        for ctr in _state["counters"].values():
-            ctr.fill_(start)
+        _reseed_locked()
     _initializer.seed(seed_state)
 
 
-def generator(device="cpu"):
-    """The seeded ``torch.Generator`` of ``device`` (made at first use)."""
+def generator(device="cpu", salt=0):
+    """The seeded ``torch.Generator`` of ``device`` (made at first use);
+    ``salt`` picks another stream of the same device."""
     dev = _device(device)
     with _lock:
-        gen = _state["gens"].get(dev)
+        gen = _state["gens"].get((dev, salt))
         if gen is None:
-            gen = torch.Generator(device=dev).manual_seed(_state["seed"])
-            _state["gens"][dev] = gen
+            gen = torch.Generator(device=dev).manual_seed(
+                _stream_seed(salt))
+            _state["gens"][(dev, salt)] = gen
         return gen
 
 
@@ -87,7 +121,7 @@ def cuda_generators(device):
     captured on it registers)."""
     dev = _device(device)
     with _lock:
-        return [g for d, g in _state["gens"].items() if d == dev]
+        return [g for (d, _salt), g in _state["gens"].items() if d == dev]
 
 
 def next_seed():
@@ -110,7 +144,7 @@ def next_seed_tensor(device):
                     "random.next_seed_tensor: the seed counter of "
                     f"{dev} is made inside a CUDA graph capture; run the "
                     "step once before capturing it")
-            ctr = torch.full((), _first_draw(_state["seed"]),
+            ctr = torch.full((), _first_draw(_stream_seed()),
                              dtype=torch.int64, device=dev)
             _state["counters"][dev] = ctr
     out = ctr.to(torch.int32)       # wraps mod 2**32, as an int32

@@ -357,7 +357,8 @@ def test_eval_step_matches_the_jax_eval_step():
     assert torch.equal(ev(torch.from_numpy(x)), got)
     assert ev.graph_count() == 0
     with pytest.raises(NotImplementedError, match="mesh"):
-        parallel.EvalStep(fused, mesh=object())
+        parallel.EvalStep(fused, mesh=parallel.make_mesh(
+            dp=1, tp=2, devices=[0, 1]))
 
     # BERT: the four outputs in the net's structure
     data, _ = bert_batch(seed=14, b=2)

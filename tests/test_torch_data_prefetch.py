@@ -440,11 +440,16 @@ def test_device_prefetcher_no_thread_leak_and_close():
 
 
 def test_device_prefetcher_sharding_is_a15_and_fault_point_fires():
-    """A sharding is a mesh's (A15) in the port.  The fault point fires
-    before a placement in both packages, and the consumer gets the same
-    error, tagged as the producer's, after the same batches."""
-    with pytest.raises(NotImplementedError, match="A15"):
-        parallel.DevicePrefetcher([], sharding=object())
+    """A sharding is a mesh's (A15a in the port): its batches go to the
+    rank's device.  The fault point fires before a placement in both
+    packages, and the consumer gets the same error, tagged as the
+    producer's, after the same batches."""
+    mesh = parallel.make_mesh()
+    sharded = list(parallel.DevicePrefetcher(
+        [np.ones((2, 2), np.float32)],
+        sharding=parallel.named_sharding(mesh, "dp")))
+    assert sharded[0]._data.device.type == \
+        ("cuda" if torch.cuda.is_available() else "cpu")
     src = [(np.full((2, 2), i, np.float32),) for i in range(3)]
 
     def run(pkg):

@@ -715,7 +715,10 @@ def test_port_sources_import_no_jax_statically():
     sources = list(_port_sources())
     for mod in ("gluon/nn/fused.py", "parallel/step.py",
                 "gluon/model_zoo/vision/resnet.py", "ops/fused_conv.py",
-                "ndarray/ndarray.py", "ops/registry.py"):
+                "ndarray/ndarray.py", "ops/registry.py", "distributed.py",
+                "kvstore/__init__.py", "kvstore/kvstore.py",
+                "parallel/mesh.py", "parallel/sharding.py",
+                "parallel/quantize.py"):
         assert os.path.join(REPO, "mxnet_tpu_torch", mod) in sources
     for path in sources:
         tree = ast.parse(open(path, encoding="utf-8").read(), path)

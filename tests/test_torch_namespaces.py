@@ -1,27 +1,30 @@
 """The public names of the port against the JAX package's: ``dir()`` of
 the top level, ``nd``, ``gluon``, ``gluon.model_zoo``, ``optimizer``,
 ``sym``, ``mod``, ``serving``, ``np``, ``np.random``, ``np.linalg``,
-``npx``, ``nd.sparse`` and ``onnx``.  Every public name of the JAX
-package is in the port, but for those in the named lists below: the
-modules still in queue A of ROADMAP.md (A15 several cards), the
-TPU-only names, and the JAX modules' own imports of their
-implementation.
+``npx``, ``nd.sparse``, ``onnx``, ``parallel``, ``kv`` and
+``distributed``.  Every public name of the JAX package is in the port,
+but for those in the named lists below: the modules still in queue A of
+ROADMAP.md (A15b, model parallelism), the TPU-only names, and the JAX
+modules' own imports of their implementation.
 """
 import pytest
 
 import mxnet_tpu as jmx
 import mxnet_tpu_torch as tmx
 
-A15 = {"distributed", "kv", "kvstore", "moe_ffn"}
+A15b = {"moe_ffn"}
+A15b_PARALLEL = {"MoEFFN", "moe_dispatch", "moe", "PipelineStack", "gpipe",
+                 "pipeline", "ring_attention", "ulysses_attention",
+                 "sp_attention", "sequence"}
 TPU_ONLY = {"tpu", "num_tpus"}
 JAX_IMPORTS = {"jax", "jnp", "dtype_np"}
 MAY_BE_MISSING = {
-    "": A15 | TPU_ONLY,
+    "": A15b | TPU_ONLY,
     "nd": TPU_ONLY | JAX_IMPORTS,
     "gluon": set(),
     "gluon.model_zoo": set(),
     "optimizer": set(),
-    "sym": A15,
+    "sym": A15b,
     "mod": set(),
     "serving": set(),
     "np": JAX_IMPORTS,
@@ -30,6 +33,9 @@ MAY_BE_MISSING = {
     "npx": set(),
     "nd.sparse": JAX_IMPORTS,
     "onnx": set(),
+    "parallel": A15b_PARALLEL,
+    "kv": set(),
+    "distributed": JAX_IMPORTS,
 }
 
 

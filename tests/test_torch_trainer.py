@@ -329,14 +329,21 @@ def test_save_and_load_states(tmp_path, opt):
 
 
 def test_trainer_refuses_distributed_stores():
+    """A distributed store needs a multi-process run: in a world of one
+    it raises as the JAX package's does; the local stores, a store
+    object and update_on_kvstore are taken."""
+    jnet = _mlp(jmx, prefix="kv_")
+    jnet.initialize()
     with tmx.cpu():
         net = _mlp(tmx, prefix="kv_")
         net.initialize()
-        for kv in ("dist_sync", "dist_async", "nccl"):
-            with pytest.raises(NotImplementedError, match="one card"):
+        for kv in ("dist_sync", "dist_async", "dist_sync_device"):
+            with pytest.raises(RuntimeError, match="multi-process"):
                 tmx.gluon.Trainer(net.collect_params(), "sgd", kvstore=kv)
-        with pytest.raises(NotImplementedError):
-            tmx.gluon.Trainer(net.collect_params(), "sgd",
+            with pytest.raises(RuntimeError, match="multi-process"):
+                jmx.gluon.Trainer(jnet.collect_params(), "sgd", kvstore=kv)
+        for kv in ("nccl", "local", tmx.kv.create("device")):
+            tmx.gluon.Trainer(net.collect_params(), "sgd", kvstore=kv,
                               update_on_kvstore=True)
         tr = tmx.gluon.Trainer(net.collect_params(), "sgd",
                                {"learning_rate": 0.5}, kvstore=None)
