@@ -420,7 +420,7 @@ Phases, each of which fails the run (each prints its wall time):
     (b) the fused bf16 ResNet-50 (bench_resnet's settings, its CE in
     f32) on each rank's rows of the global batch 256 through
     ``TrainStep(mesh=make_mesh())`` with ``grad_reduce`` f32, bf16,
-    int8 and int8 again, 2 + 5 steps each: every rank the same bits
+    int8 and int8 again, 2 + 2 steps each: every rank the same bits
     (parameters, statistics, losses), 32 launches of each fused kernel
     a step, two int8 runs under one seed the same losses; the leaves
     after one f32 step within 3x their bf16 noise floor (the world of
@@ -432,7 +432,7 @@ Phases, each of which fails the run (each prints its wall time):
     collectives captured in the step's graph; (d) BERT-base (flash,
     dropout 0.1, bf16 with f32 masters, hybridized) through
     ``gluon.Trainer(kvstore="dist_sync_device")`` LAMB 1e-3 / wd 0.01
-    on the ranks' rows of 64 x 128, 2 + 5 steps: every rank the same
+    on the ranks' rows of 64 x 128, 2 + 2 steps: every rank the same
     parameters, 12 launches of each flash kernel a step; (e)
     ``examples/dist_train.py`` as written with the port as ``mx`` in a
     gang of 2: the same weight checksum on both ranks; (f) ms/step per
@@ -440,18 +440,46 @@ Phases, each of which fails the run (each prints its wall time):
     and a profiled f32 step's collective and copy ms and busy share,
     beside the card's name and power limit.
 
+22. model parallel: one gang as in 21 (``--dp-worker <dir> mp``; 2 gloo
+    ranks sharing the card, or one rank a card over NCCL with 2 or more
+    cards), every sub-phase at bench_bert's width (BERT-base, 64 x 128
+    tokens, 20 masked positions, bf16 with f32 masters, LAMB 1e-3 / wd
+    0.01, RandomState(0) data; dropout 0), 2 + 3 steps and one profiled
+    each, through ``TrainStep(mesh=, rules=)``: (a) ``tp``,
+    ``tp_dense_rules()`` and BERT's layers by name (fused QKV and FFN-in
+    column-parallel, the projection and FFN-out row-parallel), flash;
+    (b) ``fsdp``, ``fsdp_rules()``, flash, the batch split; (c) ``sp``,
+    ``attention_impl="ring"``, then ``"ulysses"``; (d) ``pp``: the 12
+    encoder cells as a ``PipelineStack`` of 2 stages of 6, 4
+    microbatches, on the batch's embeddings against a seeded MSE target;
+    (e) ``ep``: ``MoEFFN(768, 3072, 8 experts, top-2)`` under a
+    ``Dense(2)`` head on the embeddings.  Held: every rank finite, its
+    replicated leaves and losses the same bits on every rank, sharded
+    leaves held as blocks, 12 launches of each flash kernel a step a rank
+    in (a) and (b); each sub-phase's leaves after its first step within
+    3x their bf16 noise floor of the world of one's (the same net with
+    no mesh in this process, ring and Ulysses held against the flash
+    net; the floor: the world of one in bf16 against f32).  Printed:
+    where the flash kernels ran and on how many rows, gloo's collectives
+    on this torch, ms/step per rank and tokens/s over the gang against
+    the world of one, each rank's bytes of parameters and optimizer
+    states against the world of one's, a profiled step's collective
+    host ms, copy ms and busy share, beside the card's name and power
+    limit.
+
 Prints one JSON ``kernels`` line, then the card line, then as the last
 line ``{"ok": true, "device": {...}}``.  Without a card, or without the
 package beside it, it exits non-zero and prints no result.
 ``python3 chip_smoke.py --extras`` runs the build and phase 19 alone,
 ``--np`` the build and phase 20 alone (the TrainStep comparison then
-not measured), ``--dp`` the build and phase 21 alone; none of them
-prints a result line.
+not measured), ``--dp`` the build and phase 21 alone, ``--mp`` the
+build and phase 22 alone; none of them prints a result line.
 """
 from __future__ import annotations
 
 import contextlib
 import gc
+import importlib
 import json
 import os
 import re
@@ -660,9 +688,23 @@ ONNX_BATCHES, ONNX_IMAGES, ONNX_RTOL = (1, 64), 8, 2e-3
 # steps of each run, the loss gates of the compressed gradient exchange
 # against f32's trajectory (the JAX package's, tests/test_quantize.py:
 # 2e-3 relative for bf16, 1e-2 for int8), a gang's time limit
-DP_BATCH, DP_WARMUP, DP_TIMED = 256, 2, 5
+DP_BATCH, DP_WARMUP, DP_TIMED = 256, 2, 2
 DP_GATES = {"bf16": 2e-3, "int8": 1e-2}
 DP_GANG_TIMEOUT_S = 600
+# model parallel (phase 22): bench_bert's width, bf16 with f32 masters,
+# LAMB 1e-3 / wd 0.01, dropout 0 (so a gang's first step is held leaf by
+# leaf against the world of one's); MP_WARMUP + MP_TIMED steps a
+# sub-phase and one profiled; the pipeline's stages and microbatches;
+# the MoE's experts and top-k (GShard's top-2); a gang's time limit; the
+# gangs' launcher platform and worker script (None: this file)
+MP_WARMUP, MP_TIMED = 2, 3
+MP_STAGES, MP_MICRO = 2, 4
+MP_EXPERTS, MP_TOPK = 8, 2
+MP_GANG_TIMEOUT_S = 900
+MP_RUNS = ("tp", "fsdp", "ring", "ulysses", "pp", "ep")
+#: elements of each leaf's first-step gradient held (evenly strided)
+MP_GRAD_SAMPLE = 8192
+GANG_PLATFORM, GANG_SCRIPT = "gpu", None
 
 
 def log(msg):
@@ -1223,13 +1265,13 @@ def warm_profiler(torch):
         f"event seen")
 
 
-def print_profile(prof, wall_us, what):
+def print_profile(prof, wall_us, what, rows=None):
     """The device's busy and idle share of ``wall_us`` (the time of the
     device's own events — kernels and copies — summed; the host ops that
     launched them are left out, or their device time would count twice),
     how many device events ran, and the 12 that take the most device
-    time."""
-    rows = device_rows(prof)
+    time.  ``rows``: ``device_rows(prof)`` where the caller has them."""
+    rows = device_rows(prof) if rows is None else rows
     busy_us = sum(device_us(e) for e in rows)
     expect(busy_us > 0, "the profiler saw no device time")
     busy = busy_us / wall_us
@@ -7491,8 +7533,8 @@ def dp_profile(torch, fn, what):
     over gloo the host staging copies, the reduction itself running on
     the host), the device's busy share of the call's wall time."""
     prof, wall_us, _ = profiled(torch, fn, what)
-    busy = print_profile(prof, wall_us, what)
     rows = device_rows(prof)
+    busy = print_profile(prof, wall_us, what, rows)
     nccl = sum(device_us(e) for e in rows if "nccl" in e.key.lower()) / 1e3
     copies = sum(device_us(e) for e in rows
                  if "memcpy" in e.key.lower()) / 1e3
@@ -7799,7 +7841,11 @@ def dp_worker(torch, root, outdir, task):
         f"cuda:{device.index} ({res['name']}) of {res['cards_seen']} "
         f"cards seen")
     kcuda.build_all()           # the phase built them: this loads them
-    if task == "train":
+    if task == "mp":
+        if rank == 0:
+            warm_profiler(torch)
+        res["mp"] = mp_worker(torch, outdir)
+    elif task == "train":
         if rank == 0:
             warm_profiler(torch)
         res["resnet"] = dp_resnet(
@@ -7812,32 +7858,6 @@ def dp_worker(torch, root, outdir, task):
         json.dump(res, f)
     distributed.barrier("done", timeout=120)
     return 0
-
-
-def dp_gang(root, outdir, world, task):
-    """A gang of ``world`` ranks of ``dp_worker`` through the port's
-    launcher (``--platform gpu``: every rank sees every card and takes
-    card ``rank % count``); its output is logged; returns the ranks'
-    results."""
-    cmd = [sys.executable, "-m", "mxnet_tpu_torch.launch", "-n", str(world),
-           "--platform", "gpu", "--graceful-secs", "5", sys.executable,
-           os.path.join(root, "chip_smoke.py"), "--dp-worker", outdir, task]
-    env = dict(os.environ)
-    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=root, env=env, capture_output=True,
-                          text=True, timeout=DP_GANG_TIMEOUT_S)
-    for line in proc.stdout.splitlines():
-        log(f"gang {task}: {line}")
-    tail = proc.stderr.strip().splitlines()[-40:]
-    if proc.returncode != 0:
-        for line in tail:
-            log(f"gang {task} stderr: {line}")
-    expect(proc.returncode == 0, f"dp gang {task} of {world} failed "
-           f"(rc {proc.returncode})")
-    log(f"dp gang {task}: {world} ranks in {time.perf_counter() - t0:.1f} s")
-    return [json.load(open(os.path.join(outdir, f"{task}-r{r}.json")))
-            for r in range(world)]
 
 
 def dp_reference(torch, outdir):
@@ -7967,7 +7987,7 @@ def _data_parallel(torch, root, smi_line, outdir):
         f"{what}")
     gc.collect()
     torch.cuda.empty_cache()
-    ranks = dp_gang(root, outdir, world, "train")
+    ranks = gang_run(root, outdir, world, "train", DP_GANG_TIMEOUT_S)
     backends = {r["backend"] for r in ranks}
     cards = {r["rank"]: r["card"] for r in ranks}
     want = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
@@ -7979,7 +7999,7 @@ def _data_parallel(torch, root, smi_line, outdir):
     log(f"dp topology: {world} ranks over {want}, rank -> card {cards}")
     ref = dp_reference(torch, outdir)
     dp_hold(torch, ranks, ref, world, outdir)
-    example = dp_gang(root, outdir, 2, "example")
+    example = gang_run(root, outdir, 2, "example", DP_GANG_TIMEOUT_S)
     sums = [re.findall(r"weight checksum=(\S+)", r["example"])
             for r in example]
     expect(all(len(s) == 1 for s in sums) and sums[0] == sums[1],
@@ -8022,6 +8042,680 @@ def _data_parallel(torch, root, smi_line, outdir):
             "flash": {k: int(v * (DP_WARMUP + DP_TIMED))
                       for k, v in ranks[0]["bert"]["per_step"].items()},
             "numbers": numbers, "backend": want, "world": world}
+
+
+# ------------------------------------------------------- model parallel --
+def sync(torch):
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def mp_bert(torch, impl, device):
+    """BERT-base at bench_bert's width, dropout 0, seeded, under its own
+    prefix, cast to bf16 (f32 masters come from the step)."""
+    from mxnet_tpu_torch import random as mxrandom
+    from mxnet_tpu_torch.gluon.model_zoo.bert import BERTModel
+
+    mxrandom.seed(0)
+    net = BERTModel(vocab_size=BERT_VOCAB, units=BERT_UNITS,
+                    hidden_size=BERT_HIDDEN, num_layers=BERT_LAYERS,
+                    num_heads=BERT_HEADS, max_length=512, dropout=0.0,
+                    attention_impl=impl, prefix="bert_")
+    net.initialize(ctx=device)
+    return net.cast("bfloat16")
+
+
+def mp_bert_rules():
+    """``tp_dense_rules()`` and BERT's layers by their own names: Gluon
+    names the fused QKV, the output projection and the FFN layers
+    ``dense0``/``dense1``, which ``tp_dense_rules()`` (written for layers
+    named ``qkv``/``proj``/``ffn1``/...) does not match, so alone it
+    splits only the embeddings.  QKV and FFN-in go column-parallel, the
+    projection and FFN-out row-parallel."""
+    from mxnet_tpu_torch import parallel
+
+    return parallel.tp_dense_rules() + parallel.ShardingRules([
+        (r"attentioncell\d+_dense0_weight$", ("tp", None)),
+        (r"attentioncell\d+_dense0_bias$", ("tp",)),
+        (r"attentioncell\d+_dense1_weight$", (None, "tp")),
+        (r"bertlayer\d+_dense0_weight$", ("tp", None)),
+        (r"bertlayer\d+_dense0_bias$", ("tp",)),
+        (r"bertlayer\d+_dense1_weight$", (None, "tp"))])
+
+
+def mp_stack(torch, device):
+    """BERT-base's 12 encoder cells as MP_STAGES pipeline stages of
+    12 / MP_STAGES cells (flash attention, dropout 0), seeded, bf16."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon, parallel
+    from mxnet_tpu_torch import random as mxrandom
+    from mxnet_tpu_torch.gluon.model_zoo.bert import BERTLayer
+
+    def stage():
+        seq = gluon.nn.HybridSequential()
+        with seq.name_scope():
+            for _ in range(BERT_LAYERS // MP_STAGES):
+                seq.add(BERTLayer(BERT_UNITS, BERT_HIDDEN, BERT_HEADS,
+                                  dropout=0.0, attention_impl="flash"))
+        return seq
+    mxrandom.seed(0)
+    dev = torch.device(device)
+    with (mx.cpu() if dev.type == "cpu" else mx.gpu(dev.index or 0)):
+        stack = parallel.PipelineStack(stage, num_stages=MP_STAGES,
+                                       microbatches=MP_MICRO, prefix="pipe_")
+    return stack.cast("bfloat16")
+
+
+def in_sequence(stack):
+    """The world of one of a ``PipelineStack``: its stages applied one
+    after another to the whole batch, from the same stacked parameters
+    (no mesh)."""
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.gluon.block import Block
+    from mxnet_tpu_torch.parallel.functional import functional_call
+
+    class InSequence(Block):
+        def __init__(self):
+            super().__init__(prefix="seq_")
+            self.stack = stack
+
+        def forward(self, x):
+            names = stack._stacked_names
+            plist = [stack.template.collect_params()[n] for n in names]
+            stacked = [p.tensor() for p in plist]
+            for i in range(stack.num_stages):
+                x, _ = functional_call(stack.template, plist,
+                                       [t[i] for t in stacked], (x,),
+                                       autograd.is_training())
+            return x
+    return InSequence()
+
+
+def mp_moe(torch, device):
+    """GShard's top-2 at BERT-base width: ``MoEFFN(768, 3072, 8, k=2)``
+    under a ``Dense(2)`` head on the tokens' mean, as tests/test_moe.py
+    builds it; seeded, bf16."""
+    from mxnet_tpu_torch import gluon, parallel
+    from mxnet_tpu_torch import random as mxrandom
+
+    class Net(gluon.HybridBlock):
+        def __init__(self):
+            super().__init__(prefix="moenet_")
+            with self.name_scope():
+                self.moe = parallel.MoEFFN(
+                    units=BERT_UNITS, hidden_size=BERT_HIDDEN,
+                    num_experts=MP_EXPERTS, k=MP_TOPK, prefix="moe_")
+                self.out = gluon.nn.Dense(2, in_units=BERT_UNITS,
+                                          prefix="out_")
+
+        def forward(self, x):
+            h, aux = self.moe(x)
+            return self.out(h.mean(dim=1)), aux
+    mxrandom.seed(0)
+    net = Net()
+    net.initialize(ctx=device)
+    return net.cast("bfloat16")
+
+
+def mp_embeddings(torch, bert, tokens, types):
+    """The batch's BERT-base embeddings ``(B, S, C)`` (no gradient)."""
+    from mxnet_tpu_torch import autograd
+
+    with torch.no_grad(), autograd.pause():
+        return bert._embed(tokens, types).detach()
+
+
+def mp_case(torch, run, device, rank, world, shared):
+    """One sub-phase's net, loss, mesh/rules and this rank's batch.
+    ``shared`` carries the BERT batch and its embeddings across runs."""
+    from mxnet_tpu_torch import gluon, parallel
+
+    data, labels = shared["batch"]
+    one = world == 1
+    if run in ("tp", "fsdp", "ring", "ulysses"):
+        # tp, fsdp and the world of one share one flash net (a step owns
+        # copies of a net's parameters, so the net stays as it was made)
+        net = shared["bert"] if one or run in ("tp", "fsdp") \
+            else mp_bert(torch, run, device)
+        kw = {}
+        if not one:
+            kw = {"tp": dict(mesh=parallel.make_mesh(tp=world),
+                             rules=mp_bert_rules()),
+                  "fsdp": dict(mesh=parallel.make_mesh(fsdp=world),
+                               rules=parallel.fsdp_rules()),
+                  "ring": dict(mesh=parallel.make_mesh(sp=world)),
+                  "ulysses": dict(mesh=parallel.make_mesh(sp=world))}[run]
+        if run == "fsdp" and not one:
+            b = BERT_BATCH // world
+            data = tuple(None if t is None else t[rank * b:(rank + 1) * b]
+                         for t in data)
+            labels = tuple(t[rank * b:(rank + 1) * b] for t in labels)
+        return net, bert_loss_fn(), kw, data, labels
+    x, target = shared["embeddings"], shared["target"]
+    if run == "pp":
+        stack = mp_stack(torch, device)
+        net = in_sequence(stack) if one else stack
+        kw = {} if one else dict(mesh=parallel.make_mesh(pp=world),
+                                 rules=stack.sharding_rules())
+
+        def mse(out, y):
+            return ((out.float() - y.float()) ** 2).mean()
+        return net, mse, kw, x, target
+    net = mp_moe(torch, device)
+    kw = {} if one else dict(mesh=parallel.make_mesh(ep=world),
+                             rules=net.moe.sharding_rules())
+    ce = gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def moe_loss(out, y):
+        logits, aux = out
+        return ce(logits.float(), y).mean() + 0.01 * aux.float()
+    return net, moe_loss, kw, x, labels[2]
+
+
+def mp_shared(torch, device):
+    """bench_bert's batch, its embeddings (through a seeded BERT-base)
+    and the pipeline's MSE target from RandomState(0)."""
+    batch = bert_batch(torch, BERT_BATCH, device=device)
+    bert = mp_bert(torch, "flash", device)
+    emb = mp_embeddings(torch, bert, batch[0][0], batch[0][1])
+    rng = np.random.RandomState(0)
+    target = torch.from_numpy(rng.randn(*emb.shape).astype(np.float32)) \
+        .to(device).to(torch.bfloat16)
+    return {"batch": batch, "embeddings": emb, "target": target,
+            "bert": bert}
+
+
+def step_bytes(step):
+    """Bytes this rank holds of the step's parameters, running statistics
+    and optimizer states (f32 masters among them).  The Gluon net the
+    step was made from keeps its own whole parameters besides
+    (``net_bytes``)."""
+    return sum(t.numel() * t.element_size()
+               for t in list(step._train) + list(step._aux)
+               + [s for st in step._states for s in st])
+
+
+def net_bytes(net):
+    """Bytes of the whole parameters a Gluon net keeps on its device."""
+    return sum(p.local_tensor().numel() * p.local_tensor().element_size()
+               for p in net.collect_params().values())
+
+
+@contextlib.contextmanager
+def first_gradients():
+    """Inside, the gradients a ``TrainStep``'s first update takes (this
+    rank's blocks of the sharded leaves, after the exchange), cloned into
+    the yielded list: read at the one call of the optimizer update."""
+    from mxnet_tpu_torch.parallel import step as step_mod
+
+    seen = []
+    real = step_mod.multi_update
+
+    def spy(opt, train, grads, *a, **kw):
+        if not seen:
+            seen.append([g.detach().clone() for g in grads])
+        return real(opt, train, grads, *a, **kw)
+    step_mod.multi_update = spy
+    try:
+        yield seen
+    finally:
+        step_mod.multi_update = real
+
+
+def save_gradients(torch, step, grads, path):
+    """MP_GRAD_SAMPLE evenly strided elements of each trainable leaf's
+    whole first-step gradient (all of a smaller leaf), f32, to ``path``
+    (None: this rank only takes part in the gathers, a collective for
+    every sharded leaf)."""
+    out = {}
+    for i, t, g in zip(step._train_idx, step._train, grads):
+        where = getattr(t, "_placement", None)
+        whole = (g if where is None else where.gather(g)).float().flatten()
+        stride = max(1, whole.numel() // MP_GRAD_SAMPLE)
+        out[step._names[i]] = whole[::stride][:MP_GRAD_SAMPLE].cpu().numpy()
+    if path is not None:
+        np.savez(path, **out)
+
+
+def save_leaves(leaves, path, loss, f32=False, zero=()):
+    """A step's whole leaves (``step.params``: bf16 as their raw 16 bits,
+    or f32), the first loss and the names of the trainable leaves that
+    started at zero, into ``path``."""
+    import torch
+
+    out = {"loss": np.array([loss]), "zero_start": np.array(sorted(zero))}
+    for name, t in leaves.items():
+        t = t.detach()
+        out[name] = (t.float() if f32 else
+                     t.to(torch.bfloat16).view(torch.int16)).cpu().numpy()
+    np.savez(path, **out)
+
+
+def load_leaves(torch, path, f32=False):
+    """``save_leaves``' file: ``({name: f64 tensor}, zero-start names)``."""
+    z = np.load(path)
+    out = {}
+    for name in z.files:
+        if name == "zero_start":
+            continue
+        v = torch.from_numpy(z[name])
+        if name != "loss" and not f32:
+            v = v.view(torch.bfloat16)
+        out[name] = v.double()
+    return out, {str(n) for n in z["zero_start"]}
+
+
+@contextlib.contextmanager
+def timed_collectives():
+    """Inside, the host milliseconds spent in the port's collectives
+    (over gloo they are synchronous and include the staging copies
+    between the card and the host) add up in the yielded dict's
+    ``ms``."""
+    from mxnet_tpu_torch import distributed
+
+    names = ("all_reduce_", "all_gather_into", "all_to_all", "broadcast_",
+             "send_recv")
+    saved = {n: getattr(distributed, n) for n in names}
+    acc = {"ms": 0.0, "calls": 0}
+
+    def timed(fn):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                acc["ms"] += 1e3 * (time.perf_counter() - t0)
+                acc["calls"] += 1
+        return run
+    for n in names:
+        setattr(distributed, n, timed(saved[n]))
+    try:
+        yield acc
+    finally:
+        for n, fn in saved.items():
+            setattr(distributed, n, fn)
+
+
+def mp_run(torch, run, shared, device, outdir):
+    """One sub-phase on this rank (a world of one outside a gang): the
+    checked first step (its leaves to ``outdir``), MP_WARMUP - 1 more
+    and MP_TIMED timed steps, one profiled step; the numbers."""
+    from mxnet_tpu_torch import distributed, optimizer, parallel
+
+    fa = flash_module()
+    rank, world = distributed.rank(), distributed.num_workers()
+    clock = [time.perf_counter()]
+
+    def lap():
+        now = time.perf_counter()
+        clock.append(now)
+        return round(now - clock[-2], 1)
+    net, loss_fn, kw, data, labels = mp_case(torch, run, device, rank,
+                                             world, shared)
+    step = parallel.TrainStep(net, loss_fn,
+                              optimizer.create("lamb", learning_rate=1e-3,
+                                               wd=0.01), **kw)
+    zero = [n for n, p in net.collect_params().items()
+            if p.grad_req != "null" and not bool(p.tensor().detach().any())]
+    heads = []
+    attn = importlib.import_module("mxnet_tpu_torch.ops.attention")
+    bhsd = attn._flash_bhsd
+
+    def spy(q, *a, **k):
+        heads.append(int(q.shape[0]))
+        return bhsd(q, *a, **k)
+    attn._flash_bhsd = spy
+    fa.flash_attention.launches = dict.fromkeys(FLASH, 0)  # the path starts
+    laps = {"net": lap()}
+    try:
+        with first_gradients() as grads:
+            loss0 = float(step(data, labels))
+    finally:
+        attn._flash_bhsd = bhsd
+    laps["build + first step"] = lap()
+    tag = "one" if world == 1 else "gang"
+    sync(torch)
+    leaves = step.params                    # a collective on every rank
+    save_gradients(torch, step, grads[0], os.path.join(
+        outdir, f"{tag}-{run}-grad.npz") if rank == 0 else None)
+    if rank == 0:
+        save_leaves(leaves, os.path.join(outdir, f"{tag}-{run}.npz"), loss0,
+                    zero=zero)
+    del leaves, grads
+    laps["leaves saved"] = lap()
+    losses = [loss0]
+    for _ in range(MP_WARMUP - 1):
+        losses.append(float(step(data, labels)))
+    sync(torch)
+    if world > 1:
+        distributed.barrier()
+    laps["warm-up"] = lap()
+    t0 = time.perf_counter()
+    timed = [step(data, labels) for _ in range(MP_TIMED)]
+    sync(torch)
+    dt = time.perf_counter() - t0
+    launches = dict(fa.flash_attention.launches)         # ... and ends here
+    laps["timed"] = lap()
+    losses += [float(v) for v in timed]
+    replicated = [t for t in list(step._train) + list(step._aux)
+                  if getattr(t, "_placement", None) is None]
+    same = world == 1 or same_across_ranks(
+        torch, replicated + [torch.tensor(losses, dtype=torch.float64)])
+    sharded = sum(getattr(t, "_placement", None) is not None
+                  for t in step._train)
+    laps["checks"] = lap()
+    what = (f"mp {run}, rank {rank}/{world} over "
+            f"{distributed.backend() or 'no group'}")
+    with timed_collectives() as comm:
+        if rank == 0 and DEVICE == "cuda":
+            prof = profile_once(torch, lambda: float(step(data, labels)),
+                                what)
+        else:
+            float(step(data, labels))
+            prof = {}
+    prof["comm_ms"], prof["comm_calls"] = comm["ms"], comm["calls"]
+    laps["profiled step"] = lap()
+    steps = MP_WARMUP + MP_TIMED
+    out = {"losses": losses, "ms_step": 1e3 * dt / MP_TIMED,
+           "per_step": {k: v / steps for k, v in launches.items()},
+           "same": bool(same), "bytes": step_bytes(step),
+           "net_bytes": net_bytes(net),
+           "sharded": int(sharded), "graphs": step.graph_count(),
+           "flash_heads": sorted(set(heads)), "profile": prof,
+           "finite": all(bool(torch.isfinite(t).all()) for t in step._train)}
+    log(f"mp {run} [rank {rank}/{world}]: losses "
+        f"{[round(v, 4) for v in losses]}; {out['ms_step']:.1f} ms/step; "
+        f"flash launches a step {out['per_step']}; {sharded} sharded leaves;"
+        f" {out['bytes'] / 2**20:.1f} MiB of parameters and states; "
+        f"replicated leaves {'the same bits' if same else 'DIFFER'} across "
+        f"ranks; collectives {comm['ms']:.1f} ms in {comm['calls']} calls "
+        f"on the profiled step; seconds {laps}")
+    del step, net
+    gc.collect()
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def profile_once(torch, fn, what):
+    """``dp_profile``'s numbers from one profiled call, never repeated
+    (every rank of a gang must run the same steps): a session without
+    device events gives NaNs, logged."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sync(torch)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        sync(torch)
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = device_rows(prof)
+    if not rows:
+        log(f"profile [{what}]: the session saw no device event")
+        nan = float("nan")
+        return {"busy": nan, "nccl_ms": nan, "copy_ms": nan,
+                "wall_ms": wall_us / 1e3}
+    busy = print_profile(prof, wall_us, what, rows)
+    return {"busy": busy,
+            "nccl_ms": sum(device_us(e) for e in rows
+                           if "nccl" in e.key.lower()) / 1e3,
+            "copy_ms": sum(device_us(e) for e in rows
+                           if "memcpy" in e.key.lower()) / 1e3,
+            "wall_ms": wall_us / 1e3}
+
+
+def gloo_census(torch):
+    """Which collectives this torch's gloo runs, tried on 2-element
+    tensors over the gang (each one every rank calls)."""
+    from torch import distributed as dist
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    ones = torch.ones(2 * world)
+    tries = {
+        "all_reduce bf16": lambda: dist.all_reduce(
+            torch.ones(2, dtype=torch.bfloat16)),
+        "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+            torch.empty(2 * world), torch.ones(2)),
+        "all_to_all_single": lambda: dist.all_to_all_single(
+            torch.empty(2 * world), ones),
+        "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
+            torch.empty(2), ones),
+        "batch_isend_irecv": lambda: [w.wait() for w in
+                                      dist.batch_isend_irecv([
+                                          dist.P2POp(dist.isend, ones,
+                                                     (rank + 1) % world),
+                                          dist.P2POp(dist.irecv,
+                                                     torch.empty(2 * world),
+                                                     (rank - 1) % world)])],
+    }
+    out = {}
+    for name, fn in tries.items():
+        try:
+            fn()
+            out[name] = "yes"
+        except Exception as exc:   # noqa: BLE001 — the census is the result
+            out[name] = f"no ({type(exc).__name__})"
+        dist.barrier()
+    return out
+
+
+def mp_worker(torch, outdir):
+    """The gang's part of phase 22: every sub-phase on this rank."""
+    from mxnet_tpu_torch import distributed
+
+    device = distributed.device() if DEVICE == "cuda" else "cpu"
+    res = {}
+    if distributed.backend() == "gloo":
+        res["gloo"] = gloo_census(torch)
+        log(f"mp gloo census (torch {torch.__version__}): {res['gloo']}")
+    shared = mp_shared(torch, device)
+    for run in MP_RUNS:
+        res[run] = mp_run(torch, run, shared, device, outdir)
+    return res
+
+
+def mp_reference(torch, outdir):
+    """The world of one in this process (no process group, no mesh):
+    each distinct net's bf16 step from the same parameters on the whole
+    batch (captured on the card), and the floor beside it — the same
+    first step in f32 from the bf16-rounded parameters, eager."""
+    from mxnet_tpu_torch import optimizer, parallel
+
+    device = DEVICE
+    shared = mp_shared(torch, device)
+    ref = {}
+    for run in ("tp", "pp", "ep"):
+        ref[run] = mp_run(torch, run, shared, device, outdir)
+        net, loss_fn, _, data, labels = mp_case(torch, run, device, 0, 1,
+                                                shared)
+        net.cast("float32")
+
+        def f32(x):
+            if isinstance(x, tuple):
+                return tuple(f32(v) for v in x)
+            return x.float() if x is not None and x.is_floating_point() \
+                else x
+        step = parallel.TrainStep(net, loss_fn, optimizer.create(
+            "lamb", learning_rate=1e-3, wd=0.01), capture=False)
+        with first_gradients() as grads:
+            loss = float(step(f32(data), f32(labels)))
+        save_gradients(torch, step, grads[0],
+                       os.path.join(outdir, f"one32-{run}-grad.npz"))
+        save_leaves(step.params, os.path.join(outdir, f"one32-{run}.npz"),
+                    loss, f32=True)
+        del step, net
+        gc.collect()
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+    return ref
+
+
+#: each sub-phase's world of one (its net without a mesh)
+MP_ONE = {"tp": "tp", "fsdp": "tp", "ring": "tp", "ulysses": "tp",
+          "pp": "pp", "ep": "ep"}
+
+
+def mp_hold(torch, ranks, ref, world, outdir):
+    """The phase's checks: every rank's runs finite, the replicated
+    leaves the same bits on every rank, 12 flash launches of each kernel
+    a step a rank in tp and fsdp, and the gang's first-step gradients
+    (a strided sample of each leaf's) and its leaves after
+    that step against the world of one's at the bf16 noise floor.  LAMB's
+    first step sees only the gradient's signs and a norm ratio, so the
+    gradients' own hold is what catches a gradient ``n`` times too large
+    (a missed share, a sum too many).  The leaves
+    that start at zero (biases, LayerNorm betas) are a kind of their
+    own: LAMB's first step moves them by ``lr * g / (|g| + eps)``, the
+    gradient's sign wherever it is not tiny, so after it they are that
+    sign pattern, and a gradient near zero swings an element by up to
+    ``2 lr`` between any two summation orders."""
+    for r in ranks:
+        for run in MP_RUNS:
+            got = r["mp"][run]
+            expect(got["finite"] and all(np.isfinite(got["losses"])),
+                   f"mp {run}: not finite on rank {r['rank']}")
+            expect(got["same"], f"mp {run}: rank {r['rank']}'s replicated "
+                   f"leaves or losses differ from rank 0's")
+            expect(got["sharded"] > 0 or run in ("ring", "ulysses"),
+                   f"mp {run}: rank {r['rank']} holds no sharded leaf")
+            if run in ("tp", "fsdp"):
+                expect(got["per_step"] == dict.fromkeys(FLASH, BERT_LAYERS),
+                       f"mp {run}: rank {r['rank']} launched "
+                       f"{got['per_step']} flash kernels a step, expected "
+                       f"{BERT_LAYERS} each")
+    for run in MP_RUNS:
+        one = MP_ONE[run]
+        gang, _ = load_leaves(torch, os.path.join(outdir, f"gang-{run}.npz"))
+        plain, zero = load_leaves(torch, os.path.join(outdir,
+                                                      f"one-{one}.npz"))
+        f32, _ = load_leaves(torch, os.path.join(outdir, f"one32-{one}.npz"),
+                             f32=True)
+        keys = sorted(k for k in plain if k != "loss")
+        expect(sorted(k for k in gang if k != "loss") == keys == sorted(
+            k for k in f32 if k != "loss"),
+            f"mp {run}: the gang's leaves are not the world of one's")
+        kinds = [("loss", "loss")] + [
+            (k, "parameter from zero" if k in zero else "parameter")
+            for k in keys]
+        order = ["loss"] + keys
+        hold_leaves(torch, kinds, [gang[k] for k in order],
+                    [plain[k] for k in order], [f32[k] for k in order],
+                    f"mp {run}, {world} ranks vs the world of one, one "
+                    f"step from the same parameters; floor: the world of "
+                    f"one in bf16 vs f32")
+        grads = [{k: torch.from_numpy(v).double() for k, v in
+                  np.load(os.path.join(outdir, f"{tag}-{r}-grad.npz"))
+                  .items()} for tag, r in (("gang", run), ("one", one),
+                                           ("one32", one))]
+        keys = sorted(grads[1])
+        expect(all(sorted(g) == keys for g in grads),
+               f"mp {run}: the gang's gradients are not the world of one's")
+        hold_leaves(torch, [(k, "gradient") for k in keys],
+                    *[[g[k] for k in keys] for g in grads],
+                    f"mp {run}, {world} ranks vs the world of one, the "
+                    f"first step's gradients; floor: the world of one in "
+                    f"bf16 vs f32")
+
+
+def gang_run(root, outdir, world, task, timeout):
+    """A gang of ``world`` ranks of ``chip_smoke.py --dp-worker <outdir>
+    <task>`` through the port's launcher, in a session of its own (a
+    timeout kills the launcher and its ranks together); its output is
+    logged; returns the ranks' results."""
+    import signal
+
+    script = GANG_SCRIPT or os.path.join(root, "chip_smoke.py")
+    cmd = [sys.executable, "-m", "mxnet_tpu_torch.launch", "-n", str(world),
+           "--platform", GANG_PLATFORM, "--graceful-secs", "5",
+           sys.executable, script, "--dp-worker", outdir, task]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=root, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+        log(f"gang {task}: killed after {timeout} s")
+    for line in out.splitlines():
+        log(f"gang {task}: {line}")
+    if proc.returncode != 0:
+        for line in err.strip().splitlines()[-40:]:
+            log(f"gang {task} stderr: {line}")
+    expect(proc.returncode == 0, f"gang {task} of {world} failed "
+           f"(rc {proc.returncode})")
+    log(f"gang {task}: {world} ranks in {time.perf_counter() - t0:.1f} s")
+    return [json.load(open(os.path.join(outdir, f"{task}-r{r}.json")))
+            for r in range(world)]
+
+
+def model_parallel(torch, root, smi_line):
+    """The "model parallel" phase (22 above).  Returns the flash launches
+    of the tp and fsdp paths and the numbers."""
+    import shutil
+
+    outdir = tempfile.mkdtemp(prefix="mp-")
+    try:
+        return _model_parallel(torch, root, smi_line, outdir)
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+
+
+def _model_parallel(torch, root, smi_line, outdir):
+    world, what = dp_topology(torch)
+    log(f"mp topology: {torch.cuda.device_count() if DEVICE == 'cuda' else 0}"
+        f" card(s) seen; the gang: {what}")
+    gc.collect()
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    ranks = gang_run(root, outdir, world, "mp", MP_GANG_TIMEOUT_S)
+    ref = mp_reference(torch, outdir)
+    mp_hold(torch, ranks, ref, world, outdir)
+    a = ranks[0]["mp"]["tp"]
+    log(f"mp tp: the fused QKV Dense splits [Q; K; V] by rows, its blocks' "
+        f"outputs gathered on every rank, so attention runs whole on each "
+        f"rank: the flash kernels ran on (B*H) = {a['flash_heads']} rows "
+        f"a call, {BERT_HEADS} heads of {BERT_BATCH} sequences, on each of "
+        f"the {world} ranks")
+    if "gloo" in ranks[0]:
+        log(f"mp gloo census: {ranks[0]['gloo']}")
+    numbers = {}
+    for run in MP_RUNS:
+        per = [r["mp"][run]["ms_step"] for r in ranks]
+        one = ref[MP_ONE[run]]
+        tok = BERT_BATCH * BERT_SEQ / (max(per) / 1e3)
+        one_tok = BERT_BATCH * BERT_SEQ / (one["ms_step"] / 1e3)
+        mem = [r["mp"][run]["bytes"] for r in ranks]
+        resident = ranks[0]["mp"][run]["net_bytes"]
+        with_net = (max(mem) + resident) / (one["bytes"] + one["net_bytes"])
+        prof = ranks[0]["mp"][run]["profile"]
+        numbers[run] = {"ms_step": per, "tok_s": tok, "one_ms": one["ms_step"],
+                        "one_tok_s": one_tok, "bytes": mem,
+                        "one_bytes": one["bytes"], "net_bytes": resident,
+                        "profile": prof}
+        log(f"mp numbers {card_line(smi_line)}: {run}, {world} ranks "
+            f"({ranks[0]['backend']}): ms/step per rank "
+            f"{[round(v, 1) for v in per]} = {tok:.1f} tokens/s over the "
+            f"gang vs the world of one {one['ms_step']:.1f} ms/step = "
+            f"{one_tok:.1f} tokens/s; the step's parameters + optimizer "
+            f"states per rank {[round(b / 2**20, 1) for b in mem]} MiB vs "
+            f"{one['bytes'] / 2**20:.1f} MiB "
+            f"({max(mem) / one['bytes']:.3f}x), and besides them the Gluon "
+            f"net's whole parameters, {resident / 2**20:.1f} MiB on every "
+            f"rank ({with_net:.3f}x with them); profiled step on rank 0: "
+            f"wall {prof.get('wall_ms', float('nan')):.1f} ms, busy "
+            f"{100 * prof.get('busy', float('nan')):.1f}%, collectives "
+            f"{prof['comm_ms']:.1f} ms host in {prof['comm_calls']} calls, "
+            f"device copies {prof.get('copy_ms', float('nan')):.3f} ms")
+    return {"flash": {run: {k: int(v * (MP_WARMUP + MP_TIMED))
+                            for k, v in ranks[0]["mp"][run]["per_step"]
+                            .items()} for run in ("tp", "fsdp")},
+            "numbers": numbers, "backend": ranks[0]["backend"],
+            "world": world}
 
 
 class phase:
@@ -8079,6 +8773,10 @@ def main():
         if sys.argv[1:] == ["--dp"]:
             with phase("data parallel"):
                 data_parallel(torch, root, smi_line)
+            return 0
+        if sys.argv[1:] == ["--mp"]:
+            with phase("model parallel"):
+                model_parallel(torch, root, smi_line)
             return 0
         with phase("imperative"):
             # first: its backward is the first CUDA work of autograd's
@@ -8296,6 +8994,10 @@ def main():
             torch.cuda.empty_cache()
         with phase("data parallel"):
             dp = data_parallel(torch, root, smi_line)
+            gc.collect()
+            torch.cuda.empty_cache()
+        with phase("model parallel"):
+            mp = model_parallel(torch, root, smi_line)
     except SmokeError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -8356,7 +9058,9 @@ def main():
                                  "symbolic": symbolic["launches"][kname],
                                  "amp": extras["amp"]["launches"][kern],
                                  "np": npso["np"]["launches"][kern],
-                                 "dp": dp["flash"][kern]}})
+                                 "dp": dp["flash"][kern],
+                                 "mp tp": mp["flash"]["tp"][kern],
+                                 "mp fsdp": mp["flash"]["fsdp"][kern]}})
     print(json.dumps(kernels), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {

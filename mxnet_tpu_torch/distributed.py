@@ -16,9 +16,9 @@ other case, and an NCCL failure raises: it is never retried over gloo.
 Rank r takes card ``r % torch.cuda.device_count()`` of the cards it sees
 (``torch.cuda.set_device``), so the default context is the rank's card.
 
-A gloo collective on a card's tensor goes through the host (a copy to
-pinned host memory and back); an NCCL one runs on the card, and may be
-captured in a CUDA graph.
+A gloo collective on a card's tensor goes through the host (a copy into
+a pinned host buffer, reused from call to call, and back); an NCCL one
+runs on the card, and may be captured in a CUDA graph.
 
 ``init()`` with no env and no arguments is a no-op world of one, so
 scripts call it unconditionally.  With a coordinator and a world of one
@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import datetime
 import logging
+import math
 import os
 import socket
 import time
@@ -254,10 +255,41 @@ def _wire_device(dev):
     return torch.device("cpu")
 
 
-def _on_wire(t):
-    """``t`` on the backend's device (a copy when it lies elsewhere)."""
+_staging = {}           # (dtype, slot) -> a pinned host buffer, reused
+
+
+def _host_slot(shape, dtype, slot):
+    """A pinned host tensor of ``shape`` through which gloo stages a
+    card's tensor: one buffer a dtype and slot, grown as needed and
+    reused (a collective returns only when its copies are done, so the
+    next one finds the buffer free)."""
+    n = math.prod(shape)
+    buf = _staging.get((dtype, slot))
+    if buf is None or buf.numel() < n:
+        buf = _staging[(dtype, slot)] = torch.empty(
+            n, dtype=dtype, pin_memory=True)
+    return buf[:n].view(tuple(shape))
+
+
+def _on_wire(t, slot="in"):
+    """``t`` on the backend's device (a copy when it lies elsewhere; a
+    card's tensor over gloo goes through the pinned buffer ``slot``)."""
     wire = _wire_device(t.device)
-    return t if t.device == wire else t.to(wire)
+    if t.device == wire:
+        return t
+    if t.is_cuda:
+        h = _host_slot(t.shape, t.dtype, slot)
+        h.copy_(t)
+        return h
+    return t.to(wire)
+
+
+def _wire_empty(t, shape, slot):
+    """An output buffer of ``shape`` on the wire for ``t``'s collective."""
+    wire = _wire_device(t.device)
+    if wire.type == "cpu" and t.is_cuda:
+        return _host_slot(shape, t.dtype, slot)
+    return torch.empty(tuple(shape), dtype=t.dtype, device=wire)
 
 
 def all_reduce_(t, group=None, op="sum"):
@@ -282,7 +314,7 @@ def all_gather_into(t, group=None):
     dist = _dist()
     n = dist.get_world_size(group)
     w = _on_wire(t.contiguous())
-    out = torch.empty((n,) + tuple(t.shape), dtype=t.dtype, device=w.device)
+    out = _wire_empty(t, (n,) + tuple(t.shape), "out")
     if _state["backend"] == "nccl":
         dist.all_gather_into_tensor(out, w, group=group)
     else:
@@ -292,19 +324,39 @@ def all_gather_into(t, group=None):
 
 def all_to_all(t, group=None):
     """``t`` of shape ``(n, ...)``: row j goes to rank j; returns the
-    ``(n, ...)`` rows every rank sent to this one, in rank order.  gloo
-    has no all-to-all: there every rank gathers all rows and keeps its
-    own (the same result, more bytes on the wire)."""
+    ``(n, ...)`` rows every rank sent to this one, in rank order
+    (``all_to_all_single``, which gloo has too: torch 2.11 and 2.13)."""
     if not is_initialized():
         return t.clone()
     dist = _dist()
-    if _state["backend"] == "nccl":
-        w = _on_wire(t.contiguous())
-        out = torch.empty_like(w)
-        dist.all_to_all_single(out, w, group=group)
-        return out.to(t.device)
-    me = dist.get_rank(group)
-    return all_gather_into(t, group)[:, me]
+    w = _on_wire(t.contiguous())
+    out = _wire_empty(t, w.shape, "out")
+    dist.all_to_all_single(out, w, group=group)
+    return out.to(t.device)
+
+
+def send_recv(sends, recvs, group=None):
+    """Point to point: each ``(tensor, peer)`` of ``sends`` goes to rank
+    ``peer`` of ``group`` and each ``(buffer, peer)`` of ``recvs`` is
+    filled from ``peer``, all posted together (``batch_isend_irecv``),
+    so a ring's sends and receives cannot wait on each other."""
+    dist = _dist()
+    world = group is None or group is dist.group.WORLD
+
+    def glob(r):
+        return r if world else dist.get_global_rank(group, r)
+    wires = [(b if b.device == _wire_device(b.device)
+              else _wire_empty(b, b.shape, f"recv{i}"), b)
+             for i, (b, _) in enumerate(recvs)]
+    ops = [dist.P2POp(dist.isend, _on_wire(t, f"send{i}"), glob(p), group)
+           for i, (t, p) in enumerate(sends)]
+    ops += [dist.P2POp(dist.irecv, w, glob(p), group)
+            for (w, _), (_, p) in zip(wires, recvs)]
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    for w, b in wires:
+        if w is not b:
+            b.copy_(w)
 
 
 def broadcast_(t, root=0, group=None):

@@ -58,9 +58,11 @@ from .. import ops as _ops
 from ..graphs import GraphCache, StepGraph
 from ..ndarray.ndarray import NDArray, _wrap_all
 from ..numpy import ndarray as _np_ndarray
-from ..parallel.functional import functional_call, run_eagerly, \
-    running_eagerly
 from .parameter import DeferredInitializationError, Parameter, ParameterDict
+
+# ``parallel.functional`` (``functional_call``, ``run_eagerly``) is
+# imported where it is used: the ``parallel`` package defines Gluon
+# blocks (``MoEFFN``, ``PipelineStack``) and so imports this module.
 
 __all__ = ["Block", "HybridBlock", "SymbolBlock", "params_from_jax"]
 
@@ -238,6 +240,7 @@ class Block(torch.nn.Module):
                         _hook_all(c)
 
             _hook_all(self)
+            from ..parallel.functional import run_eagerly
             try:
                 with run_eagerly(), _autograd.pause():
                     Block.__call__(self, *inputs)
@@ -400,6 +403,7 @@ class HybridBlock(Block):
                     p._finish_deferred_init()
 
     def __call__(self, *args):
+        from ..parallel.functional import run_eagerly, running_eagerly
         if not self._active or running_eagerly():
             return super().__call__(*args)
         wrap = any(isinstance(a, NDArray) for a in args)
@@ -419,12 +423,21 @@ class HybridBlock(Block):
         out = self._cached(leaves, spec)
         return _wrap_all(out, _out_class(args)) if wrap else out
 
+    #: parameters that ``hybrid_forward`` takes as a model-parallel step's
+    #: blocks (``Parameter.local_tensor``) and uses by block itself
+    #: (``parallel.placement``); the rest arrive whole, gathered where used
+    _takes_blocks = ()
+
+    def _param_tensors(self):
+        return {k: p.local_tensor() if k in self._takes_blocks
+                else p.tensor() for k, p in self._reg_params.items()}
+
     def forward(self, x, *args):
         try:
-            params = {k: p.tensor() for k, p in self._reg_params.items()}
+            params = self._param_tensors()
         except DeferredInitializationError:
             self._ensure_init(x, *args)
-            params = {k: p.tensor() for k, p in self._reg_params.items()}
+            params = self._param_tensors()
         return self.hybrid_forward(_ops, x, *args, **params)
 
     def hybrid_forward(self, F, x, *args, **kwargs):
@@ -530,6 +543,7 @@ class _Serve(torch.nn.Module):
         self.block, self.plist, self.spec = block, plist, spec
 
     def forward(self, params, *leaves):
+        from ..parallel.functional import functional_call
         out, _ = functional_call(self.block, self.plist, list(params),
                                  _unflatten(self.spec, leaves), False)
         outs, self.out_spec = _flatten(out)
@@ -618,6 +632,7 @@ class _CachedOp:
         parameter the forward replaced (running statistics) has its new
         value copied into its own storage.  Returns the output
         tensors."""
+        from ..parallel.functional import functional_call
         out, mutated = functional_call(self.block(), self.plist, aliases,
                                        _unflatten(spec, leaves), training)
         with torch.no_grad():

@@ -10,9 +10,10 @@ masked positions gathered with ``gather_nd``.
 
 ``attention_impl`` is ``"dense"`` (``F.multi_head_attention``) or
 ``"flash"`` (``F.flash_attention``: the hand-written flash-attention
-kernels on the card).  As in the JAX package the flash path takes no
-``valid_length`` mask; ``"ring"`` and ``"ulysses"`` need a device mesh,
-which the port does not have yet.
+kernels on the card), ``"ring"`` or ``"ulysses"`` (``F.ring_attention``
+/ ``F.ulysses_attention`` over the current mesh's ``sp`` axis).  As in
+the JAX package the flash and sequence-parallel paths take no
+``valid_length`` mask.
 
 ``params_from_jax`` (the zoo's, shared with ResNet) copies a JAX BERT's
 parameters into a port BERT of the same configuration, by name with
@@ -25,6 +26,7 @@ import torch
 from ... import initializer as init_mod
 from ... import ops as F
 from ..block import HybridBlock
+from ...ops.nn import batch_mean
 from ..loss import SoftmaxCrossEntropyLoss
 from ..nn import Dense, Dropout, Embedding, LayerNorm
 from .vision.resnet import params_from_jax
@@ -50,11 +52,6 @@ class BERTAttentionCell(HybridBlock):
             raise ValueError(f"unknown attention_impl '{attention_impl}' "
                              "(expected 'dense', 'flash', 'ring', or "
                              "'ulysses')")
-        if attention_impl in ("ring", "ulysses"):
-            raise NotImplementedError(
-                f"attention_impl='{attention_impl}' runs over a sequence-"
-                f"parallel mesh axis, which the port does not run yet "
-                f"(ROADMAP A15b)")
         self._units = units
         self._heads = num_heads
         self._dropout = dropout
@@ -75,6 +72,15 @@ class BERTAttentionCell(HybridBlock):
                                  "valid_length masks yet")
             out = F.flash_attention(q, k, v, heads=self._heads,
                                     dropout=self._dropout)
+        elif self._impl != "dense":
+            # sequence-parallel (ring/ulysses over the current mesh's sp
+            # axis); no padding masks there
+            if mask is not None:
+                raise ValueError(f"attention_impl='{self._impl}' does not "
+                                 "support valid_length masks yet")
+            op = (F.ring_attention if self._impl == "ring"
+                  else F.ulysses_attention)
+            out = op(q, k, v, heads=self._heads, dropout=self._dropout)
         else:
             out = F.multi_head_attention(q, k, v, mask, heads=self._heads,
                                          dropout=self._dropout)
@@ -222,7 +228,13 @@ def _take_along_seq(seq, positions):
 class BERTPretrainLoss(HybridBlock):
     """Masked-LM + next-sentence loss: ``call(mlm_scores, nsp_scores,
     mlm_labels, mlm_weights, nsp_labels)`` -> the weighted mean masked CE
-    plus the mean NSP CE (a scalar in the scores' dtype)."""
+    plus the mean NSP CE (a scalar in the scores' dtype).
+
+    Inside a data-parallel step's f32 path (``ops.nn.stats_over``) the
+    weighted mean's denominator is the global batch's: the masked-LM term
+    divides this rank's weighted sum by the mean over the ranks of their
+    weight sums, so the step's mean over the ranks is the global batch's
+    weighted mean, as the JAX step takes it."""
 
     def __init__(self, prefix=None, params=None):
         super().__init__(prefix=prefix, params=params)
@@ -233,7 +245,10 @@ class BERTPretrainLoss(HybridBlock):
         v = mlm_scores.shape[-1]
         mlm_l = self._ce(mlm_scores.reshape(-1, v), mlm_labels.reshape(-1))
         w = mlm_weights.reshape(-1).to(mlm_l.dtype)
-        mlm_loss = (mlm_l * w).sum() / w.sum().clamp_min(1e-5)
+        # over ranks that split the batch (a data-parallel step's f32
+        # path), the mean of the ranks' weight sums: each rank's term is
+        # then its share of the global weighted mean, times the ranks
+        mlm_loss = (mlm_l * w).sum() / batch_mean(w.sum()).clamp_min(1e-5)
         nsp_loss = self._ce(nsp_scores, nsp_labels).mean()
         return mlm_loss + nsp_loss
 

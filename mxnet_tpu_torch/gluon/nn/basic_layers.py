@@ -69,6 +69,8 @@ class HybridSequential(HybridBlock):
 class Dense(HybridBlock):
     """``FullyConnected``; weight ``(units, in_units)``."""
 
+    _takes_blocks = ("weight", "bias")
+
     def __init__(self, units, activation=None, use_bias=True, flatten=True,
                  dtype="float32", weight_initializer=None,
                  bias_initializer="zeros", in_units=0, prefix=None,
@@ -90,8 +92,16 @@ class Dense(HybridBlock):
         self.weight.shape = (self._units, in_units)
 
     def hybrid_forward(self, F, x, weight, bias=None):
-        out = F.FullyConnected(x, weight, bias, num_hidden=self._units,
-                               no_bias=bias is None, flatten=self._flatten)
+        if getattr(weight, "_placement", None) is not None or \
+                getattr(bias, "_placement", None) is not None:
+            # a model-parallel step's blocks: multiply by the block
+            from ...parallel.placement import linear
+            out = linear(x.reshape(x.shape[0], -1) if self._flatten else x,
+                         weight, bias)
+        else:
+            out = F.FullyConnected(x, weight, bias, num_hidden=self._units,
+                                   no_bias=bias is None,
+                                   flatten=self._flatten)
         if self._act_type:
             out = F.Activation(out, act_type=self._act_type)
         return out
@@ -278,6 +288,8 @@ class Embedding(HybridBlock):
     ``sparse_grad=True`` the weight's gradient is handed out row_sparse
     (``Parameter.grad``), which ``gluon.Trainer`` applies lazily."""
 
+    _takes_blocks = ("weight",)
+
     def __init__(self, input_dim, output_dim, dtype="float32",
                  weight_initializer=None, sparse_grad=False, prefix=None,
                  params=None):
@@ -293,6 +305,10 @@ class Embedding(HybridBlock):
         pass
 
     def hybrid_forward(self, F, x, weight):
+        if getattr(weight, "_placement", None) is not None:
+            # a model-parallel step's block: look up in the block
+            from ...parallel.placement import embedding
+            return embedding(x, weight)
         return F.Embedding(x, weight, input_dim=self._input_dim,
                            output_dim=self._output_dim)
 

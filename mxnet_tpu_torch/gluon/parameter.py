@@ -160,7 +160,19 @@ class Parameter:
         return self._nd
 
     def tensor(self):
-        """The data as a ``torch.Tensor`` (the leaf itself)."""
+        """The data as a ``torch.Tensor`` (the leaf itself).  Inside a
+        model-parallel step that holds this parameter in blocks, the
+        whole value gathered where it is used (``parallel.placement.
+        full``)."""
+        t = self.data()._data
+        if getattr(t, "_placement", None) is not None:
+            from ..parallel import placement
+            return placement.full(t)
+        return t
+
+    def local_tensor(self):
+        """The tensor bound to the parameter as it is: inside a
+        model-parallel step, this rank's block of a sharded one."""
         return self.data()._data
 
     def list_data(self):

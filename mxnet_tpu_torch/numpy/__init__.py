@@ -43,7 +43,6 @@ from ..context import current_context
 from ..ndarray.ndarray import (NDArray, _NARROW, _wrap as _nd_wrap,
                                as_tensor, invoke,  # noqa: F401
                                tensor_from_numpy)
-from ..parallel.functional import check_concrete
 
 pi = _onp.pi
 e = _onp.e
@@ -215,6 +214,7 @@ def _axis_flat(a, axis):
 
 def _check_concrete(name):
     """Data-dependent sizes are read on the host: not inside a graph."""
+    from ..parallel.functional import check_concrete
     check_concrete(
         f"np.{name} has a data-dependent output size, read on the host: "
         f"it cannot run inside a captured graph or a hybridized body "

@@ -17,8 +17,8 @@ Both are registered ops (``nd.multi_head_attention``,
 reference's interleaved self-attention pair
 (``interleaved_matmul_selfatt_qk``/``_valatt`` over ``(S, B, H*3*D)``
 projections) and ``div_sqrt_dim``.  ``ring_attention`` and
-``ulysses_attention`` run over a device mesh in the JAX package; they
-are registered here and raise ``NotImplementedError`` (ROADMAP A15b).
+``ulysses_attention`` run over the current mesh's ``sp`` axis
+(``parallel.sequence``).
 
 Both drop attention probabilities in training mode only: the dense op
 through the ``Dropout`` op (its mask from ``random.generator`` of the
@@ -79,20 +79,29 @@ def _div_sqrt_dim(x):
                                        device=x.device))
 
 
-def _mesh_attention(name):
-    def op(q, k, v, heads=1, causal=False, axis="sp", batch_axis="dp",
-           dropout=0.0, training=None):
-        raise NotImplementedError(
-            f"{name} runs over a model-parallel ('sp') mesh axis, which the port "
-            f"does not run yet (ROADMAP A15b)")
-    op.__name__ = op.__qualname__ = name
-    op.__doc__ = (f"Sequence-parallel attention over a device mesh in the "
-                  f"JAX package; raises here (ROADMAP A15b).")
-    return register_op(name)(op)
+@register_op("ring_attention")
+def _ring_attention(q, k, v, heads=1, causal=False, axis="sp",
+                    batch_axis="dp", dropout=0.0, training=None):
+    """Sequence-parallel attention over the current mesh's ``sp`` axis
+    (``parallel.sequence.ring_attention``); needs a ``MeshScope`` (or a
+    ``TrainStep``/``EvalStep``, which open one)."""
+    from ..parallel.sequence import ring_attention
+    if training is None:
+        training = _autograd.is_training()
+    return ring_attention(q, k, v, heads, axis=axis, batch_axis=batch_axis,
+                          causal=causal, dropout=dropout, training=training)
 
 
-_mesh_attention("ring_attention")
-_mesh_attention("ulysses_attention")
+@register_op("ulysses_attention")
+def _ulysses_attention(q, k, v, heads=1, causal=False, axis="sp",
+                       batch_axis="dp", dropout=0.0, training=None):
+    """Ulysses head-split attention over the current mesh (see above)."""
+    from ..parallel.sequence import ulysses_attention
+    if training is None:
+        training = _autograd.is_training()
+    return ulysses_attention(q, k, v, heads, axis=axis, batch_axis=batch_axis,
+                             causal=causal, dropout=dropout,
+                             training=training)
 
 
 @register_op("multi_head_attention", needs_rng=True)

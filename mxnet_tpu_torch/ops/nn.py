@@ -211,6 +211,17 @@ def stats_over(fn, ranks):
         _STATS_OVER = old
 
 
+def batch_mean(t):
+    """Inside ``stats_over``, the mean of ``t`` over the ranks that split
+    the batch (a new tensor, outside the autograd graph); ``t`` itself
+    elsewhere.  ``BERTPretrainLoss`` takes its weighted mean's
+    denominator through it."""
+    if _STATS_OVER is None:
+        return t
+    fn, ranks = _STATS_OVER
+    return fn(t.detach().clone()) / ranks
+
+
 class _Moments(torch.autograd.Function):
     """Mean and variance over ``axes`` with wide accumulators; the
     backward recomputes the centred values instead of keeping a widened

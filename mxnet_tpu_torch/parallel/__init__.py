@@ -1,10 +1,14 @@
 """Training-step plumbing of the port: the mesh (``make_mesh``,
-``MeshScope``; data parallelism over the ranks of ``distributed``), the
-sharding rules, the quantized gradient collectives, ``TrainStep`` and
-``EvalStep`` (captured as CUDA graphs on the card; ``mesh=`` for data
-parallelism), their functional helpers, the ``DevicePrefetcher`` feed
-and the v1.1 checkpoints (``checkpoint``: ``CheckpointManager``,
-``save_train_step``, ``load_train_step``, ``resume_latest``)."""
+``MeshScope``; every axis over the ranks of ``distributed``), the
+sharding rules and the sharded leaves they make (``placement``), the
+quantized gradient collectives, ``TrainStep`` and ``EvalStep`` (captured
+as CUDA graphs on the card; ``mesh=`` and ``rules=`` for data and model
+parallelism), sequence parallelism (``ring_attention``,
+``ulysses_attention``), the GPipe schedule (``gpipe``,
+``PipelineStack``), mixture-of-experts (``moe_dispatch``, ``MoEFFN``),
+their functional helpers, the ``DevicePrefetcher`` feed and the v1.1
+checkpoints (``checkpoint``: ``CheckpointManager``, ``save_train_step``,
+``load_train_step``, ``resume_latest``)."""
 from .checkpoint import (CheckpointManager, CheckpointMismatchError,
                          list_checkpoints, load_snapshot_params,
                          load_train_step, load_train_step_sharded,
@@ -22,6 +26,9 @@ from .quantize import (ACTIVATION_REDUCE_MODES, GRAD_REDUCE_MODES,
                        dequantize_chunked, quantize_chunked,
                        reduce_gradients)
 from .prefetch import DevicePrefetcher
+from .moe import MoEFFN, moe_dispatch
+from .pipeline import PipelineStack, gpipe
+from .sequence import ring_attention, sp_attention, ulysses_attention
 from .step import (EvalStep, NonFiniteAbortError, TrainStep,
                    add_transfer_hook, remove_transfer_hook)
 
@@ -39,4 +46,7 @@ __all__ = ["TrainStep", "EvalStep", "NonFiniteAbortError", "DevicePrefetcher",
            "add_transfer_hook", "remove_transfer_hook",
            "GRAD_REDUCE_MODES", "quantize_chunked", "dequantize_chunked",
            "cast_bf16", "reduce_gradients",
-           "ACTIVATION_REDUCE_MODES", "all_reduce_activations"]
+           "ACTIVATION_REDUCE_MODES", "all_reduce_activations",
+           "ring_attention", "sp_attention", "ulysses_attention",
+           "PipelineStack", "gpipe", "MoEFFN", "moe_dispatch"]
+

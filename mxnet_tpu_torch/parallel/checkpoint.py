@@ -45,7 +45,8 @@ non-finite-abort exits call it).  A failed copy or write raises, or
 latches in ``errors``: there is no synchronous fallback.
 
 One process writes and reads; the sharded v2 format of the JAX package
-(orbax, every host its own shards) is not ported (ROADMAP A15b).
+(orbax, every host its own shards) is not ported (ROADMAP A15b's
+second half).
 """
 from __future__ import annotations
 
@@ -148,9 +149,23 @@ def _np_dtype(dtype):
     return torch.empty((), dtype=dtype).numpy().dtype
 
 
+def _one_file(step, what):
+    """Raise for a step that holds leaves in blocks over a mesh: one file
+    of whole tensors cannot hold them (the sharded v2 format is ROADMAP
+    A15b's second half)."""
+    if any(getattr(t, "_placement", None) is not None
+           for t in list(step._train) + list(step._aux)):
+        raise NotImplementedError(
+            f"{what}: the step holds sharded parameters (rules= over a "
+            f"model-parallel mesh); the one-file v1.1 format holds whole "
+            f"tensors, and the sharded v2 format is not ported yet "
+            f"(ROADMAP A15b, second half)")
+
+
 def _entries(step):
     """``(entry name, tensor)`` in the file's order: ``p.*``, ``s.*``,
     ``a.*``."""
+    _one_file(step, "checkpoint")
     out = [(f"p.{k}", t) for k, t in enumerate(step._train)]
     for k, states in enumerate(step._states):
         out += [(f"s.{k}.{j}", s) for j, s in enumerate(states)]
@@ -463,6 +478,7 @@ def load_train_step(step, fname):
     in place, never rebound."""
     if not step._built:
         raise ValueError("build the TrainStep (run one step) before restore")
+    _one_file(step, "load_train_step")
     try:
         npz = np.load(fname)
     except FileNotFoundError:
@@ -648,16 +664,16 @@ def save_train_step_sharded(step, directory, async_save=True):
     its own shards).  Not ported: it needs a device mesh."""
     raise NotImplementedError(
         "save_train_step_sharded: the sharded v2 format needs a sharded "
-        "mesh layout, which the port does not run yet (ROADMAP A15b); use "
-        "save_train_step (v1.1, one file)")
+        "mesh layout's per-rank files, not ported yet (ROADMAP A15b, "
+        "second half); use save_train_step (v1.1, one file)")
 
 
 def load_train_step_sharded(step, directory):
     """See ``save_train_step_sharded``: not ported."""
     raise NotImplementedError(
         "load_train_step_sharded: the sharded v2 format needs a sharded "
-        "mesh layout, which the port does not run yet (ROADMAP A15b); use "
-        "load_train_step (v1.1, one file)")
+        "mesh layout's per-rank files, not ported yet (ROADMAP A15b, "
+        "second half); use load_train_step (v1.1, one file)")
 
 
 # ------------------------------------------------- retention / discovery --

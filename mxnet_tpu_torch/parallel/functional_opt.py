@@ -251,10 +251,29 @@ def _adamw_multi(opt, ws, gs, states, bc, lr, wd):
     _adam_multi(opt, ws, gs, states, bc, lr, wd, decoupled=True)
 
 
-def _lars_multi(opt, ws, gs, states, bc, lr, wd):
+def _norms(ts, axes=None):
+    """Each tensor's 2-norm in f32; where ``axes`` names the mesh axes a
+    tensor is split over, the norm of the whole tensor (the blocks'
+    squared norms summed over those axes)."""
+    n = torch.stack(torch._foreach_norm([t.float() for t in ts]))
+    if not axes or not any(axes):
+        return n
+    from . import mesh as _mesh
+    sq = list((n * n).unbind(0))
+    for split in sorted({a for a in axes if a}):
+        idx = [k for k, a in enumerate(axes) if a == split]
+        part = torch.stack([sq[k] for k in idx])
+        for axis in split:
+            part = _mesh.psum(part, axis)
+        for k, v in zip(idx, part.unbind(0)):
+            sq[k] = v
+    return torch.sqrt(torch.stack(sq))
+
+
+def _lars_multi(opt, ws, gs, states, bc, lr, wd, axes=None):
     gs = _scaled_multi(opt, gs)
-    wn = torch.stack(torch._foreach_norm([w.float() for w in ws]))
-    gn = torch.stack(torch._foreach_norm([g.float() for g in gs]))
+    wn = _norms(ws, axes)
+    gn = _norms(gs, axes)
     trust = torch.where((wn > 0) & (gn > 0),
                         opt.eta * wn / (gn + wd * wn + opt.epsilon),
                         torch.ones_like(wn))
@@ -322,7 +341,7 @@ def _signum_multi(opt, ws, gs, states, bc, lr, wd):
         torch._foreach_sub_(ws, step)
 
 
-def _lamb_multi(opt, ws, gs, states, bc, lr, wd):
+def _lamb_multi(opt, ws, gs, states, bc, lr, wd, axes=None):
     gs = _scaled_multi(opt, gs)
     ms, vs = [s[0] for s in states], [s[1] for s in states]
     torch._foreach_mul_(ms, opt.beta1)
@@ -340,12 +359,12 @@ def _lamb_multi(opt, ws, gs, states, bc, lr, wd):
     torch._foreach_add_(den, opt.epsilon)
     upd = torch._foreach_div(m_hat, den)
     torch._foreach_add_(upd, torch._foreach_mul(ws, wd))
-    r1 = torch.stack(torch._foreach_norm([w.float() for w in ws]))
+    r1 = _norms(ws, axes)
     if opt.lower_bound is not None:
         r1 = r1.clamp_min(opt.lower_bound)
     if opt.upper_bound is not None:
         r1 = r1.clamp_max(opt.upper_bound)
-    r2 = torch.stack(torch._foreach_norm([u.float() for u in upd]))
+    r2 = _norms(upd, axes)
     trust = torch.where((r1 > 0) & (r2 > 0), r1 / r2, torch.ones_like(r1))
     scale = (lr * trust).unbind(0)
     torch._foreach_sub_(ws, torch._foreach_mul(
@@ -359,14 +378,16 @@ _MULTI = {"SGD": _sgd_multi, "NAG": _nag_multi, "Adam": _adam_multi,
 
 
 def multi_update(opt, ws, gs, states, t, lr, lr_mults, wd_mults,
-                 finite=None):
+                 finite=None, norm_axes=None):
     """Update every weight of ``ws`` (and its state in ``states``) in
     place from its gradient in ``gs`` at step ``t`` (1-based; an int or
     a 0-d device tensor) with base learning rate ``lr`` (a float or a
     0-d f32 device tensor) times each weight's ``lr_mults`` entry and
     weight decay ``opt.wd`` times its ``wd_mults`` entry.  ``finite``:
     None, or a 0-d bool tensor — where it is False every weight and
-    state is left as it was."""
+    state is left as it was.  ``norm_axes``: None, or per weight the
+    mesh axes it is split over (a model-parallel step's blocks), so
+    LAMB's and LARS's norms are the whole weight's."""
     fn = _rule(opt, _MULTI)
     if not ws:
         return
@@ -392,7 +413,9 @@ def multi_update(opt, ws, gs, states, t, lr, lr_mults, wd_mults,
             st_g = [states[k] for k in idx]
         held = ws_g + [s for st in st_g for s in st]
         old = None if finite is None else [x.clone() for x in held]
-        fn(opt, ws_g, gs_g, st_g, bc, lr * lr_mult, opt.wd * wd_mult)
+        kw = {"axes": [norm_axes[k] for k in idx]} \
+            if norm_axes and fn in (_lamb_multi, _lars_multi) else {}
+        fn(opt, ws_g, gs_g, st_g, bc, lr * lr_mult, opt.wd * wd_mult, **kw)
         if old is not None:
             for x, o in zip(held, old):
                 torch.where(finite, x, o, out=x)

@@ -23,9 +23,25 @@ this rank's local shard: each process already holds its shard (the
 multi-process semantics of the JAX package, where each process feeds
 its local data), so the inputs pass through and the collectives inside
 ``f`` are named by axis (``psum``, ``pmean``, ``all_gather``,
-``all_to_all``, ``axis_index``) and run over that axis's group.  It
-serves the dp axis; a spec that names another axis of size > 1 raises
-``NotImplementedError`` (model parallelism is ROADMAP A15b).
+``all_to_all``, ``ppermute``, ``axis_index``, ``axis_size``) and run
+over that axis's group, whichever axis it is.
+
+The model-parallel layers keep GSPMD's meaning (a layout changes where
+values live, never what they are) with four differentiable crossings
+between a value every rank of an axis holds alike ("replicated") and
+one each rank holds part of, Megatron's f/g pairs:
+
+- ``copy_to(x, axis)``: identity; the backward sums the gradient over
+  the axis (a replicated value entering a computation split over it);
+- ``reduce_from(x, axis)``: the sum over the axis; the backward passes
+  the (replicated) gradient through;
+- ``scatter_to(x, axis, dim)``: this rank's block of ``dim``; the
+  backward gathers the blocks' gradients;
+- ``gather_from(x, axis, dim)``: the blocks concatenated along ``dim``;
+  the backward takes this rank's block of the gradient — not a sum over
+  the axis, as the consumers downstream are replicated.
+
+Each is the identity on an axis of size 1.
 """
 from __future__ import annotations
 
@@ -34,20 +50,23 @@ import threading
 from collections import OrderedDict
 
 import numpy as np
+import torch
 
 from .. import distributed as _dist
 
 __all__ = ["AXES", "Mesh", "PartitionSpec", "NamedSharding", "make_mesh",
            "current_mesh", "default_mesh", "MeshScope", "replicated",
            "named_sharding", "shard_map", "validate_specs", "psum", "pmean",
-           "all_gather", "all_to_all", "axis_index", "axis_size"]
+           "all_gather", "all_to_all", "ppermute", "axis_index", "axis_size",
+           "all_to_all_grad", "copy_to", "reduce_from", "scatter_to",
+           "gather_from", "BATCH_AXES"]
 
 # Canonical axis order: collectives that ride adjacent devices (tp, sp)
 # go last, as in the JAX package.
 AXES = ("pp", "dp", "fsdp", "ep", "sp", "tp")
 
-#: the axes this port runs collectives over (the rest are ROADMAP A15b)
-DATA_AXES = ("dp",)
+#: the axes that split the batch (the rest see the same rows)
+BATCH_AXES = ("dp", "fsdp")
 
 _tls = threading.local()
 
@@ -177,14 +196,6 @@ def validate_specs(mesh, in_specs=None, out_specs=None):
                     f"jax (or silently change the partitioning)")
 
 
-def model_parallel_axes(mesh, names=None):
-    """The axes of size > 1 among ``names`` (default: all of the mesh's)
-    that this port does not run yet."""
-    names = mesh.axis_names if names is None else names
-    return {a: mesh.shape[a] for a in names
-            if a in mesh.shape and a not in DATA_AXES and mesh.shape[a] > 1}
-
-
 def shard_map(f=None, *, mesh=None, in_specs=None, out_specs=None, **kw):
     """``f`` on this rank's local shard, its collectives named by axis
     over ``mesh`` (the current mesh when None).  Curries when ``f`` is
@@ -198,14 +209,6 @@ def shard_map(f=None, *, mesh=None, in_specs=None, out_specs=None, **kw):
     @functools.wraps(f)
     def run(*args, **kwargs):
         m = mesh if mesh is not None else default_mesh()
-        extra = model_parallel_axes(
-            m, set(_spec_axis_names(in_specs))
-            | set(_spec_axis_names(out_specs)))
-        if extra:
-            raise NotImplementedError(
-                f"shard_map over model-parallel axes {extra}: the port "
-                f"runs the dp axis only; tp/fsdp/pp/sp/ep are ROADMAP "
-                f"A15b")
         with MeshScope(m):
             return f(*args, **kwargs)
     return run
@@ -335,3 +338,170 @@ def all_to_all(x, axis_name):
     tiled=True)`` on a ``(n, ...)`` array)."""
     group = _axis(axis_name)[2]
     return x.clone() if group is None else _dist.all_to_all(x, group)
+
+
+def _group_of(mesh, axis):
+    return mesh.group(axis) if axis in mesh.shape else None
+
+
+def _raw_psum(mesh, axis, x):
+    group = _group_of(mesh, axis)
+    return x if group is None else _dist.all_reduce_(x.clone(), group)
+
+
+def _raw_gather(mesh, axis, x, dim):
+    group = _group_of(mesh, axis)
+    if group is None:
+        return x
+    parts = _dist.all_gather_into(x.contiguous(), group)
+    return torch.cat(list(parts.unbind(0)), dim=dim)
+
+
+def _block(mesh, axis, x, dim):
+    n = mesh.shape.get(axis, 1)
+    if n == 1:
+        return x
+    if x.shape[dim] % n:
+        raise ValueError(f"dimension {dim} of size {x.shape[dim]} does not "
+                         f"split over mesh axis {axis!r} of size {n}")
+    size = x.shape[dim] // n
+    return x.narrow(dim, mesh.coords()[axis] * size, size)
+
+
+def _raw_ppermute(mesh, axis, x, perm):
+    """This rank's share of one permutation: its value sent to each
+    ``dst`` of a ``(me, dst)`` pair, the value of the ``src`` of a
+    ``(src, me)`` pair received (zeros where no pair ends here)."""
+    me = mesh.coords()[axis] if axis in mesh.shape else 0
+    sends = [d for s, d in perm if s == me and d != me]
+    recvs = [s for s, d in perm if d == me and s != me]
+    out = x.clone() if (me, me) in perm else torch.zeros_like(x)
+    if sends or recvs:
+        group = _group_of(mesh, axis)
+        if group is None:
+            raise ValueError(f"ppermute pairs {perm} name ranks of axis "
+                             f"{axis!r}, which has size 1 here")
+        buf = [torch.empty(x.shape, dtype=x.dtype, device=x.device)
+               for _ in recvs]
+        _dist.send_recv([(x.contiguous(), d) for d in sends],
+                        list(zip(buf, recvs)), group)
+        for b in buf:
+            out = b
+    return out
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _raw_psum(ctx.mesh, ctx.axis, g), None, None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return _raw_psum(mesh, axis, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _ScatterTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return _block(mesh, axis, x, dim).clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _raw_gather(ctx.mesh, ctx.axis, g, ctx.dim), None, None, None
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return _raw_gather(mesh, axis, x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_block(ctx.mesh, ctx.axis, g, ctx.dim).contiguous(), None,
+                None, None)
+
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, perm):
+        ctx.mesh, ctx.axis, ctx.perm = mesh, axis, perm
+        return _raw_ppermute(mesh, axis, x, perm)
+
+    @staticmethod
+    def backward(ctx, g):
+        back = tuple((d, s) for s, d in ctx.perm)
+        return (_raw_ppermute(ctx.mesh, ctx.axis, g.contiguous(), back),
+                None, None, None)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return _dist.all_to_all(x, _group_of(mesh, axis))
+
+    @staticmethod
+    def backward(ctx, g):
+        # row j came from rank j: its gradient goes back the same way
+        return (_dist.all_to_all(g.contiguous(),
+                                 _group_of(ctx.mesh, ctx.axis)), None, None)
+
+
+def _split(axis):
+    mesh = _axis(axis)[0]
+    return mesh, mesh.shape[axis] > 1
+
+
+def copy_to(x, axis):
+    """``x`` as it is; its gradient summed over ``axis``."""
+    mesh, split = _split(axis)
+    return _CopyTo.apply(x, mesh, axis) if split else x
+
+
+def reduce_from(x, axis):
+    """The sum of ``x`` over ``axis``; its gradient passed through."""
+    mesh, split = _split(axis)
+    return _ReduceFrom.apply(x, mesh, axis) if split else x
+
+
+def scatter_to(x, axis, dim):
+    """This rank's block of ``dim`` (which must split evenly); the
+    gradients of the blocks gathered back."""
+    mesh, split = _split(axis)
+    return _ScatterTo.apply(x, mesh, axis, dim) if split else x
+
+
+def gather_from(x, axis, dim):
+    """Every rank's ``x`` concatenated along ``dim`` in axis order; the
+    gradient of this rank's block passed back."""
+    mesh, split = _split(axis)
+    return _GatherFrom.apply(x, mesh, axis, dim) if split else x
+
+
+def ppermute(x, axis, perm):
+    """``lax.ppermute``: for each ``(src, dst)`` of ``perm`` (coordinates
+    on ``axis``) rank ``dst`` receives ``src``'s ``x`` (point to point),
+    zeros where no pair ends; the gradient goes back by the inverse
+    permutation."""
+    mesh = _axis(axis)[0]
+    perm = tuple((int(s), int(d)) for s, d in perm)
+    return _PPermute.apply(x, mesh, axis, perm)
+
+
+def all_to_all_grad(x, axis):
+    """``all_to_all`` with its gradient (the same exchange backwards)."""
+    mesh, split = _split(axis)
+    return _AllToAll.apply(x, mesh, axis) if split else x

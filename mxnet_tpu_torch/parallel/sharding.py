@@ -4,9 +4,8 @@
 A rule is ``(regex, spec)`` where spec is a tuple over the parameter's
 dims; each entry is a mesh-axis name, a tuple of axis names, or None.
 The first matching rule whose sharding divides the shape wins;
-otherwise replicate.  ``TrainStep`` runs data parallelism only: it takes
-rules that replicate every parameter, and raises on one that shards a
-parameter (model parallelism is ROADMAP A15b).
+otherwise replicate.  ``TrainStep``/``EvalStep`` hold each leaf the
+rules shard as this rank's block (``placement``).
 """
 from __future__ import annotations
 

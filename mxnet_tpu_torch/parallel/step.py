@@ -1,5 +1,5 @@
 """The training and eval steps (the port of ``mxnet_tpu/parallel/step.py``'s
-``TrainStep`` and ``EvalStep``, on one device).
+``TrainStep`` and ``EvalStep``).
 
 Usage, as with the JAX package::
 
@@ -97,17 +97,43 @@ gradient exchange:
   ranks, batch statistics are the shard's own and the float running
   statistics are averaged afterwards.
 
-A loss that reduces the batch to a scalar itself (``BERTPretrainLoss``'s
-weighted mean) is reduced per rank and averaged over the ranks.
-Dropout draws per rank (``random``: rank r > 0 folds its rank into the
+A loss written to reduce the batch to a scalar itself is reduced per
+rank and averaged over the ranks (a divergence from the JAX step, which
+reduces it over the global batch: the two agree where every rank's
+reduction weighs alike).  ``BERTPretrainLoss`` takes its weighted
+mean's denominator over the global batch (``ops.nn.batch_mean``), so
+its value and gradients are the JAX step's.  Dropout draws per rank (``random``: rank r > 0 folds its rank into the
 device streams).  Over NCCL the collectives are captured in the step's
 graph; over gloo (ranks sharing one card, or the CPU) a collective
 goes through the host and cannot be captured, so there the step runs
 eagerly (``capture=True`` raises).  ``skip_nonfinite`` reads the flag of
 the reduced gradients and loss, so a NaN on one rank skips the step on
-every rank.  A mesh with a model-parallel axis of size > 1, or ``rules``
-that shard a parameter, raise ``NotImplementedError`` (ROADMAP A15b).
-The prefetching feed is ``parallel.DevicePrefetcher``.
+every rank.  The prefetching feed is ``parallel.DevicePrefetcher``.
+
+**Model parallel.**  A mesh with ``tp``, ``fsdp``, ``sp``, ``pp`` or
+``ep`` axes and ``rules=`` (``ShardingRules``, ``tp_dense_rules()``,
+``fsdp_rules()``, a block's ``sharding_rules()``) places each leaf as the
+JAX step does (``param_sharding``; a spec that does not divide the shape
+replicates, as ``_spec_fits`` decides there), and GSPMD's rule holds: a
+layout changes where values live, never what they are.  Each rank keeps
+only its block of a sharded leaf (``parallel.placement``), and of its
+optimizer states and f32 master; every rank starts from rank 0's whole
+values.  The batch splits over ``dp`` x ``fsdp`` (``batch_spec``) and
+every rank of ``tp``, ``sp``, ``pp`` and ``ep`` feeds the same rows.  In
+the forward a ``Dense`` split over a non-batch axis multiplies by its
+block (column- or row-parallel), an ``Embedding`` split on its features
+looks up in its block, ``PipelineStack``/``MoEFFN`` run their stages and
+experts by block, and any other use gathers the leaf where it is used
+and lets the gathered copy go (the backward gathers again).  Gradients
+come back in the leaf's placement (summed over ``fsdp`` by the gather's
+backward, the block's own over ``tp``/``sp``/``pp``/``ep``) and are
+summed over the batch axes that do not split the leaf; LAMB's and
+LARS's norms are those of the whole leaf.  ``skip_nonfinite`` agrees on
+every rank (one scalar all-reduce over the world when a leaf is sharded,
+also over ``dp``/``fsdp`` alone: a non-finite element of one rank's
+block is seen by that rank only).  ``grad_reduce="bf16"``/``"int8"`` on such a mesh raise the
+JAX step's ``ValueError``; ``params`` and ``sync_params_to_net`` gather
+the whole values (a collective: every rank calls them).
 """
 from __future__ import annotations
 
@@ -132,6 +158,7 @@ from . import quantize as _quantize
 from .functional import (functional_call, param_names_and_values,
                          run_eagerly, trainable_split)
 from .functional_opt import multi_update, state_template
+from .placement import Placement, place, regathering
 from .sharding import (NamedSharding, ShardingRules, batch_spec,
                        param_sharding, shards_any)
 
@@ -170,25 +197,52 @@ def _put_leaf(leaf, device, sharding):
     return leaf.to(device)
 
 
-def _check_mesh(mesh, what):
-    """Raise for a mesh this port cannot run yet: a model-parallel axis
-    of size > 1 (ROADMAP A15b)."""
-    extra = _mesh.model_parallel_axes(mesh)
-    if extra:
-        raise NotImplementedError(
-            f"{what}: model-parallel mesh axes {extra} — the port runs "
-            f"data parallelism only; tp/fsdp/pp/sp/ep are ROADMAP A15b")
+def _placements(mesh, rules, names, tensors):
+    """``(shardings, placements)`` of the leaves: a ``Placement`` where
+    the rules split a leaf over an axis of size > 1, else None."""
+    shapes = [tuple(t.shape) for t in tensors]
+    shardings = param_sharding(names, shapes, mesh, rules)
+    return shardings, [Placement(mesh, sh.spec, shape) if shards_any(sh)
+                       else None for sh, shape in zip(shardings, shapes)]
 
 
-def _check_rules(mesh, rules, names, tensors, what):
-    """Raise when ``rules`` shard a parameter (ROADMAP A15b)."""
-    for name, sh in zip(names, param_sharding(
-            names, [tuple(t.shape) for t in tensors], mesh, rules)):
-        if shards_any(sh):
-            raise NotImplementedError(
-                f"{what}: the sharding rules place {name!r} as {sh.spec}; "
-                f"the port replicates every parameter (data parallelism); "
-                f"sharded parameters are ROADMAP A15b")
+def _mesh_groups(mesh):
+    """Make every axis's process group now, on every rank alike (the
+    axes' groups are made together, collectively)."""
+    for axis in mesh.axis_names:
+        mesh.group(axis)
+
+
+def _held(t, placement, grad=False):
+    """The step's own copy of a leaf: this rank's block under
+    ``placement``."""
+    t = t.detach()
+    t = (t if placement is None else placement.local(t)).clone()
+    if grad:
+        t.requires_grad_(True)
+    return t if placement is None else place(t, placement)
+
+
+def _batch_axes(mesh):
+    """The mesh's axes of size > 1 that split the batch, and the number
+    of batch shards they make."""
+    axes = tuple(a for a in _mesh.BATCH_AXES if mesh.shape.get(a, 1) > 1)
+    return axes, int(np.prod([mesh.shape[a] for a in axes]))
+
+
+def _summer(mesh, axes):
+    """``fn(t)``: ``t`` summed in place over every rank of ``axes``."""
+    def fn(t):
+        for axis in axes:
+            _dist.all_reduce_(t, mesh.group(axis))
+        return t
+    return fn
+
+
+def _whole(t):
+    """A held leaf's whole value (gathered where it is sharded)."""
+    p = getattr(t, "_placement", None)
+    return t if p is None else p.gather(t.detach())
 
 
 def all_finite_rows(arrays):
@@ -352,7 +406,6 @@ class TrainStep:
                     f"pure data-parallel meshes only; model-parallel "
                     f"axes {extra} shard the params the explicit "
                     f"reduction stage would replicate")
-        _check_mesh(self.mesh, "TrainStep")
         self._grad_reduce = grad_reduce
         self._capture = capture
         self._heartbeat = heartbeat
@@ -378,14 +431,16 @@ class TrainStep:
             raise ValueError(
                 f"TrainStep: the mesh's devices {self.mesh.devices.tolist()}"
                 f" are not this run's ranks 0..{_dist.num_workers() - 1}")
-        self._group = self.mesh.group("dp") if "dp" in self.mesh.shape \
-            else None
+        _mesh_groups(self.mesh)
+        self._batch_axes, self._n_batch = _batch_axes(self.mesh)
+        self._model_axes = tuple(a for a, n in self.mesh.shape.items()
+                                 if n > 1 and a not in _mesh.BATCH_AXES)
         self._dp = self.mesh.shape.get("dp", 1)
         if device.type != "cuda" and self._capture:
             raise ValueError(f"TrainStep(capture=True): a CUDA graph needs "
                              f"the card, and the net's parameters lie on "
                              f"{device}; pass capture=None or False")
-        host_comm = self._group is not None and _dist.backend() == "gloo"
+        host_comm = _dist.num_workers() > 1 and _dist.backend() == "gloo"
         if host_comm and self._capture:
             raise ValueError("TrainStep(capture=True): the process group "
                              "runs over gloo (ranks share a card), whose "
@@ -397,16 +452,25 @@ class TrainStep:
         self._static = {}
         _build_deferred(net, data_args)
         names, plist, tensors = param_names_and_values(net)
-        _check_rules(self.mesh, self.rules, names, tensors, "TrainStep")
+        self._param_shardings, where = _placements(self.mesh, self.rules,
+                                                   names, tensors)
         self._names, self._plist = names, plist
         self._train_idx, self._aux_idx = trainable_split(plist)
-        self._train = [tensors[i].detach().clone().requires_grad_(True)
-                       for i in self._train_idx]
-        self._aux = [tensors[i].detach().clone() for i in self._aux_idx]
-        if self._group is not None:
-            # every rank starts from rank 0's parameters
+        tensors = [t.detach().clone() for t in tensors]
+        if _dist.num_workers() > 1:
+            # every rank starts from rank 0's whole parameters
             with torch.no_grad():
-                _broadcast_flat(self._train + self._aux, self._group)
+                _broadcast_flat(tensors, None)
+        self._train = [_held(tensors[i], where[i], grad=True)
+                       for i in self._train_idx]
+        self._aux = [_held(tensors[i], where[i]) for i in self._aux_idx]
+        del tensors
+        self._sharded = any(p is not None for p in where)
+        self._norm_axes = [where[i].axes if where[i] is not None else ()
+                           for i in self._train_idx]
+        # the batch axes each gradient is summed over after the backward
+        self._sum_axes = [tuple(a for a in self._batch_axes
+                                if a not in axes) for axes in self._norm_axes]
         self._states = [state_template(self.optimizer, t)
                         for t in self._train]
         self._lr_mults = [plist[i].lr_mult for i in self._train_idx]
@@ -435,24 +499,26 @@ class TrainStep:
             tensors[i] = t
         for i, t in zip(self._aux_idx, self._aux):
             tensors[i] = t
-        group, dp, mode = self._group, self._dp, self._grad_reduce
+        mode = self._grad_reduce
+        split = bool(self._batch_axes)
         mean = self._loss_reduce == "mean"
         sync_stats = contextlib.nullcontext()
-        if group is not None and mode == "f32":
-            sync_stats = stats_over(
-                lambda t: _dist.all_reduce_(t, group), dp)
-        with _mesh.MeshScope(self.mesh), sync_stats, \
+        if split and mode == "f32":
+            sync_stats = stats_over(_summer(self.mesh, self._batch_axes),
+                                    self._n_batch)
+        gather = regathering() if self._sharded else contextlib.nullcontext()
+        with _mesh.MeshScope(self.mesh), sync_stats, gather, \
                 _autograd.record(train_mode=True):
             out, mutated = functional_call(self.net, self._plist, tensors,
                                            data_args, training=True)
             loss = self.loss_fn(out, label)
             loss = (loss.mean() if mean else loss.sum()).float()
-        share = loss / dp if group is not None and mode == "f32" and mean \
+        share = loss / self._n_batch if split and mode == "f32" and mean \
             else loss
         grads = list(torch.autograd.grad(share, self._train))
         loss = loss.detach()
         with torch.no_grad(), _mesh.MeshScope(self.mesh):
-            if group is not None:
+            if split:
                 grads, loss, mutated = self._exchange(grads, share.detach(),
                                                       loss, mutated)
             finite = None
@@ -462,13 +528,24 @@ class TrainStep:
                     torch._foreach_mul(grads, 0.0)))
                 finite = torch.isfinite(loss).all() \
                     & torch.isfinite(zeros).all()
+                if self._sharded or self._model_axes:
+                    # a rank sees only its blocks of a sharded leaf's
+                    # gradient (and, over tp/sp/pp/ep, its own share of
+                    # the others): agree on every rank
+                    bad = (~finite).float()
+                    finite = _dist.all_reduce_(bad, None, op="max") == 0
             t1 = self._t + 1
             multi_update(self.optimizer, self._train, grads,
                          self._states, t1, self._lr, self._lr_mults,
-                         self._wd_mults, finite)
+                         self._wd_mults, finite,
+                         norm_axes=self._norm_axes if self._sharded
+                         else None)
             for i, new in mutated:
                 if i in self._aux_pos:
                     aux = self._aux[self._aux_pos[i]]
+                    where = getattr(aux, "_placement", None)
+                    if where is not None:      # the forward saw it whole
+                        new = where.local(new)
                     new = new.to(aux.dtype)
                     aux.copy_(new if finite is None
                               else torch.where(finite, new, aux))
@@ -481,10 +558,21 @@ class TrainStep:
         (on the explicit paths) the float running statistics."""
         dp, mode, reduce = self._dp, self._grad_reduce, self._loss_reduce
         if mode == "f32":
-            # the gradients of each rank's share of the global loss
-            grads = _quantize.reduce_gradients(grads, "dp", dp, "f32",
-                                               reduce="sum")
-            return grads, _mesh.psum(share, "dp"), mutated
+            # the gradients of each rank's share of the global loss,
+            # summed over the batch axes that do not split the leaf
+            grads = list(grads)
+            for axis in self._batch_axes:
+                idx = [k for k, axes in enumerate(self._sum_axes)
+                       if axis in axes]
+                if idx:
+                    summed = _quantize.reduce_gradients(
+                        [grads[k] for k in idx], axis,
+                        self.mesh.shape[axis], "f32", reduce="sum")
+                    for k, g in zip(idx, summed):
+                        grads[k] = g
+            for axis in self._batch_axes:
+                share = _mesh.psum(share, axis)
+            return grads, share, mutated
         key = _random.generator(self._train[0].device, salt=_GRADQ_SALT)
         grads = _quantize.reduce_gradients(grads, "dp", dp, mode, key=key,
                                            reduce=reduce)
@@ -621,18 +709,20 @@ class TrainStep:
         net's Parameters."""
         with torch.no_grad():
             for i, t in zip(self._train_idx, self._train):
-                self._plist[i]._data.copy_(t)
+                self._plist[i]._data.copy_(_whole(t))
             for i, t in zip(self._aux_idx, self._aux):
-                self._plist[i]._data.copy_(t)
+                self._plist[i]._data.copy_(_whole(t))
 
     @property
     def params(self):
-        """The step's tensors by parameter name."""
+        """The step's tensors by parameter name (a sharded leaf's whole
+        value, gathered: then every rank must ask)."""
         full = [None] * len(self._plist)
-        for i, t in zip(self._train_idx, self._train):
-            full[i] = t
-        for i, t in zip(self._aux_idx, self._aux):
-            full[i] = t
+        with torch.no_grad():
+            for i, t in zip(self._train_idx, self._train):
+                full[i] = _whole(t)
+            for i, t in zip(self._aux_idx, self._aux):
+                full[i] = _whole(t)
         return dict(zip(self._names, full))
 
 
@@ -671,14 +761,14 @@ class EvalStep:
     outputs are cloned.
 
     With a mesh (default ``default_mesh()``) each rank runs its local
-    shard and gets its own rows' outputs back; a model-parallel axis or
-    rules that shard a parameter raise ``NotImplementedError``
-    (ROADMAP A15b)."""
+    shard and gets its own rows' outputs back; with ``rules=`` over a
+    model-parallel mesh it holds each sharded leaf's block and uses it
+    as ``TrainStep`` does (every rank of the non-batch axes gets the
+    same outputs)."""
 
     def __init__(self, net, mesh=None, rules=None, data_spec=None):
         self.net = net
         self.mesh = mesh if mesh is not None else _mesh.default_mesh()
-        _check_mesh(self.mesh, "EvalStep")
         self.rules = rules or ShardingRules()
         self._data_pspec = data_spec if data_spec is not None \
             else batch_spec(self.mesh)
@@ -692,18 +782,33 @@ class EvalStep:
         return NamedSharding(self.mesh, self._data_pspec)
 
     def _build(self, data, device):
+        if not self.mesh.covers_world():
+            raise ValueError(
+                f"EvalStep: the mesh's devices {self.mesh.devices.tolist()}"
+                f" are not this run's ranks 0..{_dist.num_workers() - 1}")
         self._graphs = GraphCache(device) if device.type == "cuda" \
             else None
         self._static = {}
         _build_deferred(self.net, data)
+        _mesh_groups(self.mesh)
         names, plist, tensors = param_names_and_values(self.net)
-        _check_rules(self.mesh, self.rules, names, tensors, "EvalStep")
+        self._param_shardings, where = _placements(self.mesh, self.rules,
+                                                   names, tensors)
         self._plist = plist
-        self._tensors = [t.detach().clone() for t in tensors]
+        tensors = [t.detach().clone() for t in tensors]
+        if _dist.num_workers() > 1 and any(p is not None for p in where):
+            with torch.no_grad():
+                _broadcast_flat(tensors, None)
+        self._tensors = [_held(t, p) for t, p in zip(tensors, where)]
         self._built = True
 
     def _body(self, *data):
-        with torch.no_grad(), _autograd.pause():
+        # ops that see the batch whole (MoE routing) take the global one
+        axes, n = _batch_axes(self.mesh)
+        whole = stats_over(_summer(self.mesh, axes), n) if axes \
+            else contextlib.nullcontext()
+        with torch.no_grad(), _autograd.pause(), \
+                _mesh.MeshScope(self.mesh), whole:
             out, _ = functional_call(self.net, self._plist, self._tensors,
                                      data, training=False)
         leaves, self._rebuild[_signature(data)] = _flatten(out)

@@ -24,7 +24,6 @@ import torch
 
 from .context import current_context, resolve_device
 from .ndarray.ndarray import SPARSE_TYPES, NDArray, tensor_from_numpy
-from .parallel.functional import check_concrete
 
 __all__ = ["RowSparseNDArray", "CSRNDArray", "BaseSparseNDArray",
            "cast_storage", "row_sparse_array", "csr_matrix", "zeros",
@@ -33,6 +32,7 @@ __all__ = ["RowSparseNDArray", "CSRNDArray", "BaseSparseNDArray",
 
 
 def _check_concrete():
+    from .parallel.functional import check_concrete
     check_concrete(
         "sparse storage construction is data-dependent (nnz) and "
         "eager-only; inside a captured graph or a hybridized body keep "

@@ -214,8 +214,15 @@ def test_attention_impls_and_zoo():
     with pytest.raises(ValueError, match="unknown attention_impl"):
         tbert.BERTModel(**SMALL, attention_impl="sparse")
     for impl in ("ring", "ulysses"):
-        with pytest.raises(NotImplementedError, match="mesh"):
-            tbert.BERTModel(**SMALL, attention_impl=impl)
+        # they build, and run over a mesh's sp axis
+        # (tests/test_torch_sequence_parallel.py); outside one they
+        # raise as the JAX ops do
+        net = tbert.BERTModel(**SMALL, attention_impl=impl)
+        net.initialize(ctx="cpu")
+        tok = torch.zeros((1, 4), dtype=torch.int32)
+        with pytest.raises(ValueError, match="needs a mesh"):
+            with tag.pause():
+                net(tok, tok)
     t = tbert.bert_12_768_12(vocab_size=30522)
     j = jbert.bert_12_768_12(vocab_size=30522)
     assert set(tres._strip(t.collect_params().keys())) == \

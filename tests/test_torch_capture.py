@@ -356,9 +356,11 @@ def test_eval_step_matches_the_jax_eval_step():
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
     assert torch.equal(ev(torch.from_numpy(x)), got)
     assert ev.graph_count() == 0
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # a model-parallel mesh runs (tests/test_torch_model_parallel.py),
+    # but only over the ranks of a gang: a world of one refuses it
+    with pytest.raises(ValueError, match="not this run's ranks"):
         parallel.EvalStep(fused, mesh=parallel.make_mesh(
-            dp=1, tp=2, devices=[0, 1]))
+            dp=1, tp=2, devices=[0, 1]))(x)
 
     # BERT: the four outputs in the net's structure
     data, _ = bert_batch(seed=14, b=2)

@@ -309,20 +309,19 @@ NEW_NAMES = {
 
 
 def test_registry_census():
-    """The port's registry is the JAX one's minus the op modules still to
-    port: 347 of 348 names (the input pipeline's 30 among them, the 25 of
-    ``ops.rnn``, ``ops.sequence`` and ``ops.multibox``, the symbol
-    frontend's ``_scalar``, and the 39 of ``ops.random_ops``,
-    ``ops.quantization`` and ``ops.control_flow``); only
-    ``parallel.moe``'s ``moe_ffn`` is missing."""
+    """The port's registry is the JAX one's whole: 348 of 348 names (the
+    input pipeline's 30 among them, the 25 of ``ops.rnn``,
+    ``ops.sequence`` and ``ops.multibox``, the symbol frontend's
+    ``_scalar``, the 39 of ``ops.random_ops``, ``ops.quantization`` and
+    ``ops.control_flow``, and ``parallel.moe``'s ``moe_ffn``)."""
     new = [n for names in NEW_NAMES.values() for n in names]
     assert len(new) == len(set(new)) == 30
     assert set(new) <= set(TOPS) and set(new) <= set(JOPS)
     assert set(TOPS) <= set(JOPS)
-    assert len(TOPS) == 347 and len(JOPS) == 348
+    assert len(TOPS) == 348 and len(JOPS) == 348
     missing = {JOPS[n].__module__.split(".", 1)[1]
                for n in set(JOPS) - set(TOPS)}
-    assert missing == {"parallel.moe"}
+    assert missing == set()
     for n in new:
         assert hasattr(tmx.nd, n), n
 
@@ -466,10 +465,19 @@ def test_flash_attention_name_matches_jax_with_gradients():
 
 @pytest.mark.parametrize("op", ["ring_attention", "ulysses_attention"])
 def test_mesh_attention_names_raise_naming_a15(op):
-    x = np.zeros((1, 4, 8), np.float32)
+    """Ported in A15b: outside a mesh the op raises as JAX's does; over a
+    mesh whose ``sp`` axis has one rank it is the dense attention
+    (``tests/test_torch_sequence_parallel.py`` runs it over two)."""
+    x = np.random.RandomState(3).randn(1, 4, 8).astype(np.float32)
+    with pytest.raises(ValueError, match="needs a mesh"):
+        getattr(jmx.nd, op)(*[jmx.nd.array(x)] * 3, heads=2)
     with tmx.cpu():
-        with pytest.raises(NotImplementedError, match="A15"):
+        with pytest.raises(ValueError, match="needs a mesh"):
             getattr(tmx.nd, op)(*[tmx.nd.array(x)] * 3, heads=2)
+        with tmx.parallel.MeshScope(tmx.parallel.make_mesh(sp=1)):
+            got = getattr(tmx.nd, op)(*[tmx.nd.array(x)] * 3, heads=2)
+        want = tmx.nd.multi_head_attention(*[tmx.nd.array(x)] * 3, heads=2)
+    np.testing.assert_allclose(got.asnumpy(), want.asnumpy(), **F32)
 
 
 # ---------------------------------------------------- random: invariants --

@@ -20,6 +20,7 @@
 """
 import os
 import re
+import signal
 import socket
 import subprocess
 import sys
@@ -78,10 +79,23 @@ def _env():
 
 
 def _launch(args, timeout=240):
-    return subprocess.run(
+    """The launcher with ``args``, in a session of its own: on a timeout
+    its whole process group (the ranks too) is killed, then the timeout
+    raises."""
+    proc = subprocess.Popen(
         [sys.executable, "-m", "mxnet_tpu_torch.launch", *args],
-        env=_env(), capture_output=True, text=True, timeout=timeout,
-        cwd=REPO)
+        env=_env(), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, cwd=REPO, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        proc.communicate()
+        raise
+    return subprocess.CompletedProcess(proc.args, proc.returncode, out, err)
 
 
 def test_single_process_init_noop():

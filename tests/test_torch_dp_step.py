@@ -10,8 +10,9 @@ JAX nets' parameters carried over by name (``params_from_jax``).  For
 each of an MLP, a two-block fused-conv net with batch norm (NHWC, the
 JAX side's Pallas kernels in interpret mode, the port's plain versions)
 and a two-layer BERT (units 32, the flash op, dropout 0; every masked
-position weighted 1, so each rank's weighted mean is its share of the
-global one):
+position weighted 1), and in f32 the same BERT with rank 1's rows
+weighing 2 masked positions of 8 (``bertw``: the masked-LM weighted mean
+is the global batch's, as the JAX step takes it):
 
 - ``grad_reduce="f32"``: losses, parameters and running statistics
   after three steps within 2e-5 of the JAX step's, bit-equal across the
@@ -27,9 +28,12 @@ global one):
 
 Also ``reduce_gradients`` with nearest rounding (``key=None``) on per-rank
 leaves against the JAX function inside ``shard_map`` over dp=2: int8
-within 1e-6 of each leaf's scale, bf16 and f32 exactly; and the
-``TrainStep`` errors for a bad mode, a model-parallel mesh and a
-sharding rule.
+within 1e-6 of each leaf's scale, bf16 and f32 exactly; the ``TrainStep``
+error for a bad mode; a loss written to reduce the batch itself, which
+stays per rank (the mean of the ranks' values, not JAX's global one: a
+stated divergence); and the meshes and rules the port once refused (a
+``tp`` axis, a rule over ``tp`` or ``dp``) running, placing the leaves
+and giving the replicated run's values.
 
 On the card (``gpu``): a gang of max(2, cards) ranks (gloo when they
 share one card, NCCL when each has its own) trains the MLP in f32 and
@@ -39,6 +43,7 @@ captures its step, collectives included, with the eager step's bits.
 """
 import contextlib
 import os
+import signal
 import subprocess
 import sys
 
@@ -88,7 +93,16 @@ def bert(pkg):
 
 
 def batches(name):
-    """The seeded global batches of a net: ``[(data, label)] * STEPS``."""
+    """The seeded global batches of a net: ``[(data, label)] * STEPS``
+    (``bertw``: BERT's, the rows of rank 1 weighing only their first
+    masked position)."""
+    if name == "bertw":
+        out = []
+        for data, (labels, weights, nsp) in batches("bert"):
+            weights = weights.copy()
+            weights[BERT_B // 2:, 1:] = 0.0
+            out.append((data, (labels, weights, nsp)))
+        return out
     rng = np.random.RandomState({"mlp": 1, "fused": 2, "bert": 3}[name])
     out = []
     for _ in range(STEPS):
@@ -109,8 +123,20 @@ def batches(name):
     return out
 
 
+def own_scalar_loss(pkg):
+    """A loss that reduces the batch to a scalar itself: the CE summed
+    over the rows, divided by the rows' labels plus one, summed."""
+    ce = pkg.gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def loss(out, label):
+        den = (label.float() if hasattr(label, "float")     # a tensor
+               else label.astype("float32")) + 1.0          # an NDArray
+        return ce(out, label).sum() / den.sum()
+    return loss
+
+
 def loss_and_opt(pkg, name):
-    if name == "bert":
+    if name in ("bert", "bertw"):
         from importlib import import_module
         zoo = import_module(pkg.__name__ + ".gluon.model_zoo.bert")
         ploss = zoo.BERTPretrainLoss()
@@ -192,17 +218,21 @@ def worker(outdir):
     inputs = dict(np.load(os.path.join(outdir, "inputs.npz")))
     res = {}
     with tmx.cpu():
-        for name in ("mlp", "fused", "bert"):
-            arrays = {k[len(name) + 1:]: v for k, v in inputs.items()
-                      if k.startswith(name + "/")}
+        for name in ("mlp", "fused", "bert", "bertw"):
+            src = "bert" if name == "bertw" else name
+            arrays = {k[len(src) + 1:]: v for k, v in inputs.items()
+                      if k.startswith(src + "/")}
             feed = batches(name)
             runs = [(m, m.split("-")[0], False) for m in MODES] \
                 + [("skip", "int8", True)] \
                 + ([("f32-wire", "bf16", False)] if name == "fused" else [])
+            if name == "bertw":
+                runs = [("f32", "f32", False)]
             for label, mode, skip in runs:
                 tmx.random.seed(5)
                 net = (mlp if name == "mlp" else fused if name == "fused"
                        else bert)(tmx)
+                pre = len(src) + 1
                 net.initialize(ctx="cpu")
                 params_from_jax(net, arrays)
                 loss, opt = loss_and_opt(tmx, name)
@@ -231,8 +261,9 @@ def worker(outdir):
                     res[f"{name}/skip/skipped"] = np.array(
                         step.skipped_steps)
                 for k, v in step.params.items():
-                    res[f"{name}/{label}/p/{k[len(name) + 1:]}"] = \
+                    res[f"{name}/{label}/p/{k[pre:]}"] = \
                         v.detach().float().numpy()
+        moved_runs(tmx, parallel, params_from_jax, inputs, r, n, res)
         key_leaves = sorted(k for k in inputs if k.startswith("leaves/"))
         mine = [torch.from_numpy(inputs[k][r]) for k in key_leaves]
         with parallel.MeshScope(parallel.make_mesh(dp=2)):
@@ -243,6 +274,54 @@ def worker(outdir):
                     res[f"reduce/{mode}/{k}"] = o.float().numpy()
     np.savez(os.path.join(outdir, f"rank{r}.npz"), **res)
     print(f"rank {r} done", flush=True)
+
+
+def moved_runs(tmx, parallel, params_from_jax, inputs, r, n, res):
+    """The MLP's f32 runs that once raised: a mesh with a ``tp`` axis
+    (no rules, then a rule splitting ``fc1_weight`` over ``tp``), a rule
+    splitting it over ``dp``; and the loss that reduces the batch itself
+    (``own``); plus ``EvalStep`` and ``shard_map`` over the tp mesh."""
+    import torch
+    arrays = {k[4:]: v for k, v in inputs.items() if k.startswith("mlp/")}
+    tp_rule = parallel.ShardingRules([(r"fc1_weight$", ("tp", None))])
+    dp_rule = parallel.ShardingRules([(r"fc1_weight$", ("dp", None))])
+    runs = (("tp-mesh", dict(mesh=parallel.make_mesh(dp=1, tp=2)), False),
+            ("tp-rule", dict(mesh=parallel.make_mesh(dp=1, tp=2),
+                             rules=tp_rule), False),
+            ("dp-rule", dict(mesh=parallel.make_mesh(dp=2), rules=dp_rule),
+             True),
+            ("own", dict(mesh=parallel.make_mesh(dp=2)), True))
+    for label, kw, split in runs:
+        tmx.random.seed(5)
+        net = mlp(tmx)
+        net.initialize(ctx="cpu")
+        params_from_jax(net, arrays)
+        loss, opt = loss_and_opt(tmx, "mlp")
+        if label == "own":
+            loss = own_scalar_loss(tmx)
+        step = parallel.TrainStep(net, loss, opt, **kw)
+        losses = []
+        for data, lab in batches("mlp"):
+            if split:
+                data, lab = shard(data, r, n), shard(lab, r, n)
+            losses.append(float(step(data, lab)))
+        res[f"moved/{label}/losses"] = np.array(losses)
+        res[f"moved/{label}/shape"] = np.array(
+            step._train[step._train_idx.index(
+                step._names.index("mlp_fc1_weight"))].shape)
+        res[f"moved/{label}/state_shape"] = np.array(
+            step._states[step._train_idx.index(
+                step._names.index("mlp_fc1_weight"))][0].shape)
+        for k, v in step.params.items():
+            res[f"moved/{label}/p/{k[4:]}"] = v.detach().float().numpy()
+        if label == "tp-rule":
+            x = batches("mlp")[0][0]
+            res["moved/eval"] = parallel.EvalStep(net, **kw)(x).numpy()
+            spec = parallel.mesh.PartitionSpec
+            res["moved/shard_map"] = np.array(parallel.shard_map(
+                lambda v: v + parallel.mesh.axis_index("tp"),
+                mesh=kw["mesh"], in_specs=(spec("tp"),),
+                out_specs=spec())(torch.zeros(())))
 
 
 def card_worker(outdir):
@@ -296,7 +375,8 @@ from mxnet_tpu import parallel as jparallel  # noqa: E402
 def start_gang(script, outdir, n=2, timeout=300, platform="cpu",
                extra=()):
     """``script outdir *extra`` on ``n`` ranks through the port's
-    launcher (gloo ranks on the CPU by default); returns the Popen (its
+    launcher (gloo ranks on the CPU by default), in a session of its own
+    so ``kill_gang`` reaches the ranks too; returns the Popen (its
     output goes to ``outdir/gang.log``)."""
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
@@ -306,9 +386,21 @@ def start_gang(script, outdir, n=2, timeout=300, platform="cpu",
     proc = subprocess.Popen(
         [sys.executable, "-m", "mxnet_tpu_torch.launch", "-n", str(n),
          "--platform", platform, sys.executable, script, outdir, *extra],
-        env=env, stdout=log, stderr=subprocess.STDOUT, cwd=REPO)
+        env=env, stdout=log, stderr=subprocess.STDOUT, cwd=REPO,
+        start_new_session=True)
     proc.timeout, proc.log = timeout, log
     return proc
+
+
+def kill_gang(proc):
+    """Kill a gang's whole process group: the launcher and its ranks
+    (plain children of the launcher's supervisor, which a kill of the
+    launcher alone would leave running)."""
+    try:
+        os.killpg(proc.pid, signal.SIGKILL)
+    except ProcessLookupError:
+        pass
+    proc.wait()
 
 
 def finish_gang(proc, outdir, n=2):
@@ -316,8 +408,7 @@ def finish_gang(proc, outdir, n=2):
     try:
         rc = proc.wait(timeout=proc.timeout)
     except subprocess.TimeoutExpired:
-        proc.kill()
-        proc.wait()
+        kill_gang(proc)
         rc = "timeout"
     proc.log.close()
     text = open(os.path.join(outdir, "gang.log")).read()
@@ -336,7 +427,7 @@ def jax_run(name, values, mode):
     """The JAX step on dp=2 over the global batches: losses and the
     final parameters by name (prefix stripped)."""
     jmx.random.seed(5)
-    net = jax_net(name)
+    net = jax_net("bert" if name == "bertw" else name)
     for k, p in net.collect_params().items():
         p.set_data(jmx.nd.array(values[k]))
     loss, opt = loss_and_opt(jmx, name)
@@ -349,7 +440,8 @@ def jax_run(name, values, mode):
                          for d in data)
             lab = tuple(jmx.nd.array(x) for x in lab)
         losses.append(float(np.asarray(step(data, lab)._data)))
-    params = {k[len(name) + 1:]: np.asarray(v, np.float32)
+    pre = len("bert" if name == "bertw" else name) + 1
+    params = {k[pre:]: np.asarray(v, np.float32)
               for k, v in step.params.items()}
     return np.array(losses), params
 
@@ -369,14 +461,38 @@ def gang(tmp_path_factory):
     proc = start_gang(os.path.abspath(__file__), outdir)
     jax_side = {}
     try:
-        for name in ("mlp", "fused", "bert"):
-            values = {k[len(name) + 1:]: v for k, v in inputs.items()
-                      if k.startswith(name + "/")}
+        for name in ("mlp", "fused", "bert", "bertw"):
+            src = "bert" if name == "bertw" else name
+            values = {k[len(src) + 1:]: v for k, v in inputs.items()
+                      if k.startswith(src + "/")}
             jax_side[name, "f32"] = jax_run(name, values, "f32")
+        jax_side["own"] = jax_own_losses(values_of(inputs, "mlp"))
         jax_side["reduce"] = jax_reduce(inputs)
     finally:
         ranks = finish_gang(proc, outdir)
     return ranks, jax_side
+
+
+def values_of(inputs, name):
+    return {k[len(name) + 1:]: v for k, v in inputs.items()
+            if k.startswith(name + "/")}
+
+
+def jax_own_losses(values):
+    """``own_scalar_loss`` at the MLP's first parameters on the JAX side:
+    over the global batch (the JAX step's value) and over each rank's
+    rows (what each port rank takes)."""
+    net = jax_net("mlp")
+    for k, p in net.collect_params().items():
+        p.set_data(jmx.nd.array(values[k]))
+    loss = own_scalar_loss(jmx)
+    x, y = batches("mlp")[0]
+
+    def at(rows):
+        return float(np.asarray(loss(net(jmx.nd.array(x[rows])),
+                                     jmx.nd.array(y[rows]))._data))
+    b = MLP_B // 2
+    return at(slice(None)), [at(slice(0, b)), at(slice(b, None))]
 
 
 def jax_reduce(inputs):
@@ -406,7 +522,7 @@ def jax_reduce(inputs):
 NETS = ("mlp", "fused", "bert")
 
 
-@pytest.mark.parametrize("name", NETS)
+@pytest.mark.parametrize("name", NETS + ("bertw",))
 def test_f32_matches_jax_dp2(gang, name):
     ranks, jax_side = gang
     jl, jp = jax_side[name, "f32"]
@@ -522,19 +638,31 @@ def test_bad_mode_raises_as_jax():
     assert jt is ValueError and (tt, tm) == (jt, jm)
 
 
-def test_model_parallel_mesh_and_rules_raise():
+def test_model_parallel_mesh_and_rules_raise(gang):
+    """Once refused, now run: a ``tp`` mesh without rules and with a rule
+    splitting ``fc1_weight`` by rows over ``tp`` train the MLP on the
+    whole batch to the replicated dp run's values (and JAX's), the
+    rule's leaf and its optimizer state held as one half per rank;
+    ``EvalStep`` and ``shard_map`` run over the same mesh.  In a world of
+    one (no gang) the rule over ``dp`` replicates and runs."""
     import torch
     import mxnet_tpu_torch as tmx
     from mxnet_tpu_torch import parallel
-    mesh = parallel.make_mesh(dp=1, tp=2, devices=[0, 1])
-    with pytest.raises(NotImplementedError, match="A15b"):
-        _port_step(mesh=mesh)
-    with pytest.raises(NotImplementedError, match="A15b"):
-        parallel.EvalStep(mlp(tmx), mesh=mesh)
-    with pytest.raises(NotImplementedError, match="A15b"):
-        parallel.shard_map(lambda x: x, mesh=mesh,
-                           in_specs=(parallel.mesh.PartitionSpec("tp"),),
-                           out_specs=parallel.mesh.PartitionSpec())(1)
+    ranks, jax_side = gang
+    jl, jp = jax_side["mlp", "f32"]
+    for r, res in enumerate(ranks):
+        for label in ("tp-mesh", "tp-rule"):
+            np.testing.assert_allclose(res[f"moved/{label}/losses"], jl,
+                                       rtol=F32_TOL, atol=F32_TOL)
+            for k, v in jp.items():
+                np.testing.assert_allclose(res[f"moved/{label}/p/{k}"], v,
+                                           rtol=F32_TOL, atol=F32_TOL,
+                                           err_msg=k)
+        assert tuple(res["moved/tp-mesh/shape"]) == (32, 16)
+        assert tuple(res["moved/tp-rule/shape"]) == (16, 16)
+        assert tuple(res["moved/tp-rule/state_shape"]) == (16, 16)
+        assert float(res["moved/shard_map"]) == r
+        np.testing.assert_array_equal(res["moved/eval"], ranks[0]["moved/eval"])
     rules = parallel.ShardingRules([(r"fc1_weight$", ("dp", None))])
     step = _port_step(rules=rules)
     with tmx.cpu():
@@ -543,16 +671,42 @@ def test_model_parallel_mesh_and_rules_raise():
     assert torch.isfinite(loss)
 
 
-def test_sharding_rule_over_a_real_axis_raises():
+def test_sharding_rule_over_a_real_axis_raises(gang):
+    """Once refused, now run: a rule splitting ``fc1_weight`` over ``dp``
+    (which also splits the batch) holds it as a half per rank, gathered
+    where used with its gradient summed over dp by the gather's
+    backward, and trains to the JAX dp=2 step's values."""
     from mxnet_tpu_torch import parallel
-    from mxnet_tpu_torch.parallel.step import _check_rules
-    mesh = parallel.make_mesh(dp=2, devices=[0, 1])
+    from mxnet_tpu_torch.parallel.step import _placements
     import torch
+    mesh = parallel.make_mesh(dp=2, devices=[0, 1])
     rules = parallel.ShardingRules([(r"w$", ("dp", None))])
-    with pytest.raises(NotImplementedError, match="A15b"):
-        _check_rules(mesh, rules, ["net_w"], [torch.zeros(4, 3)], "TrainStep")
-    _check_rules(mesh, parallel.ShardingRules(), ["net_w"],
-                 [torch.zeros(4, 3)], "TrainStep")
+    _, where = _placements(mesh, rules, ["net_w", "net_b"],
+                           [torch.zeros(4, 3), torch.zeros(3)])
+    assert where[0].spec == ("dp", None) and where[0].shape == (4, 3)
+    assert where[1] is None
+    ranks, jax_side = gang
+    jl, jp = jax_side["mlp", "f32"]
+    for res in ranks:
+        assert tuple(res["moved/dp-rule/shape"]) == (16, 16)
+        np.testing.assert_allclose(res["moved/dp-rule/losses"], jl,
+                                   rtol=F32_TOL, atol=F32_TOL)
+        for k, v in jp.items():
+            np.testing.assert_allclose(res[f"moved/dp-rule/p/{k}"], v,
+                                       rtol=F32_TOL, atol=F32_TOL, err_msg=k)
+
+
+def test_a_loss_that_reduces_itself_stays_per_rank(gang):
+    """A stated divergence: a loss that reduces the batch to a scalar
+    itself is taken per rank and averaged over the ranks, where the JAX
+    step takes it over the global batch (BERTPretrainLoss is not such a
+    loss: see ``bertw``)."""
+    ranks, jax_side = gang
+    whole, per_rank = jax_side["own"]
+    for res in ranks:
+        first = res["moved/own/losses"][0]
+        np.testing.assert_allclose(first, np.mean(per_rank), rtol=F32_TOL)
+        assert abs(first - whole) > 100 * F32_TOL * abs(whole)
 
 
 # ------------------------------------------------------------ on the card --

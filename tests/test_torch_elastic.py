@@ -506,11 +506,15 @@ def test_nonfinite_abort_flushes_pending_snapshots(tmp_path, monkeypatch):
 
 # --------------------------------------------------- the CPU rehearsal ------
 def _worker_lines(text):
+    """Every ``[worker] {json}`` record of the launcher's output.  A
+    worker killed after writing a record but before its newline leaves
+    the next attempt's line on the same line: each record is read on
+    its own."""
     out = []
+    dec = json.JSONDecoder()
     for line in text.splitlines():
-        i = line.find("[worker] ")
-        if i >= 0:
-            out.append(json.loads(line[i + len("[worker] "):]))
+        for part in line.split("[worker] ")[1:]:
+            out.append(dec.raw_decode(part)[0])
     return out
 
 

@@ -79,15 +79,19 @@ def executable_census(spec):
 class FlakyApply(HotSwapApply):
     """HotSwapApply with switchable failure modes: ``fail=True`` raises
     (a step fault the breaker sees), ``dead=True`` raises SystemExit
-    (the batch thread dies — a killed replica)."""
+    (the batch thread dies — a killed replica); a ``gate`` (an Event)
+    holds every call until it is set."""
 
     def __init__(self, fn, params, delay=0.0):
         super().__init__(fn, params)
         self.fail = False
         self.dead = False
         self.delay = delay
+        self.gate = None
 
     def __call__(self, *leaves):
+        if self.gate is not None:
+            self.gate.wait(30)
         if self.dead:
             raise SystemExit("replica killed")
         if self.fail:
@@ -1311,6 +1315,9 @@ def test_autoscaler_failed_action_is_logged_and_backed_off():
                              up_occupancy=0.2, up_queue_depth=2,
                              up_ticks=1, cooldown=0.0),
         tick=0.01, backoff_base=0.05, backoff_max=0.2).start()
+    # the one replica is held until the scaler has ticked on its queue:
+    # requests that drain before a tick make no pressure to scale on
+    gate = fleet.apply_fns[0].gate = threading.Event()
     try:
         with fault.inject("fleet.scale_up", RuntimeError("capacity API "
                                                          "down")):
@@ -1325,11 +1332,13 @@ def test_autoscaler_failed_action_is_logged_and_backed_off():
                 time.sleep(0.02)
             assert scaler.stats["failures"] >= 1
             assert len(fleet.replicas) == 1       # nothing half-added
+            gate.set()
             for r in reqs:
                 r.result(30)
         assert any(e["event"] == "scale-failed"
                    for e in scaler.log.records)
     finally:
+        gate.set()
         scaler.stop(timeout=10)
         assert fleet.drain(timeout=60)
 

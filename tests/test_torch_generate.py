@@ -718,7 +718,9 @@ def test_port_sources_import_no_jax_statically():
                 "ndarray/ndarray.py", "ops/registry.py", "distributed.py",
                 "kvstore/__init__.py", "kvstore/kvstore.py",
                 "parallel/mesh.py", "parallel/sharding.py",
-                "parallel/quantize.py"):
+                "parallel/quantize.py", "parallel/placement.py",
+                "parallel/sequence.py", "parallel/pipeline.py",
+                "parallel/moe.py", "ops/moe.py"):
         assert os.path.join(REPO, "mxnet_tpu_torch", mod) in sources
     for path in sources:
         tree = ast.parse(open(path, encoding="utf-8").read(), path)

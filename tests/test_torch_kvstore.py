@@ -191,7 +191,8 @@ import mxnet_tpu as jmx  # noqa: E402
 import mxnet_tpu_torch as tmx  # noqa: E402
 from mxnet_tpu.kvstore import kvstore as jkv  # noqa: E402
 from mxnet_tpu_torch.kvstore import kvstore as tkv  # noqa: E402
-from test_torch_dp_step import finish_gang, start_gang  # noqa: E402
+from test_torch_dp_step import (finish_gang, kill_gang,  # noqa: E402
+                                start_gang)
 
 
 def _np(x):
@@ -459,8 +460,7 @@ def _gang_started(tmp_path_factory):
     proc = start_gang(os.path.abspath(__file__), outdir)
     yield proc, outdir
     if proc.poll() is None:
-        proc.kill()
-        proc.wait()
+        kill_gang(proc)
 
 
 @pytest.fixture(scope="module")

@@ -4,18 +4,17 @@ the top level, ``nd``, ``gluon``, ``gluon.model_zoo``, ``optimizer``,
 ``npx``, ``nd.sparse``, ``onnx``, ``parallel``, ``kv`` and
 ``distributed``.  Every public name of the JAX package is in the port,
 but for those in the named lists below: the modules still in queue A of
-ROADMAP.md (A15b, model parallelism), the TPU-only names, and the JAX
-modules' own imports of their implementation.
+ROADMAP.md (A15b's first half is ported: none of its names is missing
+any longer), the TPU-only names, and the JAX modules' own imports of
+their implementation.
 """
 import pytest
 
 import mxnet_tpu as jmx
 import mxnet_tpu_torch as tmx
 
-A15b = {"moe_ffn"}
-A15b_PARALLEL = {"MoEFFN", "moe_dispatch", "moe", "PipelineStack", "gpipe",
-                 "pipeline", "ring_attention", "ulysses_attention",
-                 "sp_attention", "sequence"}
+A15b = set()
+A15b_PARALLEL = set()
 TPU_ONLY = {"tpu", "num_tpus"}
 JAX_IMPORTS = {"jax", "jnp", "dtype_np"}
 MAY_BE_MISSING = {

@@ -67,17 +67,19 @@ def test_registry_census():
     random, quantization and control flow: 39,
     ``tests/test_torch_random_ops.py``,
     ``tests/test_torch_quantization.py`` and
-    ``tests/test_torch_control_flow.py``)."""
+    ``tests/test_torch_control_flow.py``; ``parallel.moe``'s ``moe_ffn``,
+    ``tests/test_torch_moe.py``)."""
     assert len(ROW_NAMES) == 252
     assert ROW_NAMES <= set(TOPS)
     later = set(TOPS) - ROW_NAMES
-    assert len(later) == 95
+    assert len(later) == 96
     assert {JOPS[n].__module__ for n in later} == {
         "mxnet_tpu.ops.image", "mxnet_tpu.ops.attention",
         "mxnet_tpu.ops.paged_attention", "mxnet_tpu.ops.rnn",
         "mxnet_tpu.ops.sequence", "mxnet_tpu.ops.multibox",
         "mxnet_tpu.symbol", "mxnet_tpu.ops.random_ops",
-        "mxnet_tpu.ops.quantization", "mxnet_tpu.ops.control_flow"}
+        "mxnet_tpu.ops.quantization", "mxnet_tpu.ops.control_flow",
+        "mxnet_tpu.parallel.moe"}
 
 
 def test_nd_without_a_card_raises():
