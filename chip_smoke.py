@@ -181,8 +181,9 @@ Phases, each of which fails the run (each prints its wall time):
    and eager (the same tokens, CoW faults taken, pages shared, the pool
    whole after the drain); the serve phase's traffic through two
    speculative servers (spec_k 3, window 16) — a seeded 1-layer draft
-   and the target as its own draft — captured and eager, with their
-   acceptance rates and tokens/s beside the plain server's; under
+   and the target as its own draft — captured, and eager on the first
+   64 requests (the same tokens), with their acceptance rates and
+   tokens/s beside the plain server's; under
    captured steps a decode fault mid-run (every request completes with
    the unfaulted tokens), ``drain(handoff=True)`` half way and a
    successor's ``submit_resume`` of the exports, and a journal restore
@@ -438,13 +439,20 @@ Phases, each of which fails the run (each prints its wall time):
     gang of 2: the same weight checksum on both ranks; (f) ms/step per
     rank, img/s and tokens/s over the gang against the world of one,
     and a profiled f32 step's collective and copy ms and busy share,
-    beside the card's name and power limit.
+    beside the card's name and power limit; (g) in the same gang
+    ``examples/bert_pretrain.py`` as written (BERT_PRETRAIN_ARGS: 12
+    layers, bf16, LAMB, 64 x 128 a rank, dense attention) with a
+    stand-in ``jax`` module whose ``devices()`` gives the ranks: finite
+    losses, every rank the same parameters, a dp mesh over the gang,
+    its tokens/s line; its ``--attention flash`` stops at the first
+    forward in both packages (no key-padding mask in flash), held to
+    the JAX package's error text.
 
 22. model parallel: one gang as in 21 (``--dp-worker <dir> mp``; 2 gloo
     ranks sharing the card, or one rank a card over NCCL with 2 or more
     cards), every sub-phase at bench_bert's width (BERT-base, 64 x 128
     tokens, 20 masked positions, bf16 with f32 masters, LAMB 1e-3 / wd
-    0.01, RandomState(0) data; dropout 0), 2 + 3 steps and one profiled
+    0.01, RandomState(0) data; dropout 0), 1 + 2 steps and one profiled
     each, through ``TrainStep(mesh=, rules=)``: (a) ``tp``,
     ``tp_dense_rules()`` and BERT's layers by name (fused QKV and FFN-in
     column-parallel, the projection and FFN-out row-parallel), flash;
@@ -465,7 +473,30 @@ Phases, each of which fails the run (each prints its wall time):
     the world of one, each rank's bytes of parameters and optimizer
     states against the world of one's, a profiled step's collective
     host ms, copy ms and busy share, beside the card's name and power
-    limit.
+    limit.  (f) Sharded checkpoints: after (a)'s first step the tp step
+    is saved as the port's v2 directory (``async_save=True``, then
+    ``wait_until_finished()``) and as the gathered v1.1 file, and its
+    next 2 steps run from that state under deterministic algorithms
+    (the uninterrupted continuation; the step is then put back); a
+    fresh tp step and a fresh fsdp step load the v2 directory and take
+    those 2 steps: the tp resume the continuation's losses and tensors
+    bit for bit, the fsdp resume's leaves within 3x (a)'s bf16 floor of
+    the tp resume's, and the world of one in this process loads the
+    v1.1 file in place into its captured step, held the same way; the
+    bytes a rank and the ms of each save and load printed.  (g)
+    Tensor-parallel serving at the serve phase's width: rank 0's seeded
+    params broadcast, ``GenerationServer(tp_shards=2)`` on both ranks
+    (the leader takes the serve phase's first TP_REQUESTS prompts) with
+    f32, int8, int8 again and f32 with one prefill worker, then a
+    profiled f32 run of TP_PROFILED_REQUESTS requests of
+    TP_PROFILED_NEW tokens: each rank's paged kernel LAYERS launches a
+    decode step on its 4 heads and held against its plain version on its
+    pool (its time beside the bound); f32 tokens the world of one's (or
+    teacher-forced), int8 the same tokens twice and f32's first
+    tokens, the disaggregated server's tokens the fused one's, every
+    page free after drain; tokens/s against the world of one, the
+    decode-step ms, the host ms in collectives a step, rank 0's busy
+    share.
 
 Prints one JSON ``kernels`` line, then the card line, then as the last
 line ``{"ok": true, "device": {...}}``.  Without a card, or without the
@@ -473,7 +504,8 @@ package beside it, it exits non-zero and prints no result.
 ``python3 chip_smoke.py --extras`` runs the build and phase 19 alone,
 ``--np`` the build and phase 20 alone (the TrainStep comparison then
 not measured), ``--dp`` the build and phase 21 alone, ``--mp`` the
-build and phase 22 alone; none of them prints a result line.
+build and phase 22 alone, ``--tp`` the build and phase 22's tp
+sub-phase with (f) and (g) alone; none of them prints a result line.
 """
 from __future__ import annotations
 
@@ -508,6 +540,10 @@ HOST_SLACK_CYCLES = 4_000_000    # device sleep before a timed span (~2 ms)
 LOGIT_ATOL, LOGIT_RTOL = 1e-4, 1e-4
 # serving features: speculative decoding, shared-prefix traffic, salvage
 SPEC_K, SPEC_WINDOW = 3, 16
+# the speculative servers' eager yardstick takes the first
+# SPEC_EAGER_REQUESTS prompts (one slot grid; its tokens held against
+# the captured run's)
+SPEC_EAGER_REQUESTS = 64
 PREFIX_REQUESTS, PREFIX_LENGTHS = 256, (32, 64, 192)
 RESUME_REQUESTS = 64
 # disaggregated serving: the long-prompt stall (length buckets, bystanders
@@ -697,14 +733,30 @@ DP_GANG_TIMEOUT_S = 600
 # sub-phase and one profiled; the pipeline's stages and microbatches;
 # the MoE's experts and top-k (GShard's top-2); a gang's time limit; the
 # gangs' launcher platform and worker script (None: this file)
-MP_WARMUP, MP_TIMED = 2, 3
+MP_WARMUP, MP_TIMED = 1, 2
 MP_STAGES, MP_MICRO = 2, 4
 MP_EXPERTS, MP_TOPK = 8, 2
 MP_GANG_TIMEOUT_S = 900
 MP_RUNS = ("tp", "fsdp", "ring", "ulysses", "pp", "ep")
+#: the sub-phases whose extra step is profiled on rank 0 (the others'
+#: busy shares are in PERF.md §6)
+MP_PROFILED = ("tp", "fsdp")
 #: elements of each leaf's first-step gradient held (evenly strided)
 MP_GRAD_SAMPLE = 8192
 GANG_PLATFORM, GANG_SCRIPT = "gpu", None
+# examples/bert_pretrain.py in phase 21's example gang, as written (its
+# bf16 BERT-base, LAMB, batch 64 x 128 a rank): 12 layers, 4 steps; and
+# the arguments of its flash run, which stops at its first forward
+BERT_PRETRAIN_ARGS = ["--layers", "12", "--num-steps", "4"]
+BERT_PRETRAIN_FLASH_ARGS = ["--layers", "1", "--num-steps", "1",
+                            "--attention", "flash"]
+FLASH_REFUSAL = "attention_impl='flash' does not support valid_length masks"
+# phase 22 (g): the serve phase's first TP_REQUESTS prompts (one slot
+# grid's worth) through each tensor-parallel server and the world of
+# one's, TP_PROFILED_REQUESTS of them of TP_PROFILED_NEW new tokens
+# through the profiled one
+TP_REQUESTS, TP_PROFILED_REQUESTS, TP_PROFILED_NEW = 64, 16, 16
+TP_MODES = ("f32", "int8", "int8 again", "f32 disaggregated")
 
 
 def log(msg):
@@ -778,13 +830,13 @@ def serving_lengths(rng, slots):
     return rng.integers(4, 60, slots) + rng.integers(0, MAX_NEW, slots) + 1
 
 
-def attention_bound(lengths, slots, pages_per_seq):
+def attention_bound(lengths, slots, pages_per_seq, heads=HEADS):
     """Least time for one call on this card: each valid K/V row read
     once, q/tables/lengths read and the output written once; the
     operations are 4 flops per K/V element pair (q.k and p.v)."""
     ctx = pages_per_seq * PAGE_SIZE
     valid = int(np.minimum(np.maximum(lengths, 0), ctx).sum())
-    row = HEADS * HEAD_DIM
+    row = heads * HEAD_DIM
     nbytes = (valid * row * 4 * 2 + 2 * slots * row * 4
               + slots * pages_per_seq * 4 + slots * 4)
     flops = 4 * valid * row
@@ -1515,8 +1567,9 @@ def serve_speculative(torch, params, cfg, plain):
     its own draft (only its window differs), (c) the same with a window
     that holds every context (the draft is then the target: the accept
     path, 1 + SPEC_K tokens a step but for near-ties).  Each: captured
-    against eager, the teacher-forced argmax, graphs = census = grid +
-    2, how many outputs equal the plain server's."""
+    against eager (on the first SPEC_EAGER_REQUESTS prompts), the
+    teacher-forced argmax, graphs = census = grid + 2, how many outputs
+    equal the plain server's."""
     from mxnet_tpu_torch.gluon.model_zoo.causal_lm import (draft_config,
                                                            init_causal_lm)
 
@@ -1535,6 +1588,9 @@ def serve_speculative(torch, params, cfg, plain):
         runs = {}
         for capture in (None, False):
             how = "eager" if capture is False else "captured"
+            # the eager yardstick on the first SPEC_EAGER_REQUESTS prompts
+            run = prompts if capture is None \
+                else prompts[:SPEC_EAGER_REQUESTS]
             srv = feature_server(torch, params, cfg,
                                  f"ChipSmokeSpec-{label}-{how}",
                                  capture=capture, draft=dparams,
@@ -1543,7 +1599,7 @@ def serve_speculative(torch, params, cfg, plain):
             expect(srv.census() == len(BATCH_BUCKETS) * len(LENGTH_BUCKETS)
                    + 2, f"spec [{label}]: census {srv.census()}")
             (outs, dt), launches = count_launches(
-                lambda: run_requests(srv, prompts))
+                lambda: run_requests(srv, run))
             st = srv.stats
             expect_graphs(srv, capture, f"spec [{label}, {how}] after the "
                           f"run")
@@ -1554,16 +1610,18 @@ def serve_speculative(torch, params, cfg, plain):
                    f"spec [{label}, {how}]: pages left after drain")
             runs[how] = (outs, dt, st, launches)
         outs, dt, st, launches = runs["captured"]
-        expect(all(np.array_equal(a, b) for a, b in zip(outs,
-                                                        runs["eager"][0])),
+        eager = runs["eager"][0]
+        expect(all(np.array_equal(a, b) for a, b in zip(outs, eager)),
                f"spec [{label}]: captured tokens differ from the eager ones")
         teacher_forced(torch, params, cfg, prompts, outs, f"spec {label}")
         same = sum(np.array_equal(a, b) for a, b in zip(outs, plain["outs"]))
         n_tok = sum(map(len, outs))
         rate = st["spec_accepted"] / max(st["spec_proposed"], 1)
         log(f"spec [{label}, captured]: {N_REQUESTS} requests, {n_tok} "
-            f"tokens in {dt:.3f} s = {n_tok / dt:.1f} tokens/s (eager "
-            f"{n_tok / runs['eager'][1]:.1f}; plain server "
+            f"tokens in {dt:.3f} s = {n_tok / dt:.1f} tokens/s (eager, the "
+            f"first {len(eager)} requests: "
+            f"{sum(map(len, eager)) / runs['eager'][1]:.1f}, the same "
+            f"tokens as captured's; plain server "
             f"{plain['tokens_per_s']:.1f}); acceptance {rate:.4f} "
             f"({st['spec_accepted']} of {st['spec_proposed']}), verify steps "
             f"{st['verify_steps']} (plain decode steps "
@@ -7852,8 +7910,11 @@ def dp_worker(torch, root, outdir, task):
             torch, ("f32", "bf16", "int8", "int8-again"),
             save=os.path.join(outdir, "gang-f32.npz"))
         res["bert"] = dp_bert(torch, "dist_sync_device")
+    elif task == "tp":
+        res["mp"] = mp_worker(torch, outdir, runs=("tp",))
     else:
         res["example"] = run_example(root, "dist_train", [])
+        res["bert_pretrain"] = bert_pretrain_example(torch, root)
     with open(os.path.join(outdir, f"{task}-r{rank}.json"), "w") as f:
         json.dump(res, f)
     distributed.barrier("done", timeout=120)
@@ -8006,6 +8067,7 @@ def _data_parallel(torch, root, smi_line, outdir):
            f"dist_train.py: the ranks' weight checksums {sums} differ")
     log(f"dp example dist_train.py on {example[0]['backend']}: both ranks "
         f"end on weight checksum {sums[0][0]}")
+    hold_bert_pretrain([r["bert_pretrain"] for r in example], smi_line)
     # (f) the numbers
     ms = {m: [r["resnet"][m]["ms_step"] for r in ranks]
           for m in ("f32", "bf16", "int8")}
@@ -8041,6 +8103,7 @@ def _data_parallel(torch, root, smi_line, outdir):
                          .items()},
             "flash": {k: int(v * (DP_WARMUP + DP_TIMED))
                       for k, v in ranks[0]["bert"]["per_step"].items()},
+            "bert_pretrain": example[0]["bert_pretrain"]["flash"],
             "numbers": numbers, "backend": want, "world": world}
 
 
@@ -8383,6 +8446,12 @@ def mp_run(torch, run, shared, device, outdir):
                     zero=zero)
     del leaves, grads
     laps["leaves saved"] = lap()
+    if run == "tp" and "ckpt" in shared:
+        shared["ckpt"].update(ckpt_save(torch, step, outdir))
+        path = dict(fa.flash_attention.launches)
+        shared["ckpt"].update(ckpt_reference(torch, step, data, labels))
+        fa.flash_attention.launches = path    # the continuation is (f)'s
+        laps["checkpoints saved, the continuation"] = lap()
     losses = [loss0]
     for _ in range(MP_WARMUP - 1):
         losses.append(float(step(data, labels)))
@@ -8406,15 +8475,18 @@ def mp_run(torch, run, shared, device, outdir):
     laps["checks"] = lap()
     what = (f"mp {run}, rank {rank}/{world} over "
             f"{distributed.backend() or 'no group'}")
-    with timed_collectives() as comm:
-        if rank == 0 and DEVICE == "cuda":
-            prof = profile_once(torch, lambda: float(step(data, labels)),
-                                what)
-        else:
-            float(step(data, labels))
-            prof = {}
-    prof["comm_ms"], prof["comm_calls"] = comm["ms"], comm["calls"]
-    laps["profiled step"] = lap()
+    comm = {"ms": float("nan"), "calls": 0}
+    prof = {"comm_ms": comm["ms"], "comm_calls": comm["calls"]}
+    if run in MP_PROFILED:
+        with timed_collectives() as comm:
+            if rank == 0 and DEVICE == "cuda":
+                prof = profile_once(torch, lambda: float(step(data, labels)),
+                                    what)
+            else:
+                float(step(data, labels))
+                prof = {}
+        prof["comm_ms"], prof["comm_calls"] = comm["ms"], comm["calls"]
+        laps["profiled step"] = lap()
     steps = MP_WARMUP + MP_TIMED
     out = {"losses": losses, "ms_step": 1e3 * dt / MP_TIMED,
            "per_step": {k: v / steps for k, v in launches.items()},
@@ -8500,8 +8572,10 @@ def gloo_census(torch):
     return out
 
 
-def mp_worker(torch, outdir):
-    """The gang's part of phase 22: every sub-phase on this rank."""
+def mp_worker(torch, outdir, runs=MP_RUNS):
+    """The gang's part of phase 22: every sub-phase on this rank (``runs``
+    of them, then (f) the checkpoints of the tp run's first step and (g)
+    tensor-parallel serving)."""
     from mxnet_tpu_torch import distributed
 
     device = distributed.device() if DEVICE == "cuda" else "cpu"
@@ -8510,22 +8584,33 @@ def mp_worker(torch, outdir):
         res["gloo"] = gloo_census(torch)
         log(f"mp gloo census (torch {torch.__version__}): {res['gloo']}")
     shared = mp_shared(torch, device)
-    for run in MP_RUNS:
+    shared["ckpt"] = {}
+    for run in runs:
         res[run] = mp_run(torch, run, shared, device, outdir)
+        if run == "tp":
+            res["ckpt"] = mp_ckpt(torch, shared, device, outdir,
+                                  res["tp"]["losses"])
+    del shared
+    gc.collect()
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    res["serve"] = mp_serve(torch, device, outdir)
     return res
 
 
-def mp_reference(torch, outdir):
+def mp_reference(torch, outdir, runs=MP_RUNS):
     """The world of one in this process (no process group, no mesh):
     each distinct net's bf16 step from the same parameters on the whole
     batch (captured on the card), and the floor beside it — the same
-    first step in f32 from the bf16-rounded parameters, eager."""
+    first step in f32 from the bf16-rounded parameters, eager; then
+    (f)'s load of the gang's v1.1 file."""
     from mxnet_tpu_torch import optimizer, parallel
 
     device = DEVICE
     shared = mp_shared(torch, device)
     ref = {}
-    for run in ("tp", "pp", "ep"):
+    for run in sorted({MP_ONE[r] for r in runs}, key=("tp", "pp",
+                                                      "ep").index):
         ref[run] = mp_run(torch, run, shared, device, outdir)
         net, loss_fn, _, data, labels = mp_case(torch, run, device, 0, 1,
                                                 shared)
@@ -8548,6 +8633,12 @@ def mp_reference(torch, outdir):
         gc.collect()
         if DEVICE == "cuda":
             torch.cuda.empty_cache()
+    shared["bert"].cast("bfloat16")          # the f32 floor cast it
+    ref["ckpt"] = ckpt_one(torch, shared, outdir)
+    del shared
+    gc.collect()
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
     return ref
 
 
@@ -8556,7 +8647,7 @@ MP_ONE = {"tp": "tp", "fsdp": "tp", "ring": "tp", "ulysses": "tp",
           "pp": "pp", "ep": "ep"}
 
 
-def mp_hold(torch, ranks, ref, world, outdir):
+def mp_hold(torch, ranks, ref, world, outdir, runs=MP_RUNS):
     """The phase's checks: every rank's runs finite, the replicated
     leaves the same bits on every rank, 12 flash launches of each kernel
     a step a rank in tp and fsdp, and the gang's first-step gradients
@@ -8569,9 +8660,11 @@ def mp_hold(torch, ranks, ref, world, outdir):
     own: LAMB's first step moves them by ``lr * g / (|g| + eps)``, the
     gradient's sign wherever it is not tiny, so after it they are that
     sign pattern, and a gradient near zero swings an element by up to
-    ``2 lr`` between any two summation orders."""
+    ``2 lr`` between any two summation orders.  Returns the floors of
+    each run's leaves by kind."""
+    floors = {}
     for r in ranks:
-        for run in MP_RUNS:
+        for run in runs:
             got = r["mp"][run]
             expect(got["finite"] and all(np.isfinite(got["losses"])),
                    f"mp {run}: not finite on rank {r['rank']}")
@@ -8584,7 +8677,7 @@ def mp_hold(torch, ranks, ref, world, outdir):
                        f"mp {run}: rank {r['rank']} launched "
                        f"{got['per_step']} flash kernels a step, expected "
                        f"{BERT_LAYERS} each")
-    for run in MP_RUNS:
+    for run in runs:
         one = MP_ONE[run]
         gang, _ = load_leaves(torch, os.path.join(outdir, f"gang-{run}.npz"))
         plain, zero = load_leaves(torch, os.path.join(outdir,
@@ -8599,11 +8692,11 @@ def mp_hold(torch, ranks, ref, world, outdir):
             (k, "parameter from zero" if k in zero else "parameter")
             for k in keys]
         order = ["loss"] + keys
-        hold_leaves(torch, kinds, [gang[k] for k in order],
-                    [plain[k] for k in order], [f32[k] for k in order],
-                    f"mp {run}, {world} ranks vs the world of one, one "
-                    f"step from the same parameters; floor: the world of "
-                    f"one in bf16 vs f32")
+        floors[run] = hold_leaves(
+            torch, kinds, [gang[k] for k in order],
+            [plain[k] for k in order], [f32[k] for k in order],
+            f"mp {run}, {world} ranks vs the world of one, one step from "
+            f"the same parameters; floor: the world of one in bf16 vs f32")
         grads = [{k: torch.from_numpy(v).double() for k, v in
                   np.load(os.path.join(outdir, f"{tag}-{r}-grad.npz"))
                   .items()} for tag, r in (("gang", run), ("one", one),
@@ -8616,6 +8709,546 @@ def mp_hold(torch, ranks, ref, world, outdir):
                     f"mp {run}, {world} ranks vs the world of one, the "
                     f"first step's gradients; floor: the world of one in "
                     f"bf16 vs f32")
+    return floors
+
+
+# ------------------------------------------ sharded checkpoints (22 f) --
+def ckpt_save(torch, step, outdir):
+    """(f) The tp step after its first step, saved as the port's sharded
+    v2 directory (``async_save=True``: the call, then the wait) and as
+    the gathered v1.1 file (rank 0 writes); the ms of each part and this
+    rank's bytes."""
+    from mxnet_tpu_torch import distributed
+    from mxnet_tpu_torch.parallel import checkpoint as ck
+
+    rank, world = distributed.rank(), distributed.num_workers()
+    d, v1 = os.path.join(outdir, "ckpt-v2"), os.path.join(outdir,
+                                                          "ckpt-v1.npz")
+    sync(torch)
+    t0 = time.perf_counter()
+    handle = ck.save_train_step_sharded(step, d, async_save=True)
+    t1 = time.perf_counter()
+    handle.wait_until_finished()
+    t2 = time.perf_counter()
+    ck.save_train_step(step, v1)
+    t3 = time.perf_counter()
+    out = {"dir": d, "v1": v1, "async_ms": 1e3 * (t1 - t0),
+           "wait_ms": 1e3 * (t2 - t1), "v1_ms": 1e3 * (t3 - t2),
+           "bytes": os.path.getsize(os.path.join(
+               d, f"rank-{rank}-of-{world}.npz")),
+           "v1_bytes": os.path.getsize(v1) if rank == 0 else 0}
+    log(f"ckpt [rank {rank}/{world}]: v2 save {out['async_ms']:.1f} ms the "
+        f"step waits (its blocks' copies enqueued), {out['wait_ms']:.1f} ms "
+        f"to committed; {out['bytes'] / 2**20:.1f} MiB in this rank's file; "
+        f"v1.1 (gathered, rank 0 writes) {out['v1_ms']:.1f} ms")
+    return out
+
+
+@contextlib.contextmanager
+def deterministic(torch):
+    """Inside, PyTorch's deterministic algorithms (an op without one
+    warns): the masked-LM gather's backward accumulates by index, with
+    atomics otherwise, so two runs of a BERT step from the same state
+    need not give the same bits."""
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.utils.deterministic.fill_uninitialized_memory = fill
+
+
+def ckpt_reference(torch, step, data, labels):
+    """(f) The uninterrupted continuation of the tp step from the state
+    it was saved in: its next 2 steps under ``deterministic``, the step
+    put back in that state after; the losses and this rank's tensors
+    after them."""
+    snap, n = snapshot(step), step._num_update
+    with deterministic(torch):
+        losses = [float(step(data, labels)) for _ in range(2)]
+    blocks = [t.detach().clone() for t in step_tensors(step)]
+    load_snapshot(torch, step, snap)
+    step._num_update = step.optimizer.num_update = n
+    step._lr_value = None
+    return {"want": losses, "blocks": blocks}
+
+
+def mp_ckpt(torch, shared, device, outdir, losses):
+    """(f) A fresh tp step and a fresh fsdp step (each built by one step)
+    load the v2 directory of the tp run's first step and take the next 2
+    steps (the tp one under ``deterministic``, as the uninterrupted
+    continuation ran): their losses, load ms, whether the tp step's
+    tensors are the continuation's bits, the flash launches; each
+    resumed step's whole leaves to ``ckpt-<run>.npz`` (rank 0)."""
+    from mxnet_tpu_torch import distributed, optimizer, parallel
+    from mxnet_tpu_torch.parallel import checkpoint as ck
+
+    fa = flash_module()
+    rank, world = distributed.rank(), distributed.num_workers()
+    saved = shared["ckpt"]
+    out = {k: v for k, v in saved.items() if k != "blocks"}
+    fa.flash_attention.launches = dict.fromkeys(FLASH, 0)  # the path starts
+    for run in ("tp", "fsdp"):
+        net, loss_fn, kw, data, labels = mp_case(torch, run, device, rank,
+                                                 world, shared)
+        step = parallel.TrainStep(net, loss_fn, optimizer.create(
+            "lamb", learning_rate=1e-3, wd=0.01), **kw)
+        step(data, labels)                       # builds it
+        sync(torch)
+        t0 = time.perf_counter()
+        ck.load_train_step_sharded(step, saved["dir"])
+        sync(torch)
+        load_ms = 1e3 * (time.perf_counter() - t0)
+        with (deterministic(torch) if run == "tp"
+              else contextlib.nullcontext()):
+            got = [float(step(data, labels)) for _ in range(2)]
+        same = None
+        if run == "tp":
+            same = all(torch.equal(a, b) for a, b in
+                       zip(saved["blocks"], step_tensors(step)))
+        leaves = step.params                  # a collective on every rank
+        if rank == 0:
+            save_leaves(leaves, os.path.join(outdir, f"ckpt-{run}.npz"),
+                        got[-1])
+        out[run] = {"losses": got, "load_ms": load_ms, "same_bits": same,
+                    "want": saved["want"]}
+        log(f"ckpt [rank {rank}/{world}]: a fresh {run} step loaded the tp "
+            f"step's v2 directory in {load_ms:.1f} ms; the next 2 losses "
+            f"{[round(v, 5) for v in got]} (the uninterrupted "
+            f"continuation {[round(v, 5) for v in saved['want']]}; the "
+            f"run's own {[round(v, 5) for v in losses[1:3]]})"
+            + ("" if same is None else f"; the tensors after them "
+               f"{'the same bits as' if same else 'DIFFER from'} the "
+               f"uninterrupted run's"))
+        del step, leaves
+    out["flash"] = dict(fa.flash_attention.launches)  # ... and ends here
+    saved.pop("blocks", None)
+    gc.collect()
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def ckpt_one(torch, shared, outdir):
+    """(f) The world of one in this process: the BERT-base step (no mesh,
+    captured on the card) built by one step loads the gang's gathered
+    v1.1 file of the tp step's first step and takes the next 2 steps;
+    its losses and load ms, its leaves to ``ckpt-one.npz``."""
+    from mxnet_tpu_torch import optimizer, parallel
+    from mxnet_tpu_torch.parallel import checkpoint as ck
+
+    net, loss_fn, _, data, labels = mp_case(torch, "tp", DEVICE, 0, 1,
+                                            shared)
+    step = parallel.TrainStep(net, loss_fn, optimizer.create(
+        "lamb", learning_rate=1e-3, wd=0.01))
+    step(data, labels)
+    held = [t.data_ptr() for t in step_tensors(step)]
+    sync(torch)
+    t0 = time.perf_counter()
+    ck.load_train_step(step, os.path.join(outdir, "ckpt-v1.npz"))
+    sync(torch)
+    load_ms = 1e3 * (time.perf_counter() - t0)
+    expect(held == [t.data_ptr() for t in step_tensors(step)],
+           "ckpt: the v1.1 load rebound a tensor of the captured step")
+    got = [float(step(data, labels)) for _ in range(2)]
+    save_leaves(step.params, os.path.join(outdir, "ckpt-one.npz"), got[-1])
+    log(f"ckpt [world of one, {step.graph_count()} graphs]: the gathered "
+        f"v1.1 file loaded in place in {load_ms:.1f} ms; the next 2 losses "
+        f"{[round(v, 5) for v in got]}")
+    del step
+    gc.collect()
+    return {"losses": got, "load_ms": load_ms}
+
+
+def hold_ckpt(torch, ranks, one, floors, outdir):
+    """(f)'s holds: the tp resume the uninterrupted tp run's losses and
+    tensors bit for bit on every rank; the fsdp resume's leaves and the
+    world of one's (from the v1.1 file) against the tp resume's within
+    MODEL_FLOOR_FACTOR of the tp sub-phase's bf16 floor."""
+    for r in ranks:
+        c = r["mp"]["ckpt"]
+        expect(c["tp"]["losses"] == c["tp"]["want"],
+               f"ckpt: rank {r['rank']}'s tp resume losses "
+               f"{c['tp']['losses']} are not the uninterrupted "
+               f"{c['tp']['want']}")
+        expect(c["tp"]["same_bits"], f"ckpt: rank {r['rank']}'s tp resume "
+               f"ended on other bits than the uninterrupted run")
+        expect(all(np.isfinite(c["fsdp"]["losses"])),
+               "ckpt: the fsdp resume is not finite")
+    tp, _ = load_leaves(torch, os.path.join(outdir, "ckpt-tp.npz"))
+    keys = sorted(k for k in tp if k != "loss")
+    for what in ("fsdp", "one"):
+        got, _ = load_leaves(torch, os.path.join(outdir, f"ckpt-{what}.npz"))
+        expect(sorted(k for k in got if k != "loss") == keys,
+               f"ckpt: the {what} resume's leaves are not the tp resume's")
+        kinds = [("loss", "loss")] + [(k, "parameter") for k in keys]
+        order = ["loss"] + keys
+        hold_leaves(torch, kinds, [got[k] for k in order],
+                    [tp[k] for k in order], None,
+                    f"ckpt: the {what} resume vs the tp resume, 2 steps "
+                    f"from the tp step's checkpoint; floor: the tp "
+                    f"sub-phase's", floors=floors)
+
+
+# ---------------------------------------- tensor-parallel serving (22 g) --
+def serve_config():
+    from mxnet_tpu_torch.gluon.model_zoo.causal_lm import CausalLMConfig
+
+    return CausalLMConfig(vocab_size=VOCAB, n_layers=LAYERS, n_heads=HEADS,
+                          head_dim=HEAD_DIM, d_ff=D_FF)
+
+
+def tp_serve_run(torch, params, cfg, device, coll, prompts, what,
+                 profile=False, workers=0, max_new=None):
+    """One tensor-parallel server over the gang (every rank builds it,
+    the leader submits ``prompts``); this rank's numbers and, on the
+    leader, the tokens."""
+    from mxnet_tpu_torch import distributed
+    from mxnet_tpu_torch.ops import paged_attention as pa
+    from mxnet_tpu_torch.serving import BucketSpec, GenerationServer
+
+    world = distributed.num_workers()
+    max_new = MAX_NEW if max_new is None else max_new
+    sync(torch)
+    pa.paged_decode_attention.launches = 0       # the path starts here
+    srv = GenerationServer(
+        params, cfg, buckets=BucketSpec(batch=BATCH_BUCKETS,
+                                        length=LENGTH_BUCKETS),
+        n_slots=SLOTS, n_pages=N_PAGES, page_size=PAGE_SIZE,
+        max_new_tokens=MAX_NEW, max_queue=max(len(prompts), 1), seed=0,
+        tp_shards=world, tp_collectives=coll, prefill_workers=workers,
+        device=device, name=f"ChipSmokeTP-{what}")
+    srv.start()
+    decode_ms = []
+    if srv.leader:
+        real = srv._run_decode
+
+        def timed_decode():
+            t0 = time.perf_counter()
+            try:
+                return real()
+            finally:
+                decode_ms.append(1e3 * (time.perf_counter() - t0))
+        srv._run_decode = timed_decode
+    prof = {}
+    with timed_collectives() as comm:
+        t0 = time.perf_counter()
+        if profile and srv.leader and DEVICE == "cuda":
+            def traffic():
+                return [r.result(600) for r in
+                        [srv.submit(p, max_new_tokens=max_new)
+                         for p in prompts]]
+            holder = {}
+            prof = profile_once(torch, lambda: holder.setdefault(
+                "outs", traffic()), what)
+            outs = holder["outs"]
+        elif srv.leader:
+            outs = [r.result(600) for r in
+                    [srv.submit(p, max_new_tokens=max_new) for p in prompts]]
+        else:
+            outs = []
+        dt = time.perf_counter() - t0
+        expect(srv.drain(600), f"{what}: the server did not drain")
+    launches = pa.paged_decode_attention.launches    # ... and ends here
+    st = srv.stats
+    steps = st["decode_steps"] + (1 if srv.leader else 0)   # + warm-up
+    pools = (srv._k_pool, srv._v_pool, srv.pages_per_seq)
+    res = {"leader": srv.leader, "launches": launches,
+           "per_step": launches / max(steps, 1),
+           "decode_steps": st["decode_steps"], "graphs": srv.graph_count(),
+           "comm_ms": comm["ms"], "comm_calls": comm["calls"],
+           "comm_ms_step": comm["ms"] / max(steps, 1),
+           "heads": int(srv._k_pool.shape[3]), "profile": prof}
+    if srv.leader:
+        n_tok = sum(len(o) for o in outs)
+        expect(all(len(o) == max_new for o in outs) and all(
+            o.min() >= 0 and o.max() < VOCAB for o in outs),
+            f"{what}: a request resolved with the wrong tokens")
+        expect(srv.alloc.free_count() == srv.alloc.allocatable,
+               f"{what}: pages still held after drain")
+        res.update(tokens_per_s=n_tok / dt, outs=[o.tolist() for o in outs],
+                   decode_ms=float(np.mean(decode_ms)) if decode_ms else 0.0)
+    else:
+        expect(not srv.alive(), f"{what}: the follower's loop outlived "
+               f"the leader's drain")
+    log(f"tp serve [{what}, rank {distributed.rank()}/{world}, "
+        f"{'leader' if srv.leader else 'follower'}]: "
+        + (f"{len(prompts)} requests, {res['tokens_per_s']:.1f} tokens/s, "
+           f"decode step {res['decode_ms']:.2f} ms; " if srv.leader else "")
+        + f"{st['decode_steps']} decode steps; paged kernel {launches} "
+        f"launches on {res['heads']} heads ({res['per_step']:.2f} a decode "
+        f"step); collectives {comm['ms']:.1f} ms host in {comm['calls']} "
+        f"calls ({res['comm_ms_step']:.2f} ms a step); graphs "
+        f"{srv.graph_count()}")
+    del srv
+    return res, pools
+
+
+def tp_pool_kernel(torch, pools, what):
+    """The paged kernel on this rank's pool (its layer-0 K/V, HEADS /
+    ranks heads) at the serving shape against its plain version on every
+    rank; then timed on rank 0 alone, beside its bound and the plain
+    version's time, while the other ranks wait at a barrier with their
+    work on the card finished (ranks sharing the card would otherwise
+    time-slice it under rank 0's events)."""
+    from mxnet_tpu_torch import distributed
+    from mxnet_tpu_torch.ops import paged_attention as pa
+
+    k_pool, v_pool, pps = pools
+    heads = int(k_pool.shape[3])
+    rng = np.random.default_rng(7)
+    dev = k_pool.device
+    q = torch.from_numpy(rng.standard_normal(
+        (SLOTS, heads, HEAD_DIM), dtype=np.float32)).to(dev)
+    tables = torch.from_numpy(rng.permutation(np.arange(1, N_PAGES))[
+        :SLOTS * pps].reshape(SLOTS, pps).astype(np.int32)).to(dev)
+    lens_np = np.minimum(serving_lengths(rng, SLOTS), pps * PAGE_SIZE)
+    lens = torch.from_numpy(lens_np.astype(np.int32)).to(dev)
+    args = (q, k_pool[0], v_pool[0], tables, lens)
+    before = pa.paged_decode_attention.launches
+    got = pa.paged_decode_attention(*args)
+    want = pa.paged_decode_attention_reference(*args)
+    err = float((got - want).abs().max())
+    expect(bool(((got - want).abs() <= ATOL + RTOL * want.abs()).all()),
+           f"{what}: the paged kernel disagrees with its plain version on "
+           f"this rank's pool")
+    res = {"max_abs_err": err, "heads": heads}
+    if DEVICE == "cuda":
+        torch.cuda.synchronize(dev)
+    distributed.barrier()
+    if DEVICE == "cuda" and distributed.rank() == 0:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        part = pa._partition(SLOTS, heads, HEAD_DIM, PAGE_SIZE, pps, sms)
+        flush = torch.empty(1024 * 2**20, dtype=torch.uint8, device=dev)
+        res["ms"] = time_ms(torch, lambda: pa.paged_decode_attention(*args),
+                            100, flush)
+        res["plain_ms"] = time_ms(torch, lambda: (
+            pa.paged_decode_attention_reference(*args)), 20, flush)
+        del flush
+        res["bound_ms"], res["bound_by"] = attention_bound(lens_np, SLOTS,
+                                                           pps, heads)
+        res["partition"] = {"heads_per_chunk": part.heads_per_chunk,
+                            "head_chunks": part.head_chunks,
+                            "splits": part.n_split, "blocks": part.blocks}
+        log(f"tp serve [{what}]: the serving shape's partition at {heads} "
+            f"heads a rank: {res['partition']}; the kernel on this rank's "
+            f"pool {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, "
+            f"bound {res['bound_ms']:.4f} ms ({res['bound_by']}); max abs "
+            f"err {err:.3e}")
+    distributed.barrier()
+    pa.paged_decode_attention.launches = before  # checking is not the path
+    return res
+
+
+def mp_serve(torch, device, outdir):
+    """(g) Tensor-parallel serving over the gang at bench.py llm's width:
+    rank 0's seeded params broadcast to every rank, the serve phase's
+    traffic through ``tp_shards=<ranks>`` with f32 collectives, int8
+    twice, then a profiled f32 run of TP_PROFILED_REQUESTS; the paged
+    kernel held on this rank's pool."""
+    from mxnet_tpu_torch import distributed
+    from mxnet_tpu_torch.gluon.model_zoo.causal_lm import init_causal_lm
+
+    cfg = serve_config()
+    params = init_causal_lm(cfg, torch.Generator().manual_seed(0),
+                            device=device)
+    with torch.no_grad():
+        for t in params.values():
+            distributed.broadcast_(t, root=0)
+    prompts = serve_prompts()[:TP_REQUESTS]
+    out = {}
+    for mode in ("f32", "int8", "int8 again", "f32 disaggregated"):
+        out[mode], pools = tp_serve_run(
+            torch, params, cfg, device, mode.split()[0], prompts, mode,
+            workers=int(mode.endswith("disaggregated")))
+        if mode == "f32":
+            out["kernel"] = tp_pool_kernel(torch, pools, mode)
+        del pools
+    out["profiled"], pools = tp_serve_run(
+        torch, params, cfg, device, "f32", prompts[:TP_PROFILED_REQUESTS],
+        "f32, profiled", profile=True, max_new=TP_PROFILED_NEW)
+    del pools, params
+    if distributed.rank() == 0:
+        with open(os.path.join(outdir, "serve-outs.json"), "w") as f:
+            json.dump({m: out[m].get("outs") for m in TP_MODES}, f)
+    for m in TP_MODES:
+        out[m].pop("outs", None)
+    gc.collect()
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def serve_one(torch, device):
+    """(g)'s yardstick: the world of one's server (captured on the card)
+    on the same params and traffic in this process; its tokens and
+    numbers."""
+    from mxnet_tpu_torch.gluon.model_zoo.causal_lm import init_causal_lm
+
+    cfg = serve_config()
+    params = init_causal_lm(cfg, torch.Generator().manual_seed(0),
+                            device=device)
+    res, pools = tp_serve_run(torch, params, cfg, device, "f32",
+                              serve_prompts()[:TP_REQUESTS], "world of one")
+    del pools
+    return res, params, cfg
+
+
+def hold_serve(torch, ranks, outdir, smi_line):
+    """(g)'s holds and numbers: every rank's paged kernel 4 heads and
+    LAYERS launches a decode step, held on its pool; the f32 tokens the
+    world of one's (or teacher-forced, the reason printed); int8 the
+    same tokens twice and its first tokens f32's; the numbers."""
+    one, params, cfg = serve_one(torch, DEVICE)
+    outs = json.load(open(os.path.join(outdir, "serve-outs.json")))
+    prompts = serve_prompts()[:TP_REQUESTS]
+    for r in ranks:
+        sv = r["mp"]["serve"]
+        for mode in TP_MODES + ("profiled",):
+            expect(sv[mode]["heads"] == HEADS // len(ranks),
+                   f"tp serve: rank {r['rank']} holds {sv[mode]['heads']} "
+                   f"heads")
+            expect(sv[mode]["per_step"] == LAYERS,
+                   f"tp serve [{mode}]: rank {r['rank']}'s paged kernel "
+                   f"launched {sv[mode]['per_step']:.2f} times a decode "
+                   f"step, expected {LAYERS}")
+        log(f"tp serve: rank {r['rank']}'s paged kernel on its pool vs "
+            f"plain: max abs err {sv['kernel']['max_abs_err']:.3e}")
+    f32 = [np.asarray(o, np.int32) for o in outs["f32"]]
+    same = same_or_teacher_forced(
+        torch, params, cfg, prompts, f32,
+        [np.asarray(o, np.int32) for o in one["outs"]], "tp serve f32")
+    log(f"tp serve f32: {same} of {len(f32)} outputs the world of one's "
+        f"token for token")
+    dis = [np.asarray(o, np.int32) for o in outs["f32 disaggregated"]]
+    same = same_or_teacher_forced(torch, params, cfg, prompts, dis, f32,
+                                  "tp serve f32 disaggregated")
+    log(f"tp serve f32 disaggregated (1 prefill worker): {same} of "
+        f"{len(dis)} outputs the fused tp server's token for token")
+    q8 = [np.asarray(o, np.int32) for o in outs["int8"]]
+    expect(all(np.array_equal(a, b) for a, b in
+               zip(q8, [np.asarray(o) for o in outs["int8 again"]])),
+           "tp serve int8: two runs under one seed gave other tokens")
+    expect(all(a[0] == b[0] for a, b in zip(q8, f32)),
+           "tp serve int8: a first token differs from f32's")
+    diverged = sum(not np.array_equal(a, b) for a, b in zip(q8, f32))
+    lead = ranks[0]["mp"]["serve"]
+    k = lead["kernel"]
+    for mode in ("f32", "int8", "f32 disaggregated"):
+        x = lead[mode]
+        log(f"tp serve numbers [{card_line(smi_line)}]: {mode} collectives, "
+            f"{len(ranks)} ranks ({ranks[0]['backend']}): "
+            f"{x['tokens_per_s']:.1f} tokens/s over the gang vs the world "
+            f"of one ({one['graphs']} graphs) {one['tokens_per_s']:.1f} "
+            f"tokens/s = {x['tokens_per_s'] / one['tokens_per_s']:.3f}x; "
+            f"decode step {x['decode_ms']:.2f} ms (the world of one's "
+            f"{one['decode_ms']:.2f}); collectives "
+            f"{x['comm_ms_step']:.2f} ms host a step "
+            f"({x['comm_calls']} calls)")
+    prof = lead["profiled"]["profile"]
+    log(f"tp serve numbers [{card_line(smi_line)}]: int8 outputs differing "
+        f"from f32's {diverged} of {len(q8)} (first tokens all equal); "
+        f"rank 0 busy {100 * prof.get('busy', float('nan')):.1f}% over a "
+        f"profiled f32 run of {TP_PROFILED_REQUESTS} requests of "
+        f"{TP_PROFILED_NEW} tokens (wall "
+        f"{prof.get('wall_ms', float('nan')):.1f} ms); the paged kernel at "
+        f"{k['heads']} heads a rank {k.get('ms', float('nan')):.4f} ms, "
+        f"plain {k.get('plain_ms', float('nan')):.4f} ms, bound "
+        f"{k.get('bound_ms', float('nan')):.4f} ms")
+    del params
+    gc.collect()
+    return {"one": {"tokens_per_s": one["tokens_per_s"]}, "kernel": k,
+            "launches": lead["f32"]["launches"]}
+
+
+# ------------------------------------------ bert_pretrain.py (21 g) --
+def bert_pretrain_example(torch, root):
+    """(g) ``examples/bert_pretrain.py`` as written on this rank
+    (BERT_PRETRAIN_ARGS), with a stand-in module named ``jax`` whose one
+    member ``devices()`` gives the gang's ranks (the example's only JAX
+    line is ``n_dev = len(jax.devices())``), its ``TrainStep`` calls
+    recorded; then its flash run, which both packages refuse at the
+    first forward.  The stand-in is gone after."""
+    import types
+
+    from mxnet_tpu_torch import distributed, parallel
+
+    fa = flash_module()
+    steps, losses = [], []
+    real = parallel.TrainStep
+
+    class Recorded(real):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            steps.append(self)
+
+        def __call__(self, *a, **kw):
+            out = super().__call__(*a, **kw)
+            losses.append(out)
+            return out
+    stand_in = types.ModuleType("jax")
+    stand_in.devices = lambda: list(range(distributed.num_workers()))
+    saved = sys.modules.get("jax")
+    sys.modules["jax"] = stand_in
+    parallel.TrainStep = Recorded
+    fa.flash_attention.launches = dict.fromkeys(FLASH, 0)
+    try:
+        t0 = time.perf_counter()
+        text = run_example(root, "bert_pretrain", BERT_PRETRAIN_ARGS)
+        seconds = time.perf_counter() - t0
+        launches = dict(fa.flash_attention.launches)
+        step = steps[0]
+        vals = [float(v.asnumpy()) for v in losses]
+        same = same_across_ranks(torch, list(step._train)
+                                 + [torch.tensor(vals, dtype=torch.float64)])
+        mesh = dict(step.mesh.shape)
+        del step, steps[:], losses[:]
+        gc.collect()
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+        try:
+            run_example(root, "bert_pretrain", BERT_PRETRAIN_FLASH_ARGS)
+            refused = ""
+        except ValueError as exc:
+            refused = str(exc)
+    finally:
+        parallel.TrainStep = real
+        if saved is None:
+            sys.modules.pop("jax", None)
+        else:
+            sys.modules["jax"] = saved
+    gc.collect()
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return {"losses": vals, "same": bool(same), "mesh": mesh,
+            "flash": launches, "refused": refused, "seconds": seconds,
+            "tokens": [ln for ln in text.splitlines() if "tokens/s" in ln]}
+
+
+def hold_bert_pretrain(ranks, smi_line):
+    """(g)'s holds: finite losses, every rank rank 0's parameters and
+    losses, a dp mesh over the gang, the throughput line; the flash run
+    refused with the JAX package's error."""
+    for r in ranks:
+        expect(all(np.isfinite(r["losses"])) and len(r["losses"]) == 1 + int(
+            BERT_PRETRAIN_ARGS[BERT_PRETRAIN_ARGS.index("--num-steps") + 1]),
+            f"bert_pretrain.py: losses {r['losses']}")
+        expect(r["same"], "bert_pretrain.py: the ranks' parameters or "
+               "losses differ")
+        expect(r["mesh"] == {"dp": len(ranks)},
+               f"bert_pretrain.py: the mesh {r['mesh']}")
+        expect(len(r["tokens"]) == 1, "bert_pretrain.py: no tokens/s line")
+        expect(FLASH_REFUSAL in r["refused"],
+               f"bert_pretrain.py --attention flash: {r['refused']!r}")
+    log(f"dp example bert_pretrain.py {' '.join(BERT_PRETRAIN_ARGS)} "
+        f"[{card_line(smi_line)}]: losses {[round(v, 4) for v in ranks[0]['losses']]}"
+        f", both ranks the same parameters; {ranks[0]['tokens'][0].strip()}"
+        f" ({ranks[0]['seconds']:.1f} s); flash launches "
+        f"{ranks[0]['flash']} (dense attention as written); with "
+        f"--attention flash both packages stop at the first forward: "
+        f"{ranks[0]['refused']!r}")
 
 
 def gang_run(root, outdir, world, task, timeout):
@@ -8653,28 +9286,46 @@ def gang_run(root, outdir, world, task, timeout):
             for r in range(world)]
 
 
-def model_parallel(torch, root, smi_line):
-    """The "model parallel" phase (22 above).  Returns the flash launches
-    of the tp and fsdp paths and the numbers."""
+def model_parallel(torch, root, smi_line, runs=MP_RUNS):
+    """The "model parallel" phase (22 above; ``runs=("tp",)``: the tp
+    sub-phase, (f) and (g) alone).  Returns the flash launches of the tp
+    and fsdp paths and of (f), the paged kernel's of (g), and the
+    numbers."""
     import shutil
 
     outdir = tempfile.mkdtemp(prefix="mp-")
     try:
-        return _model_parallel(torch, root, smi_line, outdir)
+        return _model_parallel(torch, root, smi_line, outdir, runs)
     finally:
         shutil.rmtree(outdir, ignore_errors=True)
 
 
-def _model_parallel(torch, root, smi_line, outdir):
+def _model_parallel(torch, root, smi_line, outdir, runs):
     world, what = dp_topology(torch)
     log(f"mp topology: {torch.cuda.device_count() if DEVICE == 'cuda' else 0}"
         f" card(s) seen; the gang: {what}")
     gc.collect()
     if DEVICE == "cuda":
         torch.cuda.empty_cache()
-    ranks = gang_run(root, outdir, world, "mp", MP_GANG_TIMEOUT_S)
-    ref = mp_reference(torch, outdir)
-    mp_hold(torch, ranks, ref, world, outdir)
+    task = "mp" if runs == MP_RUNS else "tp"
+    ranks = gang_run(root, outdir, world, task, MP_GANG_TIMEOUT_S)
+    ref = mp_reference(torch, outdir, runs)
+    floors = mp_hold(torch, ranks, ref, world, outdir, runs)
+    hold_ckpt(torch, ranks, ref["ckpt"], floors["tp"], outdir)
+    c = ranks[0]["mp"]["ckpt"]
+    log(f"ckpt numbers [{card_line(smi_line)}]: the tp step's v2 save: "
+        f"{[round(r['mp']['ckpt']['bytes'] / 2**20, 1) for r in ranks]} MiB "
+        f"a rank, the step blocked {c['async_ms']:.1f} ms, committed after "
+        f"{c['wait_ms']:.1f} ms more; the gathered v1.1 file "
+        f"{c['v1_bytes'] / 2**20:.1f} MiB in {c['v1_ms']:.1f} ms; loads: v2 "
+        f"into tp {c['tp']['load_ms']:.1f} ms, into fsdp "
+        f"{c['fsdp']['load_ms']:.1f} ms, v1.1 into the world of one "
+        f"{ref['ckpt']['load_ms']:.1f} ms; flash launches of the resumed "
+        f"steps {c['flash']}")
+    gc.collect()
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    serving = hold_serve(torch, ranks, outdir, smi_line)
     a = ranks[0]["mp"]["tp"]
     log(f"mp tp: the fused QKV Dense splits [Q; K; V] by rows, its blocks' "
         f"outputs gathered on every rank, so attention runs whole on each "
@@ -8684,7 +9335,7 @@ def _model_parallel(torch, root, smi_line, outdir):
     if "gloo" in ranks[0]:
         log(f"mp gloo census: {ranks[0]['gloo']}")
     numbers = {}
-    for run in MP_RUNS:
+    for run in runs:
         per = [r["mp"][run]["ms_step"] for r in ranks]
         one = ref[MP_ONE[run]]
         tok = BERT_BATCH * BERT_SEQ / (max(per) / 1e3)
@@ -8713,9 +9364,10 @@ def _model_parallel(torch, root, smi_line, outdir):
             f"device copies {prof.get('copy_ms', float('nan')):.3f} ms")
     return {"flash": {run: {k: int(v * (MP_WARMUP + MP_TIMED))
                             for k, v in ranks[0]["mp"][run]["per_step"]
-                            .items()} for run in ("tp", "fsdp")},
-            "numbers": numbers, "backend": ranks[0]["backend"],
-            "world": world}
+                            .items()} for run in ("tp", "fsdp")
+                      if run in runs},
+            "ckpt": c["flash"], "serve": serving, "numbers": numbers,
+            "backend": ranks[0]["backend"], "world": world}
 
 
 class phase:
@@ -8777,6 +9429,10 @@ def main():
         if sys.argv[1:] == ["--mp"]:
             with phase("model parallel"):
                 model_parallel(torch, root, smi_line)
+            return 0
+        if sys.argv[1:] == ["--tp"]:
+            with phase("model parallel: tp, checkpoints, tp serving"):
+                model_parallel(torch, root, smi_line, runs=("tp",))
             return 0
         with phase("imperative"):
             # first: its backward is the first CUDA work of autograd's
@@ -9012,6 +9668,11 @@ def main():
         "cases": {label: {k: c[k] for k in ("ms", "bound_ms", "plain_ms")}
                   for label, c in timing.items()},
         "launches_by_path": paths}]}
+    tp_kernel = mp["serve"]["kernel"]
+    kernels["kernels"][0]["cases"]["serve tp"] = {
+        k: tp_kernel[k] for k in ("ms", "bound_ms", "plain_ms")}
+    kernels["kernels"][0]["launches_by_path"]["serve tp"] = \
+        mp["serve"]["launches"]
     for kern in FUSED:
         kname, t = f"fused_conv_{kern}", fused_times[kern]
         kernels["kernels"].append({
@@ -9060,7 +9721,10 @@ def main():
                                  "np": npso["np"]["launches"][kern],
                                  "dp": dp["flash"][kern],
                                  "mp tp": mp["flash"]["tp"][kern],
-                                 "mp fsdp": mp["flash"]["fsdp"][kern]}})
+                                 "mp fsdp": mp["flash"]["fsdp"][kern],
+                                 "ckpt": mp["ckpt"][kern],
+                                 "bert_pretrain":
+                                     dp["bert_pretrain"][kern]}})
     print(json.dumps(kernels), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -33,6 +33,7 @@ import logging
 import math
 import os
 import socket
+import threading
 import time
 
 import numpy as np
@@ -255,18 +256,25 @@ def _wire_device(dev):
     return torch.device("cpu")
 
 
-_staging = {}           # (dtype, slot) -> a pinned host buffer, reused
+# (dtype, slot) -> a pinned host buffer, reused; one set a thread
+_staging = threading.local()
 
 
 def _host_slot(shape, dtype, slot):
     """A pinned host tensor of ``shape`` through which gloo stages a
     card's tensor: one buffer a dtype and slot, grown as needed and
     reused (a collective returns only when its copies are done, so the
-    next one finds the buffer free)."""
+    next one finds the buffer free).  The buffers are the calling
+    thread's: two threads' collectives over their own groups (a tensor-
+    parallel server's decode loop and its prefill worker) never share
+    one."""
+    bufs = getattr(_staging, "bufs", None)
+    if bufs is None:
+        bufs = _staging.bufs = {}
     n = math.prod(shape)
-    buf = _staging.get((dtype, slot))
+    buf = bufs.get((dtype, slot))
     if buf is None or buf.numel() < n:
-        buf = _staging[(dtype, slot)] = torch.empty(
+        buf = bufs[(dtype, slot)] = torch.empty(
             n, dtype=dtype, pin_memory=True)
     return buf[:n].view(tuple(shape))
 

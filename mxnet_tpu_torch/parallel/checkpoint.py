@@ -44,9 +44,48 @@ buffers (one per write in flight, reused from save to save);
 non-finite-abort exits call it).  A failed copy or write raises, or
 latches in ``errors``: there is no synchronous fallback.
 
-One process writes and reads; the sharded v2 format of the JAX package
-(orbax, every host its own shards) is not ported (ROADMAP A15b's
-second half).
+**A sharded step** (``TrainStep(mesh=, rules=)``, each rank holding
+blocks of some leaves): every rank calls ``save_train_step``; each
+sharded leaf and its optimizer state is gathered whole over the mesh
+(the part the step blocks on, a collective every rank runs in the same
+order), rank 0 writes the same v1.1 bytes a world of one would write,
+and every rank then passes a barrier.  ``load_train_step`` reads and
+verifies the file on every rank and copies only the rank's own block
+of each leaf into the step's tensors, so one file loads into any
+layout: a world of one, tp, fsdp, or another mesh than the one that
+wrote it.  ``AsyncSnapshotter`` and ``CheckpointManager`` gather on
+the step's thread and write on rank 0's writer thread.
+
+**The sharded v2 format** (``save_train_step_sharded`` /
+``load_train_step_sharded``) is the port's own, not the JAX package's
+orbax tree: ``<directory>/rank-<r>-of-<n>.npz`` holds rank ``r``'s
+blocks only (no gather), as the v1.1 entries ``p.*``/``s.*``/``a.*``
+under the v1.1 integrity section and the same atomic commit, and
+``<directory>.manifest.json`` (rank 0, temp-then-rename) holds the JAX
+manifest's keys (``train_names``, ``aux_names``, ``optimizer``,
+``shapes``, ``aux_shapes``, ``state_counts``), ``num_update``,
+``format`` (``"port-v2"``), the save's random ``save_id`` and a
+``layout`` section: the mesh's axis sizes, the world, and for each
+entry its ``PartitionSpec`` and the blocks written, as ``[rank,
+[[start, size], ...]]``.  Each block is written once: by the rank whose
+coordinate is 0 on every mesh axis the entry is not split over (a
+replicated entry by rank 0 alone), as orbax writes one replica.
+
+The directory commits as a whole: rank 0 removes the old manifest
+first, every rank commits its file (whose own manifest carries the
+``save_id``, ``num_update`` and world), and rank 0 writes the new
+manifest only after every rank's file has committed — in
+``ShardedSave.wait_until_finished``, which every rank calls (the
+synchronous save calls it).  A load checks every rank file it reads
+against the manifest and raises ``CheckpointCorruptError`` on a file of
+another save, so a crash in the middle of a re-save into the same
+directory fails loudly, as the JAX package's does, and never mixes two
+steps.  A load pairs saved and model names in natural order, validates
+as the JAX package does (the same ``ValueError`` texts), and each rank
+reads only the saved blocks that overlap the blocks it now holds, so a
+directory written under one layout loads into any other.  A directory
+the JAX package wrote (orbax) is refused with a ``ValueError`` before
+anything is read.
 """
 from __future__ import annotations
 
@@ -63,6 +102,7 @@ import zlib
 import numpy as np
 import torch
 
+from .. import distributed as _dist
 from .. import elastic as _elastic
 from .. import storage as _storage
 from .. import telemetry as _telemetry
@@ -70,6 +110,7 @@ from ..fault import fire as _fire
 
 __all__ = ["save_train_step", "load_train_step",
            "save_train_step_sharded", "load_train_step_sharded",
+           "ShardedSave",
            "CheckpointManager", "CheckpointMismatchError",
            "CheckpointCorruptError", "BitFlipInjection",
            "verify_checkpoint", "AsyncSnapshotter", "flush_pending",
@@ -149,28 +190,39 @@ def _np_dtype(dtype):
     return torch.empty((), dtype=dtype).numpy().dtype
 
 
-def _one_file(step, what):
-    """Raise for a step that holds leaves in blocks over a mesh: one file
-    of whole tensors cannot hold them (the sharded v2 format is ROADMAP
-    A15b's second half)."""
-    if any(getattr(t, "_placement", None) is not None
-           for t in list(step._train) + list(step._aux)):
-        raise NotImplementedError(
-            f"{what}: the step holds sharded parameters (rules= over a "
-            f"model-parallel mesh); the one-file v1.1 format holds whole "
-            f"tensors, and the sharded v2 format is not ported yet "
-            f"(ROADMAP A15b, second half)")
+def _placed_entries(step):
+    """``(entry name, tensor, placement)`` in the file's order: ``p.*``,
+    ``s.*``, ``a.*``.  A tensor is this rank's block under its
+    ``placement`` (an optimizer state lies as its parameter does), or
+    whole where the placement is None."""
+    out = [(f"p.{k}", t, getattr(t, "_placement", None))
+           for k, t in enumerate(step._train)]
+    for k, states in enumerate(step._states):
+        where = getattr(step._train[k], "_placement", None)
+        out += [(f"s.{k}.{j}", s, where) for j, s in enumerate(states)]
+    out += [(f"a.{k}", t, getattr(t, "_placement", None))
+            for k, t in enumerate(step._aux)]
+    return out
 
 
 def _entries(step):
-    """``(entry name, tensor)`` in the file's order: ``p.*``, ``s.*``,
-    ``a.*``."""
-    _one_file(step, "checkpoint")
-    out = [(f"p.{k}", t) for k, t in enumerate(step._train)]
-    for k, states in enumerate(step._states):
-        out += [(f"s.{k}.{j}", s) for j, s in enumerate(states)]
-    out += [(f"a.{k}", t) for k, t in enumerate(step._aux)]
-    return out
+    """``(entry name, whole tensor)`` in the file's order; a sharded
+    leaf is gathered over the mesh (a collective: every rank of the
+    mesh calls this, in the same order)."""
+    with torch.no_grad():
+        return [(n, t if p is None else p.gather(t.detach()))
+                for n, t, p in _placed_entries(step)]
+
+
+def _whole_shape(t, placement=None):
+    """The shape of the whole value of a step tensor."""
+    placement = placement if placement is not None \
+        else getattr(t, "_placement", None)
+    return tuple(t.shape) if placement is None else placement.shape
+
+
+def _sharded(step):
+    return any(p is not None for _, _, p in _placed_entries(step))
 
 
 _copy_streams = {}
@@ -282,13 +334,20 @@ def _collect_payload(step, staging=None):
     manifest, staging)`` where ``payload`` maps ``p.*``/``s.*``/``a.*``
     entry names to host arrays in ``staging``'s buffer, complete once
     ``staging.wait()`` returns.  ``staging`` is reused when it fits the
-    step (else released and a new one made).  Enqueueing the copies is the
-    ONLY part of a snapshot the step loop pays: the writer waits for
-    them and does everything downstream."""
+    step (else released and a new one made).  Enqueueing the copies —
+    and, for a sharded step, gathering its leaves over the mesh — is
+    the ONLY part of a snapshot the step loop pays: the writer waits for
+    them and does everything downstream.  On a rank other than 0 of a
+    sharded step the gather is the whole job: ``payload`` and
+    ``staging`` are None (rank 0 writes)."""
     if not step._built:
         raise ValueError("TrainStep has not run yet — nothing to checkpoint")
     _fire("checkpoint.write")
     entries = _entries(step)
+    if _dist.rank() != 0:
+        if staging is not None:
+            staging.release()
+        return None, _manifest(step), None
     if staging is not None and not staging.fits(entries):
         staging.release()
         staging = None
@@ -411,24 +470,32 @@ def save_train_step(step, fname):
     live in the one file, so they can never disagree.  Durable: payload
     and directory entry are fsynced around the commit, so a committed
     snapshot survives power loss too.  Returns when the file is
-    committed."""
+    committed.
+
+    In a gang every rank calls it: a sharded leaf is gathered whole,
+    rank 0 writes, and every rank returns after a barrier."""
     t0 = _time.perf_counter()
     tr = _telemetry.maybe_trace("snapshot", server="save_train_step") \
         if _telemetry.ACTIVE else None
     sp = None if tr is None else tr.open("fetch", parent=tr.root)
     payload, manifest, staging = _collect_payload(step)
     try:
-        staging.wait()
+        if staging is not None:
+            staging.wait()
         if sp is not None:
             sp.end()
-        _write_payload(payload, manifest, fname, trace=tr)
+        if payload is not None:
+            _write_payload(payload, manifest, fname, trace=tr)
         _telemetry.registry().gauge("ckpt_last_snapshot_ms").set(
             round((_time.perf_counter() - t0) * 1e3, 3))
     finally:
-        staging.release()
+        if staging is not None:
+            staging.release()
         if tr is not None:
             tr.root.end()
             tr.finish()
+    if _dist.num_workers() > 1:
+        _dist.barrier()
 
 
 class _Entries:
@@ -447,24 +514,33 @@ class _Entries:
         return a
 
 
-def _host_tensor(a, like, what):
-    """Entry ``a`` as a CPU tensor for ``like``: same shape, and the
-    dtype of ``like`` (a bfloat16 tensor takes a two-byte entry's raw
-    bits), else ``CheckpointMismatchError``."""
-    if tuple(a.shape) != tuple(like.shape):
+def _host_tensor(a, like, what, placement=None):
+    """Entry ``a`` as a CPU tensor for ``like``: the whole value's shape
+    (a sharded ``like`` is one block of it under ``placement``: that
+    block is taken), and the dtype of ``like`` (a bfloat16 tensor takes
+    a two-byte entry's raw bits), else ``CheckpointMismatchError``."""
+    whole = _whole_shape(like, placement)
+    if tuple(a.shape) != whole:
         raise CheckpointMismatchError(
             f"checkpoint/model mismatch: {what} is {tuple(a.shape)} in the "
-            f"file, {tuple(like.shape)} in the model")
+            f"file, {whole} in the model")
+    t = _as_tensor(a, like.dtype, what)
+    return t if placement is None else placement.local(t)
+
+
+def _as_tensor(a, dtype, what):
+    """Host array ``a`` as a CPU tensor of ``dtype`` (bfloat16 from a
+    two-byte entry's raw bits), else ``CheckpointMismatchError``."""
     a = np.ascontiguousarray(a)
-    if like.dtype == torch.bfloat16:
+    if dtype == torch.bfloat16:
         if a.dtype.itemsize == 2 and (a.dtype.kind == "V"
                                       or a.dtype.name == "bfloat16"):
             return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
-    elif a.dtype == _np_dtype(like.dtype):
+    elif a.dtype == _np_dtype(dtype):
         return torch.from_numpy(a)
     raise CheckpointMismatchError(
         f"checkpoint/model mismatch: {what} is {a.dtype} in the file, "
-        f"{like.dtype} in the model")
+        f"{dtype} in the model")
 
 
 def load_train_step(step, fname):
@@ -475,10 +551,11 @@ def load_train_step(step, fname):
     host before the step is touched, so a load that is refused (damage,
     or a file of another model) leaves the step as it was; then every
     tensor the step holds — and a captured graph reads — is overwritten
-    in place, never rebound."""
+    in place, never rebound.  A sharded step (any mesh layout) takes
+    its own block of each whole tensor in the file: every rank of a
+    gang calls this, and none waits for another."""
     if not step._built:
         raise ValueError("build the TrainStep (run one step) before restore")
-    _one_file(step, "load_train_step")
     try:
         npz = np.load(fname)
     except FileNotFoundError:
@@ -508,7 +585,8 @@ def load_train_step(step, fname):
 
 def _stage(step, z, manifest):
     """Every ``(step tensor, host tensor)`` pair of the file, validated
-    against the model; raises before anything is copied."""
+    against the model; raises before anything is copied.  A sharded
+    tensor gets this rank's block of the whole entry."""
     names = [step._names[i] for i in step._train_idx]
     saved_names = manifest["train_names"]
     if len(saved_names) != len(names):
@@ -521,20 +599,21 @@ def _stage(step, z, manifest):
     pairs = list(zip(_natural_order(saved_names), _natural_order(names)))
     for sk, wk in pairs:
         if _norm_name(saved_names[sk]) != _norm_name(names[wk]) or \
-                tuple(z[f"p.{sk}"].shape) != tuple(step._train[wk].shape):
+                tuple(z[f"p.{sk}"].shape) != _whole_shape(step._train[wk]):
             raise CheckpointMismatchError(
                 f"checkpoint/model mismatch: saved param "
                 f"{saved_names[sk]!r} {z[f'p.{sk}'].shape} does not match "
                 f"model param {names[wk]!r} "
-                f"{tuple(step._train[wk].shape)}")
+                f"{_whole_shape(step._train[wk])}")
     if manifest["optimizer"] != type(step.optimizer).__name__:
         raise CheckpointMismatchError(
             f"optimizer mismatch: checkpoint={manifest['optimizer']} "
             f"step={type(step.optimizer).__name__}")
     staged = []
     for sk, wk in pairs:
+        where = getattr(step._train[wk], "_placement", None)
         staged.append((step._train[wk], _host_tensor(
-            z[f"p.{sk}"], step._train[wk], f"param {names[wk]!r}")))
+            z[f"p.{sk}"], step._train[wk], f"param {names[wk]!r}", where)))
         count = int(manifest["state_counts"][sk])
         if count != len(step._states[wk]):
             raise CheckpointMismatchError(
@@ -544,7 +623,7 @@ def _stage(step, z, manifest):
                 f"class configured differently?)")
         for j, s in enumerate(step._states[wk]):
             staged.append((s, _host_tensor(
-                z[f"s.{sk}.{j}"], s, f"state {j} of {names[wk]!r}")))
+                z[f"s.{sk}.{j}"], s, f"state {j} of {names[wk]!r}", where)))
     aux_names = [step._names[i] for i in step._aux_idx]
     saved_aux = manifest["aux_names"]
     if len(saved_aux) != len(aux_names):
@@ -553,13 +632,14 @@ def _stage(step, z, manifest):
             f"arrays, model expects {len(aux_names)}")
     for sk, wk in zip(_natural_order(saved_aux), _natural_order(aux_names)):
         if _norm_name(saved_aux[sk]) != _norm_name(aux_names[wk]) or \
-                tuple(z[f"a.{sk}"].shape) != tuple(step._aux[wk].shape):
+                tuple(z[f"a.{sk}"].shape) != _whole_shape(step._aux[wk]):
             raise CheckpointMismatchError(
                 f"checkpoint/model mismatch: saved aux {saved_aux[sk]!r} "
                 f"{z[f'a.{sk}'].shape} does not match model aux "
-                f"{aux_names[wk]!r} {tuple(step._aux[wk].shape)}")
+                f"{aux_names[wk]!r} {_whole_shape(step._aux[wk])}")
         staged.append((step._aux[wk], _host_tensor(
-            z[f"a.{sk}"], step._aux[wk], f"aux {aux_names[wk]!r}")))
+            z[f"a.{sk}"], step._aux[wk], f"aux {aux_names[wk]!r}",
+            getattr(step._aux[wk], "_placement", None))))
     return staged
 
 
@@ -659,21 +739,373 @@ def verify_checkpoint(path):
 
 # ---------------------------------------------------------------- v2 ------
 
+V2_FORMAT = "port-v2"
+
+
+def _rank_file(directory, rank, world):
+    return os.path.join(directory, f"rank-{rank}-of-{world}.npz")
+
+
+def _blocks(placement, shape, world):
+    """Each rank's block of a leaf of ``shape`` under ``placement`` (None:
+    whole on every rank), as ``[start, size]`` per dimension, in rank
+    order — the offsets ``Placement.local`` takes, major axis first."""
+    out = []
+    for r in range(world):
+        box = [[0, int(n)] for n in shape]
+        if placement is not None:
+            coords = placement.mesh.coords(r)
+            for d, axes in placement.split.items():
+                for a in axes:
+                    size = box[d][1] // placement.mesh.shape[a]
+                    box[d] = [box[d][0] + coords[a] * size, size]
+        out.append(box)
+    return out
+
+
+def _writes(placement, rank):
+    """Whether ``rank`` writes its block of an entry under ``placement``:
+    its coordinate is 0 on every mesh axis the entry is not split over
+    (None, a whole entry: rank 0)."""
+    if placement is None:
+        return rank == 0
+    coords = placement.mesh.coords(rank)
+    return all(coords[a] == 0 for a in placement.mesh.axis_names
+               if a not in placement.axes)
+
+
+def _v2_manifest(step, world, save_id):
+    """The v2 directory's manifest: the JAX package's keys, the step
+    count, the save's id and the layout (each entry's spec and the
+    blocks written, with the rank that wrote each)."""
+    leaves = {}
+    for name, t, where in _placed_entries(step):
+        boxes = _blocks(where, _whole_shape(t, where), world)
+        leaves[name] = {
+            "spec": None if where is None else [
+                list(e) if isinstance(e, tuple) else e for e in where.spec],
+            "blocks": [[r, box] for r, box in enumerate(boxes)
+                       if _writes(where, r)]}
+    return {
+        "format": V2_FORMAT,
+        "save_id": save_id,
+        "train_names": [step._names[i] for i in step._train_idx],
+        "aux_names": [step._names[i] for i in step._aux_idx],
+        "optimizer": type(step.optimizer).__name__,
+        "shapes": [list(_whole_shape(t)) for t in step._train],
+        "aux_shapes": [list(_whole_shape(t)) for t in step._aux],
+        "state_counts": [len(s) for s in step._states],
+        "num_update": int(step._num_update),
+        "layout": {"mesh": {a: int(n) for a, n in step.mesh.shape.items()},
+                   "world": world, "entries": leaves},
+    }
+
+
+def _write_json(path, obj):
+    """``obj`` to ``path``, temp-then-rename, fsynced with its directory."""
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(obj, f)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
+    _fsync_dir(os.path.dirname(path))
+
+
+class ShardedSave:
+    """What ``save_train_step_sharded`` returns (the counterpart of the
+    orbax checkpointer the JAX package returns).  ``wait_until_finished()``
+    blocks until this rank's file is committed and then, in a gang where
+    every rank calls it, until every rank's is; then rank 0 commits the
+    directory's manifest, and every rank returns once it has.  Until
+    then the directory has no manifest and does not load.  Raises the
+    write's error if this rank's failed, or a ``RuntimeError`` if
+    another rank's did (no manifest is written)."""
+
+    def __init__(self, fname, manifest_path, manifest):
+        self.fname = fname
+        self._manifest = (manifest_path, manifest)
+        self._done = threading.Event()
+        self._committed = False
+        self.error = None
+
+    def _finish(self, exc):
+        self.error = exc
+        self._done.set()
+
+    def wait_until_finished(self, timeout=None):
+        if not self._done.wait(timeout):
+            return False
+        if not self._committed:
+            failed = int(_dist.all_sum(np.array(
+                [self.error is not None], np.int64))[0])
+            if failed == 0 and self._manifest[1] is not None:
+                _write_json(*self._manifest)
+            if _dist.num_workers() > 1:
+                _dist.barrier()
+            self._committed = True
+            if self.error is None and failed:
+                raise RuntimeError(
+                    f"v2 save: {failed} rank file(s) failed to commit; "
+                    f"{self._manifest[0]} was not written")
+        if self.error is not None:
+            raise self.error
+        return True
+
+
+_V2_WRITER = None
+_V2_WRITER_LOCK = threading.Lock()
+
+
+def _v2_writer():
+    """The process's writer thread for v2 saves (an ``AsyncSnapshotter``
+    that never skips: each save is queued behind the last)."""
+    global _V2_WRITER
+    with _V2_WRITER_LOCK:
+        if _V2_WRITER is None:
+            _V2_WRITER = AsyncSnapshotter(max_pending=1 << 30)
+        return _V2_WRITER
+
+
 def save_train_step_sharded(step, directory, async_save=True):
-    """The JAX package's sharded v2 format (orbax, every host writing
-    its own shards).  Not ported: it needs a device mesh."""
-    raise NotImplementedError(
-        "save_train_step_sharded: the sharded v2 format needs a sharded "
-        "mesh layout's per-rank files, not ported yet (ROADMAP A15b, "
-        "second half); use save_train_step (v1.1, one file)")
+    """v2: every rank writes the blocks it owns of the step's state, with
+    no gather, to ``<directory>/rank-<r>-of-<n>.npz``; rank 0 writes
+    ``<directory>.manifest.json`` once every rank's file has committed
+    (the port's own format: see the module docstring).  Every rank of a
+    gang calls it.
+
+    The step pays for enqueueing the device-to-host copies of its
+    blocks; the file is serialized, fsynced and committed by the
+    process's writer thread.  With ``async_save`` the call returns at
+    once, and ``.wait_until_finished()`` on the returned ``ShardedSave``
+    (every rank calls it) commits the directory.  Without it the call
+    returns when the directory is committed."""
+    if not step._built:
+        raise ValueError("TrainStep has not run yet — nothing to checkpoint")
+    _fire("checkpoint.write")
+    path = os.path.abspath(str(directory))
+    rank, world = _dist.rank(), _dist.num_workers()
+    save_id = int(_dist.broadcast(np.array(
+        [int.from_bytes(os.urandom(7), "little")], np.int64))[0])
+    mpath = path + ".manifest.json"
+    man = None
+    os.makedirs(path, exist_ok=True)
+    if rank == 0:
+        man = _v2_manifest(step, world, save_id)
+        if os.path.exists(mpath):
+            os.remove(mpath)
+            _fsync_dir(os.path.dirname(path))
+    entries = [(n, t.detach()) for n, t, where in _placed_entries(step)
+               if _writes(where, rank)]
+    staging = _Staging(entries)
+    try:
+        staging.fetch(entries)
+    except BaseException:
+        staging.release()
+        raise
+    payload = {n: a for (n, _), a in zip(entries, staging.arrays)}
+    manifest = {"format": V2_FORMAT, "save_id": save_id, "rank": rank,
+                "world": world, "num_update": int(step._num_update)}
+    handle = ShardedSave(_rank_file(path, rank, world), mpath, man)
+    _v2_writer()._submit(payload, manifest, handle.fname, staging,
+                         handle._finish)
+    if not async_save:
+        handle.wait_until_finished()
+    return handle
+
+
+def _box_overlap(a, b):
+    """The overlap of two ``[start, size]`` boxes, or None."""
+    out = []
+    for (sa, na), (sb, nb) in zip(a, b):
+        lo, hi = max(sa, sb), min(sa + na, sb + nb)
+        if hi <= lo:
+            return None
+        out.append([lo, hi - lo])
+    return out
+
+
+class _RankFiles:
+    """The saved ranks' files, each opened and its manifest read at first
+    use and checked against the directory's (the same save); every entry
+    read is digest-checked first."""
+
+    def __init__(self, path, man):
+        self.path = path
+        self.world = int(man["layout"]["world"])
+        self.expect = {"num_update": int(man["num_update"]),
+                       "world": self.world, "save_id": man["save_id"]}
+        self._open = {}                  # rank -> (npz, _Entries, manifest)
+
+    def entry(self, rank, key):
+        fname = _rank_file(self.path, rank, self.world)
+        hit = self._open.get(rank)
+        if hit is None:
+            try:
+                npz = np.load(fname)
+            except FileNotFoundError:
+                raise
+            except Exception as exc:        # torn zip container = damage
+                _corrupt(fname, f"unreadable container: {exc}")
+            z = _Entries(npz)
+            hit = self._open[rank] = (npz, z, None)
+            try:
+                hit = self._open[rank] = (
+                    npz, z, json.loads(bytes(z[_MANIFEST]).decode()))
+            except Exception as exc:
+                _corrupt(fname, f"manifest missing or unreadable: {exc}")
+            for k, want in self.expect.items():
+                if hit[2].get(k) != want:
+                    _corrupt(fname, f"a rank file of another save: its {k} "
+                                    f"is {hit[2].get(k)!r}, the directory's "
+                                    f"manifest says {want!r} (a re-save "
+                                    f"cut short?)")
+        _, z, manifest = hit
+        _verify_entries(z, manifest, fname, entries=[key])
+        return z[key]
+
+    def close(self):
+        for npz, _, _ in self._open.values():
+            npz.close()
+        self._open = {}
+
+
+def _read_blocks(files, saved, key, like, placement, what):
+    """This rank's block of entry ``key`` (whole where ``placement`` is
+    None), assembled on the host from the saved blocks that overlap it."""
+    shape = _whole_shape(like, placement)
+    rank = _dist.rank() if placement is not None else 0
+    mine = _blocks(placement, shape, rank + 1)[rank]
+    out = torch.empty(tuple(n for _, n in mine), dtype=like.dtype)
+    for r, box in saved["blocks"]:
+        ov = _box_overlap(box, mine)
+        if ov is None:
+            continue
+        a = files.entry(r, key)
+        if list(a.shape) != [n for _, n in box]:
+            _corrupt(_rank_file(files.path, r, files.world),
+                     f"entry {key!r} is {list(a.shape)}, the manifest's "
+                     f"layout says {[n for _, n in box]}")
+        src = tuple(slice(s - b[0], s - b[0] + n)
+                    for (s, n), b in zip(ov, box))
+        dst = tuple(slice(s - m[0], s - m[0] + n)
+                    for (s, n), m in zip(ov, mine))
+        out[dst] = _as_tensor(a[src], like.dtype, what)
+    return out
 
 
 def load_train_step_sharded(step, directory):
-    """See ``save_train_step_sharded``: not ported."""
-    raise NotImplementedError(
-        "load_train_step_sharded: the sharded v2 format needs a sharded "
-        "mesh layout's per-rank files, not ported yet (ROADMAP A15b, "
-        "second half); use load_train_step (v1.1, one file)")
+    """Restore a v2 directory (``save_train_step_sharded``, any layout)
+    into a BUILT TrainStep (any layout), in place.  Every rank of a gang
+    calls it.
+
+    Names pair in natural order (Gluon's name counters are
+    process-global), names, shapes, the optimizer and the state slots
+    are validated as the JAX package validates them, and each rank reads
+    only the saved blocks that overlap the blocks it holds, then copies
+    into the step's tensors (a captured graph keeps reading them).
+    Everything is staged on the host before the step is touched, and
+    the ranks of a gang agree that every one of them staged its blocks:
+    a refused load (a damaged rank file, or one of another save) leaves
+    every rank's step as it was.  A directory the JAX package wrote
+    (orbax) is refused with a ``ValueError``."""
+    if not step._built:
+        raise ValueError("build the TrainStep (run one step) before restore")
+    path = os.path.abspath(str(directory))
+    mpath = path + ".manifest.json"
+    if not os.path.exists(mpath):
+        raise ValueError(
+            f"missing {mpath}: v2 checkpoints are written with a manifest "
+            f"(save_train_step_sharded); cannot validate or remap without it")
+    with open(mpath) as f:
+        man = json.load(f)
+    if man.get("format") != V2_FORMAT or "layout" not in man:
+        raise ValueError(
+            f"{path}: a v2 directory the JAX package wrote (orbax's tree; "
+            f"its manifest has no port-v2 layout), which the port does not "
+            f"read; save it with mxnet_tpu's save_train_step (v1.1, one "
+            f"file) and load that with load_train_step")
+    names = [step._names[i] for i in step._train_idx]
+    saved_names = man["train_names"]
+    if len(saved_names) != len(names):
+        raise ValueError(
+            f"checkpoint/model mismatch: file has {len(saved_names)} "
+            f"trainable params, model expects {len(names)}")
+    pairs = list(zip(_natural_order(saved_names), _natural_order(names)))
+    for sk, wk in pairs:
+        if _norm_name(saved_names[sk]) != _norm_name(names[wk]) \
+                or tuple(man["shapes"][sk]) != \
+                _whole_shape(step._train[wk]):
+            raise ValueError(
+                f"checkpoint/model mismatch: saved {saved_names[sk]!r} "
+                f"{man['shapes'][sk]} vs model {names[wk]!r} "
+                f"{_whole_shape(step._train[wk])}")
+    if man["optimizer"] != type(step.optimizer).__name__:
+        raise ValueError(
+            f"optimizer mismatch: checkpoint={man['optimizer']} "
+            f"step={type(step.optimizer).__name__}")
+    aux_names = [step._names[i] for i in step._aux_idx]
+    saved_aux = man["aux_names"]
+    if len(saved_aux) != len(aux_names):
+        raise ValueError(
+            f"checkpoint/model mismatch: file has {len(saved_aux)} aux "
+            f"arrays, model expects {len(aux_names)}")
+    aux_pairs = list(zip(_natural_order(saved_aux),
+                         _natural_order(aux_names)))
+    for sk, wk in aux_pairs:
+        if _norm_name(saved_aux[sk]) != _norm_name(aux_names[wk]) \
+                or tuple(man["aux_shapes"][sk]) != \
+                _whole_shape(step._aux[wk]):
+            raise ValueError(
+                f"checkpoint/model mismatch: saved aux {saved_aux[sk]!r} "
+                f"{man['aux_shapes'][sk]} vs model {aux_names[wk]!r} "
+                f"{_whole_shape(step._aux[wk])}")
+    for sk, wk in pairs:
+        if man["state_counts"][sk] != len(step._states[wk]):
+            raise ValueError(
+                f"checkpoint/model mismatch: param {saved_names[sk]!r} has "
+                f"{man['state_counts'][sk]} optimizer state slots in the "
+                f"checkpoint, {len(step._states[wk])} in the model (same "
+                f"optimizer class configured differently?)")
+    files = _RankFiles(path, man)
+    saved = man["layout"]["entries"]
+    staged, err = [], None
+    try:
+        for sk, wk in pairs:
+            t = step._train[wk]
+            where = getattr(t, "_placement", None)
+            staged.append((t, _read_blocks(files, saved[f"p.{sk}"], f"p.{sk}",
+                                           t, where, f"param {names[wk]!r}")))
+            for j, s in enumerate(step._states[wk]):
+                key = f"s.{sk}.{j}"
+                staged.append((s, _read_blocks(
+                    files, saved[key], key, s, where,
+                    f"state {j} of {names[wk]!r}")))
+        for sk, wk in aux_pairs:
+            t = step._aux[wk]
+            staged.append((t, _read_blocks(
+                files, saved[f"a.{sk}"], f"a.{sk}", t,
+                getattr(t, "_placement", None), f"aux {aux_names[wk]!r}")))
+    except Exception as exc:
+        err = exc
+    finally:
+        files.close()
+    # every rank of a gang refuses together, before any touches its step
+    failed = int(_dist.all_sum(np.array([err is not None], np.int64))[0])
+    if err is not None:
+        raise err
+    if failed:
+        raise CheckpointCorruptError(
+            f"{path}: {failed} other rank(s) could not read their blocks; "
+            f"the step is left as it was")
+    num_update = int(man["num_update"])
+    with torch.no_grad():
+        for dst, src in staged:
+            dst.copy_(src)
+        step._t.fill_(num_update)
+    step._num_update = num_update
+    step.optimizer.num_update = num_update
+    step._lr_value = None             # the next step() writes the rate
 
 
 # ------------------------------------------------- retention / discovery --
@@ -880,10 +1312,16 @@ class AsyncSnapshotter:
         writes are already in flight.  The ``ckpt_last_snapshot_ms``
         gauge records the stall THIS call cost the step loop."""
         t0 = _time.perf_counter()
+        gang = _dist.num_workers() > 1 and step._built and _sharded(step)
         with self._lock:
             if self._closed:
                 raise RuntimeError("AsyncSnapshotter is closed")
-            if self._pending >= self.max_pending:
+            busy = self._pending >= self.max_pending
+            if gang:
+                # the gather is a collective: every rank skips, or none
+                flag = torch.tensor([int(busy)], dtype=torch.int32)
+                busy = bool(_dist.all_reduce_(flag, op="max")[0])
+            if busy:
                 self._skipped += 1
                 _telemetry.registry().gauge(
                     "ckpt_snapshots_skipped").set(self._skipped)
@@ -911,10 +1349,25 @@ class AsyncSnapshotter:
                 self._pending -= 1
                 self._idle.notify_all()
             raise
-        self._q.put((payload, manifest, fname, staging))
+        if payload is not None:
+            self._q.put((payload, manifest, fname, staging, None))
+        else:                       # a rank that does not write: the
+            with self._idle:        # gather was the whole job
+                self._pending -= 1
+                self._idle.notify_all()
         _telemetry.registry().gauge("ckpt_last_snapshot_ms").set(
             round((_time.perf_counter() - t0) * 1e3, 3))
         return True
+
+    def _submit(self, payload, manifest, fname, staging, done):
+        """Queue one prepared write (never skipped); ``done(exc)`` runs
+        on the writer thread when it has committed (``exc`` None) or
+        failed."""
+        with self._lock:
+            if self._closed:
+                raise RuntimeError("AsyncSnapshotter is closed")
+            self._pending += 1
+        self._q.put((payload, manifest, fname, staging, done))
 
     def wait_until_finished(self, timeout=None):
         """Block until every enqueued snapshot has committed; True when
@@ -976,9 +1429,10 @@ class AsyncSnapshotter:
             item = self._q.get()
             if item is None:
                 return
-            payload, manifest, fname, staging = item
+            payload, manifest, fname, staging, done = item
             tr = _telemetry.maybe_trace("snapshot", server="ckpt-writer") \
                 if _telemetry.ACTIVE else None
+            failed = None
             try:
                 staging.wait()
                 _write_payload(payload, manifest, fname, trace=tr)
@@ -993,6 +1447,7 @@ class AsyncSnapshotter:
                             "AsyncSnapshotter: on_commit hook failed "
                             "for %s", fname)
             except Exception as exc:
+                failed = exc
                 _logger.error("AsyncSnapshotter: background write of %s "
                               "failed: %s", fname, exc)
                 with self._lock:
@@ -1001,8 +1456,12 @@ class AsyncSnapshotter:
                 if tr is not None:
                     tr.root.end()
                     tr.finish()
+                if done is not None:
+                    done(failed)
+                    staging.release()
                 with self._idle:
-                    self._spare.append(staging)
+                    if done is None:
+                        self._spare.append(staging)
                     self._pending -= 1
                     _telemetry.registry().gauge(
                         "ckpt_pending_writes").set(self._pending)
@@ -1119,6 +1578,8 @@ class CheckpointManager:
         return self._snapshotter.errors
 
     def _retain(self):
+        if _dist.rank() != 0:
+            return
         with self._retain_lock:
             cks = self.checkpoints()
             newest = cks[-1][1] if cks else None

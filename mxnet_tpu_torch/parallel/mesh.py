@@ -143,12 +143,23 @@ class Mesh:
                 kind, self.devices.tolist(), mesh_dim_names=self.axis_names)
         return self._device_mesh
 
+    def on_groups(self, groups):
+        """The same mesh with ``groups`` (axis -> process group) as the
+        groups of those axes: collectives over it run in those groups
+        (e.g. a second group over the same ranks, so two threads' steps
+        never share one)."""
+        other = Mesh(self.devices, self.axis_names)
+        other._groups = dict(groups)
+        return other
+
     def group(self, axis):
         """The process group of ``axis`` for this rank, or None where a
         collective over it has nothing to do (no process group, or an
         axis of size 1 in a larger world).  An axis over the whole world
         is the world's group, even a world of one: its collectives are
         real ones."""
+        if axis in self._groups:
+            return self._groups[axis]
         if not _dist.is_initialized():
             return None
         from torch import distributed as dist

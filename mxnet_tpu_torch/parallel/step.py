@@ -281,6 +281,25 @@ def _coerce(value, device, sharding=None):
     return _put_leaf(value, device, sharding)
 
 
+def _nd_class(tree):
+    """For a batch holding NDArrays, the class of the step's output
+    (``mx.np.ndarray`` for an ``mx.np`` leaf, else ``NDArray``); None
+    for tensors and numpy arrays."""
+    from ..ndarray.ndarray import NDArray
+    from ..numpy import ndarray as np_ndarray
+
+    leaves, found = [tree], None
+    while leaves:
+        x = leaves.pop()
+        if isinstance(x, (tuple, list)):
+            leaves.extend(x)
+        elif isinstance(x, np_ndarray):
+            return np_ndarray
+        elif isinstance(x, NDArray):
+            found = NDArray
+    return found
+
+
 def _signature(x):
     """Structure, shapes and dtypes of a batch: one graph each."""
     if x is None:
@@ -588,8 +607,16 @@ class TrainStep:
         return self.step(data, label)
 
     def step(self, data, label):
+        """The loss of one update: an NDArray where the batch holds
+        NDArrays (``mx.np.ndarray`` for those), as the JAX step returns
+        one; else a tensor."""
         with _profiler.scope("TrainStep.step", cat="step"):
-            return self._step(data, label)
+            loss = self._step(data, label)
+        cls = _nd_class((data, label))
+        if cls is None:
+            return loss
+        from ..ndarray.ndarray import _wrap
+        return _wrap(loss.detach().clone(), cls)
 
     def _step(self, data, label):
         _fire("step")

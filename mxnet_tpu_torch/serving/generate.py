@@ -85,8 +85,32 @@ draw, ``categorical(fold_in(PRNGKey(seed), position), logits)`` with
 threefry-2x32 bits computed in int64 tensors, so seeded samples are the
 JAX server's tokens and preemption, salvage and resume repeat them.
 
-Left for later slices (constructor arguments absent here): tensor
-parallelism.
+- **Tensor parallelism** (``tp_shards=N``, ``tp_collectives=``) —
+  a gang of N ranks (one process and one card each; ``parallel.mesh``)
+  serves one model: each rank holds its Megatron blocks of the params
+  (``causal_lm.tp_shard_params``) and ``n_heads / N`` heads of the K/V
+  pools, the paged kernel runs on those heads, and the two partial
+  products of a layer are summed over the ``tp`` axis
+  (``parallel.quantize.all_reduce_activations``, f32 or int8 on the
+  decode and verify steps, f32 on prefill).  The port's design is a
+  **leader and followers**: every rank builds the server with the same
+  arguments; the rank at tp index 0 leads and runs the whole scheduler
+  (admission, QoS, prefix sharing, salvage, journal) unchanged, and
+  before each step it broadcasts a header over the tp group — which
+  program runs (a prefill bucket, decode, verify, or stop) — and the
+  step's one staged argument buffer.  The ``PageAllocator`` is
+  layout-free (a page id addresses every rank's share of the page), so
+  those host arrays are the same on every rank.  A follower's
+  ``start()`` runs that loop and nothing else; ``submit()`` on it
+  raises; the leader's ``drain()`` sends stop.  Over NCCL (one card a
+  rank) each step is captured with its collectives inside, as on one
+  card; over gloo (ranks sharing a card, or the CPU) the steps run
+  eagerly (``graph_count()`` 0).  With ``prefill_workers``, the
+  leader's workers announce each pool-free prefill over a second group
+  of the same ranks (one prefill at a time over it, so the two groups'
+  collectives never interleave), every follower runs it on a thread of
+  its own and keeps its payload by id, and the leader's handoff header
+  names the ids of its lanes.
 
 Fault points ``generate.prefill`` / ``generate.decode`` /
 ``generate.evict`` / ``generate.resume`` / ``generate.salvage`` /
@@ -96,6 +120,7 @@ fires them.
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import os
 import queue
@@ -105,14 +130,15 @@ import time
 import numpy as np
 import torch
 
+from .. import distributed as _dist
 from .. import fault as _fault
 from .. import profiler as _profiler
 from .. import telemetry as _telemetry
 from ..context import resolve_device
 from ..graphs import GraphCache, owned_stream, release_stream
-from ..gluon.model_zoo.causal_lm import (decode_hidden, lm_logits,
-                                         prefill_forward, verify_logits,
-                                         window_logits)
+from ..gluon.model_zoo.causal_lm import (_local_heads, decode_hidden,
+                                         lm_logits, prefill_forward,
+                                         verify_logits, window_logits)
 from ..ops.paged_attention import (dense_decode_attention,
                                    paged_decode_attention,
                                    paged_decode_attention_reference)
@@ -411,7 +437,7 @@ def _repeat(x, n):
 
 # ------------------------------------------------------------------ steps --
 def decode_logits(params, config, page_size, k_pool, v_pool, tokens,
-                  lengths, active, tables, attention=None):
+                  lengths, active, tables, attention=None, reduce=None):
     """The decode forward of one token per slot: write each active
     slot's K/V at position ``lengths[s]`` (page
     ``tables[s, lengths[s] // page_size]``; inactive slots write to sink
@@ -423,10 +449,13 @@ def decode_logits(params, config, page_size, k_pool, v_pool, tokens,
     clamped, as a JAX gather clamps it.  ``attention`` defaults to
     ``ops.paged_decode_attention`` (the kernel on the card); any
     function with its signature may stand in, e.g. its plain version to
-    hold the kernel against it."""
+    hold the kernel against it.  Under tensor parallelism (``reduce``,
+    the sum over the tp axis) the params are this rank's blocks and the
+    pools hold this rank's heads (their count comes from ``wqkv``)."""
     attention = paged_decode_attention if attention is None else attention
     slots = tokens.shape[0]
-    heads, head_dim = config.n_heads, config.head_dim
+    head_dim = config.head_dim
+    heads = _local_heads(params, config)
     pages_per_seq = tables.shape[1]
     h = params["embed"][tokens.long()]                  # [S, d]
     pos = lengths.long()
@@ -443,7 +472,7 @@ def decode_logits(params, config, page_size, k_pool, v_pool, tokens,
             v_pool[_l, page, off] = v.reshape(slots, heads, head_dim)
             return attention(q.reshape(slots, heads, head_dim).contiguous(),
                              k_pool[_l], v_pool[_l], tables, att_len)
-        h = decode_hidden(params, layer, h, attend)
+        h = decode_hidden(params, layer, h, attend, reduce=reduce)
     return lm_logits(params, h)
 
 
@@ -455,7 +484,77 @@ def _cow_copy(k_pool, v_pool, cow_src, cow_dst):
     v_pool[:, cow_dst.long()] = v_pool[:, cow_src.long()]
 
 
-def build_decode_step(config, page_size, attention=None):
+def _second_group(mesh, axis):
+    """A second process group over this rank's ranks of ``axis`` (every
+    rank of the world makes every such group, in the same order)."""
+    from torch import distributed as dist
+
+    if mesh.shape[axis] == _dist.num_workers():
+        return dist.new_group(list(range(_dist.num_workers())))
+    names = list(mesh.axis_names)
+    rows = np.moveaxis(mesh.devices, names.index(axis), -1).reshape(
+        -1, mesh.shape[axis])
+    mine = None
+    for row in rows:
+        g = dist.new_group([int(r) for r in row])
+        if _dist.rank() in row:
+            mine = g
+    return mine
+
+
+def _tp_pieces(config, mesh, axis):
+    """Shared tensor-parallel plumbing of the step builders: the shard
+    count (the mesh's ``axis``, validated against the architecture) and
+    the local head count."""
+    from ..gluon.model_zoo.causal_lm import tp_validate
+
+    shards = int(mesh.shape[axis])
+    tp_validate(config, shards)
+    return shards, config.n_heads // shards
+
+
+def _tp_reduce(mesh, axis, mode="f32"):
+    """The ``reduce`` hook of a step over ``mesh`` (None without one):
+    the sum over ``axis`` through ``parallel.quantize.
+    all_reduce_activations`` in the ``mode`` wire format — ``"int8"``
+    gives every rank the same bits (the owned slices are quantized once
+    and all-gathered)."""
+    if mesh is None:
+        return None
+    from ..parallel.quantize import all_reduce_activations
+
+    shards = int(mesh.shape[axis])
+
+    def reduce(x):
+        return all_reduce_activations(x, axis, shards, mode=mode)
+    return reduce
+
+
+def _check_collectives(mode, where=""):
+    """The JAX package's ``tp_collectives`` check and text (``where``:
+    the server's ``"<name>: "`` prefix)."""
+    from ..parallel.quantize import ACTIVATION_REDUCE_MODES
+
+    if mode not in ACTIVATION_REDUCE_MODES:
+        raise ValueError(f"{where}tp_collectives={mode!r} not in "
+                         f"{ACTIVATION_REDUCE_MODES}")
+
+
+def _on_mesh(step, mesh):
+    """``step`` run inside ``MeshScope(mesh)`` (its collectives are named
+    by axis over that mesh); ``step`` itself without a mesh."""
+    if mesh is None:
+        return step
+    from ..parallel.mesh import MeshScope
+
+    def run(*args):
+        with MeshScope(mesh):
+            return step(*args)
+    return run
+
+
+def build_decode_step(config, page_size, attention=None, mesh=None,
+                      tp_axis="tp", tp_collectives="f32"):
     """The decode step every in-flight mix of sequences runs over the
     fixed slot grid.
 
@@ -472,21 +571,36 @@ def build_decode_step(config, page_size, attention=None):
     ``s``'s seed at that position.  ``cow_src``/``cow_dst`` are the
     copy-on-write lanes (``_cow_copy``), applied before anything else:
     the host has already remapped ``tables`` onto the fresh page.
-    ``attention`` as in ``decode_logits``."""
+    ``attention`` as in ``decode_logits``.
+
+    With ``mesh`` (a mesh with a ``tp_axis``), run on every rank of the
+    axis: ``params`` are the rank's blocks (``causal_lm.
+    tp_shard_params``), the pools hold its ``n_heads / shards`` heads
+    (``[n_layers, n_pages, page_size, heads_l, head_dim]``), the paged
+    attention runs on those heads, and the two partial-product sums of
+    a layer go through ``parallel.quantize.all_reduce_activations`` over
+    the axis in the ``tp_collectives`` wire format (``"f32"`` |
+    ``"int8"``).  The slot arguments and the sampled tokens are the same
+    on every rank."""
+    _check_collectives(tp_collectives)
+    reduce = None
+    if mesh is not None:
+        _tp_pieces(config, mesh, tp_axis)
+        reduce = _tp_reduce(mesh, tp_axis, tp_collectives)
 
     def decode_step(params, k_pool, v_pool, tokens, lengths, active,
                     tables, cow_src, cow_dst, seeds, temps, topks):
         _cow_copy(k_pool, v_pool, cow_src, cow_dst)
         logits = decode_logits(params, config, page_size, k_pool, v_pool,
                                tokens, lengths, active, tables,
-                               attention=attention)
+                               attention=attention, reduce=reduce)
         nxt = _sample_tokens(logits, seeds, lengths + 1, temps, topks)
         return nxt, k_pool, v_pool
 
-    return decode_step
+    return _on_mesh(decode_step, mesh)
 
 
-def build_prefill_step(config, page_size):
+def build_prefill_step(config, page_size, mesh=None, tp_axis="tp"):
     """One prefill step for any ``(batch, length)`` bucket: the whole
     prompt forward (``causal_lm.prefill_forward``), K/V scattered **in
     place** into the paged pools by page table, and the FIRST new token
@@ -499,18 +613,27 @@ def build_prefill_step(config, page_size):
 
     Signature: ``(params, k_pool, v_pool, tokens[b, L], lengths[b],
     active[b], tables[b, P], seeds[b], temps[b], topks[b])`` →
-    ``(first[b] int32, k_pool, v_pool)``."""
+    ``(first[b] int32, k_pool, v_pool)``.
+
+    With ``mesh`` the forward is Megatron-sharded as in the decode step
+    and each rank scatters its own heads' K/V into its pools; prefill's
+    sums stay f32 (the prompt forward is compute-bound, the
+    ``tp_collectives`` trade is the decode path's)."""
+    reduce = None
+    if mesh is not None:
+        _tp_pieces(config, mesh, tp_axis)
+        reduce = _tp_reduce(mesh, tp_axis)
 
     def prefill_step(params, k_pool, v_pool, tokens, lengths, active,
                      tables, seeds, temps, topks):
         logits, k_all, v_all = prefill_forward(params, config, tokens,
-                                               lengths)
+                                               lengths, reduce=reduce)
         _scatter_prompt_kv(k_pool, v_pool, k_all, v_all, lengths, active,
                            tables, page_size)
         first = _sample_tokens(logits, seeds, lengths, temps, topks)
         return first, k_pool, v_pool
 
-    return prefill_step
+    return _on_mesh(prefill_step, mesh)
 
 
 def _scatter_prompt_kv(k_pool, v_pool, k_all, v_all, lengths, active,
@@ -531,7 +654,7 @@ def _scatter_prompt_kv(k_pool, v_pool, k_all, v_all, lengths, active,
         v_pool[layer, page, off] = v_all[layer]
 
 
-def build_prefill_kv_step(config):
+def build_prefill_kv_step(config, mesh=None, tp_axis="tp"):
     """The disaggregated prefill step (one per ``(batch, length)``
     bucket): the whole-prompt forward returning the first sampled token
     and the prompt's K/V, with NO pool argument, so a prefill worker can
@@ -542,11 +665,16 @@ def build_prefill_kv_step(config):
     Signature: ``(params, tokens[b, L], lengths[b], seeds[b], temps[b],
     topks[b])`` → ``(first[b] int32, k_all, v_all)``, K/V stacked
     ``[n_layers, b, L, heads, head_dim]`` float32 and zero past
-    ``lengths``."""
+    ``lengths``.  With ``mesh`` the forward is Megatron-sharded (f32
+    sums, as ``build_prefill_step``) and the K/V is this rank's heads."""
+    reduce = None
+    if mesh is not None:
+        _tp_pieces(config, mesh, tp_axis)
+        reduce = _tp_reduce(mesh, tp_axis)
 
     def prefill_kv_step(params, tokens, lengths, seeds, temps, topks):
         logits, k_all, v_all = prefill_forward(params, config, tokens,
-                                               lengths)
+                                               lengths, reduce=reduce)
         first = _sample_tokens(logits, seeds, lengths, temps, topks)
         L = tokens.shape[1]
         valid = (torch.arange(L, device=tokens.device)[None, :]
@@ -555,10 +683,10 @@ def build_prefill_kv_step(config):
         return first, torch.where(valid, k_all, zero), \
             torch.where(valid, v_all, zero)
 
-    return prefill_kv_step
+    return _on_mesh(prefill_kv_step, mesh)
 
 
-def build_handoff_step(config, page_size):
+def build_handoff_step(config, page_size, mesh=None, tp_axis="tp"):
     """The one handoff step of a disaggregated server: scatter a batch of
     prefilled sequences' K/V (``[n_layers, B, L, H, D]``, a FIXED
     ``(B, L)`` staging shape) into the pools by page table, in place.
@@ -567,8 +695,11 @@ def build_handoff_step(config, page_size):
     re-packed across handoffs it is one step (one graph on the card).
 
     Signature: ``(k_pool, v_pool, k_all, v_all, lengths[B], active[B],
-    tables[B, P])`` → ``(k_pool, v_pool)``."""
-    del config                # the shapes come from the payload
+    tables[B, P])`` → ``(k_pool, v_pool)``.  With ``mesh`` each rank
+    scatters its own heads' payload into its own pools (no collective:
+    the shapes come from the payload)."""
+    if mesh is not None:
+        _tp_pieces(config, mesh, tp_axis)
 
     def handoff_step(k_pool, v_pool, k_all, v_all, lengths, active,
                      tables):
@@ -611,7 +742,8 @@ def build_dense_decode_step(config, max_ctx):
 
 
 def build_verify_step(config, draft_cfg, page_size, spec_k, window,
-                      attention=None):
+                      attention=None, mesh=None, tp_axis="tp",
+                      tp_collectives="f32"):
     """The speculative-decoding step: a small draft LM proposes
     ``spec_k`` tokens and the target scores all ``spec_k + 1``
     positions in the same fixed-shape step, so a captured server holds
@@ -644,7 +776,13 @@ def build_verify_step(config, draft_cfg, page_size, spec_k, window,
     ``emitted[s, :n_accept[s] + 1]`` are the step's tokens (the last is
     the correction or bonus, the next pending token); later entries are
     dead lanes.  K/V written past the accepted run is stale but masked
-    (``lengths`` advances over accepted tokens only)."""
+    (``lengths`` advances over accepted tokens only).
+
+    With ``mesh`` the target runs Megatron-sharded on the rank's heads
+    as in ``build_decode_step`` (``tp_collectives`` on its sums); the
+    draft stays whole on every rank, so every rank proposes, accepts
+    and emits the same tokens."""
+    _check_collectives(tp_collectives)
     if int(spec_k) < 1:
         raise ValueError(f"spec_k must be >= 1, got {spec_k}")
     if draft_cfg.vocab_size != config.vocab_size:
@@ -656,6 +794,10 @@ def build_verify_step(config, draft_cfg, page_size, spec_k, window,
     k = int(spec_k)
     K1 = k + 1
     heads, head_dim = config.n_heads, config.head_dim
+    reduce = None
+    if mesh is not None:
+        heads = _tp_pieces(config, mesh, tp_axis)[1]
+        reduce = _tp_reduce(mesh, tp_axis, tp_collectives)
 
     def verify_step(params, draft_params, k_pool, v_pool, tokens, window,
                     n_valid, lengths, active, tables, cow_src, cow_dst,
@@ -700,7 +842,8 @@ def build_verify_step(config, draft_cfg, page_size, spec_k, window,
             v_pool[layer, page_l, off_l] = vv.reshape(lanes, heads, head_dim)
             return attention(q.reshape(lanes, heads, head_dim).contiguous(),
                              k_pool[layer], v_pool[layer], tables_l, att_len)
-        logits = verify_logits(params, config, T, attend)  # [S, K1, V]
+        logits = verify_logits(params, config, T, attend,
+                               reduce=reduce)              # [S, K1, V]
 
         # (4) leading-run acceptance, both arms always computed
         vocab = logits.shape[-1]
@@ -745,7 +888,7 @@ def build_verify_step(config, draft_cfg, page_size, spec_k, window,
         emitted = torch.where(steps[None, :] < a[:, None], d_ext, corr)
         return emitted.to(torch.int32), a, k_pool, v_pool
 
-    return verify_step
+    return _on_mesh(verify_step, mesh)
 
 
 def _decode_attention(impl, device, name):
@@ -841,6 +984,9 @@ class SequenceSnapshot:
                 f"seed={self.seed})")
 
 
+# the programs a tensor-parallel leader announces to its followers
+_STOP, _PREFILL, _DECODE, _VERIFY, _PREFILL_KV, _HANDOFF, _DROP = range(7)
+
 # ---------------------------------------------------------------- staging --
 _TORCH_DTYPES = {np.dtype(np.int32): torch.int32,
                  np.dtype(np.int64): torch.int64,
@@ -931,6 +1077,13 @@ class GenerationServer:
     captured CUDA graphs unless ``capture=False``; ``capture=True`` on
     the CPU raises.
 
+    ``tp_shards`` / ``tp_collectives``: tensor parallelism over the
+    ``tp`` axis of the current mesh (else ``make_mesh(tp=<world>)``),
+    whose size must be ``tp_shards``; the leader-and-followers design
+    of the module's doc: every rank of the gang builds the server with
+    the same arguments and calls ``start()`` and ``drain()``, only the
+    leader (tp index 0) takes requests.
+
     The JAX server's arguments, as it defines them: ``attention_impl``
     (the decode and verify steps' paged attention: None, the
     hand-written kernel on the card and its plain version on the CPU;
@@ -963,10 +1116,11 @@ class GenerationServer:
                  max_queue=128, rate=None, burst=None, breaker=None,
                  default_deadline=None, max_new_tokens=32, eos_id=None,
                  seed=0, attention_impl=None, prefill_workers=0,
-                 qos=None, draft=None, draft_config=None,
-                 spec_k=3, spec_window=16, salvage_retries=2,
-                 journal=None, journal_every=8, memory_report=None,
-                 device="cuda", capture=None, name="GenerationServer"):
+                 qos=None, tp_shards=1, tp_collectives="f32", draft=None,
+                 draft_config=None, spec_k=3, spec_window=16,
+                 salvage_retries=2, journal=None, journal_every=8,
+                 memory_report=None, device="cuda", capture=None,
+                 name="GenerationServer"):
         self.device = resolve_device(device)
         if self.device.type != "cuda" and capture:
             raise ValueError(f"{name}: capture=True needs the card, not "
@@ -975,8 +1129,22 @@ class GenerationServer:
         self._n_prefill_workers = int(prefill_workers)
         if self._n_prefill_workers < 0:
             raise ValueError(f"{name}: prefill_workers must be >= 0")
+        self.tp_shards = int(tp_shards)
+        _check_collectives(tp_collectives, f"{name}: ")
+        self.tp_collectives = tp_collectives
+        self._mesh, self._tp_group, self.leader = None, None, True
+        self._pf_group = self._pf_mesh = None
+        if self.tp_shards > 1:
+            self._tp_setup(config, name)
+        host_comm = self._mesh is not None and _dist.backend() == "gloo"
         self._graphs = GraphCache(self.device) \
-            if self.device.type == "cuda" and capture is not False else None
+            if self.device.type == "cuda" and capture is not False \
+            and not host_comm else None
+        if host_comm and capture:
+            raise ValueError(f"{name}: capture=True: the tp group runs over "
+                             f"gloo (ranks share a card), whose collectives "
+                             f"go through the host and cannot be captured; "
+                             f"pass capture=None or False")
         self.config = config
         self._spec_k = int(spec_k)
         self._spec_window = int(spec_window)
@@ -1026,20 +1194,30 @@ class GenerationServer:
         self._max_queue = int(max_queue)
 
         self._params = self._on_device(params)
-        self._decode = build_decode_step(config, self.alloc.page_size,
-                                         attention=attention)
+        tp = dict(mesh=self._mesh)
+        if self._mesh is not None:
+            from ..gluon.model_zoo.causal_lm import tp_shard_params
+            self._params = tp_shard_params(self._params, config, self._mesh)
+        self._decode = build_decode_step(
+            config, self.alloc.page_size, attention=attention,
+            tp_collectives=tp_collectives, **tp)
         if self._n_prefill_workers > 0:
             # disaggregated: the pool-free prefill grid + ONE handoff
-            self._prefill = build_prefill_kv_step(config)
-            self._handoff = build_handoff_step(config, self.alloc.page_size)
+            self._prefill = build_prefill_kv_step(
+                config, **(tp if self._pf_mesh is None
+                           else dict(mesh=self._pf_mesh)))
+            self._handoff = build_handoff_step(config, self.alloc.page_size,
+                                               **tp)
         else:
-            self._prefill = build_prefill_step(config, self.alloc.page_size)
+            self._prefill = build_prefill_step(config, self.alloc.page_size,
+                                               **tp)
             self._handoff = None
         if draft is not None:
             self._draft_params = self._on_device(draft)
             self._verify = build_verify_step(
                 config, draft_config, self.alloc.page_size, self._spec_k,
-                self._spec_window, attention=attention)
+                self._spec_window, attention=attention,
+                tp_collectives=tp_collectives, **tp)
         else:
             self._draft_params = None
             self._verify = None
@@ -1080,7 +1258,9 @@ class GenerationServer:
         B = self.buckets.max_batch
         self._handoff_in = _Staged(
             [("lengths", (B,), np.int32), ("active", (B,), np.bool_),
-             ("tables", (B, self.pages_per_seq), np.int32)],
+             ("tables", (B, self.pages_per_seq), np.int32)]
+            + ([("ids", (B, 2), np.int64)] if self._mesh is not None
+               else []),
             self.device) if self._handoff is not None else None
         self._handoff_done = None
         d = self._decode_in.host
@@ -1124,8 +1304,22 @@ class GenerationServer:
         self._stop = threading.Event()
         self._loop_exited = threading.Event()
         self._started = threading.Event()
-        self._thread = threading.Thread(target=self._loop, name=name,
-                                        daemon=True)
+        self._thread = threading.Thread(
+            target=self._loop if self.leader else self._follow, name=name,
+            daemon=True)
+        self._follower_done = {}       # a follower's last upload, by group
+        # disaggregated under tp: the prefill programs' own group and
+        # header, one prefill at a time over it, their ordinal; a
+        # follower's payloads by (ordinal, row) until the leader's
+        # handoff (or drop) takes them
+        self._pf_lock = threading.Lock()
+        self._pf_cond = threading.Condition()
+        self._pf_ord = 0
+        self._pf_payloads, self._pf_dropped = {}, set()
+        self._pf_thread = threading.Thread(
+            target=self._follow_prefill, name=f"{name}-prefill-follower",
+            daemon=True) if not self.leader and self._pf_group is not None \
+            else None
         # disaggregated plumbing: the prefill group's work queue (bounded
         # — the decode loop is its only producer and checks full() first,
         # so put_nowait cannot race), the handoff queue (workers → decode
@@ -1152,6 +1346,41 @@ class GenerationServer:
         self._h_accept = _telemetry.registry().histogram(
             f"{name}::spec_accept_rate", [i / 8 for i in range(1, 9)])
 
+    def _tp_setup(self, config, name):
+        """The tensor-parallel gang: the mesh (the current one, else
+        ``make_mesh(tp=<world>)``) whose ``tp`` axis has ``tp_shards``
+        ranks, this rank's role (the rank at tp index 0 leads) and the
+        group the leader's headers go over."""
+        from ..gluon.model_zoo.causal_lm import tp_validate
+        from ..parallel.mesh import current_mesh, make_mesh
+
+        tp_validate(config, self.tp_shards)
+        mesh = current_mesh()
+        if mesh is None or "tp" not in mesh.shape:
+            mesh = make_mesh(tp=_dist.num_workers())
+        visible = int(mesh.shape["tp"])
+        if self.tp_shards > visible:
+            raise ValueError(
+                f"{name}: tp_shards={self.tp_shards} exceeds the {visible} "
+                f"visible devices (the ranks of the gang's tp axis, one "
+                f"card each)")
+        if self.tp_shards != visible:
+            raise ValueError(
+                f"{name}: tp_shards={self.tp_shards}, but the gang's tp "
+                f"axis has {visible} ranks: run tp_shards ranks on it")
+        self._mesh = mesh
+        self._tp_group = mesh.group("tp")
+        self.leader = mesh.coords()["tp"] == 0
+        wire = "cpu" if _dist.backend() == "gloo" else self.device
+        self._header = torch.zeros(4, dtype=torch.int64, device=wire)
+        if self._n_prefill_workers > 0:
+            # the prefill workers' programs and headers go over a second
+            # group of the same ranks, so they never interleave with the
+            # decode loop's on the tp group
+            self._pf_group = _second_group(mesh, "tp")
+            self._pf_mesh = mesh.on_groups({"tp": self._pf_group})
+            self._pf_header = torch.zeros(4, dtype=torch.int64, device=wire)
+
     def _on_device(self, params):
         return {k: (v if isinstance(v, torch.Tensor)
                     else torch.from_numpy(np.array(v, dtype=np.float32)))
@@ -1169,22 +1398,33 @@ class GenerationServer:
         launch plans and captures every step's graph (``graph_count()
         == census()`` after it).  ``warmup=False`` captures each graph
         at its first call instead, a prefill bucket's on the worker
-        that first runs it."""
+        that first runs it.
+
+        A follower of a tensor-parallel gang allocates its pools and
+        starts its loop (which runs what the leader announces, its
+        warm-up included) and returns."""
         if self._draining.is_set():
             raise ServerClosedError(f"{self._name}: already drained")
         c, npg, psz = self.config, self.alloc.n_pages, self.alloc.page_size
-        shape = (c.n_layers, npg, psz, c.n_heads, c.head_dim)
+        heads = c.n_heads // self.tp_shards          # this rank's heads
+        shape = (c.n_layers, npg, psz, heads, c.head_dim)
         self._k_pool = torch.zeros(shape, dtype=torch.float32,
                                    device=self.device)
         self._v_pool = torch.zeros(shape, dtype=torch.float32,
                                    device=self.device)
         if self._handoff is not None:
             shape = (c.n_layers, self.buckets.max_batch,
-                     max(self.buckets.length), c.n_heads, c.head_dim)
+                     max(self.buckets.length), heads, c.head_dim)
             self._hand_k = torch.zeros(shape, dtype=torch.float32,
                                        device=self.device)
             self._hand_v = torch.zeros(shape, dtype=torch.float32,
                                        device=self.device)
+        if not self.leader:
+            self._started.set()
+            self._thread.start()
+            if self._pf_thread is not None:
+                self._pf_thread.start()
+            return self
         if warmup:
             for b in self.buckets.batch:
                 for L in self.buckets.length:
@@ -1240,8 +1480,14 @@ class GenerationServer:
 
     # ------------------------------------------------------------ admission --
     def _refuse_closed(self):
-        """The refusals ``submit`` and ``submit_resume`` share: draining,
-        not started, loop dead, breaker open."""
+        """The refusals ``submit`` and ``submit_resume`` share: a
+        follower of a tensor-parallel gang, draining, not started, loop
+        dead, breaker open."""
+        if not self.leader:
+            raise RejectedError(
+                f"{self._name}: rank {_dist.rank()} follows the tensor-"
+                f"parallel leader (tp index 0) and takes no requests: "
+                f"submit to the leader")
         if self._draining.is_set():
             self._bump("rejected")
             raise ServerClosedError(f"{self._name}: draining — "
@@ -1630,6 +1876,11 @@ class GenerationServer:
                           ("topks", topks)):
             h[name][...] = arr
         staged.upload()
+        self._announce(_PREFILL, staged, b, L)
+        return self._run_step(("prefill", b, L), self._prefill_body(staged),
+                              out)
+
+    def _prefill_body(self, staged):
         d = staged.dev
 
         def body():
@@ -1637,7 +1888,7 @@ class GenerationServer:
                 self._params, self._k_pool, self._v_pool, d["tokens"],
                 d["lengths"], d["active"], d["tables"], d["seeds"],
                 d["temps"], d["topks"])[0]
-        return self._run_step(("prefill", b, L), body, out)
+        return body
 
     def _run_prefill_kv(self, tokens, lengths, seeds, temps, topks):
         """One POOL-FREE prefill step (disaggregated; any prefill worker,
@@ -1646,9 +1897,14 @@ class GenerationServer:
         read back — the next user of the bucket overwrites both.
         Returns the first tokens on the host and, per row with a
         positive length, its K/V ``[n_layers, lengths[i], H, D]``, a
-        copy on this stream that the read-back's sync completed."""
+        copy on this stream that the read-back's sync completed.  Under
+        tensor parallelism one prefill runs at a time over the prefill
+        group (announced to the followers first), and each payload
+        carries its ``(ordinal, row)`` as ``_tp_id``."""
         b, L = tokens.shape
-        with self._prefill_locks[(b, L)]:
+        gang = self._pf_lock if self._pf_group is not None \
+            else contextlib.nullcontext()
+        with gang, self._prefill_locks[(b, L)]:
             staged, out = self._prefill_staging(b, L)
             h = staged.host
             for name, arr in (("tokens", tokens), ("lengths", lengths),
@@ -1656,24 +1912,36 @@ class GenerationServer:
                               ("topks", topks)):
                 h[name][...] = arr
             staged.upload()
-            d = staged.dev
+            ordinal = self._pf_ord
+            self._pf_ord += 1
+            self._announce(_PREFILL_KV, staged, b, L, ordinal,
+                           group=self._pf_group)
+            first, payload = self._prefill_kv_body(staged, b, L, lengths)
+            for j, (k_seq, _v) in enumerate(payload):
+                k_seq._tp_id = (ordinal, j)
+            return self._read_back(first, out), payload
 
-            def body():
-                return self._prefill(self._params, d["tokens"],
-                                     d["lengths"], d["seeds"], d["temps"],
-                                     d["topks"])
-            first, k_all, v_all = self._run_graph(("prefill", b, L), body)
-            payload = [(k_all[:, i, :n].clone(), v_all[:, i, :n].clone())
+    def _prefill_kv_body(self, staged, b, L, lengths):
+        """The pool-free step on ``staged`` through the bucket's graph;
+        its first tokens (on the card) and each row's K/V."""
+        d = staged.dev
+
+        def body():
+            return self._prefill(self._params, d["tokens"], d["lengths"],
+                                 d["seeds"], d["temps"], d["topks"])
+        first, k_all, v_all = self._run_graph(("prefill", b, L), body)
+        return first, [(k_all[:, i, :n].clone(), v_all[:, i, :n].clone())
                        for i, n in enumerate(int(n) for n in lengths)
                        if n > 0]
-            return self._read_back(first, out), payload
 
     def _run_handoff(self, entries):
         """One handoff step (decode loop): ``entries`` are ``(table row,
         k, v)`` per lane, at most ``buckets.max_batch``; each payload is
         copied into the K/V staging buffers on this stream, marked used
         here before it is freed, and the step scatters every lane into
-        the pools (the rest sink to page 0)."""
+        the pools (the rest sink to page 0).  Under tensor parallelism
+        the lanes' payload ids go to the followers, whose own payloads
+        (their heads) the same step scatters."""
         if self._handoff_done is not None:
             self._handoff_done.synchronize()  # last upload read the host
         h = self._handoff_in.host
@@ -1681,32 +1949,48 @@ class GenerationServer:
         h["active"][:] = False
         h["tables"][:] = 0
         for j, (row, k_seq, v_seq) in enumerate(entries):
-            n = k_seq.shape[1]
-            self._hand_k[:, j, :n].copy_(k_seq, non_blocking=True)
-            self._hand_v[:, j, :n].copy_(v_seq, non_blocking=True)
-            if self.device.type == "cuda":
-                stream = torch.cuda.current_stream(self.device)
-                k_seq.record_stream(stream)
-                v_seq.record_stream(stream)
-            h["lengths"][j] = n
+            self._stage_lane(j, k_seq, v_seq)
+            h["lengths"][j] = k_seq.shape[1]
             h["active"][j] = True
             h["tables"][j] = row
+            if "ids" in h:
+                h["ids"][j] = k_seq._tp_id
         self._handoff_in.upload()
+        self._announce(_HANDOFF, self._handoff_in)
+        self._run_graph(("handoff",), self._handoff_body())
+        if self.device.type == "cuda":
+            self._handoff_done = torch.cuda.Event()
+            self._handoff_done.record()
+
+    def _stage_lane(self, j, k_seq, v_seq):
+        """Lane ``j``'s payload into the handoff's K/V staging buffers,
+        on this stream (marked used here before it is freed)."""
+        n = k_seq.shape[1]
+        self._hand_k[:, j, :n].copy_(k_seq, non_blocking=True)
+        self._hand_v[:, j, :n].copy_(v_seq, non_blocking=True)
+        if self.device.type == "cuda":
+            stream = torch.cuda.current_stream(self.device)
+            k_seq.record_stream(stream)
+            v_seq.record_stream(stream)
+
+    def _handoff_body(self):
         d = self._handoff_in.dev
 
         def body():
             self._handoff(self._k_pool, self._v_pool, self._hand_k,
                           self._hand_v, d["lengths"], d["active"],
                           d["tables"])
-        self._run_graph(("handoff",), body)
-        if self.device.type == "cuda":
-            self._handoff_done = torch.cuda.Event()
-            self._handoff_done.record()
+        return body
 
     def _run_decode(self):
         """One decode step over the full slot grid (pools updated in
         place); returns the next tokens on the host."""
         self._decode_in.upload()
+        self._announce(_DECODE, self._decode_in)
+        return self._run_step(("decode",), self._decode_body(),
+                              self._decode_out)
+
+    def _decode_body(self):
         d = self._decode_in.dev
 
         def body():
@@ -1714,13 +1998,19 @@ class GenerationServer:
                 self._params, self._k_pool, self._v_pool, d["tokens"],
                 d["lengths"], d["active"], d["tables"], d["cow"][0],
                 d["cow"][1], d["seeds"], d["temps"], d["topks"])[0]
-        return self._run_step(("decode",), body, self._decode_out)
+        return body
 
     def _run_verify(self):
         """One verify step over the full slot grid (speculative mode's
         decode step; pools updated in place); returns ``(emitted [S,
         spec_k + 1], n_accept [S])`` on the host, read back together."""
         self._decode_in.upload()
+        self._announce(_VERIFY, self._decode_in)
+        both = self._run_step(("verify",), self._verify_body(),
+                              self._verify_out)
+        return both[:, :-1], both[:, -1]
+
+    def _verify_body(self):
         d = self._decode_in.dev
 
         def body():
@@ -1730,8 +2020,156 @@ class GenerationServer:
                 d["lengths"], d["active"], d["tables"], d["cow"][0],
                 d["cow"][1], d["seeds"], d["temps"], d["topks"])
             return torch.cat([emitted, n_acc[:, None]], dim=1)
-        both = self._run_step(("verify",), body, self._verify_out)
-        return both[:, :-1], both[:, -1]
+        return body
+
+    # ------------------------------------------------- tensor-parallel gang --
+    def _announce(self, kind, staged=None, a=0, b=0, c=0, group=None):
+        """The leader's header before a program runs: which program (and
+        its arguments: a prefill bucket ``(a, b)``, a prefill's ordinal
+        ``c``, a dropped payload's id ``(a, b)``), then the program's
+        staged argument buffer — the host half over gloo, the card half
+        (already uploaded) over NCCL — broadcast over the tp group (the
+        prefill group for ``group``).  A no-op without a gang."""
+        if self._tp_group is None:
+            return
+        group = self._tp_group if group is None else group
+        header = self._header if group is self._tp_group \
+            else self._pf_header
+        header.copy_(torch.tensor([kind, a, b, c], dtype=torch.int64))
+        _dist.broadcast_(header, root=0, group=group)
+        if staged is not None:
+            _dist.broadcast_(self._wire_half(staged), root=0, group=group)
+
+    def _wire_half(self, staged):
+        return staged._host if self._header.device.type == "cpu" \
+            else staged._dev
+
+    def _heard(self, group):
+        """A follower's next header over ``group``: its four ints."""
+        header = self._header if group is self._tp_group \
+            else self._pf_header
+        _dist.broadcast_(header, root=0, group=group)
+        return [int(v) for v in header.tolist()]
+
+    def _receive(self, staged, group=None):
+        """A follower's copy of the leader's staged buffer, on the card
+        (the host half uploaded over gloo)."""
+        group = self._tp_group if group is None else group
+        done = self._follower_done.get(id(group))
+        if done is not None:
+            done.synchronize()                  # the last upload read it
+        _dist.broadcast_(self._wire_half(staged), root=0, group=group)
+        if self._header.device.type == "cpu":
+            staged.upload()
+            if self.device.type == "cuda":
+                done = self._follower_done[id(group)] = torch.cuda.Event()
+                done.record()
+
+    def _follow(self):
+        """A follower's loop: run each program the leader announces, on
+        this rank's blocks and pools, until the leader's stop."""
+        try:
+            if self.device.type == "cuda":
+                torch.cuda.set_device(self.device)
+            while True:
+                kind, a, b, _ = self._heard(self._tp_group)
+                if kind == _STOP:
+                    return
+                if kind == _PREFILL:
+                    staged, _ = self._prefill_staging(a, b)
+                    self._receive(staged)
+                    self._run_graph(("prefill", a, b),
+                                    self._prefill_body(staged))
+                elif kind == _DECODE:
+                    self._receive(self._decode_in)
+                    self._run_graph(("decode",), self._decode_body())
+                    self._bump("decode_steps")
+                elif kind == _VERIFY:
+                    self._receive(self._decode_in)
+                    self._run_graph(("verify",), self._verify_body())
+                    self._bump("verify_steps")
+                elif kind == _HANDOFF:
+                    self._follow_handoff()
+                elif kind == _DROP:
+                    self._take_payload((a, b), wait=False)
+                else:
+                    raise RuntimeError(f"{self._name}: unknown program "
+                                       f"{kind} from the tp leader")
+        except BaseException as exc:
+            self._note_step_failure(exc)
+            raise
+        finally:
+            self._loop_exited.set()
+
+    def _follow_handoff(self):
+        """A follower's handoff: the leader's lanes, each filled from this
+        rank's payload of the same id, scattered by the same step."""
+        self._receive(self._handoff_in)
+        d = self._handoff_in.dev
+        active = d["active"].cpu().numpy()
+        ids = d["ids"].cpu().numpy()
+        for j in np.flatnonzero(active):
+            k_seq, v_seq = self._take_payload(tuple(int(x) for x in ids[j]))
+            self._stage_lane(j, k_seq, v_seq)
+        self._run_graph(("handoff",), self._handoff_body())
+        self._bump("handoffs")
+
+    def _take_payload(self, pid, wait=True):
+        """This follower's payload ``pid`` (``(ordinal, row)``), taken out
+        of the store: waited for (its prefill runs on the prefill
+        follower's thread); without ``wait`` (a drop), marked so that a
+        late one is discarded."""
+        with self._pf_cond:
+            while wait and pid not in self._pf_payloads:
+                if not self._pf_thread.is_alive():
+                    raise RuntimeError(
+                        f"{self._name}: the prefill follower stopped "
+                        f"before payload {pid} arrived")
+                self._pf_cond.wait(1.0)
+            hit = self._pf_payloads.pop(pid, None)
+            if hit is None:
+                self._pf_dropped.add(pid)
+            return hit
+
+    def _follow_prefill(self):
+        """A follower's prefill loop (disaggregated under tp): each
+        prefill the leader's workers announce over the prefill group, run
+        on this rank's heads on a stream of its own; the payloads kept
+        by id for the leader's handoff."""
+        own = None
+        try:
+            if self.device.type == "cuda":
+                torch.cuda.set_device(self.device)
+                own = owned_stream(self.device)
+            with (torch.cuda.stream(own) if own is not None
+                  else contextlib.nullcontext()):
+                while True:
+                    kind, b, L, ordinal = self._heard(self._pf_group)
+                    if kind == _STOP:
+                        return
+                    with self._prefill_locks[(b, L)]:
+                        staged, _ = self._prefill_staging(b, L)
+                        self._receive(staged, group=self._pf_group)
+                        lengths = staged.dev["lengths"].cpu().numpy()
+                        _, payload = self._prefill_kv_body(staged, b, L,
+                                                           lengths)
+                        if own is not None:
+                            own.synchronize()  # complete before handed on
+                    with self._pf_cond:
+                        for j, kv in enumerate(payload):
+                            if (ordinal, j) in self._pf_dropped:
+                                self._pf_dropped.discard((ordinal, j))
+                            else:
+                                self._pf_payloads[(ordinal, j)] = kv
+                        self._pf_cond.notify_all()
+        except BaseException as exc:
+            self._note_step_failure(exc)
+            raise
+        finally:
+            if own is not None:
+                release_stream(own.device, own)
+            with self._pf_cond:
+                self._pf_cond.notify_all()
 
     def _pipeline_idle(self):
         """True when the disaggregated prefill pipeline holds no work
@@ -1805,7 +2243,13 @@ class GenerationServer:
                     break
             for t in self._prefill_threads:
                 t.join(timeout=30)
-            self._fail_residue()
+            try:
+                if self._pf_group is not None:    # the prefill follower's
+                    with self._pf_lock:
+                        self._announce(_STOP, group=self._pf_group)
+                self._announce(_STOP)     # every follower's loop ends
+            finally:
+                self._fail_residue()
 
     # ---- prefix sharing ----
     def _drop_index_entry(self, page):
@@ -2233,6 +2677,7 @@ class GenerationServer:
         for entry in backlog:
             seq = entry[0]
             if seq.req.expired(now):
+                self._drop_payload(entry[2])
                 self._retire(seq, DeadlineExceededError(
                     "deadline exceeded before the prefilled sequence "
                     "reached a decode slot — pages never held",
@@ -2275,7 +2720,8 @@ class GenerationServer:
             self._note_step_failure(exc)
             err = _fault.with_context(
                 exc, f"{self._name} handoff of {len(batch)}")
-            for seq, _tok, _k, _v in batch:
+            for seq, _tok, k_seq, _v in batch:
+                self._drop_payload(k_seq)
                 if seq.out:
                     self._requeue_salvaged(seq, err)
                 else:
@@ -2290,6 +2736,13 @@ class GenerationServer:
             self._seat(seq, slots[j], tok)
         self._note_occupancy()
         return True
+
+    def _drop_payload(self, k_seq):
+        """Under tp, tell the followers that the payload of ``k_seq``'s
+        id will never be handed off (they free theirs)."""
+        pid = getattr(k_seq, "_tp_id", None)
+        if pid is not None:
+            self._announce(_DROP, a=pid[0], b=pid[1])
 
     def _prefill_group(self, group):
         """Prefill one bucket-aligned group and seat it in decode slots.
@@ -2846,17 +3299,19 @@ class GenerationServer:
                 "speculative": int(self._verify is not None),
                 "prefill_workers": self._n_prefill_workers,
                 "prefill_inflight": prefill_flight,
+                "tp_shards": self.tp_shards,
+                "tp_collectives": self.tp_collectives,
                 "device": str(self.device),
                 "classes": self._qos.snapshot(),
                 "last_error": None if last is None else
                 {"type": last[0], "age": time.monotonic() - last[1]}}
 
     def _page_bytes(self):
-        """Device bytes one page id addresses across BOTH pools (f32
-        K + V, every layer, all heads)."""
+        """Device bytes one page id addresses across BOTH pools on this
+        rank (f32 K + V, every layer, its heads)."""
         c = self.config
-        return (2 * c.n_layers * self.alloc.page_size * c.n_heads
-                * c.head_dim * 4)
+        return (2 * c.n_layers * self.alloc.page_size
+                * (c.n_heads // self.tp_shards) * c.head_dim * 4)
 
     @property
     def stats(self):
@@ -2937,6 +3392,8 @@ class GenerationServer:
             self._stop.set()
         if self._started.is_set():
             self._thread.join(timeout)
+            if self._pf_thread is not None:
+                self._pf_thread.join(timeout)
         if not self._thread.is_alive():
             self._fail_residue()
         return not self._thread.is_alive()

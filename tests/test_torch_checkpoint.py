@@ -4,8 +4,10 @@ CPU.
 
 The cases of ``tests/test_checkpoint.py`` and
 ``tests/test_checkpoint_durability.py`` on the port's ``TrainStep``
-(the sharded v2 format and the mesh cases excepted: the port has no
-mesh yet), plus what only the port has to show:
+(the sharded v2 format's gang cases and the mesh cases are in
+``tests/test_torch_checkpoint_sharded.py``; here the world of one's v2
+round trip and the refusal of an orbax directory), plus what only the
+port has to show:
 
 - cross-load: a float32 snapshot written by either package verifies and
   loads in the other, and both then take 3 more steps to the same losses
@@ -228,11 +230,58 @@ def test_unbuilt_step_raises(tmp_path):
         load_train_step(step, str(tmp_path / "x.npz"))
 
 
-@pytest.mark.parametrize("fn", [ck.save_train_step_sharded,
-                                ck.load_train_step_sharded])
-def test_sharded_v2_is_not_ported(fn, tmp_path):
-    with pytest.raises(NotImplementedError, match="A15"):
-        fn(object(), str(tmp_path / "v2"))
+# ------------------------------------------ the sharded v2 format, one rank --
+def test_sharded_v2_world_of_one_kill_and_resume(tmp_path):
+    """The port's v2 directory in a world of one: one rank file and the
+    manifest; a fresh step resumes the uninterrupted trajectory bit for
+    bit (its tensors written in place)."""
+    d = str(tmp_path / "v2")
+    batches = _batches(8, seed=3)
+    step = _step_for(_net(7))
+    ref = [float(step(x, y)) for x, y in batches]
+    s1 = _step_for(_net(7))
+    for x, y in batches[:4]:
+        s1(x, y)
+    ck.save_train_step_sharded(s1, d, async_save=True).wait_until_finished()
+    assert sorted(os.listdir(d)) == ["rank-0-of-1.npz"]
+    man = json.load(open(d + ".manifest.json"))
+    assert man["format"] == "port-v2" and man["num_update"] == 4
+    assert man["layout"]["world"] == 1
+    s2 = _step_for(_net(99))
+    s2(*batches[0])
+    held = [id(t) for t in s2._train]
+    ck.load_train_step_sharded(s2, d)
+    assert [id(t) for t in s2._train] == held
+    assert [float(s2(x, y)) for x, y in batches[4:]] == ref[4:]
+
+
+def test_sharded_v2_refuses_the_jax_packages_orbax_directory(tmp_path):
+    """A v2 directory the JAX package wrote (an orbax tree) is refused
+    with a ValueError before anything is read; a missing manifest is
+    refused with the JAX package's text."""
+    pytest.importorskip("orbax.checkpoint")
+    d = str(tmp_path / "orbax")
+    jmx.random.seed(1)
+    jnet = jnn.HybridSequential()
+    jnet.add(jnn.Dense(16, activation="relu", in_units=8),
+             jnn.BatchNorm(in_channels=16), jnn.Dense(4, in_units=16))
+    jnet.initialize()
+    jstep = jparallel.TrainStep(
+        jnet, jgluon.loss.SoftmaxCrossEntropyLoss(),
+        jmx.optimizer.create("adam"),
+        mesh=jparallel.make_mesh(dp=1, devices=jax.devices()[:1]))
+    x, y = _batches(1)[0]
+    jstep(x, y)
+    jck.save_train_step_sharded(jstep, d, async_save=False)
+    step = _step_for(_net(1))
+    step(x, y)
+    before = _host(step)
+    with pytest.raises(ValueError, match="orbax"):
+        ck.load_train_step_sharded(step, d)
+    for a, b in zip(before, _host(step)):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="missing .*manifest"):
+        ck.load_train_step_sharded(step, str(tmp_path / "nothing"))
 
 
 # ------------------------------------------------------- fault tolerance --
