@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's thirteen paths end to end on the first CUDA device
+Drives the port's fourteen paths end to end on the first CUDA device
 (the last on a gang of ranks over the machine's cards), with random
 weights from a seed:
 
@@ -87,7 +87,10 @@ weights from a seed:
   ranks (one a card over NCCL, or two sharing one card over gloo)
   through ``TrainStep(mesh=make_mesh())`` with f32, bf16 and int8
   gradient exchange and ``gluon.Trainer(kvstore="dist_sync_device")``,
-  and ``examples/dist_train.py`` as written.
+  and ``examples/dist_train.py`` as written;
+- the C ABI: a C program linked against ``libmxtpu_capi`` trains the
+  MLP of the JAX package's C client and reaches all seven kernels
+  through ``mxtpu_invoke`` at the shapes above.
 
 Phases, each of which fails the run (each prints its wall time):
 
@@ -498,6 +501,24 @@ Phases, each of which fails the run (each prints its wall time):
     decode-step ms, the host ms in collectives a step, rank 0's busy
     share.
 
+23. the C ABI: ``libmxtpu_capi`` built with g++ and
+    ``mxnet_tpu_torch/capi/c_api_smoke.c`` linked against it; (a) the
+    client run on the card as a user runs it (a process of its own, the
+    repo root on its PYTHONPATH, killed whole past CAPI_TIMEOUT_S): its
+    every check, the MLP's 30 SGD steps, then through ``mxtpu_invoke``
+    ``FusedNormReluConv`` at IMPERATIVE_FUSED (bf16) and
+    ``flash_attention`` at BERT-base (bf16) forward and backward and
+    ``paged_decode_attention`` at the serving path shape with and
+    without ``impl="jnp"``, on seeded inputs written with ``nd.save``;
+    every output and gradient it saved held against the port's plain
+    versions on the same inputs in this process (the fused, flash and
+    paged rules above); (b) the library loaded here with ``ctypes`` and
+    the three ops driven through ``mxtpu_*`` again with every launch
+    counter at 0: each kernel once per invoke or backward (the
+    ``c_api`` entry of each kernel's ``launches_by_path``); the build
+    and client seconds, the loss trajectory and the max errors printed
+    beside the card's name and power limit.
+
 Prints one JSON ``kernels`` line, then the card line, then as the last
 line ``{"ok": true, "device": {...}}``.  Without a card, or without the
 package beside it, it exits non-zero and prints no result.
@@ -505,7 +526,8 @@ package beside it, it exits non-zero and prints no result.
 ``--np`` the build and phase 20 alone (the TrainStep comparison then
 not measured), ``--dp`` the build and phase 21 alone, ``--mp`` the
 build and phase 22 alone, ``--tp`` the build and phase 22's tp
-sub-phase with (f) and (g) alone; none of them prints a result line.
+sub-phase with (f) and (g) alone, ``--capi`` the build and phase 23
+alone; none of them prints a result line.
 """
 from __future__ import annotations
 
@@ -757,6 +779,10 @@ FLASH_REFUSAL = "attention_impl='flash' does not support valid_length masks"
 # through the profiled one
 TP_REQUESTS, TP_PROFILED_REQUESTS, TP_PROFILED_NEW = 64, 16, 16
 TP_MODES = ("f32", "int8", "int8 again", "f32 disaggregated")
+# phase 23, the C ABI: the C client's time limit (it runs in a session of
+# its own, killed whole past it), the seed of its inputs
+CAPI_TIMEOUT_S = 300
+CAPI_SEED = 23
 
 
 def log(msg):
@@ -9370,6 +9396,276 @@ def _model_parallel(torch, root, smi_line, outdir, runs):
             "backend": ranks[0]["backend"], "world": world}
 
 
+def capi_inputs(torch):
+    """The C client's kernel inputs at the table's shapes, on the card:
+    ``nd.FusedNormReluConv`` at IMPERATIVE_FUSED (bf16 NHWC data and HWIO
+    3x3 weight, f32 gamma, beta and moving statistics, a bf16 dO),
+    ``flash_attention`` at BERT-base ((B, S, H*D) bf16 q, k, v, dO;
+    BERT_HEADS heads), ``paged_decode_attention`` at the serving config's
+    path shape (SLOTS slots x 2 pages, f32, int32 tables and lengths)."""
+    from mxnet_tpu_torch.capi import KERNEL_INPUTS
+
+    gen = torch.Generator(device=DEVICE).manual_seed(CAPI_SEED)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=DEVICE)
+
+    n, hw, ci, co = IMPERATIVE_FUSED
+    ins = {"conv_x": randn(n, hw, hw, ci).bfloat16(),
+           "conv_w": (randn(3, 3, ci, co) * (2.0 / (9 * ci)) ** 0.5)
+           .bfloat16(),
+           "conv_gamma": torch.rand(ci, generator=gen, device=DEVICE) + 0.5,
+           "conv_beta": 0.1 * randn(ci),
+           "conv_moving_mean": torch.zeros(ci, device=DEVICE),
+           "conv_moving_var": torch.ones(ci, device=DEVICE),
+           "conv_dout": randn(n, hw, hw, co).bfloat16()}
+    for k in ("flash_q", "flash_k", "flash_v", "flash_dout"):
+        ins[k] = randn(BERT_BATCH, BERT_SEQ, BERT_UNITS).bfloat16()
+    ins["flash_heads"] = torch.tensor([BERT_HEADS], dtype=torch.int32)
+    rng = np.random.default_rng(CAPI_SEED)
+    P = -(-(max(LENGTH_BUCKETS) + MAX_NEW) // PAGE_SIZE)
+    paged = paged_inputs(torch, rng, SLOTS, P, serving_lengths(rng, SLOTS))
+    for k, t in zip(("q", "k_pages", "v_pages", "page_tables", "lengths"),
+                    paged):
+        ins[f"paged_{k}"] = t
+    expect(sorted(ins) == sorted(KERNEL_INPUTS),
+           f"the C client's inputs {sorted(ins)}")
+    return ins
+
+
+def capi_plain(torch, ins):
+    """The port's plain versions on the card, on the client's inputs:
+    ``{key: tensor}`` under the client's output keys (the fused conv and
+    flash through the registered ops under ``record()`` with their plain
+    bodies, backward from dO; paged through its plain version)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.capi import KERNEL_OUTPUTS
+    from mxnet_tpu_torch.ops import fused_conv as fc
+    from mxnet_tpu_torch.ops.paged_attention import \
+        paged_decode_attention_reference
+
+    def run(op, keys, dout, **kw):
+        args = [mx.nd.NDArray(ins[k].clone()) for k in keys]
+        n_grad = 4 if op == "FusedNormReluConv" else 3
+        for a in args[:n_grad]:
+            a.attach_grad()
+        with mx.autograd.record():
+            out = mx.nd.invoke(op, *args, **kw)
+        outs = out if isinstance(out, tuple) else (out,)
+        outs[0].backward(mx.nd.NDArray(ins[dout]))
+        return [o._data.detach() for o in outs] + \
+            [a.grad._data for a in args[:n_grad]]
+
+    with plain_versions(fc):
+        conv = run("FusedNormReluConv", ("conv_x", "conv_w", "conv_gamma",
+                                         "conv_beta", "conv_moving_mean",
+                                         "conv_moving_var"), "conv_dout")
+    with plain_versions(flash_module()):
+        flash = run("flash_attention", ("flash_q", "flash_k", "flash_v"),
+                    "flash_dout", heads=BERT_HEADS)
+    plain = paged_decode_attention_reference(*(
+        ins[f"paged_{k}"] for k in ("q", "k_pages", "v_pages",
+                                    "page_tables", "lengths")))
+    torch.cuda.synchronize()
+    keys = [k for k in KERNEL_OUTPUTS if k.startswith(("conv_", "flash_"))]
+    return {**dict(zip(keys, conv + flash)), "paged_plain": plain}
+
+
+def capi_client(torch, root, ins_path, outs_path):
+    """(a) ``capi/c_api_smoke.c`` on the card as a user runs it: a process
+    of its own in a session of its own (a timeout kills it whole), the
+    repo root on its PYTHONPATH.  Returns its stdout and wall seconds."""
+    import signal
+
+    import mxnet_tpu_torch.capi as capi
+
+    t0 = time.perf_counter()
+    exe = capi.build_client()
+    built = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([str(exe), "cuda", ins_path, outs_path],
+                            cwd=root, env=capi.client_env(),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=CAPI_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+        log(f"c_api client: killed after {CAPI_TIMEOUT_S} s")
+    wall = time.perf_counter() - t0
+    for line in out.splitlines():
+        log(f"c_api client: {line}")
+    if proc.returncode != 0:
+        for line in err.strip().splitlines()[-40:]:
+            log(f"c_api client stderr: {line}")
+    expect(proc.returncode == 0 and "all checks passed" in out,
+           f"the C client failed on the card (rc {proc.returncode})")
+    return out, built, wall
+
+
+def capi_hold(torch, ins, outs_path):
+    """Every output and gradient the client saved against the port's
+    plain versions on the same inputs: the fused-conv and flash ones
+    under ``check_outputs``' rule (F32_RTOL / BF16_RTOL of each output's
+    scale), paged within ATOL/RTOL on the active slots, its plain output
+    (``impl="jnp"``) too.  Returns the max abs err per output."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.capi import KERNEL_OUTPUTS
+
+    got = {k: v._data for k, v in
+           mx.nd.load(outs_path, ctx=mx.gpu(0)).items()}
+    expect(sorted(got) == sorted(KERNEL_OUTPUTS),
+           f"the C client saved {sorted(got)}")
+    want = capi_plain(torch, ins)
+    err = {}
+    for k in KERNEL_OUTPUTS:
+        if k.startswith("paged_"):
+            continue
+        err[k] = check_outputs(torch, f"C ABI {k}", k, [got[k]], [want[k]])
+    act = ins["paged_lengths"] > 0
+    plain = want["paged_plain"][act]
+    for k in ("paged_out", "paged_plain"):
+        e = (got[k][act] - plain).abs()
+        expect(bool(torch.isfinite(got[k]).all())
+               and bool((e <= ATOL + RTOL * plain.abs()).all()),
+               f"C ABI {k}: max abs err {float(e.max()):.3e} vs the plain "
+               f"version")
+        err[k] = float(e.max())
+    return err
+
+
+def capi_launches(torch, ins_path):
+    """(b) The library loaded into this process with ``ctypes``; the three
+    kernel invokes of the client through ``mxtpu_*`` on the same inputs,
+    every launch counter at 0 first: each kernel must launch once per
+    invoke or backward.  Returns the launches per kernel."""
+    import ctypes
+
+    import mxnet_tpu_torch.capi as capi
+    from mxnet_tpu_torch.ops import fused_conv as fc
+    from mxnet_tpu_torch.ops.paged_attention import \
+        paged_decode_attention as paged
+
+    fa = flash_module()
+    lib = capi.load()
+    P = ctypes.c_void_p
+
+    def ok(rc, what):
+        expect(rc is not None and rc != -1,
+               f"C ABI {what}: {lib.mxtpu_last_error().decode()}")
+        return rc
+
+    ok(lib.mxtpu_init_device(b"cuda"), "init")
+    handles = (P * len(capi.KERNEL_INPUTS))()
+    names = ctypes.create_string_buffer(4096)
+    n = ok(lib.mxtpu_ndarray_load(ins_path.encode(), handles, len(handles),
+                                  names, len(names)), "load")
+    h = dict(zip(names.value.decode().split("\n"), handles[:n]))
+
+    def invoke(op, keys, kw=None, n_out=1):
+        outs = (P * n_out)()
+        ok(lib.mxtpu_invoke_n(op.encode(), (P * len(keys))(*(
+            h[k] if isinstance(k, str) else k for k in keys)), len(keys),
+            kw, outs, n_out), op)
+        return list(outs)
+
+    def counts():
+        torch.cuda.synchronize()
+        return ({k: fc.norm_relu_conv.launches[k] for k in FUSED},
+                {k: fa.flash_attention.launches[k] for k in FLASH},
+                paged.launches)
+
+    def forward_backward(op, keys, n_grad, dout, kw=None, n_out=1):
+        for k in keys[:n_grad]:
+            ok(lib.mxtpu_ndarray_attach_grad(h[k]), "attach_grad")
+        ok(lib.mxtpu_autograd_set_recording(1), "record on")
+        outs = invoke(op, keys, kw, n_out)
+        prod = invoke("broadcast_mul", [outs[0], dout])[0]
+        head = invoke("sum", [prod])[0]
+        ok(lib.mxtpu_autograd_set_recording(0), "record off")
+        after_fwd = counts()
+        ok(lib.mxtpu_backward(head), f"{op} backward")
+        for x in (*outs, prod, head):
+            lib.mxtpu_ndarray_free(x)
+        return after_fwd, counts()
+
+    fc.norm_relu_conv.launches = dict.fromkeys(FUSED, 0)
+    fa.flash_attention.launches = dict.fromkeys(FLASH, 0)
+    paged.launches = 0
+    conv0, conv1 = dict.fromkeys(FUSED, 0), dict.fromkeys(FUSED, 1)
+    flash0, flash1 = dict.fromkeys(FLASH, 0), dict.fromkeys(FLASH, 1)
+    seen = forward_backward("FusedNormReluConv", (
+        "conv_x", "conv_w", "conv_gamma", "conv_beta", "conv_moving_mean",
+        "conv_moving_var"), 4, h["conv_dout"], n_out=3)
+    expect(seen == (({**conv0, "fwd": 1}, flash0, 0), (conv1, flash0, 0)),
+           f"C ABI FusedNormReluConv launched (after the invoke, after "
+           f"backward) {seen}, expected fwd once, then dx and dw once")
+    heads = f'{{"heads": {BERT_HEADS}}}'.encode()
+    seen = forward_backward("flash_attention", ("flash_q", "flash_k",
+                                                "flash_v"), 3,
+                            h["flash_dout"], heads)
+    expect(seen == ((conv1, {**flash0, "fwd": 1}, 0), (conv1, flash1, 0)),
+           f"C ABI flash_attention launched (after the invoke, after "
+           f"backward) {seen}, expected fwd once, then dq and dkv once")
+    keys = tuple(f"paged_{k}" for k in ("q", "k_pages", "v_pages",
+                                        "page_tables", "lengths"))
+    for kw, want in ((None, 1), (b'{"impl": "jnp"}', 1)):
+        lib.mxtpu_ndarray_free(invoke("paged_decode_attention", keys, kw)[0])
+        expect(counts()[2] == want, f"C ABI paged_decode_attention "
+               f"(kwargs {kw}) left {counts()[2]} launches, expected {want}")
+    launches = {**{f"fused_conv_{k}": v
+                   for k, v in fc.norm_relu_conv.launches.items()},
+                **{f"flash_attention_{k}": v
+                   for k, v in fa.flash_attention.launches.items()},
+                "paged_decode_attention": paged.launches}
+    for x in handles[:n]:
+        lib.mxtpu_ndarray_free(x)
+    ok(lib.mxtpu_shutdown(), "shutdown")
+    return launches
+
+
+def c_abi(torch, root, smi_line):
+    """The "C ABI" phase (23 above).  Returns each kernel's launches
+    through ``mxtpu_*`` in this process."""
+    import shutil
+
+    import mxnet_tpu_torch as mx
+    import mxnet_tpu_torch.capi as capi
+
+    tmp = tempfile.mkdtemp(prefix="capi-")
+    try:
+        t0 = time.perf_counter()
+        lib = capi.build()
+        lib_s = time.perf_counter() - t0
+        ins = capi_inputs(torch)
+        ins_path = os.path.join(tmp, "inputs.npz")
+        outs_path = os.path.join(tmp, "outputs.npz")
+        mx.nd.save(ins_path, {k: mx.nd.NDArray(v) for k, v in ins.items()})
+        out, client_build_s, wall = capi_client(torch, root, ins_path,
+                                                outs_path)
+        err = capi_hold(torch, ins, outs_path)
+        launches = capi_launches(torch, ins_path)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    losses = next(ln for ln in out.splitlines()
+                  if ln.startswith("c_api mlp losses:"))
+    import sysconfig
+    log(f"c_api python: headers {sysconfig.get_paths()['include']}, "
+        + ", ".join(f"{k} {sysconfig.get_config_var(k)}" for k in
+                    ("Py_ENABLE_SHARED", "LDLIBRARY", "LIBDIR")))
+    log(f"c_api numbers [{card_line(smi_line)}]: {os.path.basename(lib)} "
+        f"built in {lib_s:.2f} s, the client in {client_build_s:.2f} s; "
+        f"the client's wall time on the card {wall:.2f} s (its start-up, "
+        f"the MLP's 30 steps and the kernel section); {losses}")
+    log("c_api kernels vs the plain versions, max abs err: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in err.items())
+        + f" (bf16 rtol {BF16_RTOL}, f32 rtol {F32_RTOL} of each output's "
+        f"scale; paged atol {ATOL}, rtol {RTOL})")
+    log(f"c_api launches through mxtpu_* in this process: {launches}")
+    return launches
+
+
 class phase:
     """Print a phase's wall time on its own line when it ends."""
 
@@ -9433,6 +9729,10 @@ def main():
         if sys.argv[1:] == ["--tp"]:
             with phase("model parallel: tp, checkpoints, tp serving"):
                 model_parallel(torch, root, smi_line, runs=("tp",))
+            return 0
+        if sys.argv[1:] == ["--capi"]:
+            with phase("C ABI"):
+                c_abi(torch, root, smi_line)
             return 0
         with phase("imperative"):
             # first: its backward is the first CUDA work of autograd's
@@ -9654,6 +9954,10 @@ def main():
             torch.cuda.empty_cache()
         with phase("model parallel"):
             mp = model_parallel(torch, root, smi_line)
+            gc.collect()
+            torch.cuda.empty_cache()
+        with phase("C ABI"):
+            capi = c_abi(torch, root, smi_line)
     except SmokeError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -9673,6 +9977,8 @@ def main():
         k: tp_kernel[k] for k in ("ms", "bound_ms", "plain_ms")}
     kernels["kernels"][0]["launches_by_path"]["serve tp"] = \
         mp["serve"]["launches"]
+    kernels["kernels"][0]["launches_by_path"]["c_api"] = \
+        capi["paged_decode_attention"]
     for kern in FUSED:
         kname, t = f"fused_conv_{kern}", fused_times[kern]
         kernels["kernels"].append({
@@ -9696,7 +10002,8 @@ def main():
                                      if kern == "fwd" else 0,
                                  "estimator":
                                      extras["estimator"]["launches"][kern],
-                                 "dp": dp["launches"][kern]}})
+                                 "dp": dp["launches"][kern],
+                                 "c_api": capi[kname]}})
         if kern == "fwd":
             kernels["kernels"][-1]["serving_small_n"] = {
                 f"N={n}": {"ms_per_launch": t["ms"] / FUSED_PER_STEP,
@@ -9724,7 +10031,8 @@ def main():
                                  "mp fsdp": mp["flash"]["fsdp"][kern],
                                  "ckpt": mp["ckpt"][kern],
                                  "bert_pretrain":
-                                     dp["bert_pretrain"][kern]}})
+                                     dp["bert_pretrain"][kern],
+                                 "c_api": capi[kname]}})
     print(json.dumps(kernels), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {

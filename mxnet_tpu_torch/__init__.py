@@ -99,6 +99,8 @@ connects its coordination service at import.
 """
 import os as _os
 
+__version__ = "0.1.0"       # the JAX package's; the C ABI reports it
+
 from . import base, config, storage
 from . import (amp, autograd, context, elastic, engine, gluon, image, initializer,
                io, lr_scheduler, metric, ndarray, optimizer, parallel,

@@ -16,7 +16,9 @@ package builds the same sources with ``make -C src`` into its own
 ``_lib/``; the port never writes there.  Where no compiler or no header
 is found the load fails, ``native_status()`` says why, and each caller
 runs its pure-Python twin and says so (``recordio.native()``,
-``storage.pool_info()["native"]``).
+``storage.pool_info()["native"]``).  ``hashed_lib_path`` and
+``compile_native`` (the compile and the rename) also build the C ABI
+and its C clients (``capi``).
 """
 from __future__ import annotations
 
@@ -34,7 +36,8 @@ import torch
 
 __all__ = ["MXNetError", "dtype_torch", "dtype_np", "dtype_name",
            "string_types", "numeric_types", "load_native_lib",
-           "native_status", "NATIVE_LIBS"]
+           "native_status", "NATIVE_LIBS", "hashed_lib_path",
+           "compile_native"]
 
 
 class MXNetError(RuntimeError):
@@ -105,33 +108,58 @@ _native = {}          # name -> CDLL or None, failures included
 _native_info = {}     # name -> {"loaded", "path", "seconds", "error"}
 
 
+def hashed_lib_path(name, sources, flags, suffix=".so"):
+    """``BUILD_DIR/<name>-<hash><suffix>``, the hash over every source's
+    bytes and the flags, so an edited source or another flag rebuilds."""
+    h = hashlib.sha256()
+    for src in sources:
+        h.update(Path(src).read_bytes())
+    h.update(" ".join(flags).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}{suffix}"
+
+
+# language -> (environment variable naming the compiler, the default)
+_COMPILERS = {"C++": ("CXX", "g++"), "C": ("CC", "cc")}
+
+
+def compile_native(out, sources, flags, libs=(), what=None, lang="C++"):
+    """Compile ``sources`` (``lang``: ``"C++"`` with ``$CXX`` or g++,
+    ``"C"`` with ``$CC`` or cc) with ``flags`` into ``out``, a shared
+    library or a program, unless it is built; returns ``out``.  Writes a
+    temporary file and renames it into place, so processes building at
+    once never see half a file.  Raises ``RuntimeError`` with the
+    compiler's words when it fails."""
+    if out.exists():
+        return out
+    env, default = _COMPILERS[lang]
+    cc = os.environ.get(env) or shutil.which(default)
+    if not cc:
+        raise RuntimeError(f"no {lang} compiler ({default}) found")
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}."
+                        f"{threading.get_ident()}.tmp")
+    res = subprocess.run([cc, *flags, "-o", str(tmp),
+                          *(str(s) for s in sources), *libs],
+                         capture_output=True, text=True, timeout=300)
+    if res.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"{cc} failed for {what or sources[0]} (exit "
+                           f"{res.returncode}): {res.stderr.strip()}")
+    os.replace(tmp, out)       # atomic: a reader never sees half a file
+    return out
+
+
 def _native_path(name):
     source, libs = NATIVE_LIBS[name]
     src = SRC_DIR / source
-    h = hashlib.sha256(src.read_bytes())
-    h.update(" ".join(CXX_FLAGS + libs).encode())
-    return src, libs, BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+    return src, libs, hashed_lib_path(name, [src], CXX_FLAGS + libs)
 
 
 def _build_native(name):
     """Compile ``name`` unless built; returns its path.  Raises
     ``RuntimeError`` with the compiler's words when it fails."""
     src, libs, out = _native_path(name)
-    if out.exists():
-        return out
-    cxx = os.environ.get("CXX") or shutil.which("g++")
-    if not cxx:
-        raise RuntimeError("no C++ compiler (g++) found")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-    res = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(src), *libs],
-                         capture_output=True, text=True, timeout=300)
-    if res.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"{cxx} failed for src/{src.name} (exit "
-                           f"{res.returncode}): {res.stderr.strip()}")
-    os.replace(tmp, out)       # atomic: a reader never sees half a file
-    return out
+    return compile_native(out, [src], CXX_FLAGS, libs, f"src/{src.name}")
 
 
 def load_native_lib(name):

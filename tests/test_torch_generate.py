@@ -24,6 +24,7 @@ float32 sums taken in another order cannot flip a token.
 import gc
 import ast
 import os
+import re
 import subprocess
 import sys
 import time
@@ -720,7 +721,7 @@ def test_port_sources_import_no_jax_statically():
                 "parallel/mesh.py", "parallel/sharding.py",
                 "parallel/quantize.py", "parallel/placement.py",
                 "parallel/sequence.py", "parallel/pipeline.py",
-                "parallel/moe.py", "ops/moe.py"):
+                "parallel/moe.py", "ops/moe.py", "capi/__init__.py"):
         assert os.path.join(REPO, "mxnet_tpu_torch", mod) in sources
     for path in sources:
         tree = ast.parse(open(path, encoding="utf-8").read(), path)
@@ -733,6 +734,17 @@ def test_port_sources_import_no_jax_statically():
             for n in names:
                 if n.split(".")[0] in ("jax", "jaxlib", "mxnet_tpu"):
                     found.append((path, n))
+    # the C ABI's embedded imports: the port, numpy, torch, the standard
+    # library
+    cc = os.path.join(REPO, "mxnet_tpu_torch", "capi", "c_api.cc")
+    imported = re.findall(r'PyImport_ImportModule\(\s*"([^"]+)"',
+                          open(cc, encoding="utf-8").read())
+    assert "mxnet_tpu_torch.ndarray" in imported
+    for n in imported:
+        top = n.split(".")[0]
+        if not (top in ("mxnet_tpu_torch", "numpy", "torch")
+                or top in sys.stdlib_module_names):
+            found.append((cc, n))
     assert not found, found
 
 

@@ -66,6 +66,11 @@ def test_listed_gaps_are_still_gaps():
     assert listed <= missing, sorted(listed - missing)
 
 
+def test_version_is_the_jax_packages():
+    """``__version__``, which the C ABI's ``mxtpu_version()`` reports."""
+    assert tmx.__version__ == jmx.__version__ == "0.1.0"
+
+
 def test_amp_has_the_int8_quantization():
     names = {"quantize_weight", "dequantize_weight", "Int8Quantizer"}
     assert names <= _public(jmx.amp) and names <= _public(tmx.amp)
