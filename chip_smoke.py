@@ -90,7 +90,10 @@ weights from a seed:
   and ``examples/dist_train.py`` as written;
 - the C ABI: a C program linked against ``libmxtpu_capi`` trains the
   MLP of the JAX package's C client and reaches all seven kernels
-  through ``mxtpu_invoke`` at the shapes above.
+  through ``mxtpu_invoke`` at the shapes above;
+- the operational tools: every mode of the chaos harness
+  (``python -m mxnet_tpu_torch.tools.chaos_check``; its tensor-parallel
+  LLM leg at the serving width above), ``im2rec`` and ``bandwidth``.
 
 Phases, each of which fails the run (each prints its wall time):
 
@@ -143,7 +146,7 @@ Phases, each of which fails the run (each prints its wall time):
    iterator's own img/s; (d) the captured bf16 fused ResNet-50
    ``TrainStep`` (9's settings) fed by the example's loop body (NHWC
    transpose and bf16 cast on the card) through
-   ``DevicePrefetcher(depth=2)``: 2 warm-up and 20 timed steps (loss
+   ``DevicePrefetcher(depth=2)``: 2 warm-up and 10 timed steps (loss
    finite, 32 replayed launches of each fused kernel a step), a profiled
    step, the wait split; then the same through ``DataLoader(pin_memory=
    True)`` over host images; its img/s is printed in 9 beside the
@@ -519,6 +522,27 @@ Phases, each of which fails the run (each prints its wall time):
     and client seconds, the loss trajectory and the max errors printed
     beside the card's name and power limit.
 
+24. the operational tools (``mxnet_tpu_torch/tools``): (a) every mode
+    of ``python -m mxnet_tpu_torch.tools.chaos_check`` (train, serve,
+    fleet, llm, elastic, slo, obs, ckpt) on the card as a user runs it,
+    CHAOS_PARALLEL at a time and then slo and obs alone, each in a
+    session of its own killed whole past CHAOS_TIMEOUT_S: each must exit
+    0 with its PASS line; the llm mode's tensor-parallel leg serves the
+    serve phase's configuration (a gang of two gloo ranks sharing the
+    card) through the paged kernel, LAYERS launches a decode step on the
+    leader; each mode's kernel launches, counted from 0 in its processes
+    (the ``chaos`` entry of the paged kernel's ``launches_by_path``; no
+    other kernel may launch); (b) ``python -m
+    mxnet_tpu_torch.tools.im2rec`` lists and packs a seeded folder of
+    PNGs the phase writes (beside the modes), and ``io.ImageRecordIter``
+    reads the records on the card, the same bits as under ``mx.cpu()``;
+    (c) the sweep of ``mxnet_tpu_torch.tools.bandwidth`` in the world of
+    one over NCCL (``distributed.init`` with one process, here) at
+    BANDWIDTH_SIZES floats, each row holding its pulls to the pushed
+    sums.  Each mode's PASS line and seconds, the kernel's chaos
+    launches and the bandwidth rows are printed beside the card's name
+    and power limit.
+
 Prints one JSON ``kernels`` line, then the card line, then as the last
 line ``{"ok": true, "device": {...}}``.  Without a card, or without the
 package beside it, it exits non-zero and prints no result.
@@ -527,7 +551,8 @@ package beside it, it exits non-zero and prints no result.
 not measured), ``--dp`` the build and phase 21 alone, ``--mp`` the
 build and phase 22 alone, ``--tp`` the build and phase 22's tp
 sub-phase with (f) and (g) alone, ``--capi`` the build and phase 23
-alone; none of them prints a result line.
+alone, ``--chaos`` the build and phase 24 alone; none of them prints a
+result line.
 """
 from __future__ import annotations
 
@@ -644,7 +669,7 @@ BWD_ERR_FACTOR = 2.0
 MNIST_EPOCHS, MNIST_MIN_ACC, MNIST_SHUFFLE_SEED = 3, 0.95, 0
 REC_COUNT, REC_HW, REC_CLASSES, REC_BATCH = 1024, 256, 10, 256
 REC_RATE_BATCHES = 8             # batches timed for the iterator alone
-FED_STEPS = 20                   # timed steps of the fed ResNet-50
+FED_STEPS = 10                   # timed steps of the fed ResNet-50
 STREAM_BATCH, STREAM_STEPS, STREAM_SLEEP_S = (64, 3, 224, 224), 16, 0.02
 IMAGE_F32_ATOL = 1e-5            # image ops, card vs host, on [0, 1]
 # model check: kernel route vs plain route, per leaf, in units of the
@@ -660,7 +685,7 @@ MODEL_FLOOR_FACTOR, MODEL_MIN_FLOOR = 3.0, 1e-6
 RESUME_NET, RESUME_TARGET, RESUME_EVERY = "resnet50_fused", 10, 2
 RESUME_SAVED = (3, 6)
 RESUME_TURNS = 10
-RESUME_STEP_SLEEP = 0.5
+RESUME_STEP_SLEEP = 0.25
 RESUME_KILL, RESUME_TERM = (5, 4), 7
 RESUME_TIMEOUT_S = 300           # a supervised run's limit
 # the LSTM language model (bench.py bench_lstm's settings): vocab, embed
@@ -767,9 +792,9 @@ MP_PROFILED = ("tp", "fsdp")
 MP_GRAD_SAMPLE = 8192
 GANG_PLATFORM, GANG_SCRIPT = "gpu", None
 # examples/bert_pretrain.py in phase 21's example gang, as written (its
-# bf16 BERT-base, LAMB, batch 64 x 128 a rank): 12 layers, 4 steps; and
+# bf16 BERT-base, LAMB, batch 64 x 128 a rank): 12 layers, 2 steps; and
 # the arguments of its flash run, which stops at its first forward
-BERT_PRETRAIN_ARGS = ["--layers", "12", "--num-steps", "4"]
+BERT_PRETRAIN_ARGS = ["--layers", "12", "--num-steps", "2"]
 BERT_PRETRAIN_FLASH_ARGS = ["--layers", "1", "--num-steps", "1",
                             "--attention", "flash"]
 FLASH_REFUSAL = "attention_impl='flash' does not support valid_length masks"
@@ -783,6 +808,21 @@ TP_MODES = ("f32", "int8", "int8 again", "f32 disaggregated")
 # its own, killed whole past it), the seed of its inputs
 CAPI_TIMEOUT_S = 300
 CAPI_SEED = 23
+# phase 24, the operational tools: chaos_check's modes (longest first),
+# run CHAOS_PARALLEL at a time, then CHAOS_ALONE one at a time (their
+# contracts read times on the host: slo an abusive tenant's rate and
+# tail latencies, which a loaded host's saturated fleet distorts by
+# shedding the abuser before its bucket throttles it; obs each request's
+# span tree, accounted within 75 ms, which a batch thread stalled by
+# three sibling modes can outlast), each a session of its own killed
+# whole past CHAOS_TIMEOUT_S; im2rec's seeded PNG folder (classes x
+# images of CHAOS_IMAGE_HW); bandwidth's sizes in floats
+CHAOS_MODES = ("llm", "elastic", "ckpt", "fleet", "serve", "train")
+CHAOS_ALONE = ("slo", "obs")
+CHAOS_PARALLEL = 4
+CHAOS_TIMEOUT_S = 300
+CHAOS_CLASSES, CHAOS_PER_CLASS, CHAOS_IMAGE_HW = 3, 8, (48, 40)
+BANDWIDTH_SIZES = "1e5,1e6,1e7"
 
 
 def log(msg):
@@ -9666,6 +9706,262 @@ def c_abi(torch, root, smi_line):
     return launches
 
 
+def tool_env(root):
+    env = dict(os.environ)
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    return env
+
+
+def chaos_modes(root, tmp):
+    """(a) Every mode of ``python -m mxnet_tpu_torch.tools.chaos_check``
+    on the card as a user runs it (no ``--device``: the card), each in a
+    session of its own killed whole past CHAOS_TIMEOUT_S: CHAOS_MODES
+    CHAOS_PARALLEL at a time, then CHAOS_ALONE one at a time.  Returns
+    each mode's seconds, launches and PASS line, and the wall time."""
+    t0 = time.perf_counter()
+    done = run_modes(root, tmp, CHAOS_MODES, CHAOS_PARALLEL)
+    done.update(run_modes(root, tmp, CHAOS_ALONE, 1))
+    wall = time.perf_counter() - t0
+    res = {}
+    for mode in CHAOS_MODES + CHAOS_ALONE:
+        r = done[mode]
+        lines = r["text"].splitlines()
+        passed = [ln for ln in lines if ln.startswith("[chaos_check] PASS: ")]
+        if r["rc"] != 0 or not passed:
+            for ln in lines[-60:]:
+                log(f"chaos {mode}: {ln}")
+        expect(r["rc"] == 0 and passed, f"chaos_check --mode {mode} failed "
+               f"(rc {r['rc']})")
+        launches = json.loads(next(
+            ln for ln in lines if ln.startswith("[chaos_check] launches "))
+            .split(" ", 2)[2])
+        res[mode] = {"s": r["s"], "launches": launches, "pass": passed[-1],
+                     "lines": lines}
+    return res, wall
+
+
+def run_modes(root, tmp, modes, parallel):
+    """Run the chaos modes ``parallel`` at a time; each one's exit code,
+    output and seconds."""
+    import signal
+
+    pending, running, done = list(modes), {}, {}
+    while pending or running:
+        while pending and len(running) < parallel:
+            mode = pending.pop(0)
+            out = open(os.path.join(tmp, f"{mode}.log"), "w")
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "mxnet_tpu_torch.tools.chaos_check",
+                 "--mode", mode], cwd=root, env=tool_env(root), stdout=out,
+                stderr=subprocess.STDOUT, start_new_session=True)
+            running[mode] = (proc, out, time.perf_counter())
+        for mode, (proc, out, start) in list(running.items()):
+            rc = proc.poll()
+            if rc is None and time.perf_counter() - start > CHAOS_TIMEOUT_S:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+                rc = f"killed after {CHAOS_TIMEOUT_S} s"
+            if rc is None:
+                continue
+            out.close()
+            text = open(os.path.join(tmp, f"{mode}.log")).read()
+            done[mode] = {"rc": rc, "text": text,
+                          "s": time.perf_counter() - start}
+            del running[mode]
+        time.sleep(0.1)
+    return done
+
+
+def im2rec_start(root, tmp):
+    """(b) ``python -m mxnet_tpu_torch.tools.im2rec prefix folder`` (it
+    lists the folder, then packs it) on a seeded PNG folder the phase
+    writes, started beside the chaos modes; returns the process and the
+    path of its output."""
+    from PIL import Image
+
+    imgs = os.path.join(tmp, "imgs")
+    rng = np.random.RandomState(0)
+    h, w = CHAOS_IMAGE_HW
+    for c in range(CHAOS_CLASSES):
+        os.makedirs(os.path.join(imgs, f"class{c}"))
+        for i in range(CHAOS_PER_CLASS):
+            Image.fromarray((rng.rand(h + c, w + i, 3) * 255).astype(
+                np.uint8)).save(os.path.join(imgs, f"class{c}",
+                                             f"img{i}.png"))
+    path = os.path.join(tmp, "im2rec.log")
+    with open(path, "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "mxnet_tpu_torch.tools.im2rec",
+             os.path.join(tmp, "data"), imgs], cwd=root, env=tool_env(root),
+            stdout=out, stderr=subprocess.STDOUT)
+    return proc, path
+
+
+def chaos_im2rec(packing, tmp):
+    """(b) The packing's result; ``io.ImageRecordIter`` reads the records
+    on the card: every batch on the card, the same bits as the iterator
+    under ``mx.cpu()``, every class present."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import io as mio
+
+    proc, path = packing
+    try:
+        rc = proc.wait(timeout=CHAOS_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        rc = proc.wait()
+    out = open(path).read()
+    expect(rc == 0, f"im2rec failed (rc {rc}): {out[-2000:]}")
+    n = CHAOS_CLASSES * CHAOS_PER_CLASS
+    prefix = os.path.join(tmp, "data")
+    expect(f"packed {n} images" in out and os.path.exists(prefix + ".lst"),
+           f"im2rec: {out}")
+    kw = dict(path_imgrec=prefix + ".rec", data_shape=(3, 32, 32),
+              batch_size=8, shuffle=True, rand_mirror=True, seed=5)
+
+    def read():
+        return [(b.data[0], b.label[0]) for b in mio.ImageRecordIter(**kw)]
+    card = read()
+    with mx.cpu():
+        host = read()
+    expect(len(card) == len(host) == n // 8, f"im2rec: {len(card)} batches")
+    for (x, y), (hx, hy) in zip(card, host):
+        expect(x.context.device_type == "gpu", f"im2rec: batch on "
+               f"{x.context}")
+        expect(np.array_equal(x.asnumpy(), hx.asnumpy()) and
+               np.array_equal(y.asnumpy(), hy.asnumpy()),
+               "im2rec: the card's batch differs from the host's")
+    labels = sorted({int(v) for _, y in card for v in y.asnumpy()})
+    expect(labels == list(range(CHAOS_CLASSES)), f"im2rec: labels {labels}")
+    return {"records": n, "bytes": os.path.getsize(prefix + ".rec")}
+
+
+def chaos_bandwidth(torch, root, tmp):
+    """(c) ``mxnet_tpu_torch.tools.bandwidth``'s sweep on the card, each
+    row holding its pulls to the pushed sums exactly: (1) the ``device``
+    store in the world of one over NCCL (``distributed.init`` with one
+    process, in this process, as ``launch -n 1`` makes it); that store
+    merges nothing over the group, so these rows are the store's local
+    push and pull on the card and no byte crosses NCCL; (2) the
+    ``dist_sync_device`` store under ``launch -n 2``, two ranks on the
+    one card, so every push is summed over the gang by
+    ``distributed.all_sum``: over gloo through the host, as NCCL takes
+    no two ranks on one card.  Returns [(header, rows)] of both."""
+    import signal
+    import socket
+
+    from mxnet_tpu_torch import distributed
+    from mxnet_tpu_torch.tools import bandwidth
+
+    sizes = [int(float(v)) for v in BANDWIDTH_SIZES.split(",")]
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    distributed.init(coordinator=f"127.0.0.1:{port}", num_processes=1,
+                     process_id=0)
+    try:
+        backend = distributed.backend()
+        local = bandwidth.measure("device", sizes, emit_json=True,
+                                  device="cuda")
+    finally:
+        distributed.shutdown()
+        torch.cuda.empty_cache()
+    expect(backend == "nccl", f"bandwidth: the world of one is over "
+           f"{backend}, not NCCL")
+    expect([r["size"] for r in local] == sizes, f"bandwidth rows {local}")
+
+    path = os.path.join(tmp, "bandwidth_gang.log")
+    with open(path, "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "mxnet_tpu_torch.launch", "-n", "2",
+             sys.executable, "-m", "mxnet_tpu_torch.tools.bandwidth",
+             "--kvstore", "dist_sync_device", "--json", "--sizes",
+             BANDWIDTH_SIZES], cwd=root, env=tool_env(root), stdout=out,
+            stderr=subprocess.STDOUT, start_new_session=True)
+        try:
+            rc = proc.wait(timeout=CHAOS_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+            rc = f"killed after {CHAOS_TIMEOUT_S} s"
+    lines = [ln.split("] ", 1)[1] for ln in open(path).read().splitlines()
+             if ln.startswith("[r0] ")]
+    head = next((ln for ln in lines if ln.startswith("# kvstore")), "")
+    gang = [json.loads(ln) for ln in lines if ln.startswith("{")]
+    if rc != 0 or [r["size"] for r in gang] != sizes:
+        for ln in open(path).read().splitlines()[-40:]:
+            log(f"bandwidth gang: {ln}")
+    expect(rc == 0, f"bandwidth under launch -n 2 failed (rc {rc})")
+    expect([r["size"] for r in gang] == sizes and "world 2 over gloo" in
+           head, f"bandwidth under launch -n 2: {head} {gang}")
+    return [(f"kvstore device on cuda:0 (a local store: the world of one "
+             f"over {backend} is set up, no push crosses it)", local),
+            (f"{head[2:]} (two ranks on the one card, each push summed "
+             f"over the gang)", gang)]
+
+
+def chaos_phase(torch, root, smi_line):
+    """The "operational tools" phase (24 above).  Returns the launches of
+    each hand-written kernel summed over the chaos modes."""
+    import shutil
+
+    tmp = tempfile.mkdtemp(prefix="chaos-")
+    packing = None
+    try:
+        packing = im2rec_start(root, tmp)
+        modes, wall = chaos_modes(root, tmp)
+        rec = chaos_im2rec(packing, tmp)
+        sweeps = chaos_bandwidth(torch, root, tmp)
+    finally:
+        if packing and packing[0].poll() is None:
+            packing[0].kill()
+            packing[0].wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = {}
+    for mode, r in modes.items():
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        log(f"chaos {mode}: {r['s']:.1f} s, launches {r['launches']}; "
+            f"{r['pass']}")
+    tp = next((ln for ln in modes["llm"]["lines"]
+               if "[r0] [chaos_check] llm: accepted=" in ln), "")
+    lead = next((ln for ln in modes["llm"]["lines"]
+                 if "tp leader launched" in ln), "")
+    log(f"chaos llm (tp=2 gang at {VOCAB}/{LAYERS}x{HEADS}x{HEAD_DIM}/"
+        f"{D_FF}, {SLOTS} slots, {N_PAGES} pages x {PAGE_SIZE}): "
+        f"{tp.split('] ', 2)[-1]}; {lead.split('] ', 1)[-1]}")
+    # each rank's own launches: LAYERS a decode step the leader counted,
+    # and the warm-up's one step
+    ranks = json.loads(next(
+        ln for ln in modes["llm"]["lines"]
+        if ln.startswith("[chaos_check] llm tp ranks ")).split(" ", 4)[4])
+    steps = ranks["leader"]["decode_steps"]
+    for who, r in ranks.items():
+        got = r["launches"].get("paged_decode_attention", 0)
+        expect(steps > 0 and got == LAYERS * (steps + 1),
+               f"chaos llm: the tp {who} launched the paged kernel {got} "
+               f"times, not {LAYERS} for each of the leader's {steps} decode "
+               f"steps and the warm-up's")
+    expect(set(launches) <= {"paged_decode_attention"},
+           f"chaos: unexpected kernels launched {launches}")
+    log(f"chaos: {len(modes)} modes PASS in {wall:.1f} s of wall "
+        f"({CHAOS_PARALLEL} at a time, then {', '.join(CHAOS_ALONE)} "
+        f"alone); the paged kernel launched "
+        f"{launches.get('paged_decode_attention', 0)} times over the modes "
+        f"(llm {modes['llm']['launches'].get('paged_decode_attention', 0)}"
+        f", slo {modes['slo']['launches'].get('paged_decode_attention', 0)}"
+        f", obs {modes['obs']['launches'].get('paged_decode_attention', 0)}"
+        f") {card_line(smi_line)}")
+    log(f"chaos im2rec: {rec['records']} records, {rec['bytes']} bytes, "
+        f"listed and packed by one process beside the chaos modes, read "
+        f"by ImageRecordIter on the card the same bits as on the host")
+    for header, rows in sweeps:
+        log(f"chaos bandwidth {card_line(smi_line)}: {header}; " + "; ".join(
+            f"{r['size']} floats {r['avg_roundtrip_ms']} ms a round trip = "
+            f"{r['GB_per_s']} GB/s" for r in rows))
+    return launches
+
+
 class phase:
     """Print a phase's wall time on its own line when it ends."""
 
@@ -9733,6 +10029,10 @@ def main():
         if sys.argv[1:] == ["--capi"]:
             with phase("C ABI"):
                 c_abi(torch, root, smi_line)
+            return 0
+        if sys.argv[1:] == ["--chaos"]:
+            with phase("operational tools"):
+                chaos_phase(torch, root, smi_line)
             return 0
         with phase("imperative"):
             # first: its backward is the first CUDA work of autograd's
@@ -9958,6 +10258,10 @@ def main():
             torch.cuda.empty_cache()
         with phase("C ABI"):
             capi = c_abi(torch, root, smi_line)
+            gc.collect()
+            torch.cuda.empty_cache()
+        with phase("operational tools"):
+            chaos = chaos_phase(torch, root, smi_line)
     except SmokeError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -9979,6 +10283,8 @@ def main():
         mp["serve"]["launches"]
     kernels["kernels"][0]["launches_by_path"]["c_api"] = \
         capi["paged_decode_attention"]
+    kernels["kernels"][0]["launches_by_path"]["chaos"] = \
+        chaos.get("paged_decode_attention", 0)
     for kern in FUSED:
         kname, t = f"fused_conv_{kern}", fused_times[kern]
         kernels["kernels"].append({

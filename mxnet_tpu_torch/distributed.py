@@ -25,9 +25,17 @@ scripts call it unconditionally.  With a coordinator and a world of one
 (``-n 1`` under the launcher) it makes a process group of one rank, so
 the NCCL communicator and the collectives of a one-card run are the
 real ones (the JAX package's ``init`` returns without a service there).
+
+A process that joined leaves at exit (``atexit``): ``shutdown()`` runs
+before the interpreter tears down, so the group and rank 0's store are
+destroyed while Python still runs them.  Left to the interpreter's own
+teardown, rank 0's store thread could be destroyed unjoined and the
+process abort ("terminate called without an active exception") after
+its work was done, failing its gang.
 """
 from __future__ import annotations
 
+import atexit
 import datetime
 import logging
 import math
@@ -50,6 +58,7 @@ _logger = logging.getLogger(__name__)
 _state = {"store": None, "backend": None, "device": None, "rank": 0,
           "world": 1}
 _epoch = 0                # completed init -> shutdown round trips
+_leave_registered = False
 _barrier_seq = {}         # name -> calls so far (same order on every rank)
 
 
@@ -83,6 +92,25 @@ def _pick_backend(store, process_id, num_processes, dev):
     if any(c == "cpu" for c in cards):
         return "gloo", cards
     return ("nccl" if len(set(cards)) == num_processes else "gloo"), cards
+
+
+def _held_store_socket(port):
+    """The descriptor of the launcher's listening socket on ``port``,
+    which rank 0 inherits (``elastic.STORE_FD_ENV``), or None.  Taken
+    once: a retried connect, or a later ``init``, binds the port
+    itself."""
+    from .elastic import STORE_FD_ENV
+
+    fd = os.environ.pop(STORE_FD_ENV, None)
+    if not fd:
+        return None
+    try:
+        with socket.socket(fileno=os.dup(int(fd))) as s:
+            if s.getsockname()[1] != port:
+                return None
+    except (OSError, ValueError):
+        return None
+    return int(fd)
 
 
 def init(coordinator=None, num_processes=None, process_id=None,
@@ -136,9 +164,19 @@ def init(coordinator=None, num_processes=None, process_id=None,
 
     def _connect():
         _fault.fire("distributed.connect")
-        store = dist.TCPStore(host, int(port), num_processes,
-                              process_id == 0, timeout=wait,
-                              wait_for_workers=True)
+        held = _held_store_socket(int(port)) if process_id == 0 else None
+        try:
+            store = dist.TCPStore(host, int(port), num_processes,
+                                  process_id == 0, timeout=wait,
+                                  wait_for_workers=True,
+                                  master_listen_fd=held)
+        except Exception:
+            if held is not None:     # let a retry bind the port itself
+                try:
+                    os.close(held)
+                except OSError:
+                    pass
+            raise
         chosen, cards = _pick_backend(store, process_id, num_processes, dev)
         dist.init_process_group(chosen, store=store, rank=process_id,
                                 world_size=num_processes, timeout=wait)
@@ -156,10 +194,23 @@ def init(coordinator=None, num_processes=None, process_id=None,
         giveup=lambda e: "twice" in str(e) or "already" in str(e))
     _state.update(store=store, backend=chosen, device=dev,
                   rank=process_id, world=num_processes)
+    global _leave_registered
+    if not _leave_registered:
+        atexit.register(_leave_at_exit)
+        _leave_registered = True
     _logger.info("distributed.init: rank %d/%d on %s over %s (cards %s)",
                  process_id, num_processes, dev, chosen, cards)
     from . import random as _random
     _random._refold()
+
+
+def _leave_at_exit():
+    """``shutdown()`` at interpreter exit (a no-op if already left)."""
+    try:
+        shutdown()
+    except Exception:   # noqa: BLE001 — exiting anyway; never mask it
+        _logger.warning("distributed: leaving the group at exit failed",
+                        exc_info=True)
 
 
 def shutdown():

@@ -96,6 +96,9 @@ EXIT_PREEMPTED = 43       # snapshot-then-exit (the GracefulExit path)
 EXIT_NONFINITE = 44       # non-finite abort (TrainStep nonfinite_budget)
 
 HEARTBEAT_ENV = "MXTPU_HEARTBEAT_DIR"
+# rank 0's copy of the coordinator's listening socket (a descriptor
+# number): ``distributed.init`` serves the TCPStore on it
+STORE_FD_ENV = "MXTPU_STORE_FD"
 
 
 class NonFiniteAbortError(RuntimeError):
@@ -339,10 +342,21 @@ class EventLog:
         self._sink.close()
 
 
-def _free_port(host="127.0.0.1"):
-    with socket.socket() as s:
+def _store_socket(host="127.0.0.1"):
+    """A listening socket on a free port of ``host``: the coordinator's
+    (rank 0's ``TCPStore``) port, held from the moment it is chosen.
+    Rank 0 inherits it (its descriptor in ``STORE_FD_ENV``) and serves the
+    store on it, so no other process (another gang's store, a listener
+    gloo binds) can take the port between the launcher choosing it and
+    the store serving on it."""
+    s = socket.socket()
+    try:
         s.bind((host, 0))
-        return s.getsockname()[1]
+        s.listen(128)
+    except OSError:
+        s.close()
+        raise
+    return s
 
 
 def _pump_lines(pipe, tag, stream):
@@ -685,7 +699,8 @@ class Supervisor:
         """One attempt: spawn all workers, supervise until success,
         failure (then tear the whole gang down), or stop."""
         _fault.fire("supervisor.spawn")
-        port = _free_port(self.coordinator_host)
+        store = _store_socket(self.coordinator_host)
+        port = store.getsockname()[1]
         # stale stamps in a reused --heartbeat-dir (a previous run's
         # attempt-0 files carry the SAME attempt number with an ancient
         # monotonic stamp) would trip the watchdog before the new
@@ -701,6 +716,10 @@ class Supervisor:
         try:
             for rank in range(self.num_workers):
                 env = self._worker_env(rank, attempt, port)
+                held = ()
+                if rank == 0:       # rank 0 serves the store on it
+                    held = (store.fileno(),)
+                    env[STORE_FD_ENV] = str(store.fileno())
                 stdout = stderr = None
                 if self.log_dir:
                     os.makedirs(self.log_dir, exist_ok=True)
@@ -711,8 +730,11 @@ class Supervisor:
                 elif self.prefix_output:
                     stdout = stderr = subprocess.PIPE
                 proc = subprocess.Popen(self.command, env=env,
-                                        stdout=stdout, stderr=stderr)
+                                        stdout=stdout, stderr=stderr,
+                                        pass_fds=held)
                 procs.append(proc)
+                if rank == 0:
+                    store.close()   # rank 0 holds the port now
                 if stdout is subprocess.PIPE:
                     for pipe, stream in ((proc.stdout, sys.stdout),
                                          (proc.stderr, sys.stderr)):
@@ -738,6 +760,7 @@ class Supervisor:
                     watchdog.join(timeout=5)
             return self._wait_gang(procs, attempt, gexit)
         finally:
+            store.close()
             stop_watch.set()
             _stop_procs(procs, self.graceful_secs)
             for t in pumps:

@@ -694,6 +694,12 @@ class ServingFleet:
                 self._on_replica_done(freq, _g, _rep, _ex, _at, r))
             return True
         if from_router:
+            if last_refusal is not None and freq.trace is not None:
+                # every hop of this pass refused and closed the failover
+                # span: the wait until the router's next pass is failover
+                # time too, or the tree leaves it unattributed
+                _telemetry.open_span(freq, "failover",
+                                     error=type(last_refusal).__name__)
             return False
         if last_refusal is not None:
             raise RejectedError(

@@ -1446,6 +1446,12 @@ class GenerationServer:
             self._run_decode()
             if self._verify is not None:
                 self._run_verify()
+            # every graph of the census exists now: a later capture at
+            # this site is an UNEXPECTED recompile (the counter the obs
+            # chaos mode holds at zero); a warmup=False server captures
+            # lazily by choice, so nothing is pinned
+            if _telemetry.ACTIVE:
+                _telemetry.pin_compile_census(self._name)
         self._started.set()
         self._thread.start()
         for t in self._prefill_threads:
@@ -1836,8 +1842,16 @@ class GenerationServer:
         through its graph (captured at its first call, which runs it
         eagerly first) or eagerly, on the current stream."""
         with torch.no_grad():
-            return body() if self._graphs is None \
-                else self._graphs.run(key, body)
+            if self._graphs is None:
+                return body()
+            if not _telemetry.ACTIVE:
+                return self._graphs.run(key, body)
+            # a capture is this server's compile event (the graph count
+            # grows by one); a replay is a hit
+            with _telemetry.track_compile(self._name, key=str(key),
+                                          probe=self.graph_count,
+                                          hw_key=self._graphs):
+                return self._graphs.run(key, body)
 
     def _read_back(self, tok, out):
         """Copy a step's int32 tokens into the pinned ``out`` and return

@@ -444,6 +444,12 @@ class InferenceServer:
         if step_spans is not None:     # host realization is the sync point
             for sp in step_spans:
                 sp.end()
+            # the rows are handed out in order below, and each resolution
+            # runs its request's callbacks (a fleet's bookkeeping, trace
+            # export): a member's wait for the members before it is its
+            # deliver span, closed at its own resolution
+            for r in group:
+                _telemetry.open_span(r, "deliver")
         bad_dim = [o for o in outs if o.shape[:1] != (target,)]
         if bad_dim:
             # malformed output IS a step failure (a wedged/poisoned
@@ -584,10 +590,10 @@ class InferenceServer:
         ``telemetry.exposition`` payload — counters (the lifecycle
         totals), gauges (queue depth, in-flight, breaker state),
         per-phase latency histograms (``admit``/``queue``/``coalesce``/
-        ``step`` span durations, ms), and the per-class SLO rows —
-        under the SAME key schema every runtime serves.  ``fmt="prom"``
-        renders the Prometheus-style text form.  Non-blocking, same as
-        ``healthz``."""
+        ``step``/``deliver`` span durations, ms), and the per-class SLO
+        rows — under the SAME key schema every runtime serves.
+        ``fmt="prom"`` renders the Prometheus-style text form.
+        Non-blocking, same as ``healthz``."""
         h = self.healthz()
         with self._lock:
             counters = dict(self._stats)

@@ -16,7 +16,8 @@ paths; this is the equivalent for the REQUEST path:
 - **Request tracing** — a ``Trace``/``Span`` layer with ids and parent
   links, carried on ``serving.Request`` so every accepted request
   yields one complete span tree: admit → queue → batch-coalesce →
-  device step (→ failover hops with replica names → resolution) for the
+  device step → delivery of the batch's rows (→ failover hops with
+  replica names → resolution) for the
   classifier path, and admit → queue → prefill (worker id) → handoff →
   decode residency → retire for generation — with preemption/requeue
   and ``fault.fire`` firings recorded as span events.  Finished traces
@@ -594,13 +595,18 @@ def guard_cost(iters=200_000):
     attribute read plus a branch.  ``chaos_check --mode obs`` scales
     this by the guards-per-request count to bound the off-path
     overhead (< 5% of request latency) deterministically instead of
-    through noisy A/B wall-clock runs."""
+    through noisy A/B wall-clock runs.  The best of five rounds of
+    ``iters`` calls: time the process spends preempted on a loaded host
+    only adds to a round."""
     g = globals()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        if g["ACTIVE"]:
-            pass
-    return (time.perf_counter() - t0) / iters
+    best = float("inf")
+    for _ in range(5):
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            if g["ACTIVE"]:
+                pass
+        best = min(best, time.perf_counter() - t0)
+    return best / iters
 
 
 # ==================================================================== metrics
@@ -982,7 +988,7 @@ def audit_spans(spans, rel_tol=0.25, abs_slack_us=75_000.0,
     - for every span with children, the children's summed durations
       account for the span's own duration within
       ``max(rel_tol * dur, abs_slack_us)`` — the "where did the time
-      go" contract: admit + queue + coalesce + step ≈ e2e.
+      go" contract: admit + queue + coalesce + step + deliver ≈ e2e.
 
     ``spans`` is a list of ``Span.record()`` dicts or ``Span`` objects
     (or a ``Trace``)."""

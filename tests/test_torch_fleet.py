@@ -780,6 +780,35 @@ def test_route_and_dispatch_injection_points():
 
 
 @chaos
+def test_refused_redispatch_waits_are_failover_spans():
+    """A failed-over request whose redispatch every replica refuses for
+    a while (``fleet.dispatch`` refusals, about ten router passes): each
+    wait between the router's passes is a ``failover`` span, so the
+    request's tree accounts for its time (``audit_spans``).  The JAX
+    package closes the failover span at the first refused pass and
+    leaves the later waits unattributed (ROADMAP C15)."""
+    from mxnet_tpu_torch import telemetry
+
+    fleet = make_fleet(n=2, name="FleetRefused").start()
+    telemetry.enable(sample=1.0, collect=True)
+    try:
+        with fault.inject("serving.step", RuntimeError("step fault"),
+                          times=1), \
+                fault.inject("fleet.dispatch", RejectedError("full"),
+                             after_n=1, times=20) as refused:
+            req = fleet.submit(_ex(3))
+            np.testing.assert_allclose(req.result(30), _ex(3))
+        assert refused.fired == 20
+        (tr,) = telemetry.finished_traces(clear=True)
+        assert telemetry.audit_spans(tr) == []
+        names = [sp.name for sp in tr.spans]
+        assert names.count("failover") > 2, names
+    finally:
+        telemetry.disable()
+        assert fleet.drain(timeout=30)
+
+
+@chaos
 def test_swap_and_probe_injection_points():
     fleet = make_fleet(n=2, name="FleetInj2").start()
     try:

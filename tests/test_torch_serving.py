@@ -601,6 +601,34 @@ def test_nonfinite_output_fails_one_request_not_the_batch():
         srv.drain()
 
 
+def test_a_members_wait_for_the_rows_before_it_is_its_deliver_span():
+    """A batch's rows are handed out in order, each resolution running
+    its request's callbacks (a fleet's bookkeeping and trace export): a
+    later member's wait for them is its ``deliver`` span, so its tree
+    accounts for its time (``audit_spans``).  A slow first callback
+    (150 ms) stands for those callbacks on a loaded host; the JAX
+    package leaves that wait unattributed (ROADMAP C15)."""
+    from mxnet_tpu_torch import telemetry
+
+    srv = make_server(buckets=(2,), max_delay=0.2)
+    telemetry.enable(sample=1.0, collect=True)
+    try:
+        first = srv.submit(_ex(1))
+        first.add_done_callback(lambda r: time.sleep(0.15))
+        second = srv.submit(_ex(2))
+        np.testing.assert_allclose(second.result(10), np.full((3,), 4.0))
+        np.testing.assert_allclose(first.result(10), np.full((3,), 2.0))
+        traces = telemetry.finished_traces(clear=True)
+        assert len(traces) == 2
+        assert [telemetry.audit_spans(tr) for tr in traces] == [[], []]
+        for tr in traces:
+            assert {"admit", "queue", "coalesce", "step", "deliver"} \
+                <= {sp.name for sp in tr.spans}
+    finally:
+        telemetry.disable()
+        srv.drain()
+
+
 def test_bare_batcher_resolves_expired_without_server_hook():
     """DynamicBatcher used standalone (it is public API) must resolve an
     expired request itself — it left the queue, so nothing downstream
